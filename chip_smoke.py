@@ -1,0 +1,386 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port (spiking_fullsubnet_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, each printed on its own lines; any failure raises and the exit code
+is non-zero:
+
+1. card     the GPU's name and power limit (nvidia-smi), torch and CUDA;
+2. build    nvcc builds the kernels from csrc/ for sm_90a (ptxas summary);
+3. kernels  kernels A (fullband stack) and B (merged sub-band sections with
+            the deep filter) against their plain PyTorch versions on the
+            inputs the main path gives them, in f32 and bf16:
+            - the quality forward's inputs (zoo M, 1 x 2 s), whole sequence:
+              A spike mismatch < 1e-3, B enhanced-spectrum relative L2
+              error < 0.05 (the spike-flip bound of
+              tests/test_tpu_kernels.py:242);
+            - the bench batch (256 x 30 s), first 16 frames: the same
+              bounds, and A's 4-D units form and collect_all equal its 3-D
+              form exactly;
+            - the whole bench sequence: rounding in another summation order
+              flips near-threshold spikes and each flip cascades along its
+              row, so the kernel and the plain version drift apart with
+              length. Both are held against a float64 run of the plain
+              version on the same inputs: the kernel must stay within 3x
+              (+1e-3) of the float32 plain version's own drift;
+4. quality  zoo M (model_zoo/.../baseline_m.npz) end to end through
+            SpikingFullSubNet on the speech-like fixture, bf16 serving
+            policy: SI-SDR gain > 8 dB, and each kernel launched exactly
+            once by that forward (the main-path run: counts set to 0 just
+            before, read just after);
+5. timing   one forward at batch 256 x 30 s bf16 and each kernel alone, with
+            CUDA events; the kernels' times, plain versions' times and
+            bounds as one JSON line. A bound is the larger of the bytes
+            (each input read once, each output written once, over
+            3.35 TB/s) and the operations this run's data needs: spike
+            products count only the spikes that fired (counted by the plain
+            versions), B's layer-0 products only the lanes each unit's
+            unfold reads, over 989 TFLOP/s (bf16) or 67 TFLOP/s (f32), and
+            the f32 cell arithmetic over 67 TFLOP/s.
+
+The last line is {"ok": true, "device": {...}}. Without a CUDA device, or
+without the rest of the repository beside it, it prints no result and
+exits non-zero.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+from dataclasses import replace
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+ZOO_M = ROOT / "model_zoo" / "intel_ndns" / "spike_fsb" / "baseline_m.npz"
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# f32 operations per hidden unit, layer and row-step: sigmoid, gate mix, BN, threshold
+CELL_OPS = 13
+BENCH_B, BENCH_SECONDS, SR = 256, 30.0, 16000
+WINDOW = 16  # leading bench frames held tightly
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def require(ok, what):
+    """A failed check raises (unlike assert, also under python -O)."""
+    if not ok:
+        raise RuntimeError(f"chip_smoke check failed: {what}")
+
+
+def speech_fixture():
+    """tests/test_spiking_fullsubnet.py:212-234: AM harmonic stack + noise."""
+    rng = np.random.default_rng(5)
+    t = np.arange(32000) / 16000.0
+    f0 = 120 + 20 * np.sin(2 * np.pi * 2.3 * t)
+    phase = 2 * np.pi * np.cumsum(f0) / 16000
+    sig = sum(np.sin(k * phase) / k for k in range(1, 9))
+    env = 0.5 * (1 + np.sin(2 * np.pi * 3.1 * t - 1.2)) * np.exp(
+        -0.5 * ((t % 1.0) - 0.5) ** 2 / 0.09)
+    clean = (0.2 * env * sig).astype(np.float32)
+    return clean, clean + 0.05 * rng.standard_normal(len(t)).astype(np.float32)
+
+
+def si_sdr(est, ref):
+    a = np.dot(est, ref) / np.dot(ref, ref)
+    return 10 * np.log10(np.sum((a * ref) ** 2) / np.sum((a * ref - est) ** 2))
+
+
+def cuda_ms(fn, iters=1, warmup=1):
+    """Mean milliseconds of fn() over iters runs, CUDA events, after warmup."""
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def capture_kernel_args(sf, gk, cfg, model, noisy):
+    """One forward with the kernel wrappers recorded: the main path's own
+    inputs for each kernel. Not a main-path run (counts are reset later)."""
+    seen = {}
+    real = {"A": sf.gsu_stack_eval, "B": sf.gsu_sections_eval}
+
+    def rec(name):
+        def wrapped(*args, **kw):
+            seen[name] = (args, kw)
+            return real[name](*args, **kw)
+        return wrapped
+
+    sf.gsu_stack_eval, sf.gsu_sections_eval = rec("A"), rec("B")
+    try:
+        from spiking_fullsubnet_torch.models.spiking_fullsubnet import spiking_fullsubnet_apply
+        spiking_fullsubnet_apply(cfg, model.param_tree(), model.state_tree(), noisy)
+    finally:
+        sf.gsu_stack_eval, sf.gsu_sections_eval = real["A"], real["B"]
+    torch.cuda.synchronize()
+    return seen
+
+
+def spike_mismatch(got, ref):
+    return (got.float() != ref.float()).float().mean().item()
+
+
+def rel_l2(got, ref):
+    """Relative L2 error of a (re, im) pair against a reference pair."""
+    num = sum((g.double() - r.double()).square().sum() for g, r in zip(got, ref))
+    den = sum(r.double().square().sum() for r in ref)
+    rel = (num / den).sqrt().item()
+    require(np.isfinite(rel), "kernel B: non-finite output")
+    return rel
+
+
+def max_abs(got, ref):
+    if isinstance(got, torch.Tensor):
+        got, ref = (got,), (ref,)
+    return max((g.double() - r.double()).abs().max().item() for g, r in zip(got, ref))
+
+
+def as_f64_a(args):
+    xg0, wihr, whh, coef, H, shared = args
+    return (xg0.double(), wihr.double(), whh.double(), coef.double(), H, shared)
+
+
+def as_f64_b(args):
+    secs, xa, xb, alpha, sre, sim, H, shared = args
+    secs = [{k: v.double() if isinstance(v, torch.Tensor) else v for k, v in s.items()}
+            for s in secs]
+    return (secs, xa.double(), xb.double(), alpha.double(), sre.double(), sim.double(),
+            H, shared)
+
+
+def bound_a(args, spikes):
+    """(bytes, operations, operation seconds) of kernel A's function on
+    these inputs; ``spikes`` are the plain version's per-layer counts."""
+    xg0, wihr, whh, coef, H, shared = args
+    T, R, G = xg0.shape
+    L = whh.shape[0]
+    es = xg0.element_size()
+    nbytes = (xg0.numel() + wihr.numel() + whh.numel() + T * R * H) * es + coef.numel() * 4
+    # recurrent products take every layer's spikes, inter-layer ones all but the last's
+    mm = 2.0 * G * (sum(spikes) + sum(spikes[:-1]))
+    cell = float(CELL_OPS) * L * T * R * H
+    return nbytes, mm + cell, mm / PEAK_OPS[xg0.dtype] + cell / PEAK_OPS[torch.float32]
+
+
+def bound_b(args, spikes):
+    """(bytes, operations, operation seconds) of kernel B's function;
+    ``spikes`` holds each section's per-layer counts."""
+    secs, xa, xb, alpha, sre, sim, H, shared = args
+    T, B, _ = xa.shape
+    G = H if shared else 2 * H
+    es = xa.element_size()
+    W = sum(s["wa"].shape[0] * s["ctr"] for s in secs)
+    # inputs read once: the streams, the spectrum bins filtered, the weights
+    nbytes = (xa.numel() + xb.numel()) * es + (alpha.numel() + 2 * T * B * W) * 4
+    nbytes += 2 * T * B * W * 4  # enhanced re/im out
+    mm = f32 = 0.0
+    for s, n_sp in zip(secs, spikes):
+        n, L, P = s["wa"].shape[0], s["whh"].shape[0], s["wproj"].shape[1]
+        nbytes += sum(s[k].numel() * s[k].element_size()
+                      for k in ("wa", "wb", "wihr", "whh", "coef", "wproj", "bproj"))
+        # layer 0 reads only the lanes a unit's unfold touches (nonzero rows
+        # of its one-hot-scattered weights), not the dense window
+        lanes = ((s["wa"] != 0).any(-1).sum() + (s["wb"] != 0).any(-1).sum()).item()
+        mm += 2.0 * G * lanes * T * B
+        mm += 2.0 * G * (sum(n_sp) + sum(n_sp[:-1])) + 2.0 * P * n_sp[-1]
+        f32 += float(T) * B * n * (CELL_OPS * L * H + G + 8 * s["df"] * s["ctr"])
+    return nbytes, mm + f32, mm / PEAK_OPS[xa.dtype] + f32 / PEAK_OPS[torch.float32]
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; nothing to run", file=sys.stderr)
+        return 2
+    try:
+        from spiking_fullsubnet_torch.models import stream_forward as sf
+        from spiking_fullsubnet_torch.models.spiking_fullsubnet import (
+            SpikingFullSubNet, separator_config)
+        from spiking_fullsubnet_torch.ops import gsu_kernels as gk
+    except ImportError as e:
+        print(f"chip_smoke: the port is not beside this script ({e})", file=sys.stderr)
+        return 2
+    if not ZOO_M.exists():
+        print(f"chip_smoke: missing {ZOO_M}", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+
+    # ---- 1. card ----
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60, check=True).stdout.strip().splitlines()[0]
+    log(f"[card] {smi}")
+    log(f"[card] {torch.cuda.get_device_name(0)} | torch {torch.__version__} "
+        f"| CUDA {torch.version.cuda} | count {torch.cuda.device_count()}")
+
+    # ---- 2. build ----
+    secs_build = gk.build_kernels()
+    log(f"[build] kernels built and loaded in {secs_build:.2f} s")
+    for name, text in gk.BUILD_LOG.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[build] {name}: {line.strip()}")
+
+    # ---- 3. kernels against their plain versions, main-path inputs ----
+    base = replace(separator_config(norm_type="offline_laplace_norm", shared_weights=True,
+                                    bn=True), scan_mode="auto", collect_layer_outputs=False)
+    model = SpikingFullSubNet.from_npz(str(ZOO_M), base, device=dev)
+    rng = np.random.default_rng(0)
+    bench = torch.from_numpy(
+        (rng.standard_normal((BENCH_B, int(BENCH_SECONDS * SR))) * 0.1).astype(np.float32)).to(dev)
+    clean, noisy = speech_fixture()
+    quality_x = torch.from_numpy(noisy[None]).to(dev)
+    checks = {"A": {}, "B": {}}
+    plain_ms, spikes, captured_bf16 = {}, {}, None
+    for dt in (None, "bfloat16"):
+        tag = dt or "float32"
+        cfg = replace(base, compute_dtype=dt)
+        # (a) the quality forward's own inputs (zoo M, 1 x 2 s), whole sequence
+        seen = capture_kernel_args(sf, gk, cfg, model, quality_x)
+        (a_args, _), (b_args, _) = seen["A"], seen["B"]
+        got_a, ref_a = gk.gsu_stack_eval(*a_args), gk.stack_eval_plain(*a_args)
+        got_b, ref_b = gk.gsu_sections_eval(*b_args), gk.sections_eval_plain(*b_args)
+        torch.cuda.synchronize()
+        mism, rel = spike_mismatch(got_a, ref_a), rel_l2(got_b, ref_b)
+        err_a, err_b = max_abs(got_a, ref_a), max_abs(got_b, ref_b)
+        log(f"[kernels] {tag} 1 x 2 s {tuple(a_args[0].shape)}: A spike mismatch {mism:.3e}; "
+            f"B rel L2 {rel:.3e}, max abs err {err_b:.3e}")
+        require(mism < 1e-3, f"kernel A {tag}: spike mismatch {mism}")
+        require(rel < 0.05, f"kernel B {tag}: rel L2 {rel}")
+        checks["A"][tag] = {"spike_mismatch": mism, "max_abs_err": err_a}
+        checks["B"][tag] = {"rel_l2": rel, "max_abs_err": err_b}
+
+        # (b) the bench batch (256 x 30 s), first WINDOW frames. A's 4-D units
+        # form and collect_all run the same per-row arithmetic as its 3-D
+        # form, so they must reproduce it exactly.
+        seen = capture_kernel_args(sf, gk, cfg, model, bench)
+        (a_args, _), (b_args, _) = seen["A"], seen["B"]
+        xg0, *wa = a_args
+        head = xg0[:WINDOW].contiguous()
+        T, R, G = head.shape
+        ref3 = gk.gsu_stack_eval(head, *wa)
+        all3 = gk.gsu_stack_eval(head, *wa, collect_all=True)
+        x4 = head.reshape(T, 4, R // 4, G).transpose(0, 1).contiguous()
+        got4 = gk.gsu_stack_eval(x4, *wa).transpose(0, 1).reshape(T, R, -1)
+        plain3 = gk.stack_eval_plain(head, *wa)
+        secs, xa, xb, alpha, sre, sim, H, shared = b_args
+        head_b = (secs, xa[:WINDOW].contiguous(), xb[:WINDOW].contiguous(), alpha,
+                  sre[:WINDOW].contiguous(), sim[:WINDOW].contiguous(), H, shared)
+        rel_h = rel_l2(gk.gsu_sections_eval(*head_b), gk.sections_eval_plain(*head_b))
+        torch.cuda.synchronize()
+        require(torch.equal(all3[-1], ref3), f"kernel A {tag}: collect_all != 3-D")
+        require(torch.equal(got4, ref3), f"kernel A {tag}: 4-D form != 3-D")
+        mism_h = spike_mismatch(ref3, plain3)
+        log(f"[kernels] {tag} bench first {WINDOW} frames: A spike mismatch {mism_h:.3e}, "
+            f"4-D {tuple(x4.shape)} and collect_all {tuple(all3.shape)} equal the 3-D form; "
+            f"B rel L2 {rel_h:.3e}")
+        require(mism_h < 1e-3, f"kernel A {tag} first {WINDOW} frames: {mism_h}")
+        require(rel_h < 0.05, f"kernel B {tag} first {WINDOW} frames: {rel_h}")
+        checks["A"][tag]["bench_head_spike_mismatch"] = mism_h
+        checks["B"][tag]["bench_head_rel_l2"] = rel_h
+
+        # (c) the whole bench sequence, kernel and plain version each against
+        # a float64 run of the plain version (see the module docstring)
+        got_a = gk.gsu_stack_eval(*a_args)
+        counts_a = []
+        ms_a = cuda_ms(lambda: gk.stack_eval_plain(*a_args, spike_counts=counts_a), warmup=0)
+        ref_a = gk.stack_eval_plain(*a_args)
+        ora_a = gk.stack_eval_plain(*as_f64_a(a_args))
+        k_a, p_a = spike_mismatch(got_a, ora_a), spike_mismatch(ref_a, ora_a)
+        kp_a = spike_mismatch(got_a, ref_a)
+        del got_a, ref_a, ora_a
+        got_b = gk.gsu_sections_eval(*b_args)
+        counts_b = []
+        ms_b = cuda_ms(lambda: gk.sections_eval_plain(*b_args, spike_counts=counts_b), warmup=0)
+        ref_b = gk.sections_eval_plain(*b_args)
+        ora_b = gk.sections_eval_plain(*as_f64_b(b_args))
+        k_b, p_b, kp_b = rel_l2(got_b, ora_b), rel_l2(ref_b, ora_b), rel_l2(got_b, ref_b)
+        del got_b, ref_b, ora_b
+        log(f"[kernels] {tag} whole bench {tuple(a_args[0].shape)}, against float64: "
+            f"A spike mismatch kernel {k_a:.3e}, plain {p_a:.3e} (kernel vs plain {kp_a:.3e}); "
+            f"B rel L2 kernel {k_b:.3e}, plain {p_b:.3e} (kernel vs plain {kp_b:.3e})")
+        require(k_a <= 3 * p_a + 1e-3, f"kernel A {tag}: drift {k_a} vs plain {p_a}")
+        require(k_b <= 3 * p_b + 1e-3, f"kernel B {tag}: drift {k_b} vs plain {p_b}")
+        checks["A"][tag].update(bench_drift_f64=k_a, plain_drift_f64=p_a, bench_vs_plain=kp_a)
+        checks["B"][tag].update(bench_drift_f64=k_b, plain_drift_f64=p_b, bench_vs_plain=kp_b)
+        if dt:
+            captured_bf16 = seen
+            plain_ms = {"A": ms_a, "B": ms_b}
+            spikes = {"A": counts_a, "B": counts_b}
+        del seen, a_args, b_args, xg0, wa, secs, xa, xb, alpha, sre, sim, head_b
+        torch.cuda.empty_cache()
+
+    # ---- 4. quality: the main path, counted ----
+    cfg = replace(base, compute_dtype="bfloat16")
+    model.cfg = cfg
+    gk.gsu_stack_eval.launches = 0
+    gk.gsu_sections_eval.launches = 0
+    out = model(quality_x)
+    torch.cuda.synchronize()
+    launches = {"A": gk.gsu_stack_eval.launches, "B": gk.gsu_sections_eval.launches}
+    enh = out["enhanced_y"][0].float().cpu().numpy()
+    require(enh.shape == clean.shape and np.isfinite(enh).all(), "enhanced audio shape/finite")
+    gain = si_sdr(enh, clean) - si_sdr(noisy, clean)
+    log(f"[quality] zoo M bf16 1 x 2 s: SI-SDR gain {gain:.3f} dB, launches {launches}")
+    require(gain > 8.0, f"SI-SDR gain {gain} dB")
+    require(launches == {"A": 1, "B": 1}, f"launches {launches}")
+
+    # ---- 5. timing ----
+    def forward():
+        return model(bench)["enhanced_y"]
+
+    torch.cuda.reset_peak_memory_stats()
+    fwd_ms = cuda_ms(forward, iters=2)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[timing] forward zoo M bf16 {BENCH_B} x {BENCH_SECONDS:g} s: {fwd_ms:.3f} ms "
+        f"({BENCH_B * BENCH_SECONDS / fwd_ms * 1e3:.1f} audio-s/s), peak memory {peak_gb:.2f} GB")
+    kernels = []
+    specs = {
+        "A": ("gsu_stack_eval", gk.gsu_stack_eval, "spiking_fullsubnet_torch/csrc/gsu_stack_eval.cu",
+              "spiking_fullsubnet_tpu/ops/gsu_pallas.py:923", bound_a),
+        "B": ("gsu_sections_eval", gk.gsu_sections_eval,
+              "spiking_fullsubnet_torch/csrc/gsu_sections_eval.cu",
+              "spiking_fullsubnet_tpu/ops/gsu_pallas.py:1174", bound_b),
+    }
+    for key, (name, fn, src, replaces, bound) in specs.items():
+        args, kw = captured_bf16[key]
+        ms = cuda_ms(lambda: fn(*args, **kw), iters=3)
+        nbytes, ops, ops_s = bound(args, spikes[key])
+        b_bytes, b_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops_s * 1e3
+        kernels.append({
+            "name": name, "route": "cuda", "source": src, "replaces": replaces,
+            "launches": launches[key], "max_abs_err": checks[key]["bfloat16"]["max_abs_err"],
+            "ms": ms, "plain_ms": plain_ms[key], "bound_ms": max(b_bytes, b_ops),
+            "bound_by": "bytes" if b_bytes >= b_ops else "operations",
+            "library_ms": None, "bytes": nbytes, "ops": ops, "spikes": spikes[key],
+            "shape": list(args[1].shape if key == "B" else args[0].shape),
+            "checks": checks[key],
+        })
+        log(f"[timing] {name}: {ms:.3f} ms, plain {plain_ms[key]:.1f} ms, bound "
+            f"{max(b_bytes, b_ops):.4f} ms ({kernels[-1]['bound_by']}; bytes {b_bytes:.4f} ms, "
+            f"operations {b_ops:.4f} ms)")
+    print(json.dumps({"kernels": kernels, "forward_ms": fwd_ms,
+                      "batch": BENCH_B, "seconds": BENCH_SECONDS}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,252 @@
+"""Spiking-FullSubNet: configuration, module and entry point (counterpart of
+``spiking_fullsubnet_tpu/models/spiking_fullsubnet.py``).
+
+The port covers eval offline enhancement on the two-launch serving path
+(``models/stream_forward.py``): configurations with the offline laplace
+norm and no pre-LayerNorm, such as the shipped zoo checkpoints
+(``separator_config(norm_type="offline_laplace_norm", shared_weights=True,
+bn=True)``). Anything else raises ``NotImplementedError`` naming the
+ROADMAP item that will bring it.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Dict, Optional, Sequence, Tuple
+
+import torch
+from torch import nn
+
+from ..runtime.convert import load_npz
+from .sequence_model import SequenceModelConfig
+
+
+@dataclass(frozen=True)
+class SpikingFullSubNetConfig:
+    n_fft: int = 512
+    hop_length: int = 128
+    win_length: int = 512
+    fdrc: float = 0.5
+    fb_input_size: int = 64
+    fb_hidden_size: int = 320
+    fb_num_layers: int = 2
+    fb_proj_size: int = 64
+    fb_output_activate_function: Optional[str] = None
+    sb_hidden_size: int = 224
+    sb_num_layers: int = 2
+    freq_cutoffs: Tuple[int, ...] = (0, 32, 128, 256)
+    df_orders: Tuple[int, ...] = (5, 3, 1)
+    center_freq_sizes: Tuple[int, ...] = (4, 32, 64)
+    neighbor_freq_sizes: Tuple[int, ...] = (15, 15, 15)
+    fb_center_freq_sizes: Optional[Tuple[int, ...]] = None
+    fb_neighbor_freq_sizes: Optional[Tuple[int, ...]] = None
+    use_pre_layer_norm_fb: bool = True
+    use_pre_layer_norm_sb: bool = True
+    norm_type: Optional[str] = None
+    bn: bool = False
+    shared_weights: bool = False
+    sequence_model: str = "GSN"
+    num_spks: int = 1
+    sb_shared_bottleneck: Optional[int] = None
+    # "bfloat16": bf16 streams and weights around f32 accumulation, membranes
+    # and the deep-filter/iSTFT signal path
+    compute_dtype: Optional[str] = None
+    backend: str = "auto"
+    data_axis: Optional[str] = None
+    band_axis: Optional[str] = None
+    scan_mode: str = "layered"
+    collect_layer_outputs: bool = True
+
+    @property
+    def num_freqs(self) -> int:
+        return self.n_fft // 2  # Nyquist dropped
+
+    @property
+    def num_sections(self) -> int:
+        return len(self.center_freq_sizes)
+
+    @property
+    def fb_ctrs(self) -> Tuple[int, ...]:
+        return self.fb_center_freq_sizes or self.center_freq_sizes
+
+    @property
+    def fb_nbrs(self) -> Tuple[int, ...]:
+        return self.fb_neighbor_freq_sizes or tuple(0 for _ in self.center_freq_sizes)
+
+    def fb_config(self) -> SequenceModelConfig:
+        return SequenceModelConfig(
+            input_size=self.fb_input_size,
+            hidden_size=self.fb_hidden_size,
+            num_layers=self.fb_num_layers,
+            sequence_model=self.sequence_model,
+            proj_size=self.fb_proj_size,
+            shared_weights=self.shared_weights,
+            output_activate_function=self.fb_output_activate_function or None,
+            bn=self.bn,
+            use_pre_layer_norm=self.use_pre_layer_norm_fb,
+            compute_dtype=self.compute_dtype,
+            backend=self.backend,
+        )
+
+    def sb_config(self, idx: int) -> SequenceModelConfig:
+        ctr = self.center_freq_sizes[idx]
+        nbr = self.neighbor_freq_sizes[idx]
+        return SequenceModelConfig(
+            input_size=(ctr + 2 * nbr) + (self.fb_ctrs[idx] + 2 * self.fb_nbrs[idx]),
+            hidden_size=self.sb_hidden_size,
+            num_layers=self.sb_num_layers,
+            sequence_model=self.sequence_model,
+            proj_size=2 * ctr * self.df_orders[idx] * self.num_spks,
+            shared_weights=self.shared_weights,
+            output_activate_function=None,
+            bn=self.bn,
+            use_pre_layer_norm=self.use_pre_layer_norm_sb,
+            compute_dtype=self.compute_dtype,
+            backend=self.backend,
+        )
+
+
+def separator_config(
+    *,
+    sr: int = 16000,
+    n_fft: int = 512,
+    hop_length: int = 128,
+    win_length: int = 512,
+    fdrc: float = 0.5,
+    num_freqs: int = 256,
+    fb_freqs: int = 64,
+    freq_cutoffs: Sequence[int] = (32, 128),
+    sb_num_center_freqs: Sequence[int] = (4, 32, 64),
+    sb_num_neighbor_freqs: Sequence[int] = (15, 15, 15),
+    fb_num_center_freqs: Sequence[int] = (4, 32, 64),
+    fb_num_neighbor_freqs: Sequence[int] = (0, 0, 0),
+    fb_hidden_size: int = 320,
+    sb_hidden_size: int = 224,
+    sb_df_orders: Sequence[int] = (5, 3, 1),
+    sequence_model: str = "GSN",
+    fb_output_activate_function=False,
+    sb_output_activate_function=False,
+    norm_type: str = "offline_laplace_norm",
+    shared_weights: bool = False,
+    bn: bool = False,
+) -> SpikingFullSubNetConfig:
+    """Map the frozen competition ``Separator`` arguments
+    (model_low_freq.py:485-559) onto the unified config."""
+    return SpikingFullSubNetConfig(
+        n_fft=n_fft,
+        hop_length=hop_length,
+        win_length=win_length,
+        fdrc=fdrc,
+        fb_input_size=fb_freqs,
+        fb_hidden_size=fb_hidden_size,
+        fb_num_layers=2,
+        fb_proj_size=fb_freqs,
+        fb_output_activate_function=fb_output_activate_function or None,
+        sb_hidden_size=sb_hidden_size,
+        sb_num_layers=2,
+        freq_cutoffs=(0, *freq_cutoffs, num_freqs),
+        df_orders=tuple(sb_df_orders),
+        center_freq_sizes=tuple(sb_num_center_freqs),
+        neighbor_freq_sizes=tuple(sb_num_neighbor_freqs),
+        fb_center_freq_sizes=tuple(fb_num_center_freqs),
+        fb_neighbor_freq_sizes=tuple(fb_num_neighbor_freqs),
+        use_pre_layer_norm_fb=False,
+        use_pre_layer_norm_sb=False,
+        norm_type=norm_type,
+        bn=bn,
+        shared_weights=shared_weights,
+        sequence_model="GSN" if sequence_model in ("GSU", "GSN") else sequence_model,
+        num_spks=1,
+    )
+
+
+def spiking_fullsubnet_apply(cfg: SpikingFullSubNetConfig, params, state,
+                             noisy_y: torch.Tensor, train: bool = False) -> Dict[str, Any]:
+    """Forward: ``noisy_y [B, T]`` -> dict with ``enhanced_y [B, T]``,
+    ``enhanced_mag [B, F, T]``, the (empty) per-layer output lists and the
+    unchanged ``state``. Runs on the device of ``noisy_y``: the kernels on a
+    CUDA tensor, their plain versions on a CPU tensor."""
+    from .stream_forward import spiking_fullsubnet_stream_forward, stream_supported
+
+    if noisy_y.ndim != 2:
+        raise ValueError(f"Input tensor must be 2D, but got {noisy_y.ndim}D.")
+    if train:
+        raise NotImplementedError(
+            "training is not ported yet (ROADMAP queue 1 item 8; kernels D/E of queue 2)")
+    scan_mode = cfg.scan_mode
+    if scan_mode == "auto":
+        # spiking_fullsubnet.py:251-275 with "a CUDA tensor" for
+        # gsu_pallas.available(): eval takes the stream path when supported
+        fused_ok = (cfg.norm_type is None and cfg.sequence_model == "GSN"
+                    and not cfg.sb_shared_bottleneck)
+        if stream_supported(cfg):
+            scan_mode = "stream"
+        elif fused_ok:
+            scan_mode = "fused"
+        else:
+            scan_mode = "layered"
+    if scan_mode != "stream":
+        raise NotImplementedError(
+            f"scan_mode={scan_mode!r} is not ported yet (ROADMAP queue 1: the layered "
+            "forward is item 5, the fused forward item 12)")
+    return spiking_fullsubnet_stream_forward(cfg, params, state, noisy_y)
+
+
+# --------------------------------------------------------------- module
+
+
+def _tree_module(tree, as_param: bool) -> nn.Module:
+    """Nested modules mirroring a JAX pytree: dict keys become submodule
+    names, lists ModuleLists, tensor leaves frozen parameters (as_param) or
+    buffers."""
+    m = nn.ModuleList() if isinstance(tree, list) else nn.Module()
+    for k, v in (enumerate(tree) if isinstance(tree, list) else tree.items()):
+        if not isinstance(v, torch.Tensor):
+            m.add_module(str(k), _tree_module(v, as_param))
+        elif as_param:
+            m.register_parameter(str(k), nn.Parameter(v, requires_grad=False))
+        else:
+            m.register_buffer(str(k), v)
+    return m
+
+
+def _tree_of(m: nn.Module):
+    """The nested dict/list tree of tensors a ``_tree_module`` holds."""
+    if isinstance(m, nn.ModuleList):
+        return [_tree_of(c) for c in m]
+    out = dict(m.named_parameters(recurse=False))
+    out.update(m.named_buffers(recurse=False))
+    out.update({k: _tree_of(c) for k, c in m.named_children()})
+    return out
+
+
+class SpikingFullSubNet(nn.Module):
+    """Weights and BN running statistics under the JAX path names: the
+    ``state_dict`` keys are the ``.npz`` keys with dots
+    (``params.fb.stack.layers.0.weight_hh``,
+    ``state.sb.1.stack.layers.0.bn.running_mean``). ``forward`` is
+    ``spiking_fullsubnet_apply`` on them."""
+
+    def __init__(self, cfg: SpikingFullSubNetConfig, params, state):
+        super().__init__()
+        self.cfg = cfg
+        self.params = _tree_module(params, as_param=True)
+        self.state = _tree_module(state, as_param=False)
+
+    @classmethod
+    def from_npz(cls, path: str, cfg: SpikingFullSubNetConfig, device=None) -> "SpikingFullSubNet":
+        """Load a JAX-package ``.npz`` (``params/...``, ``state/...``) onto
+        ``device`` (default ``cuda``)."""
+        tree = load_npz(path, device=device)
+        return cls(cfg, tree["params"], tree["state"])
+
+    def param_tree(self):
+        """The weights as the nested dict/list tree the functions take."""
+        return _tree_of(self.params)
+
+    def state_tree(self):
+        return _tree_of(self.state)
+
+    @torch.no_grad()
+    def forward(self, noisy_y: torch.Tensor) -> Dict[str, Any]:
+        return spiking_fullsubnet_apply(self.cfg, self.param_tree(), self.state_tree(), noisy_y)

@@ -1,0 +1,106 @@
+"""Gated Spiking Unit (GSU) recurrence, eval forward (counterpart of
+``spiking_fullsubnet_tpu/ops/gsu.py``).
+
+Cell math (reference efficient_spiking_neuron.py:132-153):
+    gates = x @ W_ih^T + b_ih + h @ W_hh^T          # no b_hh
+    f, g  = split(gates); f = sigmoid(f)
+    c'    = f * c + (1 - f) * g
+    c''   = BN(c')              eval: a folded affine of the running stats
+    h'    = spike(c'')          binary; -0.0 >= 0 fires
+The carried membrane is c'' (after BN). With shared weights the gate and
+cell halves share W and only the bias differs. bf16/f16 inputs accumulate in
+float32 and every gate, membrane and BN value stays float32.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+BN_EPS = 1e-5
+
+
+class Spike(torch.autograd.Function):
+    """Heaviside(x >= 0) with the triangle surrogate gradient
+    ``grad * max(gamma - |x|, 0) / gamma^2`` (efficient_spiking_neuron.py:84-101)."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, gamma: float = 1.0) -> torch.Tensor:
+        ctx.save_for_backward(x)
+        ctx.gamma = gamma
+        return (x >= 0.0).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        (x,) = ctx.saved_tensors
+        gamma = ctx.gamma
+        surr = (1.0 / (gamma * gamma)) * torch.clamp(gamma - x.abs(), min=0.0)
+        return g * surr, None
+
+
+def spike(x: torch.Tensor, gamma: float = 1.0) -> torch.Tensor:
+    return Spike.apply(x, gamma)
+
+
+def acc_dtype_for(io_dtype: torch.dtype) -> torch.dtype:
+    """Low-precision streams accumulate in float32; f32/f64 stay as they are."""
+    return torch.float32 if io_dtype in (torch.bfloat16, torch.float16) else io_dtype
+
+
+def bn_eval_affine(params: Dict[str, Any], bn_state: Dict[str, Any],
+                   dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Eval BatchNorm as ``cy * scale + shift``, computed in the running
+    stats' own type (float32 in the checkpoints) and cast to ``dtype``."""
+    rm = bn_state["bn"]["running_mean"]
+    rv = bn_state["bn"]["running_var"]
+    w = params["bn"]["weight"].to(rv.dtype)
+    b = params["bn"]["bias"].to(rv.dtype)
+    scale = w * torch.rsqrt(rv + BN_EPS)
+    return scale.to(dtype), (b - rm * scale).to(dtype)
+
+
+def gsu_layer_eval(
+    params: Dict[str, Any],
+    bn_state: Dict[str, Any],
+    x: Optional[torch.Tensor],  # [T, B, F] time-major, or None
+    hidden_size: int,
+    shared_weights: bool,
+    precomputed_xg: Optional[torch.Tensor] = None,  # [T, B, rows]
+) -> torch.Tensor:
+    """One GSU layer over a sequence in eval mode -> spikes ``[T, B, H]``
+    in the input's type. ``precomputed_xg`` gives the input gates (no bias)
+    in place of ``x`` (the serving path hoists layer 0's projection)."""
+    io = (precomputed_xg if x is None else x).dtype
+    acc = acc_dtype_for(io)
+    H = hidden_size
+    if x is None:
+        xg = precomputed_xg.to(acc)
+    else:
+        T, B, Fin = x.shape
+        xg = (x.reshape(T * B, Fin).to(acc) @ params["weight_ih"].to(acc).T).reshape(T, B, -1)
+    T, B, _ = xg.shape
+    w_hh_t = params["weight_hh"].to(acc).T
+    b = params["bias_ih"].to(acc)
+    b_f, b_c = b[:H], b[H:]
+    use_bn = "bn" in params
+    if use_bn:
+        scale, shift = bn_eval_affine(params, bn_state, acc)
+    h = torch.zeros(B, H, dtype=acc, device=xg.device)
+    c = torch.zeros(B, H, dtype=acc, device=xg.device)
+    out = torch.empty(T, B, H, dtype=io, device=xg.device)
+    for t in range(T):
+        rg = h @ w_hh_t
+        if shared_weights:
+            f_in = xg[t] + rg + b_f
+            c_in = xg[t] + rg + b_c
+        else:
+            f_in = xg[t, :, :H] + rg[:, :H] + b_f
+            c_in = xg[t, :, H:] + rg[:, H:] + b_c
+        f = torch.sigmoid(f_in)
+        c = f * c + (1.0 - f) * c_in
+        if use_bn:
+            c = c * scale + shift
+        h = spike(c)
+        out[t] = h.to(io)
+    return out

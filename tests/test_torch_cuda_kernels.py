@@ -1,0 +1,119 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on a card.
+
+Marked ``cuda``: they skip without an NVIDIA GPU. This file imports neither
+JAX nor the JAX package, so it runs where only PyTorch is installed:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
+
+At these small shapes no near-threshold spike flips occur, so A's spikes
+must match exactly (mismatch < 1e-3 allows one stray flip) and B's enhanced
+spectrum to f32 rounding (relative L2 < 1e-4).
+"""
+
+from __future__ import annotations
+
+import pytest
+import torch
+
+from spiking_fullsubnet_torch.ops import gsu_kernels as gk
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _stack(H, shared, L, io, dev, g):
+    G = H if shared else 2 * H
+    layers, states = [], []
+    for _ in range(L):
+        layers.append({
+            "weight_ih": torch.randn(G, H, generator=g) / H ** 0.5,
+            "weight_hh": torch.randn(G, H, generator=g) / H ** 0.5,
+            "bias_ih": torch.randn(2 * H, generator=g) * 0.1,
+            "bn": {"weight": 1 + 0.1 * torch.randn(H, generator=g),
+                   "bias": 0.1 * torch.randn(H, generator=g)}})
+        states.append({"bn": {"running_mean": 0.1 * torch.randn(H, generator=g),
+                              "running_var": torch.rand(H, generator=g) + 0.5}})
+    wihr, whh, coef = gk.pack_stack(layers, states, H, io)
+    return wihr.to(dev), whh.to(dev), coef.float().to(dev)
+
+
+@pytest.mark.parametrize("io", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shared", [True, False])
+@pytest.mark.parametrize("L", [1, 2, 3])
+@pytest.mark.parametrize("units", [False, True])
+@pytest.mark.parametrize("collect", [False, True])
+def test_stack_kernel_matches_plain(dev, io, shared, L, units, collect):
+    g = torch.Generator().manual_seed(L)
+    H = 40
+    w = _stack(H, shared, L, io, dev, g)
+    G = H if shared else 2 * H
+    shape = (3, 50, 9, G) if units else (50, 13, G)
+    x = torch.randn(shape, generator=g).to(io).to(dev)
+    before = gk.gsu_stack_eval.launches
+    got = gk.gsu_stack_eval(x, *w, H, shared, collect_all=collect)
+    ref = gk.stack_eval_plain(x, *w, H, shared, collect_all=collect)
+    torch.cuda.synchronize()
+    assert gk.gsu_stack_eval.launches == before + 1
+    assert got.shape == ref.shape and got.dtype == io
+    assert (got != ref).float().mean().item() < 1e-3
+    assert 0.05 < got.float().mean().item() < 0.95
+
+
+def _sections(shared, io, dev, g, H=48):
+    G = H if shared else 2 * H
+    secs = []
+    for n, ctr, df, a0, aw in [(3, 4, 3, 0, 22), (2, 8, 1, 14, 26), (2, 16, 2, 30, 33)]:
+        wihr, whh, coef = _stack(H, shared, 2, io, dev, g)
+        P = 2 * df * ctr
+        secs.append({
+            "wa": (torch.randn(n, aw, G, generator=g) * 0.3).to(io).to(dev), "a0": a0,
+            "wb": (torch.randn(n, 16, G, generator=g) * 0.3).to(io).to(dev),
+            "wihr": wihr, "whh": whh, "coef": coef,
+            "wproj": (torch.randn(H, P, generator=g) * 0.2).to(io).to(dev),
+            "bproj": (torch.randn(P, generator=g) * 0.1).to(dev), "ctr": ctr, "df": df})
+    return secs
+
+
+@pytest.mark.parametrize("io", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shared", [True, False])
+def test_sections_kernel_matches_plain(dev, io, shared):
+    g = torch.Generator().manual_seed(7)
+    H, T, B = 48, 40, 11
+    secs = _sections(shared, io, dev, g, H)
+    U = sum(s["wa"].shape[0] for s in secs)
+    W = sum(s["wa"].shape[0] * s["ctr"] for s in secs)
+    args = (torch.rand(T, B, 64, generator=g).to(io).to(dev),
+            torch.randn(T, B, 16, generator=g).to(io).to(dev),
+            (torch.rand(B, U, generator=g) + 0.5).to(dev),
+            torch.randn(T, B, W + 1, generator=g).to(dev),
+            torch.randn(T, B, W + 1, generator=g).to(dev))
+    before = gk.gsu_sections_eval.launches
+    got = gk.gsu_sections_eval(secs, *args, H, shared)
+    ref = gk.sections_eval_plain(secs, *args, H, shared)
+    torch.cuda.synchronize()
+    assert gk.gsu_sections_eval.launches == before + 1
+    num = sum((a - b).square().sum() for a, b in zip(got, ref))
+    den = sum(b.square().sum() for b in ref)
+    assert (num / den).sqrt().item() < 1e-4
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take(dev):
+    g = torch.Generator().manual_seed(0)
+    w = _stack(16, True, 2, torch.float32, dev, g)
+    x = torch.randn(10, 8, 16, generator=g).to(dev)
+    with pytest.raises(ValueError, match="dtype"):
+        gk.gsu_stack_eval(x.double(), *w, 16, True)
+    with pytest.raises(ValueError, match="contiguous"):
+        gk.gsu_stack_eval(x.transpose(0, 1), *w, 16, True)
+    with pytest.raises(ValueError, match="shape"):
+        gk.gsu_stack_eval(torch.randn(10, 8, 32, device=dev), *w, 16, True)
+    with pytest.raises(ValueError, match="dtype"):
+        gk.gsu_stack_eval(x.to(torch.bfloat16), *w, 16, True)  # f32 weights

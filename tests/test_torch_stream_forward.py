@@ -1,0 +1,207 @@
+"""The port's slice end to end (spiking_fullsubnet_apply, scan_mode="auto",
+collect_layer_outputs=False) against the JAX package's stream forward.
+
+- tiny separator config, f64: the port against the JAX stream forward
+  (its scan oracle on the CPU), enhanced_y atol 3e-6 as
+  tests/test_stream_forward.py:53 (bounded by the f32 window of the
+  COLA-folded iSTFT), enhanced_mag atol 1e-9;
+- the same config in f32 against the JAX two-launch path with the Pallas
+  kernels in interpret mode: SNR > 60 dB;
+- zoo M at full width from baseline_m.npz, 1 x 2 s, f64: atol 3e-6;
+- the speech-like fixture of tests/test_spiking_fullsubnet.py:212-234
+  through the port gains > 8 dB of SI-SDR (f32 and the bf16 policy).
+"""
+
+from __future__ import annotations
+
+from dataclasses import replace
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+import spiking_fullsubnet_tpu.ops.gsu_pallas as gp
+from spiking_fullsubnet_tpu.models import spiking_fullsubnet as J
+from spiking_fullsubnet_tpu.models.stream_forward import stream_supported as jax_stream_supported
+from spiking_fullsubnet_tpu.runtime.convert import load_npz as jax_load_npz
+
+from spiking_fullsubnet_torch.models import spiking_fullsubnet as P
+from spiking_fullsubnet_torch.models.stream_forward import stream_supported
+from spiking_fullsubnet_torch.runtime.convert import load_npz, params_from_numpy
+
+ZOO_M = Path(__file__).resolve().parent.parent / "model_zoo/intel_ndns/spike_fsb/baseline_m.npz"
+ZOO_KW = dict(norm_type="offline_laplace_norm", shared_weights=True, bn=True)
+TINY_KW = dict(
+    n_fft=128, hop_length=32, win_length=128,
+    fb_input_size=16, fb_hidden_size=24, fb_proj_size=16,
+    sb_hidden_size=20, freq_cutoffs=(0, 8, 32, 64),
+    df_orders=(2, 1, 3), center_freq_sizes=(2, 8, 16),
+    neighbor_freq_sizes=(3, 3, 3),
+    fb_center_freq_sizes=(2, 8, 16), fb_neighbor_freq_sizes=(0, 0, 0),
+    use_pre_layer_norm_fb=False, use_pre_layer_norm_sb=False,
+    norm_type="offline_laplace_norm", bn=True, shared_weights=True)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The plain versions step through time in thousands of small ops; one
+    thread each keeps them fast when several test workers share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _cfgs(**kw):
+    serve = dict(scan_mode="stream", collect_layer_outputs=False)
+    return (J.SpikingFullSubNetConfig(**kw, **serve),
+            P.SpikingFullSubNetConfig(**kw, scan_mode="auto", collect_layer_outputs=False))
+
+
+def _tiny(dtype, shared=True):
+    jcfg, pcfg = _cfgs(**dict(TINY_KW, shared_weights=shared))
+    params, state = J.spiking_fullsubnet_init(jax.random.PRNGKey(0), jcfg)
+    rng = np.random.default_rng(7)
+    # randomize the BN fold so it matters
+    for tree in [state["fb"]] + state["sb"]:
+        for ls in tree["stack"]["layers"]:
+            rm = ls["bn"]["running_mean"]
+            ls["bn"]["running_mean"] = jnp.asarray(0.1 * rng.standard_normal(rm.shape))
+    to = lambda t: jax.tree.map(lambda x: np.asarray(x, dtype), t)  # noqa: E731
+    return jcfg, pcfg, to(params), to(state)
+
+
+def _snr(a, b):
+    return 10 * np.log10(np.sum(b ** 2) / max(np.sum((a - b) ** 2), 1e-30))
+
+
+def _port(pcfg, params, state, noisy):
+    out = P.spiking_fullsubnet_apply(pcfg, params_from_numpy(params, "cpu"),
+                                     params_from_numpy(state, "cpu"), torch.from_numpy(noisy))
+    assert out["fb_all_layer_outputs"] == [] and out["sb_all_layer_outputs"] == []
+    return out
+
+
+@pytest.mark.parametrize("shared", [True, False])
+def test_tiny_slice_f64_matches_jax_stream(shared):
+    jcfg, pcfg, params, state = _tiny(np.float64, shared)
+    noisy = np.random.default_rng(0).standard_normal((2, 4000)) * 0.1
+    ref = J.spiking_fullsubnet_apply(jcfg, params, state, jnp.asarray(noisy))
+    out = _port(pcfg, params, state, noisy)
+    np.testing.assert_allclose(out["enhanced_y"].numpy(), np.asarray(ref["enhanced_y"]),
+                               atol=3e-6)
+    np.testing.assert_allclose(out["enhanced_mag"].numpy(), np.asarray(ref["enhanced_mag"]),
+                               atol=1e-9)
+    assert np.abs(out["enhanced_y"].numpy() - noisy).max() > 1e-3
+
+
+def test_tiny_slice_f32_matches_jax_two_launch_interpret():
+    jcfg, pcfg, params, state = _tiny(np.float32)
+    noisy = (np.random.default_rng(1).standard_normal((2, 5005)) * 0.1).astype(np.float32)
+    old = gp._INTERPRET
+    gp._INTERPRET = True
+    try:
+        ref = J.spiking_fullsubnet_apply(jcfg, params, state, jnp.asarray(noisy))
+    finally:
+        gp._INTERPRET = old
+    out = _port(pcfg, params, state, noisy)
+    assert out["enhanced_y"].dtype == torch.float32
+    assert _snr(out["enhanced_y"].numpy(), np.asarray(ref["enhanced_y"])) > 60
+
+
+def _zoo(dtype, path=ZOO_M, **sizes):
+    kw = dict(ZOO_KW, **sizes)
+    jcfg, pcfg = _cfgs(**{k: v for k, v in J.separator_config(**kw).__dict__.items()
+                          if k not in ("scan_mode", "collect_layer_outputs")})
+    tpl = J.spiking_fullsubnet_init(jax.random.PRNGKey(0), jcfg)
+    tree = jax_load_npz(str(path), {"params": tpl[0], "state": tpl[1]})
+    to = lambda t: jax.tree.map(lambda x: np.asarray(x, dtype), t)  # noqa: E731
+    return jcfg, pcfg, to(tree["params"]), to(tree["state"])
+
+
+def _port_matches_jax(jcfg, pcfg, params, state, noisy):
+    ref = J.spiking_fullsubnet_apply(jcfg, params, state, jnp.asarray(noisy))
+    out = _port(pcfg, params, state, noisy)
+    np.testing.assert_allclose(out["enhanced_y"].numpy(), np.asarray(ref["enhanced_y"]),
+                               atol=3e-6)
+
+
+def test_zoo_m_full_width_f64_matches_jax():
+    jcfg, pcfg, params, state = _zoo(np.float64)
+    assert P.separator_config(**ZOO_KW) == replace(pcfg, scan_mode="layered",
+                                                    collect_layer_outputs=True)
+    noisy = np.random.default_rng(3).standard_normal((1, 32000)) * 0.05
+    _port_matches_jax(jcfg, pcfg, params, state, noisy)
+
+
+def test_zoo_s_full_width_f64_matches_jax():
+    """The other shipped checkpoint (fb 240, sb 160, df orders 3/1/1) takes
+    the same path."""
+    jcfg, pcfg, params, state = _zoo(np.float64, ZOO_M.with_name("baseline_s.npz"),
+                                     fb_hidden_size=240, sb_hidden_size=160,
+                                     sb_df_orders=(3, 1, 1))
+    noisy = np.random.default_rng(4).standard_normal((1, 16000)) * 0.05
+    _port_matches_jax(jcfg, pcfg, params, state, noisy)
+
+
+def _speech_fixture():
+    rng = np.random.default_rng(5)
+    t = np.arange(32000) / 16000.0
+    f0 = 120 + 20 * np.sin(2 * np.pi * 2.3 * t)
+    phase = 2 * np.pi * np.cumsum(f0) / 16000
+    sig = sum(np.sin(k * phase) / k for k in range(1, 9))
+    env = 0.5 * (1 + np.sin(2 * np.pi * 3.1 * t - 1.2)) * np.exp(
+        -0.5 * ((t % 1.0) - 0.5) ** 2 / 0.09)
+    clean = (0.2 * env * sig).astype(np.float32)
+    return clean, clean + 0.05 * rng.standard_normal(len(t)).astype(np.float32)
+
+
+def _si_sdr(est, ref):
+    alpha = np.dot(est, ref) / np.dot(ref, ref)
+    return 10 * np.log10(np.sum((alpha * ref) ** 2) / np.sum((alpha * ref - est) ** 2))
+
+
+@pytest.mark.parametrize("compute_dtype", [None, "bfloat16"])
+def test_zoo_m_si_sdr_gain_through_the_port(compute_dtype):
+    cfg = replace(P.separator_config(**ZOO_KW), scan_mode="auto",
+                  collect_layer_outputs=False, compute_dtype=compute_dtype)
+    model = P.SpikingFullSubNet.from_npz(str(ZOO_M), cfg, device="cpu")
+    clean, noisy = _speech_fixture()
+    enh = model(torch.from_numpy(noisy[None]))["enhanced_y"][0].numpy()
+    assert enh.dtype == np.float32 and enh.shape == clean.shape and np.isfinite(enh).all()
+    gain = _si_sdr(enh, clean) - _si_sdr(noisy, clean)
+    assert gain > 8.0, gain
+
+
+def test_stream_gate_matches_jax():
+    base = J.separator_config(**ZOO_KW)
+    variants = [{}, {"num_spks": 2}, {"norm_type": None}, {"norm_type": "cumulative_laplace_norm"},
+                {"use_pre_layer_norm_sb": True}, {"fb_proj_size": 0}, {"sequence_model": "LSTM"},
+                {"norm_type": "bogus"}]
+    for v in variants:
+        kw = {k: x for k, x in replace(base, **v).__dict__.items()}
+        assert stream_supported(P.SpikingFullSubNetConfig(**kw)) == jax_stream_supported(
+            replace(base, **v)), v
+
+
+@pytest.mark.parametrize("change,match", [
+    ({"collect_layer_outputs": True}, "collect_layer_outputs"),
+    ({"norm_type": "cumulative_laplace_norm"}, "kernel C"),
+    ({"norm_type": None, "use_pre_layer_norm_fb": True, "use_pre_layer_norm_sb": True},
+     "kernel C"),
+    ({"scan_mode": "layered"}, "item 5"),
+    ({"num_spks": 2}, "item 5"),
+])
+def test_uncovered_configs_raise_naming_the_roadmap_item(change, match):
+    _, pcfg, params, state = _tiny(np.float32)
+    cfg = replace(pcfg, **change)
+    with pytest.raises(NotImplementedError, match=match):
+        _port(cfg, params, state, np.zeros((1, 2000), np.float32))
+    with pytest.raises(NotImplementedError, match="training"):
+        P.spiking_fullsubnet_apply(pcfg, params_from_numpy(params, "cpu"),
+                                   params_from_numpy(state, "cpu"), torch.zeros(1, 2000),
+                                   train=True)
