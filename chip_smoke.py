@@ -7,15 +7,18 @@ Phases, each printed on its own lines; any failure raises and the exit code
 is non-zero:
 
 1. card     the GPU's name and power limit (nvidia-smi), torch and CUDA;
-2. build    nvcc builds the kernels from csrc/ for sm_90a (ptxas summary);
-3. kernels  kernels A (fullband stack) and B (merged sub-band sections with
-            the deep filter) against their plain PyTorch versions on the
-            inputs the main path gives them, in f32 and bf16:
-            - the quality forward's inputs (zoo M, 1 x 2 s), whole sequence:
-              A spike mismatch < 1e-3, B enhanced-spectrum relative L2
-              error < 0.05 (the spike-flip bound of
+2. build    nvcc builds the kernels from csrc/ for sm_90a, one process per
+            library, all at once (ptxas summary);
+3. kernels  each kernel against its plain PyTorch version on the inputs the
+            main path gives it (captured from a forward), in f32 and bf16:
+            A (fullband stack) and B (merged sub-band sections with the deep
+            filter) on zoo M's offline path, C (the whole-model monolith) on
+            flagship M (random weights from seed 0):
+            - the quality forward's inputs (1 x 2 s), whole sequence:
+              A spike mismatch < 1e-3; B enhanced-spectrum and C enhanced-
+              chunk relative L2 error < 0.05 (the spike-flip bound of
               tests/test_tpu_kernels.py:242);
-            - the bench batch (256 x 30 s), first 16 frames: the same
+            - the bench batch (256 x 30 s), first 16 frames (steps): the same
               bounds, and A's 4-D units form and collect_all equal its 3-D
               form exactly;
             - the whole bench sequence: rounding in another summation order
@@ -24,20 +27,28 @@ is non-zero:
               length. Both are held against a float64 run of the plain
               version on the same inputs: the kernel must stay within 3x
               (+1e-3) of the float32 plain version's own drift;
-4. quality  zoo M (model_zoo/.../baseline_m.npz) end to end through
-            SpikingFullSubNet on the speech-like fixture, bf16 serving
-            policy: SI-SDR gain > 8 dB, and each kernel launched exactly
-            once by that forward (the main-path run: counts set to 0 just
-            before, read just after);
-5. timing   one forward at batch 256 x 30 s bf16 and each kernel alone, with
-            CUDA events; the kernels' times, plain versions' times and
+4. quality  the main paths, each counted (counts set to 0 just before the
+            forward, read just after), bf16 serving policy, through
+            SpikingFullSubNet on the speech-like fixture (1 x 2 s):
+            - zoo M (model_zoo/.../baseline_m.npz) with the offline norm:
+              SI-SDR gain > 8 dB, one launch each of A and B, none of C;
+            - zoo M with the cumulative laplace norm (monolith): gain > 8 dB,
+              one launch of C, none of A or B;
+            - flagship M (pre-LN, random weights): finite audio of the input's
+              shape, one launch of C;
+5. timing   one forward each of zoo M and of flagship M (bench.py's headline
+            configuration) at batch 256 x 30 s bf16, and each kernel alone,
+            with CUDA events; the kernels' times, plain versions' times and
             bounds as one JSON line. A bound is the larger of the bytes
             (each input read once, each output written once, over
             3.35 TB/s) and the operations this run's data needs: spike
             products count only the spikes that fired (counted by the plain
-            versions), B's layer-0 products only the lanes each unit's
-            unfold reads, over 989 TFLOP/s (bf16) or 67 TFLOP/s (f32), and
-            the f32 cell arithmetic over 67 TFLOP/s.
+            versions), layer-0 products of the units only the lanes each
+            unit's unfold reads, DFT products dense, over 989 TFLOP/s (bf16)
+            or 67 TFLOP/s (f32), and the f32 cell, statistics and deep-filter
+            arithmetic over 67 TFLOP/s.
+
+About 4 minutes on one H100, the build included.
 
 The last line is {"ok": true, "device": {...}}. Without a CUDA device, or
 without the rest of the repository beside it, it prints no result and
@@ -107,24 +118,29 @@ def cuda_ms(fn, iters=1, warmup=1):
     return start.elapsed_time(end) / iters
 
 
-def capture_kernel_args(sf, gk, cfg, model, noisy):
+WRAPPERS = {"A": "gsu_stack_eval", "B": "gsu_sections_eval", "C": "sfsb_monolith_serve"}
+
+
+def capture_kernel_args(sf, cfg, model, noisy):
     """One forward with the kernel wrappers recorded: the main path's own
     inputs for each kernel. Not a main-path run (counts are reset later)."""
     seen = {}
-    real = {"A": sf.gsu_stack_eval, "B": sf.gsu_sections_eval}
+    real = {k: getattr(sf, name) for k, name in WRAPPERS.items()}
 
-    def rec(name):
+    def rec(key):
         def wrapped(*args, **kw):
-            seen[name] = (args, kw)
-            return real[name](*args, **kw)
+            seen[key] = (args, kw)
+            return real[key](*args, **kw)
         return wrapped
 
-    sf.gsu_stack_eval, sf.gsu_sections_eval = rec("A"), rec("B")
+    for key, name in WRAPPERS.items():
+        setattr(sf, name, rec(key))
     try:
         from spiking_fullsubnet_torch.models.spiking_fullsubnet import spiking_fullsubnet_apply
         spiking_fullsubnet_apply(cfg, model.param_tree(), model.state_tree(), noisy)
     finally:
-        sf.gsu_stack_eval, sf.gsu_sections_eval = real["A"], real["B"]
+        for key, name in WRAPPERS.items():
+            setattr(sf, name, real[key])
     torch.cuda.synchronize()
     return seen
 
@@ -134,11 +150,14 @@ def spike_mismatch(got, ref):
 
 
 def rel_l2(got, ref):
-    """Relative L2 error of a (re, im) pair against a reference pair."""
+    """Relative L2 error of a tensor, or of a (re, im) pair, against its
+    reference."""
+    if isinstance(got, torch.Tensor):
+        got, ref = (got,), (ref,)
     num = sum((g.double() - r.double()).square().sum() for g, r in zip(got, ref))
     den = sum(r.double().square().sum() for r in ref)
     rel = (num / den).sqrt().item()
-    require(np.isfinite(rel), "kernel B: non-finite output")
+    require(np.isfinite(rel), "non-finite kernel output")
     return rel
 
 
@@ -159,6 +178,31 @@ def as_f64_b(args):
             for s in secs]
     return (secs, xa.double(), xb.double(), alpha.double(), sre.double(), sim.double(),
             H, shared)
+
+
+def as_f64_c(args):
+    mono, chunks = args
+    f64 = lambda v: v.double() if isinstance(v, torch.Tensor) else v  # noqa: E731
+    mono = {k: f64(v) for k, v in mono.items()}
+    mono["fb"] = {k: f64(v) for k, v in mono["fb"].items()}
+    mono["secs"] = [{k: f64(v) for k, v in sec.items()} for sec in mono["secs"]]
+    return mono, chunks.double()
+
+
+def head_c(args, steps):
+    """Kernel C's inputs cut to the first ``steps`` steps."""
+    mono, chunks = args
+    return mono, chunks[:steps + 3].contiguous()
+
+
+def tensors_of(tree):
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in tensors_of(v)]
+    return []
 
 
 def bound_a(args, spikes):
@@ -200,12 +244,46 @@ def bound_b(args, spikes):
     return nbytes, mm + f32, mm / PEAK_OPS[xa.dtype] + f32 / PEAK_OPS[torch.float32]
 
 
+def bound_c(args, spikes):
+    """(bytes, operations, operation seconds) of kernel C's function;
+    ``spikes`` holds the fullband stack's per-layer counts, then each
+    section's."""
+    mono, chunks = args
+    S, B, hop = chunks.shape[0] - 3, chunks.shape[1], chunks.shape[2]
+    T, n_fft = mono["t_real"], mono["n_fft"]
+    F1 = n_fft // 2 + 1
+    H, fb = mono["hidden"], mono["fb"]
+    G = H if mono["shared"] else 2 * H
+    Hf = fb["hidden"]
+    Gf = Hf if mono["shared"] else 2 * Hf
+    Fin, Pfb = fb["wa"].shape[0], fb["wproj"].shape[1]
+    U = sum(s["wa"].shape[0] for s in mono["secs"])
+    n_stats = {"raw": 0, "cum": 1, "ln": 2}[mono["norm"]]
+    # audio in, enhanced audio out, every weight once
+    nbytes = chunks.numel() * chunks.element_size() + S * B * hop * 4
+    nbytes += sum(t.numel() * t.element_size() for t in tensors_of(mono))
+    fb_sp = spikes[0]
+    mm = (2.0 * S * B * n_fft * 2 * F1 + 2.0 * T * B * 2 * F1 * n_fft  # DFT, inverse DFT
+          + 2.0 * S * B * Fin * Gf
+          + 2.0 * Gf * (sum(fb_sp) + sum(fb_sp[:-1])) + 2.0 * Pfb * fb_sp[-1])
+    f32 = float(S) * B * (CELL_OPS * len(fb_sp) * Hf + 6 * F1
+                          + 2 * n_stats * (U + 1) * (F1 - 1 + Pfb))
+    for s, n_sp in zip(mono["secs"], spikes[1:]):
+        n, L, P = s["wa"].shape[0], s["whh"].shape[0], s["wproj"].shape[1]
+        lanes = ((s["wa"] != 0).any(-1).sum() + (s["wb"] != 0).any(-1).sum()).item()
+        mm += 2.0 * G * lanes * S * B
+        mm += 2.0 * G * (sum(n_sp) + sum(n_sp[:-1])) + 2.0 * P * n_sp[-1]
+        f32 += float(S) * B * n * (CELL_OPS * L * H + G * (1 + n_stats) + 8 * s["df"] * s["ctr"])
+    return nbytes, mm + f32, mm / PEAK_OPS[chunks.dtype] + f32 / PEAK_OPS[torch.float32]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing to run", file=sys.stderr)
         return 2
     try:
         from spiking_fullsubnet_torch.models import stream_forward as sf
+        from spiking_fullsubnet_torch.models.presets import flagship_m
         from spiking_fullsubnet_torch.models.spiking_fullsubnet import (
             SpikingFullSubNet, separator_config)
         from spiking_fullsubnet_torch.ops import gsu_kernels as gk
@@ -239,18 +317,21 @@ def main() -> int:
     base = replace(separator_config(norm_type="offline_laplace_norm", shared_weights=True,
                                     bn=True), scan_mode="auto", collect_layer_outputs=False)
     model = SpikingFullSubNet.from_npz(str(ZOO_M), base, device=dev)
+    flag_base = flagship_m(seed=0, device=dev, scan_mode="auto",
+                           collect_layer_outputs=False)["config"]
+    flag = SpikingFullSubNet.from_init(flag_base, seed=0, device=dev)
     rng = np.random.default_rng(0)
     bench = torch.from_numpy(
         (rng.standard_normal((BENCH_B, int(BENCH_SECONDS * SR))) * 0.1).astype(np.float32)).to(dev)
     clean, noisy = speech_fixture()
     quality_x = torch.from_numpy(noisy[None]).to(dev)
-    checks = {"A": {}, "B": {}}
-    plain_ms, spikes, captured_bf16 = {}, {}, None
+    checks = {"A": {}, "B": {}, "C": {}}
+    plain_ms, spikes, captured_bf16 = {}, {}, {}
     for dt in (None, "bfloat16"):
         tag = dt or "float32"
         cfg = replace(base, compute_dtype=dt)
         # (a) the quality forward's own inputs (zoo M, 1 x 2 s), whole sequence
-        seen = capture_kernel_args(sf, gk, cfg, model, quality_x)
+        seen = capture_kernel_args(sf, cfg, model, quality_x)
         (a_args, _), (b_args, _) = seen["A"], seen["B"]
         got_a, ref_a = gk.gsu_stack_eval(*a_args), gk.stack_eval_plain(*a_args)
         got_b, ref_b = gk.gsu_sections_eval(*b_args), gk.sections_eval_plain(*b_args)
@@ -267,7 +348,7 @@ def main() -> int:
         # (b) the bench batch (256 x 30 s), first WINDOW frames. A's 4-D units
         # form and collect_all run the same per-row arithmetic as its 3-D
         # form, so they must reproduce it exactly.
-        seen = capture_kernel_args(sf, gk, cfg, model, bench)
+        seen = capture_kernel_args(sf, cfg, model, bench)
         (a_args, _), (b_args, _) = seen["A"], seen["B"]
         xg0, *wa = a_args
         head = xg0[:WINDOW].contiguous()
@@ -318,36 +399,100 @@ def main() -> int:
         checks["A"][tag].update(bench_drift_f64=k_a, plain_drift_f64=p_a, bench_vs_plain=kp_a)
         checks["B"][tag].update(bench_drift_f64=k_b, plain_drift_f64=p_b, bench_vs_plain=kp_b)
         if dt:
-            captured_bf16 = seen
-            plain_ms = {"A": ms_a, "B": ms_b}
-            spikes = {"A": counts_a, "B": counts_b}
+            captured_bf16.update(A=seen["A"], B=seen["B"])
+            plain_ms.update(A=ms_a, B=ms_b)
+            spikes.update(A=counts_a, B=counts_b)
         del seen, a_args, b_args, xg0, wa, secs, xa, xb, alpha, sre, sim, head_b
         torch.cuda.empty_cache()
 
-    # ---- 4. quality: the main path, counted ----
-    cfg = replace(base, compute_dtype="bfloat16")
-    model.cfg = cfg
-    gk.gsu_stack_eval.launches = 0
-    gk.gsu_sections_eval.launches = 0
-    out = model(quality_x)
-    torch.cuda.synchronize()
-    launches = {"A": gk.gsu_stack_eval.launches, "B": gk.gsu_sections_eval.launches}
-    enh = out["enhanced_y"][0].float().cpu().numpy()
-    require(enh.shape == clean.shape and np.isfinite(enh).all(), "enhanced audio shape/finite")
-    gain = si_sdr(enh, clean) - si_sdr(noisy, clean)
-    log(f"[quality] zoo M bf16 1 x 2 s: SI-SDR gain {gain:.3f} dB, launches {launches}")
+        # kernel C on flagship M: (a) 1 x 2 s whole, (b) bench first WINDOW
+        # steps, (c) the whole bench against float64
+        cfg = replace(flag_base, compute_dtype=dt)
+        (c_args, _) = capture_kernel_args(sf, cfg, flag, quality_x)["C"]
+        got_c, ref_c = gk.sfsb_monolith_serve(*c_args), gk.monolith_serve_plain(*c_args)
+        torch.cuda.synchronize()
+        rel_c, err_c = rel_l2(got_c, ref_c), max_abs(got_c, ref_c)
+        (c_args, _) = capture_kernel_args(sf, cfg, flag, bench)["C"]
+        c_head = head_c(c_args, WINDOW)
+        rel_ch = rel_l2(gk.sfsb_monolith_serve(*c_head), gk.monolith_serve_plain(*c_head))
+        log(f"[kernels] {tag} flagship C 1 x 2 s {tuple(got_c.shape)}: rel L2 {rel_c:.3e}, "
+            f"max abs err {err_c:.3e}; bench first {WINDOW} steps: rel L2 {rel_ch:.3e}")
+        require(rel_c < 0.05, f"kernel C {tag}: rel L2 {rel_c}")
+        require(rel_ch < 0.05, f"kernel C {tag} first {WINDOW} steps: {rel_ch}")
+        got_c = gk.sfsb_monolith_serve(*c_args)
+        counts_c = []
+        ms_c = cuda_ms(lambda: gk.monolith_serve_plain(*c_args, spike_counts=counts_c), warmup=0)
+        ref_c = gk.monolith_serve_plain(*c_args)
+        ora_c = gk.monolith_serve_plain(*as_f64_c(c_args))
+        k_c, p_c, kp_c = rel_l2(got_c, ora_c), rel_l2(ref_c, ora_c), rel_l2(got_c, ref_c)
+        del got_c, ref_c, ora_c
+        log(f"[kernels] {tag} flagship C whole bench {tuple(c_args[1].shape)}, against "
+            f"float64: rel L2 kernel {k_c:.3e}, plain {p_c:.3e} (kernel vs plain {kp_c:.3e})")
+        require(k_c <= 3 * p_c + 1e-3, f"kernel C {tag}: drift {k_c} vs plain {p_c}")
+        checks["C"][tag] = {"rel_l2": rel_c, "max_abs_err": err_c, "bench_head_rel_l2": rel_ch,
+                            "bench_drift_f64": k_c, "plain_drift_f64": p_c,
+                            "bench_vs_plain": kp_c}
+        if dt:
+            captured_bf16["C"] = (c_args, {})
+            plain_ms["C"] = ms_c
+            spikes["C"] = counts_c
+        del c_args, c_head
+        torch.cuda.empty_cache()
+
+    # ---- 4. quality: the main paths, each counted ----
+    def counted(m, x):
+        for name in WRAPPERS.values():
+            getattr(gk, name).launches = 0
+        out = m(x)
+        torch.cuda.synchronize()
+        return out, {k: getattr(gk, name).launches for k, name in WRAPPERS.items()}
+
+    def gain_of(out):
+        enh = out["enhanced_y"][0].float().cpu().numpy()
+        require(enh.shape == clean.shape and np.isfinite(enh).all(),
+                "enhanced audio shape/finite")
+        return si_sdr(enh, clean) - si_sdr(noisy, clean)
+
+    model.cfg = replace(base, compute_dtype="bfloat16")
+    out, launches = counted(model, quality_x)
+    gain = gain_of(out)
+    log(f"[quality] zoo M offline norm bf16 1 x 2 s: SI-SDR gain {gain:.3f} dB, "
+        f"launches {launches}")
     require(gain > 8.0, f"SI-SDR gain {gain} dB")
-    require(launches == {"A": 1, "B": 1}, f"launches {launches}")
+    require(launches == {"A": 1, "B": 1, "C": 0}, f"launches {launches}")
+
+    cum_cfg = replace(separator_config(norm_type="cumulative_laplace_norm", shared_weights=True,
+                                       bn=True), scan_mode="auto", collect_layer_outputs=False,
+                      compute_dtype="bfloat16")
+    cum_model = SpikingFullSubNet.from_npz(str(ZOO_M), cum_cfg, device=dev)
+    out, cum_launches = counted(cum_model, quality_x)
+    cum_gain = gain_of(out)
+    log(f"[quality] zoo M cumulative norm bf16 1 x 2 s (monolith): SI-SDR gain "
+        f"{cum_gain:.3f} dB, launches {cum_launches}")
+    require(cum_gain > 8.0, f"cumulative-norm SI-SDR gain {cum_gain} dB")
+    require(cum_launches == {"A": 0, "B": 0, "C": 1}, f"launches {cum_launches}")
+    del cum_model
+
+    flag.cfg = replace(flag_base, compute_dtype="bfloat16")
+    out, flag_launches = counted(flag, quality_x)
+    y = out["enhanced_y"]
+    require(tuple(y.shape) == tuple(quality_x.shape) and bool(torch.isfinite(y).all()),
+            "flagship M: enhanced audio shape/finite")
+    log(f"[quality] flagship M bf16 1 x 2 s (monolith): {tuple(y.shape)} finite, "
+        f"rms {y.float().square().mean().sqrt().item():.4f}, launches {flag_launches}")
+    require(flag_launches == {"A": 0, "B": 0, "C": 1}, f"launches {flag_launches}")
+    launches["C"] = flag_launches["C"]
 
     # ---- 5. timing ----
-    def forward():
-        return model(bench)["enhanced_y"]
-
-    torch.cuda.reset_peak_memory_stats()
-    fwd_ms = cuda_ms(forward, iters=2)
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    log(f"[timing] forward zoo M bf16 {BENCH_B} x {BENCH_SECONDS:g} s: {fwd_ms:.3f} ms "
-        f"({BENCH_B * BENCH_SECONDS / fwd_ms * 1e3:.1f} audio-s/s), peak memory {peak_gb:.2f} GB")
+    forwards = {}
+    for name, m in (("zoo M", model), ("flagship M", flag)):
+        torch.cuda.reset_peak_memory_stats()
+        fwd_ms = cuda_ms(lambda: m(bench)["enhanced_y"], iters=2)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        forwards[name] = {"ms": fwd_ms, "audio_s_per_s": BENCH_B * BENCH_SECONDS / fwd_ms * 1e3,
+                          "peak_gb": peak_gb}
+        log(f"[timing] forward {name} bf16 {BENCH_B} x {BENCH_SECONDS:g} s: {fwd_ms:.3f} ms "
+            f"({forwards[name]['audio_s_per_s']:.1f} audio-s/s), peak memory {peak_gb:.2f} GB")
     kernels = []
     specs = {
         "A": ("gsu_stack_eval", gk.gsu_stack_eval, "spiking_fullsubnet_torch/csrc/gsu_stack_eval.cu",
@@ -355,25 +500,35 @@ def main() -> int:
         "B": ("gsu_sections_eval", gk.gsu_sections_eval,
               "spiking_fullsubnet_torch/csrc/gsu_sections_eval.cu",
               "spiking_fullsubnet_tpu/ops/gsu_pallas.py:1174", bound_b),
+        "C": ("sfsb_monolith_serve", gk.sfsb_monolith_serve,
+              "spiking_fullsubnet_torch/csrc/sfsb_monolith_serve.cu",
+              "spiking_fullsubnet_tpu/ops/gsu_pallas.py:1626", bound_c),
     }
     for key, (name, fn, src, replaces, bound) in specs.items():
         args, kw = captured_bf16[key]
         ms = cuda_ms(lambda: fn(*args, **kw), iters=3)
         nbytes, ops, ops_s = bound(args, spikes[key])
         b_bytes, b_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops_s * 1e3
+        shape = {"A": lambda: args[0].shape, "B": lambda: args[1].shape,
+                 "C": lambda: args[1].shape}[key]()
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": launches[key], "max_abs_err": checks[key]["bfloat16"]["max_abs_err"],
             "ms": ms, "plain_ms": plain_ms[key], "bound_ms": max(b_bytes, b_ops),
             "bound_by": "bytes" if b_bytes >= b_ops else "operations",
             "library_ms": None, "bytes": nbytes, "ops": ops, "spikes": spikes[key],
-            "shape": list(args[1].shape if key == "B" else args[0].shape),
-            "checks": checks[key],
+            "shape": list(shape), "checks": checks[key],
         })
         log(f"[timing] {name}: {ms:.3f} ms, plain {plain_ms[key]:.1f} ms, bound "
             f"{max(b_bytes, b_ops):.4f} ms ({kernels[-1]['bound_by']}; bytes {b_bytes:.4f} ms, "
             f"operations {b_ops:.4f} ms)")
-    print(json.dumps({"kernels": kernels, "forward_ms": fwd_ms,
+        if key == "C":
+            # half the batch is half the clusters: equal times mean that the
+            # full batch's clusters did not all run at once
+            half = (args[0], args[1][:, :BENCH_B // 2].contiguous())
+            kernels[-1]["half_batch_ms"] = cuda_ms(lambda: fn(*half), iters=2)
+            log(f"[timing] {name} at batch {BENCH_B // 2}: {kernels[-1]['half_batch_ms']:.3f} ms")
+    print(json.dumps({"kernels": kernels, "forwards": forwards,
                       "batch": BENCH_B, "seconds": BENCH_SECONDS}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

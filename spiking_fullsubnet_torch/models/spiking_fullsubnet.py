@@ -1,12 +1,17 @@
 """Spiking-FullSubNet: configuration, module and entry point (counterpart of
 ``spiking_fullsubnet_tpu/models/spiking_fullsubnet.py``).
 
-The port covers eval offline enhancement on the two-launch serving path
-(``models/stream_forward.py``): configurations with the offline laplace
-norm and no pre-LayerNorm, such as the shipped zoo checkpoints
-(``separator_config(norm_type="offline_laplace_norm", shared_weights=True,
-bn=True)``). Anything else raises ``NotImplementedError`` naming the
-ROADMAP item that will bring it.
+The port covers eval serving (``models/stream_forward.py``):
+- the offline laplace norm without pre-LayerNorm (the shipped zoo
+  checkpoints, ``separator_config(norm_type="offline_laplace_norm",
+  shared_weights=True, bn=True)``) on the two-launch path (kernels A, B);
+- pre-LayerNorm (the flagship preset, ``models/presets.flagship_m``), the
+  cumulative laplace norm and no norm on the whole-model monolith
+  (kernel C).
+Weights come from a JAX-package ``.npz`` (``SpikingFullSubNet.from_npz``)
+or from a seeded init (``SpikingFullSubNet.from_init``, ``build``).
+Anything else raises ``NotImplementedError`` naming the ROADMAP item that
+will bring it.
 """
 
 from __future__ import annotations
@@ -18,7 +23,8 @@ import torch
 from torch import nn
 
 from ..runtime.convert import load_npz
-from .sequence_model import SequenceModelConfig
+from ..runtime.device import resolve_device
+from .sequence_model import SequenceModelConfig, sequence_model_init
 
 
 @dataclass(frozen=True)
@@ -160,6 +166,35 @@ def separator_config(
     )
 
 
+def spiking_fullsubnet_init(seed: int, cfg: SpikingFullSubNetConfig, device=None):
+    """(params, state) trees of the JAX package's ``spiking_fullsubnet_init``
+    (same keys, shapes and float32 distributions; other bits), drawn on the
+    CPU from ``seed`` and moved to ``device`` (default ``cuda``)."""
+    if cfg.sb_shared_bottleneck:
+        raise NotImplementedError(
+            "sb_shared_bottleneck (models/shared_subband.py) is not ported yet "
+            "(ROADMAP queue 1, item 12)")
+    dev = resolve_device(device)
+    gen = torch.Generator().manual_seed(int(seed))
+    fb_params, fb_state = sequence_model_init(gen, cfg.fb_config())
+    sb_params, sb_states = [], []
+    for i in range(cfg.num_sections):
+        p, s = sequence_model_init(gen, cfg.sb_config(i))
+        sb_params.append(p)
+        sb_states.append(s)
+    to_dev = lambda t: _tree_map(lambda x: x.to(dev), t)  # noqa: E731
+    return (to_dev({"fb": fb_params, "sb": sb_params}),
+            to_dev({"fb": fb_state, "sb": sb_states}))
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
 def spiking_fullsubnet_apply(cfg: SpikingFullSubNetConfig, params, state,
                              noisy_y: torch.Tensor, train: bool = False) -> Dict[str, Any]:
     """Forward: ``noisy_y [B, T]`` -> dict with ``enhanced_y [B, T]``,
@@ -234,6 +269,14 @@ class SpikingFullSubNet(nn.Module):
         self.state = _tree_module(state, as_param=False)
 
     @classmethod
+    def from_init(cls, cfg: SpikingFullSubNetConfig, seed: int = 0,
+                  device=None) -> "SpikingFullSubNet":
+        """Random weights from ``seed`` (``spiking_fullsubnet_init``) on
+        ``device`` (default ``cuda``)."""
+        params, state = spiking_fullsubnet_init(seed, cfg, device=device)
+        return cls(cfg, params, state)
+
+    @classmethod
     def from_npz(cls, path: str, cfg: SpikingFullSubNetConfig, device=None) -> "SpikingFullSubNet":
         """Load a JAX-package ``.npz`` (``params/...``, ``state/...``) onto
         ``device`` (default ``cuda``)."""
@@ -250,3 +293,34 @@ class SpikingFullSubNet(nn.Module):
     @torch.no_grad()
     def forward(self, noisy_y: torch.Tensor) -> Dict[str, Any]:
         return spiking_fullsubnet_apply(self.cfg, self.param_tree(), self.state_tree(), noisy_y)
+
+
+# --------------------------------------------------------------- TOML builder
+
+
+def _norm_cfg_args(model_args: dict) -> dict:
+    """TOML arg normalization: lists -> tuples, false -> None for activations."""
+    out = {}
+    for k, v in model_args.items():
+        if isinstance(v, list):
+            v = tuple(v)
+        if k.endswith("activate_function") and v is False:
+            v = None
+        out[k] = v
+    return out
+
+
+def _bundle(cfg: SpikingFullSubNetConfig, seed: int, device) -> Dict[str, Any]:
+    params, state = spiking_fullsubnet_init(seed, cfg, device=device)
+    return {"config": cfg, "apply": spiking_fullsubnet_apply, "params": params, "state": state}
+
+
+def build(seed: int = 0, device=None, **model_args) -> Dict[str, Any]:
+    """Model bundle from [model] args: ``config``, ``apply``, ``params``,
+    ``state`` (as the JAX package's ``build``), the weights on ``device``."""
+    return _bundle(SpikingFullSubNetConfig(**_norm_cfg_args(model_args)), seed, device)
+
+
+def build_separator(seed: int = 0, device=None, **model_args) -> Dict[str, Any]:
+    """Bundle for the frozen competition arg surface (``separator_config``)."""
+    return _bundle(separator_config(**_norm_cfg_args(model_args)), seed, device)

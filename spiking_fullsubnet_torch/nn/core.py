@@ -1,10 +1,32 @@
-"""Small helpers over parameter trees (counterpart of ``spiking_fullsubnet_tpu/nn/core.py``)."""
+"""Small helpers over parameter trees (counterpart of ``spiking_fullsubnet_tpu/nn/core.py``).
+
+Initializers draw float32 values from an explicit ``torch.Generator`` on the
+CPU: the same tree, keys, shapes and distributions as the JAX package (torch
+defaults), not the same bits."""
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+import math
+from typing import Callable, Dict, Optional
 
 import torch
+
+
+def uniform(gen: torch.Generator, shape, bound: float) -> torch.Tensor:
+    """U(-bound, bound) of ``shape``."""
+    return ((torch.rand(shape, generator=gen, dtype=torch.float64) * 2.0 - 1.0) * bound).float()
+
+
+def linear_init(gen: torch.Generator, in_features: int, out_features: int
+                ) -> Dict[str, torch.Tensor]:
+    """torch.nn.Linear default init: U(±1/sqrt(fan_in)) for weight and bias."""
+    bound = 1.0 / math.sqrt(in_features) if in_features > 0 else 0.0
+    return {"weight": uniform(gen, (out_features, in_features), bound),
+            "bias": uniform(gen, (out_features,), bound)}
+
+
+def layer_norm_init(normalized_shape: int) -> Dict[str, torch.Tensor]:
+    return {"weight": torch.ones(normalized_shape), "bias": torch.zeros(normalized_shape)}
 
 
 def cast_floating(tree, dtype: torch.dtype):

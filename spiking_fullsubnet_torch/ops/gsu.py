@@ -14,11 +14,46 @@ float32 and every gate, membrane and BN value stays float32.
 
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from ..nn.core import uniform
+
 BN_EPS = 1e-5
+
+
+def gsu_cell_init(gen: torch.Generator, input_size: int, hidden_size: int,
+                  shared_weights: bool = False, bn: bool = False):
+    """One GSU cell (reference reset_parameters): U(±1/sqrt(H)) on
+    ``weight_ih``, ``weight_hh`` and ``bias_ih``; BN affine and running
+    statistics at their defaults. Returns (params, state)."""
+    stdv = 1.0 / math.sqrt(hidden_size) if hidden_size > 0 else 0.0
+    rows = hidden_size if shared_weights else 2 * hidden_size
+    params: Dict[str, Any] = {
+        "weight_ih": uniform(gen, (rows, input_size), stdv),
+        "weight_hh": uniform(gen, (rows, hidden_size), stdv),
+        "bias_ih": uniform(gen, (2 * hidden_size,), stdv),
+    }
+    state: Dict[str, Any] = {}
+    if bn:
+        params["bn"] = {"weight": torch.ones(hidden_size), "bias": torch.zeros(hidden_size)}
+        state["bn"] = {"running_mean": torch.zeros(hidden_size),
+                       "running_var": torch.ones(hidden_size)}
+    return params, state
+
+
+def gsu_stack_init(gen: torch.Generator, input_size: int, hidden_size: int, num_layers: int,
+                   shared_weights: bool = False, bn: bool = False):
+    """A stack of GSU layers: ({"layers": [...]}, {"layers": [...]})."""
+    layers, states = [], []
+    for i in range(num_layers):
+        p, s = gsu_cell_init(gen, input_size if i == 0 else hidden_size, hidden_size,
+                             shared_weights, bn)
+        layers.append(p)
+        states.append(s)
+    return {"layers": layers}, {"layers": states}
 
 
 class Spike(torch.autograd.Function):

@@ -1,7 +1,7 @@
 """Hopper kernels of the GSU serving path, their plain PyTorch versions and
 their loader (counterpart of ``spiking_fullsubnet_tpu/ops/gsu_pallas.py``).
 
-Two kernels, each a hand-written CUDA C++ source under ``../csrc``:
+Three kernels, each a hand-written CUDA C++ source under ``../csrc``:
 
 - ``gsu_stack_eval`` (kernel A, ``csrc/gsu_stack_eval.cu``) replaces
   ``_stack_eval_xg_kernel`` / ``gsu_stack_eval_pallas_xg``: an L-layer GSU
@@ -9,16 +9,21 @@ Two kernels, each a hand-written CUDA C++ source under ``../csrc``:
 - ``gsu_sections_eval`` (kernel B, ``csrc/gsu_sections_eval.cu``) replaces
   ``_sections_kernel`` / ``gsu_sections_eval_pallas`` in its deep-filter
   mode: all sub-band sections, their projection and the deep filter.
+- ``sfsb_monolith_serve`` (kernel C, ``csrc/sfsb_monolith_serve.cu``)
+  replaces ``_monolith_kernel`` / ``sfsb_monolith_serve_pallas``: the whole
+  serving model per step, audio hop chunks in, enhanced hop chunks out.
 
 A wrapper launches its kernel for CUDA tensors and runs the plain version
 for CPU tensors; a CUDA tensor never takes the plain path. Each wrapper
 counts its launches in ``<wrapper>.launches``. The plain versions are
-public (``stack_eval_plain``, ``sections_eval_plain``), accept float64 and
-are the kernels' oracles.
+public (``stack_eval_plain``, ``sections_eval_plain``,
+``monolith_serve_plain``), accept float64 and are the kernels' oracles.
 
 The kernels are compiled at first use with ``nvcc -gencode
-arch=compute_90a,code=sm_90a -O3 -shared`` (one nvcc per source, started
-together) into ``spiking_fullsubnet_torch/_build/`` and loaded with ctypes.
+arch=compute_90a,code=sm_90a -O3 -shared`` (one nvcc per library, all
+started together; kernel C is six libraries, one per stream type and
+sub-band depth) into ``spiking_fullsubnet_torch/_build/`` and loaded with
+ctypes.
 """
 
 from __future__ import annotations
@@ -32,13 +37,20 @@ import time
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from .gsu import acc_dtype_for, bn_eval_affine
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-SOURCES = {"stack": "gsu_stack_eval.cu", "sections": "gsu_sections_eval.cu"}
+# library name -> (source, defines). Kernel C builds one library per stream
+# type and sub-band depth, so that its instances compile in parallel.
+SOURCES = {"stack": ("gsu_stack_eval.cu", ()), "sections": ("gsu_sections_eval.cu", ())}
+SOURCES.update({
+    f"monolith_{io}_l{L}": ("sfsb_monolith_serve.cu", (f"-DMONO_BF16={int(io == 'bf16')}",
+                                                        f"-DMONO_L={L}"))
+    for io in ("f32", "bf16") for L in (1, 2, 3)})
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 MAX_LAYERS = 4
@@ -65,8 +77,8 @@ def _lib_path(name: str) -> Path:
     for f in sorted(CSRC.iterdir()):
         if f.suffix in (".cu", ".cuh"):
             h.update(f.name.encode() + f.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{Path(SOURCES[name]).stem}_{h.hexdigest()[:12]}.so"
+    h.update(" ".join(NVCC_FLAGS + list(SOURCES[name][1])).encode())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:12]}.so"
 
 
 def build_kernels() -> float:
@@ -81,14 +93,15 @@ def build_kernels() -> float:
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(CSRC / SOURCES[name])]
+        src, defines = SOURCES[name]
+        cmd = [_nvcc(), *NVCC_FLAGS, *defines, "-I", str(CSRC), "-o", str(tmp), str(CSRC / src)]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                         text=True), tmp, out)
     for name, (proc, tmp, out) in procs.items():
         log, _ = proc.communicate()
         BUILD_LOG[name] = log
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {SOURCES[name]} (rc {proc.returncode}):\n{log}")
+            raise RuntimeError(f"nvcc failed for {name} (rc {proc.returncode}):\n{log}")
         os.replace(tmp, out)
     for name in todo:
         _LIBS[name] = _bind(name, ctypes.CDLL(str(_lib_path(name))))
@@ -100,10 +113,13 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
     if name == "stack":
         lib.gsu_stack_eval_launch.argtypes = [I, P, P, P, P, P, I, I, I, I, I, I, I, P]
         lib.gsu_stack_eval_launch.restype = I
-    else:
+    elif name == "sections":
         lib.gsu_sections_eval_launch.argtypes = (
             [I, I, P] + [P] * 14 + [I] * 10 + [P])
         lib.gsu_sections_eval_launch.restype = I
+    else:
+        lib.sfsb_monolith_launch.argtypes = [I, ctypes.POINTER(_MonoArgs), P]
+        lib.sfsb_monolith_launch.restype = I
     lib.gsu_error_string.argtypes = [I]
     lib.gsu_error_string.restype = ctypes.c_char_p
     return lib
@@ -416,3 +432,308 @@ def gsu_sections_eval(secs: List[Dict[str, Any]], xa: torch.Tensor, xb: torch.Te
 
 
 gsu_sections_eval.launches = 0
+
+
+# ------------------------------------------------------------------ kernel C
+#
+# A monolith spec ``mono`` is a dict:
+#   norm            "ln" (pre-LN folded into the layer-0 weights, per-frame
+#                   statistics), "cum" (cumulative laplace norm: running
+#                   sums) or "raw"
+#   n_fft, hop      frame and hop length (n_fft = 4 hop, hann window)
+#   eps, t_real     the norms' epsilon; frames t >= t_real leave the OLA
+#   wdft [n_fft, 2 F1]   windowed DFT (cos | -sin), io type, F1 = n_fft/2 + 1
+#   widft [2 F1, n_fft]  inverse DFT with the window over the COLA constant
+#   sel_mag [F, U+1], sel_fb [Pfb, U+1]   statistics columns (acc type,
+#                   None for "raw"): unit u's column is its unfold's bin
+#                   counts over its width, column U the fullband input mean
+#   fb              {"wa" [Fin, Gf], "uv" [2, Gf] ("ln"), "wihr", "whh",
+#                   "coef" (pack_stack), "wproj" [Hf, Pfb], "bproj" [Pfb],
+#                   "hidden": Hf}
+#   secs            kernel B's section dicts plus "uv" [2, G] ("ln")
+#   hidden, shared  the sub-band stacks' H and weight sharing
+# The sections cover the bins [0, W) with W = F = n_fft/2; bin F (Nyquist)
+# passes through.
+
+NORMS = {"raw": 0, "ln": 1, "cum": 2}
+LN_EPS = 1e-5
+MAX_SEC = 8
+
+
+def monolith_dft_matrices(n_fft: int, dtype: torch.dtype, device=None):
+    """(wdft [n_fft, 2 F1], widft [2 F1, n_fft]) of kernel C: the periodic
+    hann window folded into the DFT, and into the inverse DFT over the
+    COLA constant 3/2 of a hop of n_fft/4 (``gsu_pallas.py:1936-1956``)."""
+    nn = np.arange(n_fft)
+    win = 0.5 * (1.0 - np.cos(2.0 * np.pi * nn / n_fft))
+    kk = np.arange(n_fft // 2 + 1)
+    ang = 2.0 * np.pi * nn[:, None] * kk / n_fft
+    wdft = np.concatenate([np.cos(ang) * win[:, None], -np.sin(ang) * win[:, None]], axis=1)
+    w_h = np.full((kk.size, 1), 2.0)
+    w_h[0, 0] = w_h[-1, 0] = 1.0
+    ang_i = ang.T
+    widft = np.concatenate([w_h * np.cos(ang_i), -w_h * np.sin(ang_i)], axis=0) / n_fft
+    widft = widft * (win[None, :] / 1.5)
+    # rounded once from float64 (through float32, as the JAX package)
+    to = lambda a: torch.as_tensor(a.astype(np.float32) if dtype != torch.float64 else a,  # noqa: E731
+                                   device=device).to(dtype).contiguous()
+    return to(wdft), to(widft)
+
+
+def _mono_geometry(mono) -> Tuple[int, int, int]:
+    """(U, W, F1) of a spec."""
+    U = sum(int(s["wa"].shape[0]) for s in mono["secs"])
+    W = sum(int(s["wa"].shape[0]) * s["ctr"] for s in mono["secs"])
+    return U, W, mono["n_fft"] // 2 + 1
+
+
+def monolith_serve_plain(mono: Dict[str, Any], chunks: torch.Tensor,
+                         spike_counts: Optional[List[List[float]]] = None) -> torch.Tensor:
+    """Plain PyTorch version of kernel C (same arguments and result).
+
+    chunks ``[S + 3, B, hop]`` (io type) -> ``[S, B, hop]`` in the
+    accumulation type: step t reads chunks t..t+3 as its frame and emits the
+    overlap-added samples [t hop, (t+1) hop). ``spike_counts``, when a list,
+    receives the fullband stack's per-layer spike counts, then each
+    section's."""
+    io = chunks.dtype
+    acc = acc_dtype_for(io)
+    dev = chunks.device
+    S, B, hop = chunks.shape[0] - 3, chunks.shape[1], chunks.shape[2]
+    n_fft, norm, eps, t_real = mono["n_fft"], mono["norm"], mono["eps"], mono["t_real"]
+    U, W, F1 = _mono_geometry(mono)
+    F = F1 - 1
+    H, shared = mono["hidden"], mono["shared"]
+    f = lambda x: None if x is None else x.to(acc)  # noqa: E731
+    wdft, widft = f(mono["wdft"]), f(mono["widft"])
+    sel_mag, sel_fb = f(mono["sel_mag"]), f(mono["sel_fb"])
+    fb = {k: f(v) if isinstance(v, torch.Tensor) else v for k, v in mono["fb"].items()}
+    secs = [{k: f(v) if isinstance(v, torch.Tensor) else v for k, v in s.items()}
+            for s in mono["secs"]]
+    Hf, Fin = fb["hidden"], fb["wa"].shape[0]
+    rnd = lambda x: x.to(io).to(acc)  # noqa: E731  (a stream rounded to the io type)
+
+    def zeros(*shape):
+        return torch.zeros(*shape, dtype=acc, device=dev)
+
+    hf = [zeros(B, Hf) for _ in range(fb["whh"].shape[0])]
+    cf = [zeros(B, Hf) for _ in hf]
+    st = []
+    for s in secs:
+        n, L = s["wa"].shape[0], s["whh"].shape[0]
+        st.append({"h": [zeros(n * B, H) for _ in range(L)], "c": [zeros(n * B, H) for _ in range(L)],
+                   "ring": [], "tot": torch.zeros(L, dtype=torch.float64, device=dev)})
+    tot_fb = torch.zeros(len(hf), dtype=torch.float64, device=dev)
+    cum = zeros(B, U + 1)
+    ola = [zeros(B, n_fft) for _ in range(3)]  # frames t-1, t-2, t-3
+    ring = [chunks[0], chunks[1], chunks[2]]
+    out = torch.empty(S, B, hop, dtype=acc, device=dev)
+    for t in range(S):
+        # ---- STFT frame, magnitude, statistics of the magnitude ----
+        cur = chunks[t + 3]
+        frame = torch.cat(ring + [cur], dim=1).to(acc)
+        ring = ring[1:] + [cur]
+        reim = frame @ wdft
+        re, im = reim[:, :F1], reim[:, F1:]
+        mag = torch.sqrt(torch.sqrt(re * re + im * im))
+        mag_io = rnd(mag)
+        inv_t = 1.0 / (t + 1)
+        if norm != "raw":
+            s1m = mag[:, :F] @ sel_mag
+            if norm == "ln":
+                s2m = (mag * mag)[:, :F] @ sel_mag
+        # ---- fullband stack and projection ----
+        xgf = mag_io[:, :Fin] @ fb["wa"]
+        if norm == "ln":
+            mu_f = s1m[:, U:U + 1]
+            rstd_f = 1.0 / torch.sqrt((s2m[:, U:U + 1] - mu_f * mu_f) + LN_EPS)
+            xgf = rstd_f * xgf - (rstd_f * mu_f) * fb["uv"][0] + fb["uv"][1]
+        elif norm == "cum":
+            xgf = xgf / ((cum[:, U:U + 1] + s1m[:, U:U + 1]) * inv_t + eps)
+        _stack_layers_step(xgf, hf, cf, fb["wihr"], fb["whh"], fb["coef"], Hf, shared)
+        if spike_counts is not None:
+            tot_fb += torch.stack([h.sum(dtype=torch.float64) for h in hf])
+        fb_y = hf[-1] @ fb["wproj"] + fb["bproj"]
+        fb_io = rnd(fb_y)
+        # ---- per-unit scales ----
+        alpha = beta = None
+        if norm == "ln":
+            mu = s1m + fb_y @ sel_fb
+            var = (s2m + (fb_y * fb_y) @ sel_fb) - mu * mu
+            alpha = 1.0 / torch.sqrt(var + LN_EPS)
+            beta = alpha * mu
+        elif norm == "cum":
+            cum = (cum + s1m) + fb_y @ sel_fb
+            alpha = 1.0 / (cum * inv_t + eps)
+        # ---- sections: gates, stacks, projection, deep filter ----
+        er_parts, ei_parts = [], []
+        u0 = f0 = 0
+        for s, q in zip(secs, st):
+            n, aw = s["wa"].shape[0], s["wa"].shape[1]
+            a0, ctr, df = s["a0"], s["ctr"], s["df"]
+            w = n * ctr
+            xg = (torch.einsum("bp,npg->nbg", mag_io[:, a0:a0 + aw], s["wa"])
+                  + torch.einsum("bq,nqg->nbg", fb_io, s["wb"]))
+            if alpha is not None:
+                xg = alpha[:, u0:u0 + n].T[:, :, None] * xg
+                if norm == "ln":
+                    xg = xg - beta[:, u0:u0 + n].T[:, :, None] * s["uv"][0] + s["uv"][1]
+            _stack_layers_step(xg.reshape(n * B, -1), q["h"], q["c"], s["wihr"], s["whh"],
+                               s["coef"], H, shared)
+            if spike_counts is not None:
+                q["tot"] += torch.stack([h.sum(dtype=torch.float64) for h in q["h"]])
+            y = (q["h"][-1] @ s["wproj"] + s["bproj"]).reshape(n, B, -1)
+            # ring[k] holds frame t-k; tap d pairs with frame t-(df-1-d)
+            q["ring"] = ([(re[:, f0:f0 + w].reshape(B, n, ctr).transpose(0, 1),
+                           im[:, f0:f0 + w].reshape(B, n, ctr).transpose(0, 1))]
+                         + q["ring"])[:df]
+            er = ei = None
+            for d in range(df):
+                k = df - 1 - d
+                if k >= len(q["ring"]):
+                    continue
+                tr, tm = q["ring"][k]
+                cr = y[:, :, d * ctr:(d + 1) * ctr]
+                ci = y[:, :, (df + d) * ctr:(df + d + 1) * ctr]
+                t_re, t_im = tr * cr - tm * ci, tr * ci + tm * cr
+                er = t_re if er is None else er + t_re
+                ei = t_im if ei is None else ei + t_im
+            er_parts.append(er.transpose(0, 1).reshape(B, w))
+            ei_parts.append(ei.transpose(0, 1).reshape(B, w))
+            u0 += n
+            f0 += w
+        # ---- inverse DFT, overlap-add ----
+        enh_re = rnd(torch.cat(er_parts + [re[:, W:]], dim=1))
+        enh_im = rnd(torch.cat(ei_parts + [im[:, W:]], dim=1))
+        if t < t_real:
+            yf = enh_re @ widft[:F1] + enh_im @ widft[F1:]
+        else:
+            yf = zeros(B, n_fft)
+        out[t] = (yf[:, :hop] + ola[0][:, hop:2 * hop] + ola[1][:, 2 * hop:3 * hop]
+                  + ola[2][:, 3 * hop:])
+        ola = [yf, ola[0], ola[1]]
+    if spike_counts is not None:
+        spike_counts.append(tot_fb.tolist())
+        spike_counts.extend(q["tot"].tolist() for q in st)
+    return out
+
+
+class _MonoSec(ctypes.Structure):
+    _fields_ = ([(k, ctypes.c_int) for k in ("n", "a0", "aw", "ctr", "df", "P", "u0", "f0")]
+                + [(k, ctypes.c_longlong) for k in ("wa", "wb", "uv", "wihr", "whh", "coef",
+                                                     "wproj", "bproj")])
+
+
+_MONO_PTRS = ("chunks", "out", "wdft", "widft", "sel_mag", "sel_fb", "fb_wa", "fb_uv",
+              "fb_wihr", "fb_whh", "fb_coef", "fb_wproj", "fb_bproj", "wa", "wb", "uv", "wihr",
+              "whh", "coef", "wproj", "bproj")
+_MONO_INTS = ("S", "B", "hop", "n_fft", "Fin", "Pfb", "U", "W", "H", "L", "Hf", "Lf", "shared",
+              "norm", "t_real", "n_sec")
+
+
+class _MonoArgs(ctypes.Structure):
+    """Mirror of ``MonoArgs`` in ``csrc/sfsb_monolith_serve.cu``."""
+    _fields_ = ([(k, ctypes.c_void_p) for k in _MONO_PTRS]
+                + [(k, ctypes.c_int) for k in _MONO_INTS]
+                + [("eps", ctypes.c_float), ("cluster", ctypes.c_int), ("upc", ctypes.c_int),
+                   ("sec", _MonoSec * MAX_SEC)])
+
+
+def sfsb_monolith_serve(mono: Dict[str, Any], chunks: torch.Tensor) -> torch.Tensor:
+    """The whole serving model in one launch: hop chunks ``[S + 3, B, hop]``
+    of the left-padded audio (f32/bf16 on the card; also f64 on the CPU) ->
+    enhanced chunks ``[S, B, hop]`` in the accumulation type (f32 on the
+    card). The caller trims them and corrects the COLA edges."""
+    if not chunks.is_cuda:
+        return monolith_serve_plain(mono, chunks)
+    io, dev = chunks.dtype, chunks.device
+    if io not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"chunks dtype {io}: the kernel takes float32 or bfloat16")
+    if chunks.ndim != 3 or chunks.shape[0] < 4:
+        raise ValueError(f"chunks shape {tuple(chunks.shape)}: expected [S + 3, B, hop], S >= 1")
+    secs, fb = mono["secs"], mono["fb"]
+    S, B, hop = chunks.shape[0] - 3, chunks.shape[1], chunks.shape[2]
+    n_fft, norm = mono["n_fft"], mono["norm"]
+    H, shared, Hf = mono["hidden"], bool(mono["shared"]), fb["hidden"]
+    G, Gf = (H, Hf) if shared else (2 * H, 2 * Hf)
+    U, W, F1 = _mono_geometry(mono)
+    F = F1 - 1
+    L, Lf = secs[0]["whh"].shape[0], fb["whh"].shape[0]
+    Fin, Pfb = fb["wa"].shape[0], fb["wproj"].shape[1]
+    if norm not in NORMS or n_fft != 4 * hop or W != F or not 1 <= len(secs) <= MAX_SEC:
+        raise ValueError(f"norm {norm!r}, n_fft {n_fft}, hop {hop}, {len(secs)} sections over "
+                         f"{W} of {F} bins: the kernel takes ln/cum/raw, n_fft = 4 hop, "
+                         f"1..{MAX_SEC} sections covering every bin but Nyquist")
+    if not (1 <= L <= 3 and 1 <= Lf <= 3 and 1 <= H <= 512 and 1 <= Hf <= 512 and Fin <= F):
+        raise ValueError(f"L={L}, Lf={Lf}, H={H}, Hf={Hf}, Fin={Fin}: the kernel takes 1..3 "
+                         "layers per stack, H <= 512, Fin <= n_fft/2")
+    _check_cuda("chunks", chunks, io, dev)
+    _check_cuda("wdft", mono["wdft"], io, dev, (n_fft, 2 * F1))
+    _check_cuda("widft", mono["widft"], io, dev, (2 * F1, n_fft))
+    f32 = torch.float32
+    dummy = torch.zeros(1, dtype=f32, device=dev)
+    if norm == "raw":
+        sel_mag = sel_fb = dummy
+    else:
+        sel_mag, sel_fb = mono["sel_mag"], mono["sel_fb"]
+        _check_cuda("sel_mag", sel_mag, f32, dev, (F, U + 1))
+        _check_cuda("sel_fb", sel_fb, f32, dev, (Pfb, U + 1))
+    fb_shapes = {"wa": (io, (Fin, Gf)), "wihr": (io, (max(Lf - 1, 1), Hf, Gf)),
+                 "whh": (io, (Lf, Hf, Gf)), "coef": (f32, (Lf, 4, Hf)),
+                 "wproj": (io, (Hf, Pfb)), "bproj": (f32, (Pfb,))}
+    if norm == "ln":
+        fb_shapes["uv"] = (f32, (2, Gf))
+    for k, (dt, shp) in fb_shapes.items():
+        _check_cuda(f"fb {k}", fb[k], dt, dev, shp)
+
+    kinds = ("wa", "wb", "uv", "wihr", "whh", "coef", "wproj", "bproj")
+    flat: Dict[str, List[torch.Tensor]] = {k: [] for k in kinds}
+    offs = {k: 0 for k in kinds}
+    args = _MonoArgs()
+    u0 = f0 = 0
+    for i, s in enumerate(secs):
+        n, aw = int(s["wa"].shape[0]), int(s["wa"].shape[1])
+        P = int(s["wproj"].shape[1])
+        if P != 2 * s["df"] * s["ctr"] or s["a0"] + aw > F:
+            raise ValueError(f"section {i}: P={P}, window ({s['a0']}, {aw}) in F={F}")
+        shapes = {"wa": (io, (n, aw, G)), "wb": (io, (n, Pfb, G)),
+                  "uv": (f32, (2, G)), "wihr": (io, (max(L - 1, 1), H, G)),
+                  "whh": (io, (L, H, G)), "coef": (f32, (L, 4, H)), "wproj": (io, (H, P)),
+                  "bproj": (f32, (P,))}
+        sec = args.sec[i]
+        sec.n, sec.a0, sec.aw, sec.ctr, sec.df, sec.P, sec.u0, sec.f0 = (
+            n, s["a0"], aw, s["ctr"], s["df"], P, u0, f0)
+        for k, (dt, shp) in shapes.items():
+            if k == "uv" and norm != "ln":
+                t = torch.zeros(shp, dtype=dt, device=dev)  # read only by "ln"
+            else:
+                t = s[k]
+            _check_cuda(f"section {i} {k}", t, dt, dev, shp)
+            setattr(sec, k, offs[k])
+            flat[k].append(t.reshape(-1))
+            offs[k] += t.numel()
+        u0 += n
+        f0 += n * s["ctr"]
+    cat = {k: torch.cat(v) for k, v in flat.items()}
+    out = torch.empty(S, B, hop, dtype=f32, device=dev)
+    ptrs = {"chunks": chunks, "out": out, "wdft": mono["wdft"], "widft": mono["widft"],
+            "sel_mag": sel_mag, "sel_fb": sel_fb,
+            "fb_uv": fb["uv"] if norm == "ln" else dummy,
+            **{f"fb_{k}": fb[k] for k in ("wa", "wihr", "whh", "coef", "wproj", "bproj")},
+            **cat}
+    for k in _MONO_PTRS:
+        setattr(args, k, ptrs[k].data_ptr())
+    for k, v in dict(S=S, B=B, hop=hop, n_fft=n_fft, Fin=Fin, Pfb=Pfb, U=U, W=W, H=H, L=L,
+                     Hf=Hf, Lf=Lf, shared=int(shared), norm=NORMS[norm],
+                     t_real=int(mono["t_real"]), n_sec=len(secs)).items():
+        setattr(args, k, v)
+    args.eps = float(mono["eps"])
+    lib = _lib(f"monolith_{'bf16' if io == torch.bfloat16 else 'f32'}_l{L}")
+    with torch.cuda.device(dev):
+        rc = lib.sfsb_monolith_launch(int(io == torch.bfloat16), ctypes.byref(args), _stream())
+    _check_rc(lib, rc, "sfsb_monolith_serve")
+    sfsb_monolith_serve.launches += 1
+    return out
+
+
+sfsb_monolith_serve.launches = 0

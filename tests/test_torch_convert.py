@@ -19,6 +19,7 @@ from spiking_fullsubnet_tpu.models.spiking_fullsubnet import (
 )
 from spiking_fullsubnet_tpu.runtime.convert import load_npz as jax_load_npz
 
+from spiking_fullsubnet_torch.models.presets import flagship_m
 from spiking_fullsubnet_torch.models.spiking_fullsubnet import SpikingFullSubNet, separator_config
 from spiking_fullsubnet_torch.runtime.convert import load_npz, params_from_numpy
 from spiking_fullsubnet_torch.runtime.device import resolve_device
@@ -84,6 +85,10 @@ def test_entry_points_default_to_cuda_and_never_fall_back():
             resolve_device(dev)
     with pytest.raises(RuntimeError, match="CUDA"):
         load_npz(str(ZOO_M))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        flagship_m()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SpikingFullSubNet.from_init(separator_config(**ZOO_KW), seed=0)
 
 
 _IMPORT = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|spiking_fullsubnet_tpu)\b", re.M)

@@ -6,8 +6,9 @@ JAX nor the JAX package, so it runs where only PyTorch is installed:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
 
 At these small shapes no near-threshold spike flips occur, so A's spikes
-must match exactly (mismatch < 1e-3 allows one stray flip) and B's enhanced
-spectrum to f32 rounding (relative L2 < 1e-4).
+must match exactly (mismatch < 1e-3 allows one stray flip), B's enhanced
+spectrum and C's enhanced audio to f32 rounding (relative L2 < 1e-4; C in
+bf16 < 2e-3, see C_TOL).
 """
 
 from __future__ import annotations
@@ -117,3 +118,88 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         gk.gsu_stack_eval(torch.randn(10, 8, 32, device=dev), *w, 16, True)
     with pytest.raises(ValueError, match="dtype"):
         gk.gsu_stack_eval(x.to(torch.bfloat16), *w, 16, True)  # f32 weights
+
+
+def _mono(norm, shared, L, Lf, io, dev, g, S, H=40, Hf=48):
+    """A small random kernel-C spec: n_fft 64 (hop 16), three sections
+    (n, ctr, df, a0, aw) covering the 32 bins, fullband input 8, projection 8."""
+    n_fft, Fin, Pfb = 64, 8, 8
+    F = n_fft // 2
+    G, Gf = (H, Hf) if shared else (2 * H, 2 * Hf)
+    rn = lambda *s: torch.randn(*s, generator=g)  # noqa: E731
+    secs = []
+    for n, ctr, df, a0, aw in [(3, 2, 3, 0, 7), (2, 4, 1, 3, 12), (2, 9, 2, 12, 20)]:
+        wihr, whh, coef = _stack(H, shared, L, io, dev, g)
+        P = 2 * df * ctr
+        secs.append({
+            "wa": (rn(n, aw, G) * 0.3).to(io).to(dev), "a0": a0,
+            "wb": (rn(n, Pfb, G) * 0.3).to(io).to(dev), "uv": (rn(2, G) * 0.1).to(dev),
+            "wihr": wihr, "whh": whh, "coef": coef,
+            "wproj": (rn(H, P) * 0.2).to(io).to(dev), "bproj": (rn(P) * 0.1).to(dev),
+            "ctr": ctr, "df": df})
+    wihr, whh, coef = _stack(Hf, shared, Lf, io, dev, g)
+    fb = {"wa": (rn(Fin, Gf) * 0.3).to(io).to(dev), "uv": (rn(2, Gf) * 0.1).to(dev),
+          "wihr": wihr, "whh": whh, "coef": coef, "wproj": (rn(Hf, Pfb) * 0.2).to(io).to(dev),
+          "bproj": (rn(Pfb) * 0.1).to(dev), "hidden": Hf}
+    wdft, widft = gk.monolith_dft_matrices(n_fft, io, dev)
+    return {"norm": norm, "n_fft": n_fft, "hop": n_fft // 4, "eps": 2.2e-16,
+            "t_real": max(S - 3, 1), "wdft": wdft, "widft": widft,
+            "sel_mag": (torch.rand(F, 8, generator=g) / F).to(dev),
+            "sel_fb": (torch.rand(Pfb, 8, generator=g) / Pfb).to(dev),
+            "fb": fb, "secs": secs, "hidden": H, "shared": shared}
+
+
+def _rel_l2(got, ref):
+    return ((got.double() - ref.double()).norm() / ref.double().norm()).item()
+
+
+# bf16 streams are rounded inside (magnitude, fullband output, enhanced
+# spectrum): where the kernel's and the plain version's f32 sums, taken in
+# other orders, straddle a bf16 rounding boundary, the two round one bf16
+# step (2^-8) apart, hence the looser bound.
+C_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-3}
+
+
+@pytest.mark.parametrize("io", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shared", [True, False])
+@pytest.mark.parametrize("norm", ["ln", "cum", "raw"])
+@pytest.mark.parametrize("L", [1, 2, 3])
+def test_monolith_kernel_matches_plain(dev, io, shared, norm, L):
+    g = torch.Generator().manual_seed(11 * L)
+    S, B = 40, 11  # two row tiles, the second ragged
+    mono = _mono(norm, shared, L, 1 + L % 3, io, dev, g, S)
+    chunks = (torch.randn(S + 3, B, 16, generator=g) * 0.1).to(io).to(dev)
+    before = gk.sfsb_monolith_serve.launches
+    got = gk.sfsb_monolith_serve(mono, chunks)
+    ref = gk.monolith_serve_plain(mono, chunks)
+    torch.cuda.synchronize()
+    assert gk.sfsb_monolith_serve.launches == before + 1
+    assert got.shape == ref.shape == (S, B, 16) and got.dtype == torch.float32
+    assert torch.isfinite(got).all()
+    assert _rel_l2(got, ref) < C_TOL[io]
+
+
+@pytest.mark.parametrize("S", [1, 2])
+def test_monolith_kernel_short_sequences(dev, S):
+    """T < df: the deep filter's older taps read no frame yet."""
+    g = torch.Generator().manual_seed(S)
+    mono = _mono("cum", True, 2, 2, torch.float32, dev, g, S)
+    chunks = (torch.randn(S + 3, 3, 16, generator=g) * 0.1).to(dev)
+    got = gk.sfsb_monolith_serve(mono, chunks)
+    ref = gk.monolith_serve_plain(mono, chunks)
+    torch.cuda.synchronize()
+    assert _rel_l2(got, ref) < 1e-4
+
+
+def test_monolith_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    g = torch.Generator().manual_seed(0)
+    mono = _mono("ln", True, 2, 2, torch.float32, dev, g, 8)
+    chunks = torch.randn(11, 4, 16, generator=g).to(dev)
+    with pytest.raises(ValueError, match="dtype"):
+        gk.sfsb_monolith_serve(mono, chunks.double())
+    with pytest.raises(ValueError, match="dtype"):
+        gk.sfsb_monolith_serve(mono, chunks.to(torch.bfloat16))  # f32 weights
+    with pytest.raises(ValueError, match="contiguous"):
+        gk.sfsb_monolith_serve(mono, chunks.transpose(0, 1).contiguous().transpose(0, 1))
+    with pytest.raises(ValueError, match="n_fft"):
+        gk.sfsb_monolith_serve(mono, torch.randn(11, 4, 8, device=dev))

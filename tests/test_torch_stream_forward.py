@@ -1,6 +1,7 @@
-"""The port's slice end to end (spiking_fullsubnet_apply, scan_mode="auto",
+"""The port's slices end to end (spiking_fullsubnet_apply, scan_mode="auto",
 collect_layer_outputs=False) against the JAX package's stream forward.
 
+Two-launch path (offline laplace norm, kernels A and B):
 - tiny separator config, f64: the port against the JAX stream forward
   (its scan oracle on the CPU), enhanced_y atol 3e-6 as
   tests/test_stream_forward.py:53 (bounded by the f32 window of the
@@ -10,6 +11,14 @@ collect_layer_outputs=False) against the JAX package's stream forward.
 - zoo M at full width from baseline_m.npz, 1 x 2 s, f64: atol 3e-6;
 - the speech-like fixture of tests/test_spiking_fullsubnet.py:212-234
   through the port gains > 8 dB of SI-SDR (f32 and the bf16 policy).
+Monolith path (pre-LN and the cumulative norm, kernel C):
+- tiny config, f64, against the JAX scan path: atol 3e-6;
+- tiny config, f32, against the JAX monolith in interpret mode (lengths
+  with round_up(T, 128) >= T + 3, a counter asserts that it ran): SNR >
+  60 dB;
+- zoo M with cumulative_laplace_norm 1 x 2 s and flagship M (random JAX
+  weights) 1 x 1 s at full width, f64: atol 3e-6;
+- zoo M with cumulative_laplace_norm gains > 8 dB of SI-SDR (f32, bf16).
 """
 
 from __future__ import annotations
@@ -26,15 +35,20 @@ import jax.numpy as jnp
 
 import spiking_fullsubnet_tpu.ops.gsu_pallas as gp
 from spiking_fullsubnet_tpu.models import spiking_fullsubnet as J
+from spiking_fullsubnet_tpu.models.presets import flagship_m as jax_flagship_m
 from spiking_fullsubnet_tpu.models.stream_forward import stream_supported as jax_stream_supported
 from spiking_fullsubnet_tpu.runtime.convert import load_npz as jax_load_npz
 
 from spiking_fullsubnet_torch.models import spiking_fullsubnet as P
+from spiking_fullsubnet_torch.models import stream_forward as sf
 from spiking_fullsubnet_torch.models.stream_forward import stream_supported
 from spiking_fullsubnet_torch.runtime.convert import load_npz, params_from_numpy
 
 ZOO_M = Path(__file__).resolve().parent.parent / "model_zoo/intel_ndns/spike_fsb/baseline_m.npz"
 ZOO_KW = dict(norm_type="offline_laplace_norm", shared_weights=True, bn=True)
+CUM_KW = dict(ZOO_KW, norm_type="cumulative_laplace_norm")
+PRE_LN = dict(norm_type=None, use_pre_layer_norm_fb=True, use_pre_layer_norm_sb=True)
+CUM = dict(norm_type="cumulative_laplace_norm")
 TINY_KW = dict(
     n_fft=128, hop_length=32, win_length=128,
     fb_input_size=16, fb_hidden_size=24, fb_proj_size=16,
@@ -62,15 +76,20 @@ def _cfgs(**kw):
             P.SpikingFullSubNetConfig(**kw, scan_mode="auto", collect_layer_outputs=False))
 
 
-def _tiny(dtype, shared=True):
-    jcfg, pcfg = _cfgs(**dict(TINY_KW, shared_weights=shared))
+def _tiny(dtype, shared=True, **change):
+    jcfg, pcfg = _cfgs(**dict(TINY_KW, shared_weights=shared, **change))
     params, state = J.spiking_fullsubnet_init(jax.random.PRNGKey(0), jcfg)
     rng = np.random.default_rng(7)
-    # randomize the BN fold so it matters
+    # randomize the BN fold and the pre-LN affine so they matter
     for tree in [state["fb"]] + state["sb"]:
         for ls in tree["stack"]["layers"]:
             rm = ls["bn"]["running_mean"]
             ls["bn"]["running_mean"] = jnp.asarray(0.1 * rng.standard_normal(rm.shape))
+    for p in [params["fb"]] + params["sb"]:
+        if "pre_ln" in p:
+            w = p["pre_ln"]["weight"]
+            p["pre_ln"]["weight"] = jnp.asarray(1 + 0.2 * rng.standard_normal(w.shape))
+            p["pre_ln"]["bias"] = jnp.asarray(0.2 * rng.standard_normal(w.shape))
     to = lambda t: jax.tree.map(lambda x: np.asarray(x, dtype), t)  # noqa: E731
     return jcfg, pcfg, to(params), to(state)
 
@@ -113,8 +132,8 @@ def test_tiny_slice_f32_matches_jax_two_launch_interpret():
     assert _snr(out["enhanced_y"].numpy(), np.asarray(ref["enhanced_y"])) > 60
 
 
-def _zoo(dtype, path=ZOO_M, **sizes):
-    kw = dict(ZOO_KW, **sizes)
+def _zoo(dtype, path=ZOO_M, kw=ZOO_KW, **sizes):
+    kw = dict(kw, **sizes)
     jcfg, pcfg = _cfgs(**{k: v for k, v in J.separator_config(**kw).__dict__.items()
                           if k not in ("scan_mode", "collect_layer_outputs")})
     tpl = J.spiking_fullsubnet_init(jax.random.PRNGKey(0), jcfg)
@@ -167,7 +186,20 @@ def _si_sdr(est, ref):
 
 @pytest.mark.parametrize("compute_dtype", [None, "bfloat16"])
 def test_zoo_m_si_sdr_gain_through_the_port(compute_dtype):
-    cfg = replace(P.separator_config(**ZOO_KW), scan_mode="auto",
+    _si_sdr_gain(ZOO_KW, compute_dtype)
+
+
+@pytest.mark.parametrize("compute_dtype", [None, "bfloat16"])
+def test_zoo_m_cumulative_norm_si_sdr_gain_through_the_monolith(compute_dtype, monkeypatch):
+    calls = []
+    real = sf.sfsb_monolith_serve
+    monkeypatch.setattr(sf, "sfsb_monolith_serve", lambda *a: calls.append(1) or real(*a))
+    _si_sdr_gain(CUM_KW, compute_dtype)
+    assert len(calls) == 1
+
+
+def _si_sdr_gain(kw, compute_dtype):
+    cfg = replace(P.separator_config(**kw), scan_mode="auto",
                   collect_layer_outputs=False, compute_dtype=compute_dtype)
     model = P.SpikingFullSubNet.from_npz(str(ZOO_M), cfg, device="cpu")
     clean, noisy = _speech_fixture()
@@ -190,9 +222,9 @@ def test_stream_gate_matches_jax():
 
 @pytest.mark.parametrize("change,match", [
     ({"collect_layer_outputs": True}, "collect_layer_outputs"),
-    ({"norm_type": "cumulative_laplace_norm"}, "kernel C"),
-    ({"norm_type": None, "use_pre_layer_norm_fb": True, "use_pre_layer_norm_sb": True},
-     "kernel C"),
+    ({"norm_type": "cumulative_laplace_norm", "fdrc": 0.4}, "kernel B's pre-LN"),
+    ({"norm_type": None, "use_pre_layer_norm_fb": True, "use_pre_layer_norm_sb": True,
+      "fb_output_activate_function": "tanh"}, "kernel B's pre-LN"),
     ({"scan_mode": "layered"}, "item 5"),
     ({"num_spks": 2}, "item 5"),
 ])
@@ -205,3 +237,56 @@ def test_uncovered_configs_raise_naming_the_roadmap_item(change, match):
         P.spiking_fullsubnet_apply(pcfg, params_from_numpy(params, "cpu"),
                                    params_from_numpy(state, "cpu"), torch.zeros(1, 2000),
                                    train=True)
+
+
+# ------------------------------------------------------------------ monolith
+
+
+@pytest.mark.parametrize("change", [PRE_LN, CUM], ids=["pre_ln", "cum"])
+def test_tiny_monolith_f64_matches_jax_scan(change):
+    jcfg, pcfg, params, state = _tiny(np.float64, **change)
+    assert sf.monolith_ok(pcfg)
+    noisy = np.random.default_rng(2).standard_normal((2, 3000)) * 0.1
+    ref = J.spiking_fullsubnet_apply(jcfg, params, state, jnp.asarray(noisy))
+    out = P.spiking_fullsubnet_apply(pcfg, params_from_numpy(params, "cpu"),
+                                     params_from_numpy(state, "cpu"), torch.from_numpy(noisy))
+    assert out["enhanced_mag"] is None and out["enhanced_y"].dtype == torch.float64
+    np.testing.assert_allclose(out["enhanced_y"].numpy(), np.asarray(ref["enhanced_y"]),
+                               atol=3e-6)
+    assert np.abs(out["enhanced_y"].numpy() - noisy).max() > 1e-3
+
+
+@pytest.mark.parametrize("change", [PRE_LN, CUM], ids=["pre_ln", "cum"])
+def test_tiny_monolith_f32_matches_jax_monolith_interpret(change, monkeypatch):
+    jcfg, pcfg, params, state = _tiny(np.float32, shared=False, **change)
+    # T = 3900 // 32 + 1 = 122 frames: round_up(122, 128) >= 125, so the JAX
+    # dispatch takes its monolith
+    noisy = (np.random.default_rng(3).standard_normal((2, 3900)) * 0.1).astype(np.float32)
+    calls = []
+    real = gp.sfsb_monolith_serve_pallas
+    monkeypatch.setattr(gp, "sfsb_monolith_serve_pallas",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    monkeypatch.setattr(gp, "_INTERPRET", True)
+    ref = J.spiking_fullsubnet_apply(jcfg, params, state, jnp.asarray(noisy))
+    assert len(calls) == 1
+    out = _port(pcfg, params, state, noisy)
+    assert out["enhanced_y"].dtype == torch.float32
+    assert _snr(out["enhanced_y"].numpy(), np.asarray(ref["enhanced_y"])) > 60
+
+
+def test_zoo_m_cumulative_norm_full_width_f64_matches_jax():
+    jcfg, pcfg, params, state = _zoo(np.float64, kw=CUM_KW)
+    assert sf.norm_mode(pcfg) == "cum" and sf.monolith_ok(pcfg)
+    noisy = np.random.default_rng(5).standard_normal((1, 32000)) * 0.05
+    _port_matches_jax(jcfg, pcfg, params, state, noisy)
+
+
+def test_flagship_m_full_width_f64_matches_jax():
+    jb = jax_flagship_m(seed=1)
+    kw = {k: v for k, v in jb["config"].__dict__.items()
+          if k not in ("scan_mode", "collect_layer_outputs")}
+    jcfg, pcfg = _cfgs(**kw)
+    assert sf.norm_mode(pcfg) == "ln" and sf.monolith_ok(pcfg)
+    to = lambda t: jax.tree.map(lambda x: np.asarray(x, np.float64), t)  # noqa: E731
+    noisy = np.random.default_rng(6).standard_normal((1, 16000)) * 0.1
+    _port_matches_jax(jcfg, pcfg, to(jb["params"]), to(jb["state"]), noisy)
