@@ -13,11 +13,14 @@ is non-zero:
             main path gives it (captured from a forward), in f32 and bf16:
             A (fullband stack) and B (merged sub-band sections with the deep
             filter) on zoo M's offline path, C (the whole-model monolith) on
-            flagship M (random weights from seed 0):
+            flagship M (random weights from seed 0), F (a GSU stack from the
+            raw features) at each of the four stacks of zoo M's layered
+            forward (separator_config's default scan_mode) and at
+            cIRM-GSN's one stack:
             - the quality forward's inputs (1 x 2 s), whole sequence:
-              A spike mismatch < 1e-3; B enhanced-spectrum and C enhanced-
-              chunk relative L2 error < 0.05 (the spike-flip bound of
-              tests/test_tpu_kernels.py:242);
+              A and F spike mismatch < 1e-3; B enhanced-spectrum and C
+              enhanced-chunk relative L2 error < 0.05 (the spike-flip bound
+              of tests/test_tpu_kernels.py:242);
             - the bench batch (256 x 30 s), first 16 frames (steps): the same
               bounds, and A's 4-D units form and collect_all equal its 3-D
               form exactly;
@@ -26,7 +29,9 @@ is non-zero:
               row, so the kernel and the plain version drift apart with
               length. Both are held against a float64 run of the plain
               version on the same inputs: the kernel must stay within 3x
-              (+1e-3) of the float32 plain version's own drift;
+              (+1e-3) of the float32 plain version's own drift (F on the
+              first 256 rows of each stack: rows are independent in eval;
+              cIRM-GSN has 256 rows in all);
 4. quality  the main paths, each counted (counts set to 0 just before the
             forward, read just after), bf16 serving policy, through
             SpikingFullSubNet on the speech-like fixture (1 x 2 s):
@@ -36,19 +41,25 @@ is non-zero:
               one launch of C, none of A or B;
             - flagship M (pre-LN, random weights): finite audio of the input's
               shape, one launch of C;
-5. timing   one forward each of zoo M and of flagship M (bench.py's headline
-            configuration) at batch 256 x 30 s bf16, and each kernel alone,
+            - zoo M layered (scan_mode="layered", every layer's spikes
+              collected): gain > 8 dB, four launches of F, none of A, B or C;
+            - cIRM-GSN (recipes/intel_ndns/cirm_gsn/default.toml widths,
+              random weights from seed 0): finite audio, one launch of F;
+5. timing   one forward each of zoo M (serving and layered), flagship M
+            (bench.py's headline configuration) and cIRM-GSN at batch
+            256 x 30 s bf16, with peak memory, and each kernel alone,
             with CUDA events; the kernels' times, plain versions' times and
             bounds as one JSON line. A bound is the larger of the bytes
             (each input read once, each output written once, over
             3.35 TB/s) and the operations this run's data needs: spike
             products count only the spikes that fired (counted by the plain
             versions), layer-0 products of the units only the lanes each
-            unit's unfold reads, DFT products dense, over 989 TFLOP/s (bf16)
+            unit's unfold reads, F's layer-0 product and the DFT products
+            dense, over 989 TFLOP/s (bf16)
             or 67 TFLOP/s (f32), and the f32 cell, statistics and deep-filter
             arithmetic over 67 TFLOP/s.
 
-About 4 minutes on one H100, the build included.
+About 5.5 minutes on one H100, the build included.
 
 The last line is {"ok": true, "device": {...}}. Without a CUDA device, or
 without the rest of the repository beside it, it prints no result and
@@ -57,6 +68,7 @@ exits non-zero.
 
 from __future__ import annotations
 
+import functools
 import json
 import subprocess
 import sys
@@ -74,6 +86,11 @@ PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 CELL_OPS = 13
 BENCH_B, BENCH_SECONDS, SR = 256, 30.0, 16000
 WINDOW = 16  # leading bench frames held tightly
+# recipes/intel_ndns/cirm_gsn/default.toml [model.args]
+CIRM_GSN = dict(n_fft=512, hop_length=128, win_length=512, fdrc=0.5, input_size=257,
+                hidden_size=256, num_layers=2, proj_size=257, output_activate_function=False,
+                df_order=3, use_pre_layer_norm_fb=True, bn=True, shared_weights=True,
+                sequence_model="GSN", num_spks=1)
 
 
 def log(*a):
@@ -119,30 +136,54 @@ def cuda_ms(fn, iters=1, warmup=1):
 
 
 WRAPPERS = {"A": "gsu_stack_eval", "B": "gsu_sections_eval", "C": "sfsb_monolith_serve"}
+COUNTERS = dict(WRAPPERS, F="gsu_stack_eval_x")
+ROWS_F64 = 256  # rows of each F stack held against float64 over the whole bench
+# kernel F's launches checked: zoo M layered's four stacks, then cIRM-GSN's one
+STACKS_F = ("zoo M fullband", "zoo M section 0", "zoo M section 1", "zoo M section 2",
+            "cIRM-GSN")
+
+
+def record_calls(module, names, run):
+    """``run()`` with the functions ``names`` of ``module`` recorded: the
+    ``(args, kwargs)`` of each call, in order, i.e. the main path's own inputs
+    for each kernel wrapper. Not a main-path run (counts are reset later)."""
+    seen = {name: [] for name in names}
+    real = {name: getattr(module, name) for name in names}
+
+    def rec(name):
+        # wraps copies the wrapper's launch count, which the wrapper reaches
+        # through its module's name while the recorder stands there
+        @functools.wraps(real[name])
+        def wrapped(*args, **kw):
+            seen[name].append((args, kw))
+            return real[name](*args, **kw)
+        return wrapped
+
+    for name in names:
+        setattr(module, name, rec(name))
+    try:
+        run()
+    finally:
+        for name in names:
+            setattr(module, name, real[name])
+    torch.cuda.synchronize()
+    return seen
 
 
 def capture_kernel_args(sf, cfg, model, noisy):
-    """One forward with the kernel wrappers recorded: the main path's own
-    inputs for each kernel. Not a main-path run (counts are reset later)."""
-    seen = {}
-    real = {k: getattr(sf, name) for k, name in WRAPPERS.items()}
+    """The arguments that kernels A, B and C received in one serving forward
+    (by key, for those that launched)."""
+    from spiking_fullsubnet_torch.models.spiking_fullsubnet import spiking_fullsubnet_apply
+    seen = record_calls(sf, WRAPPERS.values(), lambda: spiking_fullsubnet_apply(
+        cfg, model.param_tree(), model.state_tree(), noisy))
+    return {k: seen[name][-1] for k, name in WRAPPERS.items() if seen[name]}
 
-    def rec(key):
-        def wrapped(*args, **kw):
-            seen[key] = (args, kw)
-            return real[key](*args, **kw)
-        return wrapped
 
-    for key, name in WRAPPERS.items():
-        setattr(sf, name, rec(key))
-    try:
-        from spiking_fullsubnet_torch.models.spiking_fullsubnet import spiking_fullsubnet_apply
-        spiking_fullsubnet_apply(cfg, model.param_tree(), model.state_tree(), noisy)
-    finally:
-        for key, name in WRAPPERS.items():
-            setattr(sf, name, real[key])
-    torch.cuda.synchronize()
-    return seen
+def capture_f_args(gk, forward, x):
+    """The positional arguments of each kernel-F launch of ``forward(x)``
+    (``ops/gsu.gsu_stack_apply`` looks the wrapper up at each call)."""
+    return [args for args, _ in record_calls(gk, ["gsu_stack_eval_x"],
+                                             lambda: forward(x))["gsu_stack_eval_x"]]
 
 
 def spike_mismatch(got, ref):
@@ -189,6 +230,11 @@ def as_f64_c(args):
     return mono, chunks.double()
 
 
+def as_f64_f(args):
+    *tensors, H, shared = args
+    return (*[t.double() for t in tensors], H, shared)
+
+
 def head_c(args, steps):
     """Kernel C's inputs cut to the first ``steps`` steps."""
     mono, chunks = args
@@ -217,6 +263,21 @@ def bound_a(args, spikes):
     mm = 2.0 * G * (sum(spikes) + sum(spikes[:-1]))
     cell = float(CELL_OPS) * L * T * R * H
     return nbytes, mm + cell, mm / PEAK_OPS[xg0.dtype] + cell / PEAK_OPS[torch.float32]
+
+
+def bound_f(args, spikes):
+    """(bytes, operations, operation seconds) of kernel F's function on
+    these inputs; ``spikes`` are the plain version's per-layer counts. The
+    layer-0 product is dense (the raw features are real-valued)."""
+    x, wih0, wihr, whh, coef, H, shared = args
+    T, R, Fin = x.shape
+    L, G = whh.shape[0], whh.shape[2]
+    es = x.element_size()
+    nbytes = (x.numel() + wih0.numel() + wihr.numel() + whh.numel() + L * T * R * H) * es
+    nbytes += coef.numel() * 4
+    mm = 2.0 * T * R * Fin * G + 2.0 * G * (sum(spikes) + sum(spikes[:-1]))
+    cell = float(CELL_OPS) * L * T * R * H
+    return nbytes, mm + cell, mm / PEAK_OPS[x.dtype] + cell / PEAK_OPS[torch.float32]
 
 
 def bound_b(args, spikes):
@@ -277,15 +338,51 @@ def bound_c(args, spikes):
     return nbytes, mm + f32, mm / PEAK_OPS[chunks.dtype] + f32 / PEAK_OPS[torch.float32]
 
 
+def kernel_f_entry(gk, f_args, f_plain_ms, f_spikes, launches, checks, forwards):
+    """Kernel F's line: each launch of ``STACKS_F`` (bench-shape arguments
+    captured from the main paths, spikes counted by the plain version) timed
+    alone; ms, plain_ms and bound_ms are the sums over zoo M layered's four
+    launches, cIRM-GSN's one launch stands beside them."""
+    per = []
+    for name, args, ms_plain, counts in zip(STACKS_F, f_args, f_plain_ms, f_spikes):
+        ms = cuda_ms(lambda: gk.gsu_stack_eval_x(*args), iters=3)
+        nbytes, ops, ops_s = bound_f(args, counts)
+        per.append({"stack": name, "shape": list(args[0].shape), "ms": ms, "plain_ms": ms_plain,
+                    "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3, "ops_ms": ops_s * 1e3,
+                    "bytes": nbytes, "ops": ops, "spikes": counts})
+        per[-1]["bound_ms"] = max(per[-1]["bytes_ms"], per[-1]["ops_ms"])
+        log(f"[timing] gsu_stack_eval_x {name} {tuple(args[0].shape)}: {ms:.3f} ms, plain "
+            f"{ms_plain:.1f} ms, bound {per[-1]['bound_ms']:.4f} ms "
+            f"(bytes {per[-1]['bytes_ms']:.4f} ms, operations {per[-1]['ops_ms']:.4f} ms)")
+    zoo, cirm = per[:4], per[4]
+    b_bytes = sum(p["bytes_ms"] for p in zoo)
+    b_ops = sum(p["ops_ms"] for p in zoo)
+    ms = sum(p["ms"] for p in zoo)
+    glue = forwards["zoo M layered"]["ms"] - ms
+    log(f"[timing] gsu_stack_eval_x, the four launches of a zoo-M layered forward: {ms:.3f} ms "
+        f"(forward {forwards['zoo M layered']['ms']:.3f} ms, glue {glue:.3f} ms by subtraction)")
+    return {
+        "name": "gsu_stack_eval_x", "route": "cuda",
+        "source": "spiking_fullsubnet_torch/csrc/gsu_stack_eval_x.cu",
+        "replaces": "spiking_fullsubnet_tpu/ops/gsu_pallas.py:756", "launches": launches["F"],
+        "max_abs_err": checks["bfloat16"]["max_abs_err"], "ms": ms,
+        "plain_ms": sum(p["plain_ms"] for p in zoo), "bound_ms": max(b_bytes, b_ops),
+        "bound_by": "bytes" if b_bytes >= b_ops else "operations", "library_ms": None,
+        "per_launch": zoo, "glue_ms": glue, "checks": checks,
+        "cirm_gsn": dict(cirm, launches=launches["F cIRM-GSN"]),
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing to run", file=sys.stderr)
         return 2
     try:
+        from spiking_fullsubnet_torch.models import cirm_models as cm
         from spiking_fullsubnet_torch.models import stream_forward as sf
         from spiking_fullsubnet_torch.models.presets import flagship_m
         from spiking_fullsubnet_torch.models.spiking_fullsubnet import (
-            SpikingFullSubNet, separator_config)
+            SpikingFullSubNet, separator_config, spiking_fullsubnet_apply)
         from spiking_fullsubnet_torch.ops import gsu_kernels as gk
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script ({e})", file=sys.stderr)
@@ -320,12 +417,20 @@ def main() -> int:
     flag_base = flagship_m(seed=0, device=dev, scan_mode="auto",
                            collect_layer_outputs=False)["config"]
     flag = SpikingFullSubNet.from_init(flag_base, seed=0, device=dev)
+    # separator_config as it comes: scan_mode="layered", every layer collected
+    lay_base = separator_config(norm_type="offline_laplace_norm", shared_weights=True, bn=True)
+    cirm = cm.build(seed=0, device=dev, **CIRM_GSN)
+
+    def cirm_forward(x, dt="bfloat16"):
+        cfg = replace(cirm["config"], compute_dtype=dt)
+        return cm.cirm_model_apply(cfg, cirm["params"], cirm["state"], x)
+
     rng = np.random.default_rng(0)
     bench = torch.from_numpy(
         (rng.standard_normal((BENCH_B, int(BENCH_SECONDS * SR))) * 0.1).astype(np.float32)).to(dev)
     clean, noisy = speech_fixture()
     quality_x = torch.from_numpy(noisy[None]).to(dev)
-    checks = {"A": {}, "B": {}, "C": {}}
+    checks = {"A": {}, "B": {}, "C": {}, "F": {}}
     plain_ms, spikes, captured_bf16 = {}, {}, {}
     for dt in (None, "bfloat16"):
         tag = dt or "float32"
@@ -439,13 +544,77 @@ def main() -> int:
         del c_args, c_head
         torch.cuda.empty_cache()
 
+        # kernel F at each of its launches (STACKS_F): the four stacks of zoo
+        # M's layered forward (fullband, three sections) and cIRM-GSN's one.
+        # (a) 1 x 2 s whole, (b) bench first WINDOW frames, (c) the whole
+        # bench sequence of each stack's first ROWS_F64 rows against float64
+        lay = replace(lay_base, compute_dtype=dt)
+        params, state = model.param_tree(), model.state_tree()
+
+        def zoo_layered(x):
+            return spiking_fullsubnet_apply(lay, params, state, x)
+
+        f_q, f_b = [], []
+        for x, into in ((quality_x, f_q), (bench, f_b)):
+            zoo_f, cirm_f = capture_f_args(gk, zoo_layered, x), capture_f_args(
+                gk, lambda v: cirm_forward(v, dt), x)
+            require(len(zoo_f) == 4 and len(cirm_f) == 1,
+                    f"kernel F {tag}: {len(zoo_f)} zoo-M and {len(cirm_f)} cIRM-GSN launches")
+            into += zoo_f + cirm_f
+        rec = {"stacks": list(STACKS_F), "spike_mismatch": [], "max_abs_err": 0.0,
+               "bench_head_spike_mismatch": [], "bench_drift_f64": [], "plain_drift_f64": [],
+               "bench_vs_plain": []}
+        for args in f_q:
+            got, ref = gk.gsu_stack_eval_x(*args), gk.stack_eval_x_plain(*args)
+            torch.cuda.synchronize()
+            rec["spike_mismatch"].append(spike_mismatch(got, ref))
+            rec["max_abs_err"] = max(rec["max_abs_err"], max_abs(got, ref))
+        for args in f_b:
+            head = (args[0][:WINDOW].contiguous(), *args[1:])
+            rec["bench_head_spike_mismatch"].append(spike_mismatch(
+                gk.gsu_stack_eval_x(*head), gk.stack_eval_x_plain(*head)))
+            sub = (args[0][:, :ROWS_F64].contiguous(), *args[1:])
+            got, ref = gk.gsu_stack_eval_x(*sub), gk.stack_eval_x_plain(*sub)
+            ora = gk.stack_eval_x_plain(*as_f64_f(sub))
+            rec["bench_drift_f64"].append(spike_mismatch(got, ora))
+            rec["plain_drift_f64"].append(spike_mismatch(ref, ora))
+            rec["bench_vs_plain"].append(spike_mismatch(got, ref))
+            del got, ref, ora
+        fmt = lambda v: "[" + ", ".join(f"{x:.3e}" for x in v) + "]"  # noqa: E731
+        log(f"[kernels] {tag} F at {list(STACKS_F)}, 1 x 2 s {[tuple(a[0].shape) for a in f_q]}: "
+            f"spike mismatch {fmt(rec['spike_mismatch'])}, max abs err {rec['max_abs_err']:.3e}; "
+            f"bench first {WINDOW} frames {fmt(rec['bench_head_spike_mismatch'])}")
+        log(f"[kernels] {tag} F whole bench, first {ROWS_F64} rows of "
+            f"{[tuple(a[0].shape) for a in f_b]}, against float64: kernel "
+            f"{fmt(rec['bench_drift_f64'])}, plain {fmt(rec['plain_drift_f64'])} "
+            f"(kernel vs plain {fmt(rec['bench_vs_plain'])})")
+        for i, stack in enumerate(STACKS_F):
+            require(rec["spike_mismatch"][i] < 1e-3, f"kernel F {tag} {stack}: {rec}")
+            require(rec["bench_head_spike_mismatch"][i] < 1e-3,
+                    f"kernel F {tag} {stack} first {WINDOW} frames: {rec}")
+            require(rec["bench_drift_f64"][i] <= 3 * rec["plain_drift_f64"][i] + 1e-3,
+                    f"kernel F {tag} {stack}: drift {rec}")
+        checks["F"][tag] = rec
+        if dt:
+            counts_f, ms_f = [], []
+            for args in f_b:
+                counts_f.append([])
+                ms_f.append(cuda_ms(lambda: gk.stack_eval_x_plain(
+                    *args, spike_counts=counts_f[-1]), warmup=0))
+            log(f"[kernels] plain F at the bench stacks {list(STACKS_F)}: {fmt(ms_f)} ms")
+            captured_bf16["F"] = f_b
+            plain_ms["F"] = ms_f
+            spikes["F"] = counts_f
+        del f_q, f_b, params, state
+        torch.cuda.empty_cache()
+
     # ---- 4. quality: the main paths, each counted ----
     def counted(m, x):
-        for name in WRAPPERS.values():
+        for name in COUNTERS.values():
             getattr(gk, name).launches = 0
         out = m(x)
         torch.cuda.synchronize()
-        return out, {k: getattr(gk, name).launches for k, name in WRAPPERS.items()}
+        return out, {k: getattr(gk, name).launches for k, name in COUNTERS.items()}
 
     def gain_of(out):
         enh = out["enhanced_y"][0].float().cpu().numpy()
@@ -459,7 +628,7 @@ def main() -> int:
     log(f"[quality] zoo M offline norm bf16 1 x 2 s: SI-SDR gain {gain:.3f} dB, "
         f"launches {launches}")
     require(gain > 8.0, f"SI-SDR gain {gain} dB")
-    require(launches == {"A": 1, "B": 1, "C": 0}, f"launches {launches}")
+    require(launches == {"A": 1, "B": 1, "C": 0, "F": 0}, f"launches {launches}")
 
     cum_cfg = replace(separator_config(norm_type="cumulative_laplace_norm", shared_weights=True,
                                        bn=True), scan_mode="auto", collect_layer_outputs=False,
@@ -470,7 +639,7 @@ def main() -> int:
     log(f"[quality] zoo M cumulative norm bf16 1 x 2 s (monolith): SI-SDR gain "
         f"{cum_gain:.3f} dB, launches {cum_launches}")
     require(cum_gain > 8.0, f"cumulative-norm SI-SDR gain {cum_gain} dB")
-    require(cum_launches == {"A": 0, "B": 0, "C": 1}, f"launches {cum_launches}")
+    require(cum_launches == {"A": 0, "B": 0, "C": 1, "F": 0}, f"launches {cum_launches}")
     del cum_model
 
     flag.cfg = replace(flag_base, compute_dtype="bfloat16")
@@ -480,19 +649,47 @@ def main() -> int:
             "flagship M: enhanced audio shape/finite")
     log(f"[quality] flagship M bf16 1 x 2 s (monolith): {tuple(y.shape)} finite, "
         f"rms {y.float().square().mean().sqrt().item():.4f}, launches {flag_launches}")
-    require(flag_launches == {"A": 0, "B": 0, "C": 1}, f"launches {flag_launches}")
+    require(flag_launches == {"A": 0, "B": 0, "C": 1, "F": 0}, f"launches {flag_launches}")
     launches["C"] = flag_launches["C"]
+
+    layered = SpikingFullSubNet.from_npz(str(ZOO_M), replace(lay_base, compute_dtype="bfloat16"),
+                                         device=dev)
+    out, lay_launches = counted(layered, quality_x)
+    lay_gain = gain_of(out)
+    n_sb = [len(s) for s in out["sb_all_layer_outputs"]]
+    log(f"[quality] zoo M layered bf16 1 x 2 s: SI-SDR gain {lay_gain:.3f} dB, launches "
+        f"{lay_launches}, collected outputs fb {len(out['fb_all_layer_outputs'])}, sb {n_sb}")
+    require(lay_gain > 8.0, f"layered SI-SDR gain {lay_gain} dB")
+    require(lay_launches == {"A": 0, "B": 0, "C": 0, "F": 4}, f"launches {lay_launches}")
+    require(len(out["fb_all_layer_outputs"]) == 4 and n_sb == [4, 4, 4],
+            "layered: every layer's outputs collected")
+    launches["F"] = lay_launches["F"]
+
+    out, cirm_launches = counted(cirm_forward, quality_x)
+    y = out["enhanced_y"]
+    require(tuple(y.shape) == tuple(quality_x.shape) and bool(torch.isfinite(y).all()),
+            "cIRM-GSN: enhanced audio shape/finite")
+    log(f"[quality] cIRM-GSN bf16 1 x 2 s (random weights): {tuple(y.shape)} finite, "
+        f"rms {y.float().square().mean().sqrt().item():.4f}, launches {cirm_launches}")
+    require(cirm_launches == {"A": 0, "B": 0, "C": 0, "F": 1}, f"launches {cirm_launches}")
+    launches["F cIRM-GSN"] = cirm_launches["F"]
 
     # ---- 5. timing ----
     forwards = {}
-    for name, m in (("zoo M", model), ("flagship M", flag)):
+    for name, m in (("zoo M", model), ("flagship M", flag), ("zoo M layered", layered),
+                    ("cIRM-GSN", cirm_forward)):
+        # the script still holds the captured kernel inputs and the models:
+        # peak_gb - held_gb is the forward's own
+        held_gb = torch.cuda.memory_allocated() / 1e9
         torch.cuda.reset_peak_memory_stats()
         fwd_ms = cuda_ms(lambda: m(bench)["enhanced_y"], iters=2)
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         forwards[name] = {"ms": fwd_ms, "audio_s_per_s": BENCH_B * BENCH_SECONDS / fwd_ms * 1e3,
-                          "peak_gb": peak_gb}
+                          "peak_gb": peak_gb, "held_gb": held_gb}
         log(f"[timing] forward {name} bf16 {BENCH_B} x {BENCH_SECONDS:g} s: {fwd_ms:.3f} ms "
-            f"({forwards[name]['audio_s_per_s']:.1f} audio-s/s), peak memory {peak_gb:.2f} GB")
+            f"({forwards[name]['audio_s_per_s']:.1f} audio-s/s), peak memory {peak_gb:.2f} GB "
+            f"of which {held_gb:.2f} GB held before the forward")
+        torch.cuda.empty_cache()
     kernels = []
     specs = {
         "A": ("gsu_stack_eval", gk.gsu_stack_eval, "spiking_fullsubnet_torch/csrc/gsu_stack_eval.cu",
@@ -528,6 +725,8 @@ def main() -> int:
             half = (args[0], args[1][:, :BENCH_B // 2].contiguous())
             kernels[-1]["half_batch_ms"] = cuda_ms(lambda: fn(*half), iters=2)
             log(f"[timing] {name} at batch {BENCH_B // 2}: {kernels[-1]['half_batch_ms']:.3f} ms")
+    kernels.append(kernel_f_entry(gk, captured_bf16["F"], plain_ms["F"], spikes["F"],
+                                  launches, checks["F"], forwards))
     print(json.dumps({"kernels": kernels, "forwards": forwards,
                       "batch": BENCH_B, "seconds": BENCH_SECONDS}), flush=True)
     print(smi, flush=True)

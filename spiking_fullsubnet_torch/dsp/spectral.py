@@ -83,6 +83,45 @@ def stft_real_imag_tmajor(
     return re, im
 
 
+def stft_complex(y: torch.Tensor, n_fft: int, hop_length: int, win_length: int,
+                 *, center: bool = True) -> torch.Tensor:
+    """Complex STFT with ``torch.stft`` conventions (periodic hann window in
+    the signal's type, constant padding, onesided): ``[..., T] -> [..., F,
+    T_frames]`` (``dsp/spectral.py:120``, its FFT branch)."""
+    window = _pad_window(hann_window(win_length, y.dtype, y.device), win_length, n_fft)
+    lead = y.shape[:-1]
+    spec = torch.stft(y.reshape(-1, y.shape[-1]), n_fft, hop_length, n_fft, window,
+                      center=center, pad_mode="constant", return_complex=True)
+    return spec.reshape(lead + spec.shape[-2:])
+
+
+def istft_complex(spec: torch.Tensor, n_fft: int, hop_length: int, win_length: int,
+                  length: Optional[int] = None, *, center: bool = True) -> torch.Tensor:
+    """Inverse STFT ``[..., F, T_frames]`` complex -> ``[..., T]``
+    (``dsp/spectral.py:447``): inverse real DFT, a float32 hann window (as
+    in the JAX package, whatever the spectrum's type), overlap-add and the
+    division by the overlap-added squared window where it is not zero."""
+    window = _pad_window(hann_window(win_length, torch.float32, spec.device), win_length, n_fft)
+    frames = torch.fft.irfft(spec.transpose(-1, -2), n=n_fft, dim=-1)  # [..., T_frames, n_fft]
+    window = window.to(frames.dtype)
+    frames = frames * window
+    n_frames = frames.shape[-2]
+    t_full = n_fft + hop_length * (n_frames - 1)
+    lead = frames.shape[:-2]
+    out = overlap_add(frames, hop_length).reshape(-1, t_full)
+    env = overlap_add((window ** 2).expand(n_frames, n_fft), hop_length)
+    out = out / torch.where(env > 1e-11, env, torch.ones_like(env))
+    pad = n_fft // 2 if center else 0
+    if length is not None:
+        end = pad + length
+        if end > t_full:
+            out = F.pad(out, (0, end - t_full))
+        out = out[:, pad:end]
+    else:
+        out = out[:, pad:t_full - pad]
+    return out.reshape(lead + out.shape[-1:])
+
+
 def overlap_add(frames: torch.Tensor, hop_length: int) -> torch.Tensor:
     """Overlap-add ``[..., T_frames, frame_len] -> [..., frame_len + hop*(T-1)]``."""
     *lead, n_frames, frame_len = frames.shape

@@ -1,17 +1,19 @@
-"""SequenceModel configuration and init (counterpart of
-``spiking_fullsubnet_tpu/models/sequence_model.py:33-83``). Only the GSN
-branch of the init is ported; the layered SequenceModel forward is not
-ported yet (ROADMAP queue 1, item 5)."""
+"""SequenceModel family, GSN backbone (counterpart of
+``spiking_fullsubnet_tpu/models/sequence_model.py``): configuration, init,
+and the eval forward of the layered path (pre-LN, GSU stack on kernel F,
+projection, output activation). The LSTM, LIF and ALIF backbones are not
+ported yet (ROADMAP queue 1, item 12)."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
-from ..nn.core import layer_norm_init, linear_init
-from ..ops.gsu import gsu_stack_init
+from ..nn.core import (cast_floating, layer_norm_apply, layer_norm_init, linear_apply, linear_init,
+                       output_activation)
+from ..ops.gsu import gsu_stack_apply, gsu_stack_init
 
 
 @dataclass(frozen=True)
@@ -26,16 +28,22 @@ class SequenceModelConfig:
     bn: bool = False
     use_pre_layer_norm: bool = True
     compute_dtype: Optional[str] = None
+    # kept for the JAX package's configs: the port routes by device alone
+    # (kernel F on a CUDA tensor, its plain version on a CPU tensor)
     backend: str = "auto"
+
+
+def _gsn_only(cfg: SequenceModelConfig, what: str) -> None:
+    if cfg.sequence_model != "GSN":
+        raise NotImplementedError(
+            f"sequence_model={cfg.sequence_model!r}: only the GSN {what} is ported "
+            "(ROADMAP queue 1, item 12: the remaining models)")
 
 
 def sequence_model_init(gen: torch.Generator, cfg: SequenceModelConfig):
     """(params, state) with ``pre_ln`` (when used), ``stack`` and ``proj``
     (when ``proj_size > 0``), as the JAX package's tree."""
-    if cfg.sequence_model != "GSN":
-        raise NotImplementedError(
-            f"sequence_model={cfg.sequence_model!r}: only the GSN init is ported "
-            "(ROADMAP queue 1, item 12: the remaining models)")
+    _gsn_only(cfg, "init")
     params: Dict[str, Any] = {}
     state: Dict[str, Any] = {}
     if cfg.use_pre_layer_norm:
@@ -45,3 +53,52 @@ def sequence_model_init(gen: torch.Generator, cfg: SequenceModelConfig):
     if cfg.proj_size > 0:
         params["proj"] = linear_init(gen, cfg.hidden_size, cfg.proj_size)
     return params, state
+
+
+def sequence_model_apply(cfg: SequenceModelConfig, params: Dict[str, Any],
+                         state: Dict[str, Any], x: torch.Tensor, train: bool = False
+                         ) -> Tuple[torch.Tensor, List[torch.Tensor], Dict[str, Any]]:
+    """``x [B, F, T]`` -> (output ``[B, proj|H, T]`` in x's type,
+    all_layer_outputs (time-major: the stack input, every layer's spikes,
+    the projection), state) (``sequence_model.py:86-149``). With
+    ``compute_dtype`` the input and every floating parameter (the BN affine
+    included, not the running statistics) are cast to it first."""
+    if x.ndim != 3:
+        raise ValueError(f"Input tensor must be 3D, but got {x.ndim}D.")
+    _gsn_only(cfg, "forward")
+    xt = x.permute(2, 0, 1)  # [T, B, F]
+    out_dtype = xt.dtype
+    if cfg.compute_dtype is not None:
+        cdt = getattr(torch, cfg.compute_dtype)
+        xt = xt.to(cdt)
+        params = cast_floating(params, cdt)
+    if cfg.use_pre_layer_norm:
+        xt = layer_norm_apply(params["pre_ln"], xt)
+    out, all_layer_outputs, new_stack = gsu_stack_apply(
+        params["stack"], state["stack"], xt, cfg.hidden_size, cfg.shared_weights, train)
+    new_state = dict(state, stack=new_stack)
+    if cfg.proj_size > 0:
+        out = linear_apply(params["proj"], out)
+        all_layer_outputs = all_layer_outputs + [out]
+    out = output_activation(cfg.output_activate_function)(out).permute(1, 2, 0)  # [B, F', T]
+    if cfg.compute_dtype is not None:
+        out = out.to(out_dtype)
+    return out, all_layer_outputs, new_state
+
+
+def subband_sequence_model_apply(cfg: SequenceModelConfig, params: Dict[str, Any],
+                                 state: Dict[str, Any], x: torch.Tensor, df_order: int,
+                                 num_spks: int, train: bool = False):
+    """``x [B, N, C, fs, T]`` with the sub-band units folded into the batch
+    -> (deep-filter coefficients ``[B, df, S, N fc, T, 2]``, all_layer_outputs,
+    state) (``sequence_model.py:155-182``): the projection's columns are
+    ``(c fc df s)`` with c = 2 (real, imaginary)."""
+    B, N, C, fs, T = x.shape
+    if C != 1:
+        raise ValueError("Only mono audio is supported.")
+    out, all_layer_outputs, new_state = sequence_model_apply(
+        cfg, params, state, x.reshape(B * N, C * fs, T), train)
+    fc = out.shape[1] // (2 * C * df_order * num_spks)
+    out = out.reshape(B, N, 2 * C, fc, df_order, num_spks, T)
+    out = out.permute(0, 4, 5, 1, 3, 6, 2).reshape(B, df_order, num_spks, N * fc, T, 2 * C)
+    return out, all_layer_outputs, new_state

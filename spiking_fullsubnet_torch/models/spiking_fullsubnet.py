@@ -1,13 +1,18 @@
 """Spiking-FullSubNet: configuration, module and entry point (counterpart of
 ``spiking_fullsubnet_tpu/models/spiking_fullsubnet.py``).
 
-The port covers eval serving (``models/stream_forward.py``):
-- the offline laplace norm without pre-LayerNorm (the shipped zoo
-  checkpoints, ``separator_config(norm_type="offline_laplace_norm",
-  shared_weights=True, bn=True)``) on the two-launch path (kernels A, B);
-- pre-LayerNorm (the flagship preset, ``models/presets.flagship_m``), the
-  cumulative laplace norm and no norm on the whole-model monolith
-  (kernel C).
+The port covers eval:
+- ``scan_mode="layered"`` (the default, as ``separator_config`` leaves it)
+  and whatever ``"auto"`` sends there: STFT, the laplace norms, the
+  fullband and sub-band sequence models with every GSU stack on kernel F
+  (``ops/gsu_kernels.gsu_stack_eval_x``), the deep filter and the iSTFT,
+  every layer's spikes returned;
+- serving through ``scan_mode="auto"`` (``models/stream_forward.py``): the
+  offline laplace norm without pre-LayerNorm (the shipped zoo checkpoints,
+  ``separator_config(norm_type="offline_laplace_norm", shared_weights=True,
+  bn=True)``) on the two-launch path (kernels A, B); pre-LayerNorm (the
+  flagship preset, ``models/presets.flagship_m``), the cumulative laplace
+  norm and no norm on the whole-model monolith (kernel C).
 Weights come from a JAX-package ``.npz`` (``SpikingFullSubNet.from_npz``)
 or from a seeded init (``SpikingFullSubNet.from_init``, ``build``).
 Anything else raises ``NotImplementedError`` naming the ROADMAP item that
@@ -22,9 +27,14 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+from ..dsp.feature_norm import norm_wrapper
+from ..dsp.spectral import istft_complex, stft_complex
+from ..ops.deep_filter import deep_filter
+from ..ops.freq_unfold import freq_unfold
 from ..runtime.convert import load_npz
 from ..runtime.device import resolve_device
-from .sequence_model import SequenceModelConfig, sequence_model_init
+from .sequence_model import (SequenceModelConfig, sequence_model_apply, sequence_model_init,
+                             subband_sequence_model_apply)
 
 
 @dataclass(frozen=True)
@@ -197,10 +207,12 @@ def _tree_map(fn, tree):
 
 def spiking_fullsubnet_apply(cfg: SpikingFullSubNetConfig, params, state,
                              noisy_y: torch.Tensor, train: bool = False) -> Dict[str, Any]:
-    """Forward: ``noisy_y [B, T]`` -> dict with ``enhanced_y [B, T]``,
-    ``enhanced_mag [B, F, T]``, the (empty) per-layer output lists and the
-    unchanged ``state``. Runs on the device of ``noisy_y``: the kernels on a
-    CUDA tensor, their plain versions on a CPU tensor."""
+    """Forward: ``noisy_y [B, T]`` -> dict with ``enhanced_y`` (``[B, T]``,
+    or ``[B, S, T]`` for ``num_spks > 1``), ``enhanced_mag [B, F, T]``
+    (``num_spks == 1``; None on the monolith), the per-layer output lists
+    (empty on the serving paths) and the unchanged ``state``. Runs on the
+    device of ``noisy_y``: the kernels on a CUDA tensor, their plain versions
+    on a CPU tensor."""
     from .stream_forward import spiking_fullsubnet_stream_forward, stream_supported
 
     if noisy_y.ndim != 2:
@@ -220,11 +232,94 @@ def spiking_fullsubnet_apply(cfg: SpikingFullSubNetConfig, params, state,
             scan_mode = "fused"
         else:
             scan_mode = "layered"
-    if scan_mode != "stream":
+    if scan_mode == "stream":
+        return spiking_fullsubnet_stream_forward(cfg, params, state, noisy_y)
+    if scan_mode != "layered":
         raise NotImplementedError(
-            f"scan_mode={scan_mode!r} is not ported yet (ROADMAP queue 1: the layered "
-            "forward is item 5, the fused forward item 12)")
-    return spiking_fullsubnet_stream_forward(cfg, params, state, noisy_y)
+            f"scan_mode={scan_mode!r} is not ported yet (ROADMAP queue 1, item 12: the fused "
+            "forward)")
+    return _layered_forward(cfg, params, state, noisy_y)
+
+
+def _subband_forward(cfg: SpikingFullSubNetConfig, params, state, noisy_mag: torch.Tensor,
+                     fb_output: torch.Tensor):
+    """Every section: unfold of the noisy magnitude and of the fullband
+    output, the norm, the section's sequence model on kernel F
+    (``spiking_fullsubnet.py:188-230``). Returns (df coefficient tensors
+    ``[B, df, S, N fc, T, 2]``, per-section layer outputs, states)."""
+    norm = norm_wrapper(cfg.norm_type) if cfg.norm_type else None
+    df_coefs, all_layer_outputs, new_states = [], [], []
+    for idx in range(cfg.num_sections):
+        lo, hi = cfg.freq_cutoffs[idx], cfg.freq_cutoffs[idx + 1]
+        noisy_sub = freq_unfold(noisy_mag, lo, hi, cfg.center_freq_sizes[idx],
+                                cfg.neighbor_freq_sizes[idx])
+        fb_sub = freq_unfold(fb_output, lo, hi, cfg.fb_ctrs[idx], cfg.fb_nbrs[idx])
+        sb_input = torch.cat([noisy_sub, fb_sub], dim=-2)  # [B, N, 1, w_tot, T]
+        if norm is not None:
+            sb_input = norm(sb_input)
+        out, layers, ns = subband_sequence_model_apply(
+            cfg.sb_config(idx), params["sb"][idx], state["sb"][idx], sb_input,
+            cfg.df_orders[idx], cfg.num_spks)
+        df_coefs.append(out)
+        all_layer_outputs.append(layers)
+        new_states.append(ns)
+    return df_coefs, all_layer_outputs, new_states
+
+
+def _layered_forward(cfg: SpikingFullSubNetConfig, params, state,
+                     noisy_y: torch.Tensor) -> Dict[str, Any]:
+    """The layered forward, eval (``spiking_fullsubnet.py:287-361``): STFT,
+    ``|X|^fdrc`` without the Nyquist bin, the fullband sequence model, its
+    output tiled over the bins, the sections, the deep filter per section,
+    the Nyquist passthrough and the iSTFT. Every GSU stack runs on kernel F
+    (four launches for three sections), and every layer's spikes are
+    returned."""
+    if cfg.sb_shared_bottleneck:
+        raise NotImplementedError(
+            "sb_shared_bottleneck (models/shared_subband.py) is not ported yet "
+            "(ROADMAP queue 1, item 12)")
+    B, sequence_length = noisy_y.shape
+    spec = stft_complex(noisy_y, cfg.n_fft, cfg.hop_length, cfg.win_length)  # [B, F+1, T]
+    noisy_cmp = spec[:, None]  # [B, 1, F+1, T]
+    noisy_mag = (spec.abs()[:, None] ** cfg.fdrc)[..., :-1, :]  # [B, 1, F, T]
+    norm = norm_wrapper(cfg.norm_type) if cfg.norm_type else None
+    # with no norm the glue between the stacks runs in the compute type,
+    # as in the JAX package (:300-301); the deep-filter signal path stays
+    # in the spectrum's type
+    if cfg.compute_dtype is not None and norm is None:
+        noisy_mag = noisy_mag.to(getattr(torch, cfg.compute_dtype))
+
+    fb_input = noisy_mag[..., :cfg.fb_input_size, :]
+    if norm is not None:
+        fb_input = norm(fb_input)
+    fb_output, fb_all_layer_outputs, new_fb_state = sequence_model_apply(
+        cfg.fb_config(), params["fb"], state["fb"], fb_input.reshape(B, -1, fb_input.shape[-1]))
+    num_repeats = (cfg.n_fft // 2 + 1) // cfg.fb_input_size
+    fb_output = fb_output.to(noisy_mag.dtype)[:, None].repeat(1, 1, num_repeats, 1)
+
+    df_coefs, sb_all_layer_outputs, new_sb_states = _subband_forward(
+        cfg, params, state, noisy_mag, fb_output)
+
+    enh_list, f0 = [], 0
+    for df_coef, df_order in zip(df_coefs, cfg.df_orders):
+        nf = df_coef.shape[3]
+        enh_list.append(deep_filter(noisy_cmp[..., f0:f0 + nf, :], df_coef, df_order,
+                                    cfg.num_spks))  # [B, 1, S, nf, T]
+        f0 += nf
+    nyq = noisy_cmp[..., -1:, :][:, :, None].expand(-1, -1, cfg.num_spks, -1, -1)
+    enh_stft = torch.cat([torch.cat(enh_list, dim=-2), nyq], dim=-2)  # [B, 1, S, F+1, T]
+    out = {"fb_all_layer_outputs": fb_all_layer_outputs,
+           "sb_all_layer_outputs": sb_all_layer_outputs,
+           "state": {"fb": new_fb_state, "sb": new_sb_states}}
+    flat = enh_stft.reshape(B * cfg.num_spks, *enh_stft.shape[-2:])
+    enh_y = istft_complex(flat, cfg.n_fft, cfg.hop_length, cfg.win_length,
+                          length=sequence_length)
+    if cfg.num_spks > 1:
+        out["enhanced_y"] = enh_y.reshape(B, cfg.num_spks, -1)
+    else:
+        out["enhanced_y"] = enh_y
+        out["enhanced_mag"] = flat.abs()
+    return out
 
 
 # --------------------------------------------------------------- module

@@ -54,9 +54,9 @@ import torch.nn.functional as F
 from ..dsp.mask import EPSILON
 from ..dsp.spectral import istft_real_imag_tmajor, num_frames, stft_real_imag_tmajor
 from ..nn.core import cast_floating, output_activation
+from ..ops.freq_unfold import reflect_unfold_indices
 from ..ops.gsu_kernels import (
     gsu_sections_eval, gsu_stack_eval, monolith_dft_matrices, pack_stack, sfsb_monolith_serve)
-from .fused_forward import _reflect_unfold_indices
 
 
 def stream_supported(cfg) -> bool:
@@ -152,8 +152,8 @@ def _section_specs(cfg, sb_params, sb_states, io: torch.dtype, acc: torch.dtype)
         n = (hi - lo) // ctr
         w_noisy = ctr + 2 * nbr
         w_tot = w_noisy + cfg.fb_ctrs[i] + 2 * cfg.fb_nbrs[i]
-        idx_noisy = _reflect_unfold_indices(lo, hi, ctr, nbr, full_f)  # [n, w_noisy]
-        idx_fb = _reflect_unfold_indices(
+        idx_noisy = reflect_unfold_indices(lo, hi, ctr, nbr, full_f)  # [n, w_noisy]
+        idx_fb = reflect_unfold_indices(
             lo, hi, cfg.fb_ctrs[i], cfg.fb_nbrs[i], full_f) % cfg.fb_proj_size
         a, b = int(idx_noisy.min()), int(idx_noisy.max()) + 1
         oh_n = torch.as_tensor(_one_hot_scatter(idx_noisy - a, b - a), dtype=acc, device=dev)

@@ -25,8 +25,25 @@ def linear_init(gen: torch.Generator, in_features: int, out_features: int
             "bias": uniform(gen, (out_features,), bound)}
 
 
+def linear_apply(params: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
+    y = x @ params["weight"].T
+    if "bias" in params:
+        y = y + params["bias"]
+    return y
+
+
 def layer_norm_init(normalized_shape: int) -> Dict[str, torch.Tensor]:
     return {"weight": torch.ones(normalized_shape), "bias": torch.zeros(normalized_shape)}
+
+
+def layer_norm_apply(params: Dict[str, torch.Tensor], x: torch.Tensor,
+                     eps: float = 1e-5) -> torch.Tensor:
+    """torch.nn.LayerNorm over the last dim (biased variance), written out
+    as the JAX package's ``layer_norm_apply`` so that the rounding matches."""
+    mu = x.mean(dim=-1, keepdim=True)
+    var = (x - mu).square().mean(dim=-1, keepdim=True)
+    xhat = (x - mu) * torch.rsqrt(var + eps)
+    return xhat * params["weight"] + params["bias"]
 
 
 def cast_floating(tree, dtype: torch.dtype):

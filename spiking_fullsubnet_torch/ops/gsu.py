@@ -15,7 +15,7 @@ float32 and every gate, membrane and BN value stays float32.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -93,6 +93,35 @@ def bn_eval_affine(params: Dict[str, Any], bn_state: Dict[str, Any],
     b = params["bn"]["bias"].to(rv.dtype)
     scale = w * torch.rsqrt(rv + BN_EPS)
     return scale.to(dtype), (b - rm * scale).to(dtype)
+
+
+def gsu_stack_apply(
+    params: Dict[str, Any],
+    state: Dict[str, Any],
+    x: torch.Tensor,  # [T, B, F] time-major
+    hidden_size: int,
+    shared_weights: bool = False,
+    train: bool = False,
+) -> Tuple[torch.Tensor, List[torch.Tensor], Dict[str, Any]]:
+    """The stacked GSU over a time-major sequence, eval (``ops/gsu.py:261``):
+    ``(out [T, B, H], [x] + every layer's spikes, state)``, spikes in x's
+    type. A CUDA tensor goes to kernel F (``gsu_kernels.gsu_stack_eval_x``),
+    a CPU tensor to its plain version.
+
+    The JAX package's dispatch sends a TPU input to its Pallas kernel only
+    for ``T >= 8`` and falls back to the scan when the shape misses the VMEM
+    plan (``ops/gsu.py:285-293``). Both clauses are TPU rules and are
+    dropped: kernel F takes any T >= 1 and nothing falls back."""
+    from .gsu_kernels import gsu_stack_eval_x, pack_stack_x
+
+    if train:
+        raise NotImplementedError(
+            "training is not ported yet (ROADMAP queue 1 items 4 and 8; kernels D/E of "
+            "queue 2)")
+    packed = pack_stack_x(params["layers"], state["layers"], hidden_size, x.dtype)
+    spikes = gsu_stack_eval_x(x.contiguous(), *packed, hidden_size, shared_weights)
+    outs = list(spikes.unbind(0))
+    return outs[-1], [x] + outs, state
 
 
 def gsu_layer_eval(

@@ -1,7 +1,7 @@
 """Hopper kernels of the GSU serving path, their plain PyTorch versions and
 their loader (counterpart of ``spiking_fullsubnet_tpu/ops/gsu_pallas.py``).
 
-Three kernels, each a hand-written CUDA C++ source under ``../csrc``:
+Four kernels, each a hand-written CUDA C++ source under ``../csrc``:
 
 - ``gsu_stack_eval`` (kernel A, ``csrc/gsu_stack_eval.cu``) replaces
   ``_stack_eval_xg_kernel`` / ``gsu_stack_eval_pallas_xg``: an L-layer GSU
@@ -12,12 +12,16 @@ Three kernels, each a hand-written CUDA C++ source under ``../csrc``:
 - ``sfsb_monolith_serve`` (kernel C, ``csrc/sfsb_monolith_serve.cu``)
   replaces ``_monolith_kernel`` / ``sfsb_monolith_serve_pallas``: the whole
   serving model per step, audio hop chunks in, enhanced hop chunks out.
+- ``gsu_stack_eval_x`` (kernel F, ``csrc/gsu_stack_eval_x.cu``) replaces
+  ``_stack_eval_kernel`` / ``gsu_stack_eval_pallas``: an L-layer GSU stack
+  in eval mode from the raw features (layer 0's input projection inside the
+  kernel), every layer's spikes out; the layered forward's stacks.
 
 A wrapper launches its kernel for CUDA tensors and runs the plain version
 for CPU tensors; a CUDA tensor never takes the plain path. Each wrapper
 counts its launches in ``<wrapper>.launches``. The plain versions are
 public (``stack_eval_plain``, ``sections_eval_plain``,
-``monolith_serve_plain``), accept float64 and are the kernels' oracles.
+``monolith_serve_plain``, ``stack_eval_x_plain``), accept float64 and are the kernels' oracles.
 
 The kernels are compiled at first use with ``nvcc -gencode
 arch=compute_90a,code=sm_90a -O3 -shared`` (one nvcc per library, all
@@ -46,7 +50,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 # library name -> (source, defines). Kernel C builds one library per stream
 # type and sub-band depth, so that its instances compile in parallel.
-SOURCES = {"stack": ("gsu_stack_eval.cu", ()), "sections": ("gsu_sections_eval.cu", ())}
+SOURCES = {"stack": ("gsu_stack_eval.cu", ()), "sections": ("gsu_sections_eval.cu", ()),
+           "stack_x": ("gsu_stack_eval_x.cu", ())}
 SOURCES.update({
     f"monolith_{io}_l{L}": ("sfsb_monolith_serve.cu", (f"-DMONO_BF16={int(io == 'bf16')}",
                                                         f"-DMONO_L={L}"))
@@ -113,6 +118,9 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
     if name == "stack":
         lib.gsu_stack_eval_launch.argtypes = [I, P, P, P, P, P, I, I, I, I, I, I, I, P]
         lib.gsu_stack_eval_launch.restype = I
+    elif name == "stack_x":
+        lib.gsu_stack_eval_x_launch.argtypes = [I, P, P, P, P, P, P, I, I, I, I, I, I, P]
+        lib.gsu_stack_eval_x_launch.restype = I
     elif name == "sections":
         lib.gsu_sections_eval_launch.argtypes = (
             [I, I, P] + [P] * 14 + [I] * 10 + [P])
@@ -207,31 +215,27 @@ def _stack_layers_step(x0, h, c, wihr, whh, coef, H: int, shared: bool):
         h[k] = (c[k] >= 0.0).to(c[k].dtype)
 
 
-def stack_eval_plain(xg0: torch.Tensor, wihr: torch.Tensor, whh: torch.Tensor,
-                     coef: torch.Tensor, hidden: int, shared: bool,
-                     collect_all: bool = False,
-                     spike_counts: Optional[List[float]] = None) -> torch.Tensor:
-    """Plain PyTorch version of kernel A (same arguments and result).
+def _stack_plain(gates0, T: int, R: int, io: torch.dtype, wihr: torch.Tensor,
+                 whh: torch.Tensor, coef: torch.Tensor, hidden: int, shared: bool,
+                 collect_all: bool, spike_counts: Optional[List[float]]) -> torch.Tensor:
+    """The time loop of the plain versions of kernels A and F: ``gates0(t)``
+    gives layer 0's input gates ``[R, G]`` of step t in the accumulation
+    type. Returns every layer's spikes ``[L, T, R, H]`` (``collect_all``) or
+    the last one's ``[1, T, R, H]``, in ``io``.
 
     ``spike_counts``, when a list, receives each layer's number of spikes
     over the whole run: the nonzero inputs of the spike products, from
     which a caller counts the operations the data needs."""
-    units = xg0.ndim == 4
-    io = xg0.dtype
     acc = acc_dtype_for(io)
-    x = xg0.transpose(0, 1) if units else xg0  # [T, (U,) R, G]
-    T, G = x.shape[0], x.shape[-1]
-    lead = x.shape[1:-1]
-    x = x.reshape(T, -1, G)
-    R = x.shape[1]
+    dev = whh.device
     L = whh.shape[0]
     wihr_a, whh_a, coef_a = wihr.to(acc), whh.to(acc), coef.to(acc)
-    h = [torch.zeros(R, hidden, dtype=acc, device=x.device) for _ in range(L)]
-    c = [torch.zeros(R, hidden, dtype=acc, device=x.device) for _ in range(L)]
-    out = torch.empty((L if collect_all else 1, T, R, hidden), dtype=io, device=x.device)
-    tot = torch.zeros(L, dtype=torch.float64, device=x.device)
+    h = [torch.zeros(R, hidden, dtype=acc, device=dev) for _ in range(L)]
+    c = [torch.zeros(R, hidden, dtype=acc, device=dev) for _ in range(L)]
+    out = torch.empty((L if collect_all else 1, T, R, hidden), dtype=io, device=dev)
+    tot = torch.zeros(L, dtype=torch.float64, device=dev)
     for t in range(T):
-        _stack_layers_step(x[t].to(acc), h, c, wihr_a, whh_a, coef_a, hidden, shared)
+        _stack_layers_step(gates0(t), h, c, wihr_a, whh_a, coef_a, hidden, shared)
         if spike_counts is not None:
             tot += torch.stack([hk.sum(dtype=torch.float64) for hk in h])
         if collect_all:
@@ -241,6 +245,24 @@ def stack_eval_plain(xg0: torch.Tensor, wihr: torch.Tensor, whh: torch.Tensor,
             out[0, t] = h[-1].to(io)
     if spike_counts is not None:
         spike_counts.extend(tot.tolist())
+    return out
+
+
+def stack_eval_plain(xg0: torch.Tensor, wihr: torch.Tensor, whh: torch.Tensor,
+                     coef: torch.Tensor, hidden: int, shared: bool,
+                     collect_all: bool = False,
+                     spike_counts: Optional[List[float]] = None) -> torch.Tensor:
+    """Plain PyTorch version of kernel A (same arguments and result);
+    ``spike_counts`` as in ``_stack_plain``."""
+    units = xg0.ndim == 4
+    io = xg0.dtype
+    acc = acc_dtype_for(io)
+    x = xg0.transpose(0, 1) if units else xg0  # [T, (U,) R, G]
+    T, G = x.shape[0], x.shape[-1]
+    lead = x.shape[1:-1]
+    x = x.reshape(T, -1, G)
+    out = _stack_plain(lambda t: x[t].to(acc), T, x.shape[1], io, wihr, whh, coef, hidden,
+                       shared, collect_all, spike_counts)
     out = out.reshape((out.shape[0], T) + tuple(lead) + (hidden,))
     if units:
         out = out.transpose(1, 2)
@@ -285,6 +307,72 @@ def gsu_stack_eval(xg0: torch.Tensor, wihr: torch.Tensor, whh: torch.Tensor,
 
 
 gsu_stack_eval.launches = 0
+
+
+# ------------------------------------------------------------------ kernel F
+
+
+def pack_stack_x(layers: List[Dict[str, Any]], layer_states: List[Dict[str, Any]],
+                 hidden: int, io_dtype: torch.dtype):
+    """``pack_stack`` plus layer 0's input weights: (wih0 [F, G], wihr, whh,
+    coef), the weights in ``io_dtype``, coef in the accumulation type."""
+    wih0 = layers[0]["weight_ih"].T.to(io_dtype).contiguous()
+    return (wih0,) + pack_stack(layers, layer_states, hidden, io_dtype)
+
+
+def stack_eval_x_plain(x: torch.Tensor, wih0: torch.Tensor, wihr: torch.Tensor,
+                       whh: torch.Tensor, coef: torch.Tensor, hidden: int, shared: bool,
+                       spike_counts: Optional[List[float]] = None) -> torch.Tensor:
+    """Plain PyTorch version of kernel F (same arguments and result): layer
+    0's gates ``x[t] @ wih0`` step by step in the accumulation type.
+    ``spike_counts`` as in ``_stack_plain``."""
+    acc = acc_dtype_for(x.dtype)
+    T, R, _ = x.shape
+    wih0_a = wih0.to(acc)
+    return _stack_plain(lambda t: x[t].to(acc) @ wih0_a, T, R, x.dtype, wihr, whh, coef, hidden,
+                        shared, True, spike_counts)
+
+
+def gsu_stack_eval_x(x: torch.Tensor, wih0: torch.Tensor, wihr: torch.Tensor,
+                     whh: torch.Tensor, coef: torch.Tensor, hidden: int,
+                     shared: bool) -> torch.Tensor:
+    """Eval forward of an L-layer GSU stack from the raw features.
+
+    x ``[T, R, F]`` (f32/bf16 on the card; also f64 on the CPU); weights from
+    ``pack_stack_x``. Returns every layer's spikes ``[L, T, R, H]`` in x's
+    type."""
+    if not x.is_cuda:
+        return stack_eval_x_plain(x, wih0, wihr, whh, coef, hidden, shared)
+    H, L = hidden, whh.shape[0]
+    G = H if shared else 2 * H
+    if x.ndim != 3:
+        raise ValueError(f"x shape {tuple(x.shape)}: expected [T, R, F]")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"x dtype {x.dtype}: the kernel takes float32 or bfloat16")
+    if not 1 <= L <= MAX_LAYERS or not 1 <= H <= 512:
+        raise ValueError(f"L={L}, H={H}: the kernel takes 1..{MAX_LAYERS} layers, H <= 512")
+    T, R, Fin = x.shape
+    if R < 1 or Fin < 1 or (L * H + Fin) * 8 * 4 > 232448:
+        raise ValueError(f"R={R}, F={Fin}: the kernel takes R, F >= 1 and (L H + F) 32 bytes "
+                         "of shared memory within 227 KB")
+    dev, io = x.device, x.dtype
+    _check_cuda("x", x, io, dev)
+    _check_cuda("wih0", wih0, io, dev, (Fin, G))
+    _check_cuda("wihr", wihr, io, dev, (max(L - 1, 1), H, G))
+    _check_cuda("whh", whh, io, dev, (L, H, G))
+    _check_cuda("coef", coef, torch.float32, dev, (L, 4, H))
+    out = torch.empty((L, T, R, H), dtype=io, device=dev)
+    lib = _lib("stack_x")
+    with torch.cuda.device(dev):
+        rc = lib.gsu_stack_eval_x_launch(
+            int(io == torch.bfloat16), _ptr(x), _ptr(wih0), _ptr(wihr), _ptr(whh), _ptr(coef),
+            _ptr(out), T, R, Fin, H, L, int(shared), _stream())
+    _check_rc(lib, rc, "gsu_stack_eval_x")
+    gsu_stack_eval_x.launches += 1
+    return out
+
+
+gsu_stack_eval_x.launches = 0
 
 
 # ------------------------------------------------------------------ kernel B

@@ -5,10 +5,10 @@ JAX nor the JAX package, so it runs where only PyTorch is installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
 
-At these small shapes no near-threshold spike flips occur, so A's spikes
-must match exactly (mismatch < 1e-3 allows one stray flip), B's enhanced
-spectrum and C's enhanced audio to f32 rounding (relative L2 < 1e-4; C in
-bf16 < 2e-3, see C_TOL).
+At these small shapes no near-threshold spike flips occur, so A's and F's
+spikes must match exactly (mismatch < 1e-3 allows one stray flip), B's
+enhanced spectrum and C's enhanced audio to f32 rounding (relative L2 <
+1e-4; C in bf16 < 2e-3, see C_TOL).
 """
 
 from __future__ import annotations
@@ -28,6 +28,25 @@ def dev():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
+
+
+def _layers(H, shared, L, g, fin=None, bn=True):
+    """Torch-layout stack weights and BN state, layer 0 over ``fin`` inputs."""
+    G = H if shared else 2 * H
+    layers, states = [], []
+    for k in range(L):
+        n_in = fin if (k == 0 and fin) else H
+        layers.append({
+            "weight_ih": torch.randn(G, n_in, generator=g) / n_in ** 0.5,
+            "weight_hh": torch.randn(G, H, generator=g) / H ** 0.5,
+            "bias_ih": torch.randn(2 * H, generator=g) * 0.1})
+        states.append({})
+        if bn:
+            layers[-1]["bn"] = {"weight": 1 + 0.1 * torch.randn(H, generator=g),
+                                "bias": 0.1 * torch.randn(H, generator=g)}
+            states[-1]["bn"] = {"running_mean": 0.1 * torch.randn(H, generator=g),
+                                "running_var": torch.rand(H, generator=g) + 0.5}
+    return layers, states
 
 
 def _stack(H, shared, L, io, dev, g):
@@ -66,6 +85,58 @@ def test_stack_kernel_matches_plain(dev, io, shared, L, units, collect):
     assert got.shape == ref.shape and got.dtype == io
     assert (got != ref).float().mean().item() < 1e-3
     assert 0.05 < got.float().mean().item() < 0.95
+
+
+@pytest.mark.parametrize("io", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shared", [True, False])
+@pytest.mark.parametrize("bn", [True, False])
+@pytest.mark.parametrize("L,T,R,Fin,H", [(1, 5, 13, 37, 40), (2, 50, 21, 64, 320),
+                                         (2, 40, 17, 158, 224), (3, 30, 9, 257, 256),
+                                         (4, 20, 8, 3, 512)])
+def test_stack_x_kernel_matches_plain(dev, io, shared, bn, L, T, R, Fin, H):
+    """Kernel F over its grid of options: the widths of the layered zoo-M
+    stacks (fullband 64 -> 320, section 158 -> 224) and of cIRM-GSN (257 ->
+    256), ragged row tiles, T < 8, L up to 4 and H up to 512."""
+    g = torch.Generator().manual_seed(L * 100 + Fin)
+    layers, states = _layers(H, shared, L, g, fin=Fin, bn=bn)
+    w = [t.to(dev) for t in gk.pack_stack_x(layers, states, H, io)]
+    x = torch.rand(T, R, Fin, generator=g).to(io).to(dev)
+    before = gk.gsu_stack_eval_x.launches
+    got = gk.gsu_stack_eval_x(x, *w, H, shared)
+    ref = gk.stack_eval_x_plain(x, *w, H, shared)
+    torch.cuda.synchronize()
+    assert gk.gsu_stack_eval_x.launches == before + 1
+    assert got.shape == ref.shape == (L, T, R, H) and got.dtype == io
+    assert (got != ref).float().mean().item() < 1e-3
+    assert 0.05 < got.float().mean().item() < 0.95
+
+
+def test_stack_x_kernel_rows_are_independent(dev):
+    """A row's spikes do not depend on its tile: the first rows alone give
+    the same spikes as inside the whole batch."""
+    g = torch.Generator().manual_seed(3)
+    layers, states = _layers(224, True, 2, g, fin=38)
+    w = [t.to(dev) for t in gk.pack_stack_x(layers, states, 224, torch.bfloat16)]
+    x = torch.rand(60, 37, 38, generator=g).to(torch.bfloat16).to(dev)
+    whole = gk.gsu_stack_eval_x(x, *w, 224, True)
+    part = gk.gsu_stack_eval_x(x[:, :11].contiguous(), *w, 224, True)
+    torch.cuda.synchronize()
+    assert torch.equal(part, whole[:, :, :11])
+
+
+def test_stack_x_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    g = torch.Generator().manual_seed(0)
+    layers, states = _layers(16, True, 2, g, fin=12)
+    w = [t.to(dev) for t in gk.pack_stack_x(layers, states, 16, torch.float32)]
+    x = torch.randn(10, 8, 12, generator=g).to(dev)
+    with pytest.raises(ValueError, match="dtype"):
+        gk.gsu_stack_eval_x(x.double(), *w, 16, True)
+    with pytest.raises(ValueError, match="contiguous"):
+        gk.gsu_stack_eval_x(x.transpose(0, 1), *w, 16, True)
+    with pytest.raises(ValueError, match="shape"):
+        gk.gsu_stack_eval_x(torch.randn(10, 8, 13, device=dev), *w, 16, True)
+    with pytest.raises(ValueError, match="dtype"):
+        gk.gsu_stack_eval_x(x.to(torch.bfloat16), *w, 16, True)  # f32 weights
 
 
 def _sections(shared, io, dev, g, H=48):

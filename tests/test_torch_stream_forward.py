@@ -225,8 +225,8 @@ def test_stream_gate_matches_jax():
     ({"norm_type": "cumulative_laplace_norm", "fdrc": 0.4}, "kernel B's pre-LN"),
     ({"norm_type": None, "use_pre_layer_norm_fb": True, "use_pre_layer_norm_sb": True,
       "fb_output_activate_function": "tanh"}, "kernel B's pre-LN"),
-    ({"scan_mode": "layered"}, "item 5"),
-    ({"num_spks": 2}, "item 5"),
+    ({"scan_mode": "fused"}, "item 12"),
+    ({"num_spks": 2, "sequence_model": "LSTM"}, "item 12"),
 ])
 def test_uncovered_configs_raise_naming_the_roadmap_item(change, match):
     _, pcfg, params, state = _tiny(np.float32)
