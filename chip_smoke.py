@@ -58,8 +58,50 @@ is non-zero:
             dense, over 989 TFLOP/s (bf16)
             or 67 TFLOP/s (f32), and the f32 cell, statistics and deep-filter
             arithmetic over 67 TFLOP/s.
+6. training the layered training step (recipes/denoise.train_step: the
+            denoise loss, backward, clipping by global norm 10, AdamW) of
+            zoo M (separator_config's default, from baseline_m.npz) and of
+            cIRM-GSN (random weights from seed 0), every GSU layer on
+            kernels D (forward) and E (backward, its dW kernel beside it):
+            - D and E against their plain versions on the arguments
+              recorded at the wrappers during one f32 forward and backward
+              of each configuration (10 layers: zoo M's 4 stacks x 2, cIRM-
+              GSN's 2), on the fixture batch (below) and on the training
+              batch (64 x 6 s, T = 751). The batch statistics couple the
+              rows, so one rounding flip (every few dozen steps at these
+              sizes) moves a whole layer onto another trajectory: D and its
+              plain version must agree to 1e-3 in the membranes up to the
+              first step where a spike differs, and there fewer than 1e-3
+              of the step's spikes may differ, each with |membrane| < 1e-3
+              (a flip at the threshold, not a fault); over the whole
+              sequences, against a float64 run of D's plain version, the
+              kernel's mean drift over the ten layers within 3x (+1e-3) of
+              the plain f32 version's (a layer's drift is one chaotic
+              sample, unlike F's independent rows); E and the dW kernel on
+              identical inputs, relative L2 < 1e-3 (the fixture's whole
+              sequence, the training batch's first 16 frames);
+            - five train_steps on one fixed batch of the speech fixture
+              (eight copies shifted in time, each with its own noise, 8 x 2 s;
+              see FIXTURE_COPIES): every loss and gradient finite, the BN
+              running statistics moved,
+              cIRM-GSN's last loss below its first; each step counted: D
+              and E 8 launches (zoo M) or 2 (cIRM-GSN), A, B, C, F none;
+            - one step's gradients through the kernels against the same step
+              with D and E swapped for their plain versions: every gradient
+              leaf's relative L2 < 1e-2, or, where a rounding flip set the
+              two forwards apart, the same bound against E's plain version
+              on the kernel's forward;
+            - the train step at 64 x 6 s bf16 (forward, backward, clip and
+              AdamW step timed with CUDA events, audio-s/s, its own peak
+              memory), D, E and E's dW kernel alone at each of the ten
+              layers, their plain versions, bounds (D: xg read, spikes, y and
+              statistics written; operations the fired spikes' products and
+              the cell and BN arithmetic; E: xg, y and gout read, dxg
+              written; the recompute, the dense dh = drg W^T and the
+              spike-sparse dW) and torch.matmul on dW's product as the
+              library yardstick.
 
-About 5.5 minutes on one H100, the build included.
+About 6.5 minutes on one H100, the build included.
 
 The last line is {"ok": true, "device": {...}}. Without a CUDA device, or
 without the rest of the repository beside it, it prints no result and
@@ -137,10 +179,22 @@ def cuda_ms(fn, iters=1, warmup=1):
 
 WRAPPERS = {"A": "gsu_stack_eval", "B": "gsu_sections_eval", "C": "sfsb_monolith_serve"}
 COUNTERS = dict(WRAPPERS, F="gsu_stack_eval_x")
+TRAIN_WRAPPERS = {"D": "gsu_layer_train_fwd", "E": "gsu_layer_train_bwd", "dW": "gsu_train_dw"}
+TRAIN_B, TRAIN_SECONDS = 64, 6.0  # bench.py:254's training shape (T = 751 frames)
+# copies of the speech fixture in the training checks' batch, each shifted in
+# time and with its own noise: batch statistics over one row make BN's
+# gradient exactly zero, over two or four rows of one utterance they let the
+# first fullband layer's gradient grow without bound (the JAX package's too:
+# 1e70 in float64 at two rows), and over identical rows c' - mean is a
+# cancellation whose sign rounding decides
+FIXTURE_COPIES = 8
+
 ROWS_F64 = 256  # rows of each F stack held against float64 over the whole bench
 # kernel F's launches checked: zoo M layered's four stacks, then cIRM-GSN's one
 STACKS_F = ("zoo M fullband", "zoo M section 0", "zoo M section 1", "zoo M section 2",
             "cIRM-GSN")
+# kernel D's and E's launches, in D's order: zoo M's four stacks, then cIRM-GSN's
+LAYERS_DE = tuple(f"{stack} layer {k}" for stack in STACKS_F for k in (0, 1))
 
 
 def record_calls(module, names, run):
@@ -373,6 +427,249 @@ def kernel_f_entry(gk, f_args, f_plain_ms, f_spikes, launches, checks, forwards)
     }
 
 
+# f32 operations per unit, row and step beside the cell's: D's batch statistics
+# and normalisation; E's recomputed cell, surrogate, BN and cell backward
+BN_OPS, E_CELL_OPS = 8, 38
+
+
+def tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map(fn, v) for v in tree]
+    return fn(tree) if isinstance(tree, torch.Tensor) else tree
+
+
+def fresh(tree):
+    """A trainable copy of a parameter tree."""
+    return tree_map(lambda t: t.detach().clone().requires_grad_(True), tree)
+
+
+def fwd_bwd(apply, cfg, params, state, noisy, clean):
+    """``apply(train=True)``, the recipe's loss and its backward, no
+    optimizer step: (loss, new state); the gradients are in ``.grad``."""
+    from spiking_fullsubnet_torch.recipes.denoise import denoise_loss
+    for t in tensors_of(params):
+        t.grad = None
+    out = apply(cfg, params, state, noisy, train=True)
+    loss = denoise_loss(out["enhanced_y"], clean)["loss"]
+    loss.backward()
+    return loss.detach(), out["state"]
+
+
+def capture_de_args(gk, run):
+    """The positional arguments of each launch of kernels D and E in
+    ``run()``; E's in D's order (E receives the xg that D read)."""
+    seen = record_calls(gk, ["gsu_layer_train_fwd", "gsu_layer_train_bwd"], run)
+    d = [a for a, _ in seen["gsu_layer_train_fwd"]]
+    e = [a for a, _ in seen["gsu_layer_train_bwd"]]
+    return d, [next(x for x in e if x[0].data_ptr() == a[0].data_ptr()) for a in d]
+
+
+def as_f64_d(args):
+    *tensors, H, shared, mode = args
+    return (*[t.double() for t in tensors], H, shared, mode)
+
+
+def head_e(args, steps):
+    return (*[t[:steps].contiguous() for t in args[:4]], *args[4:])
+
+
+def e_errors(gk, args):
+    """(largest relative L2, largest abs error) of kernel E's four outputs
+    against its plain version on the same inputs, and the plain dxg."""
+    got, ref = gk.gsu_layer_train_bwd(*args), gk.layer_train_bwd_plain(*args)
+    torch.cuda.synchronize()
+    return max(rel_l2(g, r) for g, r in zip(got, ref)), max_abs(got, ref), ref[0]
+
+
+def d_checks(gk, d_args):
+    """Kernel D against its plain version at each recorded launch, whole
+    sequence: the spike mismatch; the first step where any spike differs;
+    up to it, the largest membrane difference; at it, the share of the
+    step's spikes that differ and their largest |membrane| in the plain
+    version (a rounding flip sits at the threshold, a fault would not);
+    each one's drift from a float64 run of the plain version; the plain
+    version's ms."""
+    rec = {k: [] for k in ("spike_mismatch", "first_diff_step", "agree_max_abs_err",
+                           "first_step_mismatch", "first_step_max_abs_y", "drift_f64",
+                           "plain_drift_f64", "plain_ms")}
+    for da in d_args:
+        got = gk.gsu_layer_train_fwd(*da)
+        box = []
+        rec["plain_ms"].append(cuda_ms(lambda: box.append(gk.layer_train_fwd_plain(*da)),
+                                       warmup=0))
+        ref = box[0]
+        ora = gk.layer_train_fwd_plain(*as_f64_d(da))[0]
+        flips = got[0] != ref[0]
+        differs = flips.flatten(1).any(1)
+        first = int(differs.float().argmax()) if bool(differs.any()) else None
+        upto = first if first is not None else flips.shape[0]
+        rec["spike_mismatch"].append(spike_mismatch(got[0], ref[0]))
+        rec["first_diff_step"].append(first)
+        rec["agree_max_abs_err"].append(max_abs(got[1][:upto], ref[1][:upto]) if upto else 0.0)
+        rec["first_step_mismatch"].append(
+            0.0 if first is None else flips[first].float().mean().item())
+        rec["first_step_max_abs_y"].append(
+            0.0 if first is None else ref[1][first][flips[first]].abs().max().item())
+        rec["drift_f64"].append(spike_mismatch(got[0], ora))
+        rec["plain_drift_f64"].append(spike_mismatch(ref[0], ora))
+        del got, box, ref, ora
+    return rec
+
+
+def e_checks(gk, e_args, steps=None):
+    """Kernel E (and the dW kernel, on the plain version's dxg) against
+    their plain versions at each recorded launch, on its first ``steps``
+    steps or the whole sequence: relative L2 and largest abs error."""
+    rec = {"rel_l2": [], "max_abs_err": 0.0, "dw_rel_l2": [], "dw_max_abs_err": 0.0}
+    for ea in e_args:
+        args = head_e(ea, steps) if steps else ea
+        rel, err, dxg = e_errors(gk, args)
+        rec["rel_l2"].append(rel)
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        got_w, ref_w = gk.gsu_train_dw(args[1], dxg), gk.train_dw_plain(args[1], dxg)
+        rec["dw_rel_l2"].append(rel_l2(got_w, ref_w))
+        rec["dw_max_abs_err"] = max(rec["dw_max_abs_err"], max_abs(got_w, ref_w))
+    return rec
+
+
+def fired(y):
+    """Spikes that feed a recurrent product: steps 0..T-2 of a layer."""
+    return float((y[:-1] >= 0).sum().item())
+
+
+def bound_d(args, spikes):
+    """(bytes, operations, operation seconds) of kernel D's function."""
+    xg, whh, b2, bnp, H, shared, mode = args
+    T, R, G = xg.shape
+    nbytes = (xg.numel() + whh.numel() + b2.numel() + bnp.numel() + 2 * T * R * H + 2 * T * H) * 4
+    ops = 2.0 * G * spikes + float(CELL_OPS + BN_OPS) * T * R * H
+    return nbytes, ops, ops / PEAK_OPS[torch.float32]
+
+
+def bound_e(args, spikes):
+    """(bytes, operations, operation seconds) of kernel E's function, dW
+    included: the recompute and dW take the fired spikes, dh = drg W^T is
+    dense."""
+    xg, y, gout, stats, whh, b2, bnp, H, shared, mode = args
+    T, R, G = xg.shape
+    nbytes = (xg.numel() + y.numel() + gout.numel() + stats.numel() + whh.numel() + b2.numel()
+              + bnp.numel() + T * R * G + H * G + 4 * H) * 4
+    ops = 4.0 * G * spikes + 2.0 * T * R * G * H + float(E_CELL_OPS) * T * R * H
+    return nbytes, ops, ops / PEAK_OPS[torch.float32]
+
+
+def bound_dw(y, dxg, spikes):
+    H, G = y.shape[-1], dxg.shape[-1]
+    nbytes = (y.numel() + dxg.numel() + H * G) * 4
+    ops = 2.0 * G * spikes
+    return nbytes, ops, ops / PEAK_OPS[torch.float32]
+
+
+def time_train(apply, cfg, params, state, noisy, clean, iters=2):
+    """One counted warm-up ``train_step``, then ``iters`` steps with the
+    forward (to the loss), the backward and the clip-and-AdamW step timed by
+    CUDA events, the step's own peak memory beside them."""
+    from spiking_fullsubnet_torch.ops import gsu_kernels as gk
+    from spiking_fullsubnet_torch.recipes.denoise import adamw, denoise_loss, train_step
+    params = fresh(params)
+    leaves = tensors_of(params)
+    opt = adamw(leaves)
+    for name in TRAIN_WRAPPERS.values():
+        getattr(gk, name).launches = 0
+    _, state, _ = train_step(apply, cfg, params, state, noisy, clean, opt)
+    torch.cuda.synchronize()
+    counts = {k: getattr(gk, name).launches for k, name in TRAIN_WRAPPERS.items()}
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    ms = {"forward_ms": 0.0, "backward_ms": 0.0, "step_ms": 0.0}
+    for _ in range(iters):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        opt.zero_grad(set_to_none=True)
+        out = apply(cfg, params, state, noisy, train=True)
+        loss = denoise_loss(out["enhanced_y"], clean)["loss"]
+        ev[1].record()
+        loss.backward()
+        ev[2].record()
+        torch.nn.utils.clip_grad_norm_(leaves, 10.0)
+        opt.step()
+        ev[3].record()
+        torch.cuda.synchronize()
+        state = out["state"]
+        for i, k in enumerate(ms):
+            ms[k] += ev[i].elapsed_time(ev[i + 1]) / iters
+        require(bool(torch.isfinite(loss)), "non-finite training loss")
+    total = sum(ms.values())
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    return dict(ms, total_ms=total, audio_s_per_s=TRAIN_B * TRAIN_SECONDS / total * 1e3,
+                peak_gb=peak_gb, held_gb=held_gb, own_peak_gb=peak_gb - held_gb,
+                launches=counts)
+
+
+def train_kernel_entries(gk, d_b, e_b, checks, launches, d_plain_ms, e_plain_ms):
+    """The JSON entries of kernels D, E and E's dW kernel: each of the ten
+    layers' launches (training batch 64 x 6 s) timed alone; ms, plain_ms and
+    bound_ms are the sums over zoo M's eight layers, cIRM-GSN's two stand
+    beside them. E's time and bound include its dW kernel. The library
+    yardstick of dW is torch.matmul on the same [H, (T-1) R] x [(T-1) R, G]
+    product."""
+    per = {"D": [], "E": [], "dW": []}
+    for i, (name, da, ea) in enumerate(zip(LAYERS_DE, d_b, e_b)):
+        y = ea[1]
+        spikes = fired(y)
+        dxg = gk.gsu_layer_train_bwd(*ea)[0]
+        H, G = y.shape[-1], dxg.shape[-1]
+        hp = (y[:-1] >= 0).float().reshape(-1, H).T.contiguous()
+        dx1 = dxg[1:].reshape(-1, G)
+        rows = {
+            "D": (cuda_ms(lambda: gk.gsu_layer_train_fwd(*da), iters=3), d_plain_ms[i],
+                  bound_d(da, spikes), None),
+            "E": (cuda_ms(lambda: gk.gsu_layer_train_bwd(*ea), iters=3), e_plain_ms[i],
+                  bound_e(ea, spikes), None),
+            "dW": (cuda_ms(lambda: gk.gsu_train_dw(y, dxg), iters=3),
+                   cuda_ms(lambda: gk.train_dw_plain(y, dxg), warmup=0),
+                   bound_dw(y, dxg, spikes), cuda_ms(lambda: torch.matmul(hp, dx1), iters=3)),
+        }
+        for k, (ms, plain, (nbytes, ops, ops_s), lib) in rows.items():
+            row = {"layer": name, "shape": list(da[0].shape), "ms": ms, "plain_ms": plain,
+                   "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3, "ops_ms": ops_s * 1e3,
+                   "bytes": nbytes, "ops": ops, "spikes": spikes, "library_ms": lib}
+            row["bound_ms"] = max(row["bytes_ms"], row["ops_ms"])
+            per[k].append(row)
+        log(f"[timing] {name} {tuple(da[0].shape)}: " + "; ".join(
+            f"{k} {per[k][-1]['ms']:.3f} ms (plain {per[k][-1]['plain_ms']:.1f}, bound "
+            f"{per[k][-1]['bound_ms']:.4f}"
+            + (f", matmul {per[k][-1]['library_ms']:.3f}" if k == "dW" else "") + ")"
+            for k in per))
+        del dxg, hp, dx1
+    meta = {"D": ("gsu_layer_train_fwd", "gsu_train_fwd.cu", 226),
+            "E": ("gsu_layer_train_bwd", "gsu_train_bwd.cu", 358),
+            "dW": ("gsu_train_dw", "gsu_train_bwd.cu", 454)}
+    entries = []
+    for k, (name, src, line) in meta.items():
+        zoo, cirm = per[k][:8], per[k][8:]
+        sums = {f: {part: sum(p[f] for p in rows_) for part, rows_ in (("zoo", zoo), ("cirm", cirm))}
+                for f in ("ms", "plain_ms", "bytes_ms", "ops_ms")}
+        lib = ({part: sum(p["library_ms"] for p in rows_) for part, rows_ in
+                (("zoo", zoo), ("cirm", cirm))} if k == "dW" else {"zoo": None, "cirm": None})
+        b_bytes, b_ops = sums["bytes_ms"]["zoo"], sums["ops_ms"]["zoo"]
+        entries.append({
+            "name": name, "route": "cuda", "source": f"spiking_fullsubnet_torch/csrc/{src}",
+            "replaces": f"spiking_fullsubnet_tpu/ops/gsu_pallas.py:{line}",
+            "launches": launches["zoo M"][k], "max_abs_err": checks[k]["max_abs_err"],
+            "ms": sums["ms"]["zoo"], "plain_ms": sums["plain_ms"]["zoo"],
+            "bound_ms": max(b_bytes, b_ops), "bound_by": "bytes" if b_bytes >= b_ops else "operations",
+            "library_ms": lib["zoo"], "per_launch": zoo, "checks": checks[k],
+            "cirm_gsn": {"launches": launches["cIRM-GSN"][k], "ms": sums["ms"]["cirm"],
+                         "plain_ms": sums["plain_ms"]["cirm"],
+                         "bound_ms": max(sums["bytes_ms"]["cirm"], sums["ops_ms"]["cirm"]),
+                         "library_ms": lib["cirm"]},
+        })
+    return entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing to run", file=sys.stderr)
@@ -384,6 +681,7 @@ def main() -> int:
         from spiking_fullsubnet_torch.models.spiking_fullsubnet import (
             SpikingFullSubNet, separator_config, spiking_fullsubnet_apply)
         from spiking_fullsubnet_torch.ops import gsu_kernels as gk
+        from spiking_fullsubnet_torch.recipes.denoise import adamw, train_step
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script ({e})", file=sys.stderr)
         return 2
@@ -411,6 +709,7 @@ def main() -> int:
                 log(f"[build] {name}: {line.strip()}")
 
     # ---- 3. kernels against their plain versions, main-path inputs ----
+    torch.set_grad_enabled(False)  # phases 3-5 are eval; SpikingFullSubNet's weights are trainable
     base = replace(separator_config(norm_type="offline_laplace_norm", shared_weights=True,
                                     bn=True), scan_mode="auto", collect_layer_outputs=False)
     model = SpikingFullSubNet.from_npz(str(ZOO_M), base, device=dev)
@@ -727,8 +1026,162 @@ def main() -> int:
             log(f"[timing] {name} at batch {BENCH_B // 2}: {kernels[-1]['half_batch_ms']:.3f} ms")
     kernels.append(kernel_f_entry(gk, captured_bf16["F"], plain_ms["F"], spikes["F"],
                                   launches, checks["F"], forwards))
-    print(json.dumps({"kernels": kernels, "forwards": forwards,
-                      "batch": BENCH_B, "seconds": BENCH_SECONDS}), flush=True)
+    del captured_bf16, bench
+    torch.cuda.empty_cache()
+
+    # ---- 6. training ----
+    torch.set_grad_enabled(True)
+    confs = {"zoo M": (spiking_fullsubnet_apply, lay_base, model.param_tree(), model.state_tree()),
+             "cIRM-GSN": (cm.cirm_model_apply, cirm["config"], cirm["params"], cirm["state"])}
+    trng = np.random.default_rng(1)
+    fix_clean = np.stack([np.roll(clean, k * clean.size // FIXTURE_COPIES)
+                          for k in range(FIXTURE_COPIES)])
+    fix_noisy = torch.from_numpy(fix_clean + (0.05 * trng.standard_normal(
+        fix_clean.shape)).astype(np.float32)).to(dev)
+    fix_clean = torch.from_numpy(fix_clean).to(dev)
+    tb_shape = (TRAIN_B, int(TRAIN_SECONDS * SR))
+    tb_clean = (trng.standard_normal(tb_shape) * 0.1).astype(np.float32)
+    tb_noisy = torch.from_numpy(tb_clean + (0.05 * trng.standard_normal(tb_shape)).astype(
+        np.float32)).to(dev)
+    tb_clean = torch.from_numpy(tb_clean).to(dev)
+
+    # (a) D and E against their plain versions on the arguments of one f32
+    # forward and backward: the fixture batch and the training batch
+    d_q, e_q, d_b, e_b = [], [], [], []
+    for name, (apply, cfg, p, st) in confs.items():
+        for x, ref_y, d_into, e_into in ((fix_noisy, fix_clean, d_q, e_q),
+                                         (tb_noisy, tb_clean, d_b, e_b)):
+            d, e = capture_de_args(gk, lambda: fwd_bwd(apply, cfg, fresh(p), st, x, ref_y))
+            require(len(d) == len(e) == (8 if name == "zoo M" else 2),
+                    f"{name}: {len(d)} launches of D and {len(e)} of E")
+            d_into += d
+            e_into += e
+    trec = {"D": {"fixture": d_checks(gk, d_q), "training_batch": d_checks(gk, d_b)},
+            "E": {"fixture": e_checks(gk, e_q), "training_batch_head": e_checks(gk, e_b, WINDOW)}}
+    trec["D"]["max_abs_err"] = max(max(trec["D"][tag]["agree_max_abs_err"])
+                                   for tag in ("fixture", "training_batch"))
+    trec["E"]["max_abs_err"] = trec["E"]["fixture"]["max_abs_err"]
+    trec["dW"] = {"rel_l2": trec["E"]["fixture"]["dw_rel_l2"],
+                  "max_abs_err": trec["E"]["fixture"]["dw_max_abs_err"]}
+    d_plain_ms = trec["D"]["training_batch"]["plain_ms"]
+    e_plain_ms = [cuda_ms(lambda: gk.layer_train_bwd_plain(*ea), warmup=0) for ea in e_b]
+    fmt = lambda v: "[" + ", ".join("-" if x is None else f"{x:.3e}" for x in v) + "]"  # noqa: E731
+    log(f"[training] D and E at {list(LAYERS_DE)}")
+    for tag, shape in (("fixture", tuple(fix_noisy.shape)), ("training_batch", tuple(tb_noisy.shape))):
+        r = trec["D"][tag]
+        log(f"[training] D {tag} {shape}: spike mismatch {fmt(r['spike_mismatch'])}; first "
+            f"differing step {r['first_diff_step']}, membranes before it max abs err "
+            f"{fmt(r['agree_max_abs_err'])}, at it the differing share "
+            f"{fmt(r['first_step_mismatch'])} with plain |y| <= "
+            f"{fmt(r['first_step_max_abs_y'])}; against float64 kernel {fmt(r['drift_f64'])} "
+            f"(mean {np.mean(r['drift_f64']):.3e}), plain {fmt(r['plain_drift_f64'])} (mean "
+            f"{np.mean(r['plain_drift_f64']):.3e})")
+    log(f"[training] E fixture whole sequence rel L2 {fmt(trec['E']['fixture']['rel_l2'])}; "
+        f"training batch first {WINDOW} frames {fmt(trec['E']['training_batch_head']['rel_l2'])}; "
+        f"dW rel L2 {fmt(trec['dW']['rel_l2'])}")
+    log(f"[training] plain D {fmt(d_plain_ms)} ms, plain E {fmt(e_plain_ms)} ms")
+    for tag in ("fixture", "training_batch"):
+        r = trec["D"][tag]
+        # the batch statistics couple every row, so one rounding flip (a
+        # membrane within rounding of the threshold, every few dozen steps at
+        # these sizes) moves the whole layer onto another trajectory: up to
+        # the first differing step the two must agree to rounding, and there
+        # the few spikes that differ must sit at the threshold; a layer's
+        # later drift is one sample of that chaos, not an average over
+        # independent rows as for F, so the ten layers are held together
+        for i, layer in enumerate(LAYERS_DE):
+            require(r["agree_max_abs_err"][i] < 1e-3 and r["first_step_mismatch"][i] < 1e-3
+                    and r["first_step_max_abs_y"][i] < 1e-3, f"kernel D {layer} {tag}: {r}")
+        require(np.mean(r["drift_f64"]) <= 3 * np.mean(r["plain_drift_f64"]) + 1e-3,
+                f"kernel D {tag}: drift {r}")
+    for layer, rel, head, w in zip(LAYERS_DE, trec["E"]["fixture"]["rel_l2"],
+                                   trec["E"]["training_batch_head"]["rel_l2"],
+                                   trec["dW"]["rel_l2"]):
+        require(rel < 1e-3 and head < 1e-3, f"kernel E {layer}: {trec['E']}")
+        require(w < 1e-3, f"dW kernel {layer}: {trec['dW']}")
+
+    # (b) five steps on the fixture batch, each counted; (c) one step's
+    # gradients through the kernels against the plain versions
+    all_counters = {**COUNTERS, **TRAIN_WRAPPERS}
+    launches_tr, grad_rel = {}, {}
+    for name, (apply, cfg, p, st0) in confs.items():
+        params = fresh(p)
+        opt = adamw(tensors_of(params))
+        st, losses, counts = st0, [], []
+        for _ in range(5):
+            for wrapper in all_counters.values():
+                getattr(gk, wrapper).launches = 0
+            ld, st, norm = train_step(apply, cfg, params, st, fix_noisy, fix_clean, opt)
+            torch.cuda.synchronize()
+            counts.append({k: getattr(gk, w).launches for k, w in all_counters.items()})
+            require(all(bool(torch.isfinite(v)) for v in ld.values())
+                    and bool(torch.isfinite(norm)), f"{name}: non-finite loss or norm {ld}")
+            require(all(bool(torch.isfinite(t.grad).all()) for t in tensors_of(params)),
+                    f"{name}: non-finite gradient")
+            losses.append(ld["loss"].item())
+        n_de = 8 if name == "zoo M" else 2
+        want = {"A": 0, "B": 0, "C": 0, "F": 0, "D": n_de, "E": n_de, "dW": n_de}
+        moved = [not torch.equal(a, b) for a, b in zip(tensors_of(st), tensors_of(st0))]
+        log(f"[training] {name} five steps on the fixture: losses {fmt(losses)}, launches per "
+            f"step {counts[0]}, BN running statistics moved in {sum(moved)} of {len(moved)}")
+        require(all(c == want for c in counts), f"{name}: launches {counts}")
+        require(all(moved), f"{name}: BN running statistics did not move")
+        if name == "cIRM-GSN":
+            require(losses[-1] < losses[0], f"cIRM-GSN: loss {losses}")
+        launches_tr[name] = counts[0]
+
+        # one step's gradients through the kernels (K) against the same step
+        # with D and E swapped for their plain versions (P); where a rounding
+        # flip sent P's forward onto another trajectory (its spikes differ
+        # from K's), the backward is held alone: K against D's kernel with
+        # E's plain version (Q)
+        def step_grads(fwd, bwd):
+            real = (gk.gsu_layer_train_fwd, gk.gsu_layer_train_bwd)
+            gk.gsu_layer_train_fwd, gk.gsu_layer_train_bwd = fwd, bwd
+            try:
+                q = fresh(p)
+                _, e_args = capture_de_args(
+                    gk, lambda: fwd_bwd(apply, cfg, q, st0, fix_noisy, fix_clean))
+            finally:
+                gk.gsu_layer_train_fwd, gk.gsu_layer_train_bwd = real
+            return [t.grad for t in tensors_of(q)], [a[1] >= 0 for a in e_args]
+
+        g_k, sp_k = step_grads(gk.gsu_layer_train_fwd, gk.gsu_layer_train_bwd)
+        g_p, sp_p = step_grads(gk.layer_train_fwd_plain, gk.layer_train_bwd_plain)
+        same = [bool(torch.equal(a, b)) for a, b in zip(sp_k, sp_p)]
+        rels = [rel_l2(a, b) for a, b in zip(g_k, g_p)]
+        grad_rel[name] = {"vs_plain": max(rels), "forward_spikes_equal": same}
+        msg = (f"[training] {name} one step through the kernels against the plain versions: "
+               f"largest gradient-leaf rel L2 {max(rels):.3e} over {len(rels)} leaves, forward "
+               f"spikes equal per layer {same}")
+        if all(same):
+            log(msg)
+            require(max(rels) < 1e-2, f"{name}: gradient rel L2 {rels}")
+        else:
+            g_q, _ = step_grads(gk.gsu_layer_train_fwd, gk.layer_train_bwd_plain)
+            rels_q = [rel_l2(a, b) for a, b in zip(g_k, g_q)]
+            grad_rel[name]["vs_plain_backward"] = max(rels_q)
+            log(f"{msg}; the forwards differ, so against E's plain version on the kernel's "
+                f"forward: largest rel L2 {max(rels_q):.3e}")
+            require(max(rels_q) < 1e-2, f"{name}: gradient rel L2 {rels_q}")
+        del params, opt, g_k, g_p
+
+    # (d) the train step at the training shape, bf16, and the kernels alone
+    train_t = {}
+    for name, (apply, cfg, p, st0) in confs.items():
+        train_t[name] = t = time_train(apply, replace(cfg, compute_dtype="bfloat16"), p, st0,
+                                       tb_noisy, tb_clean)
+        t["grads_vs_plain"] = grad_rel[name]
+        log(f"[timing] train step {name} bf16 {TRAIN_B} x {TRAIN_SECONDS:g} s: forward "
+            f"{t['forward_ms']:.3f} ms, backward {t['backward_ms']:.3f} ms, clip and AdamW "
+            f"{t['step_ms']:.3f} ms, total {t['total_ms']:.3f} ms ({t['audio_s_per_s']:.1f} "
+            f"audio-s/s), own peak memory {t['own_peak_gb']:.2f} GB ({t['held_gb']:.2f} GB held "
+            f"before), launches {t['launches']}")
+        torch.cuda.empty_cache()
+    kernels += train_kernel_entries(gk, d_b, e_b, trec, launches_tr, d_plain_ms, e_plain_ms)
+    print(json.dumps({"kernels": kernels, "forwards": forwards, "training": train_t,
+                      "batch": BENCH_B, "seconds": BENCH_SECONDS, "train_batch": TRAIN_B,
+                      "train_seconds": TRAIN_SECONDS}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

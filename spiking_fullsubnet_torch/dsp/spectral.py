@@ -84,14 +84,19 @@ def stft_real_imag_tmajor(
 
 
 def stft_complex(y: torch.Tensor, n_fft: int, hop_length: int, win_length: int,
-                 *, center: bool = True) -> torch.Tensor:
+                 *, center: bool = True, pad_mode: str = "constant",
+                 normalized: bool = False) -> torch.Tensor:
     """Complex STFT with ``torch.stft`` conventions (periodic hann window in
-    the signal's type, constant padding, onesided): ``[..., T] -> [..., F,
-    T_frames]`` (``dsp/spectral.py:120``, its FFT branch)."""
+    the signal's type, onesided; ``pad_mode`` "constant" or "reflect" for
+    the centring, ``normalized`` scales by n_fft^-1/2): ``[..., T] -> [...,
+    F, T_frames]`` (``dsp/spectral.py:120``, its FFT branch)."""
+    if pad_mode not in ("constant", "reflect"):
+        raise ValueError(f"Unsupported pad_mode: {pad_mode}")
     window = _pad_window(hann_window(win_length, y.dtype, y.device), win_length, n_fft)
     lead = y.shape[:-1]
     spec = torch.stft(y.reshape(-1, y.shape[-1]), n_fft, hop_length, n_fft, window,
-                      center=center, pad_mode="constant", return_complex=True)
+                      center=center, pad_mode=pad_mode, normalized=normalized,
+                      return_complex=True)
     return spec.reshape(lead + spec.shape[-2:])
 
 

@@ -1,7 +1,8 @@
 """Full-band deep-filtering model cIRM-GSN (counterpart of
 ``spiking_fullsubnet_tpu/models/cirm_models.py``): one sequence model over
 every magnitude bin emits the deep-filter coefficients of every bin (proj =
-F x spks x df x 2), its GSU stack on kernel F. The LSTM variant (cIRM-LSTM)
+F x spks x df x 2), its GSU stack on kernel F in eval and on kernels D and
+E in training. The LSTM variant (cIRM-LSTM)
 is not ported yet (ROADMAP queue 1, item 12)."""
 
 from __future__ import annotations
@@ -68,19 +69,17 @@ def cirm_model_init(seed: int, cfg: CirmModelConfig, device=None):
 def cirm_model_apply(cfg: CirmModelConfig, params, state, noisy_y: torch.Tensor,
                      train: bool = False) -> Dict[str, Any]:
     """``noisy_y [B, T]`` -> ``enhanced_y`` (``[B, T]``, or ``[B, S, T]``),
-    ``enhanced_mag`` (one speaker), ``all_layer_outputs`` and ``state``
-    (``cirm_models.py:71-109``), on the device of ``noisy_y``."""
+    ``enhanced_mag`` (one speaker), ``all_layer_outputs`` and ``state`` (the
+    new BN running statistics with ``train``) (``cirm_models.py:71-109``),
+    on the device of ``noisy_y``."""
     if noisy_y.ndim != 2:
         raise ValueError(f"Input tensor must be 2D, but got {noisy_y.ndim}D.")
-    if train:
-        raise NotImplementedError(
-            "training is not ported yet (ROADMAP queue 1 item 8; kernels D/E of queue 2)")
     B, sequence_length = noisy_y.shape
     if cfg.pad_to_hop:
         noisy_y = F.pad(noisy_y, (0, cfg.hop_length - sequence_length % cfg.hop_length))
     spec = stft_complex(noisy_y, cfg.n_fft, cfg.hop_length, cfg.win_length)  # [B, F, T]
     fb_output, all_layer_outputs, new_state = sequence_model_apply(
-        cfg.fb_config(), params["fb"], state["fb"], spec.abs() ** cfg.fdrc)
+        cfg.fb_config(), params["fb"], state["fb"], spec.abs() ** cfg.fdrc, train)
     S, df, T = cfg.num_spks, cfg.df_order, fb_output.shape[-1]
     # "b (c d s f) t -> b d s f t c", c = 2
     df_coef = fb_output.reshape(B, 2, df, S, -1, T).permute(0, 2, 3, 4, 5, 1)

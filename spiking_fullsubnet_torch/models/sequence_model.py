@@ -1,7 +1,8 @@
 """SequenceModel family, GSN backbone (counterpart of
 ``spiking_fullsubnet_tpu/models/sequence_model.py``): configuration, init,
-and the eval forward of the layered path (pre-LN, GSU stack on kernel F,
-projection, output activation). The LSTM, LIF and ALIF backbones are not
+and the forward of the layered path (pre-LN, the GSU stack on kernel F in
+eval and on kernels D and E in training, projection, output activation),
+differentiable end to end. The LSTM, LIF and ALIF backbones are not
 ported yet (ROADMAP queue 1, item 12)."""
 
 from __future__ import annotations
@@ -60,9 +61,11 @@ def sequence_model_apply(cfg: SequenceModelConfig, params: Dict[str, Any],
                          ) -> Tuple[torch.Tensor, List[torch.Tensor], Dict[str, Any]]:
     """``x [B, F, T]`` -> (output ``[B, proj|H, T]`` in x's type,
     all_layer_outputs (time-major: the stack input, every layer's spikes,
-    the projection), state) (``sequence_model.py:86-149``). With
+    the projection), state) (``sequence_model.py:86-149``); with ``train``
+    the state holds the updated BN running statistics. With
     ``compute_dtype`` the input and every floating parameter (the BN affine
-    included, not the running statistics) are cast to it first."""
+    included, not the running statistics) are cast to it first; the casts
+    are differentiable, so gradients return in the parameters' own type."""
     if x.ndim != 3:
         raise ValueError(f"Input tensor must be 3D, but got {x.ndim}D.")
     _gsn_only(cfg, "forward")

@@ -1,18 +1,22 @@
 """Spiking-FullSubNet: configuration, module and entry point (counterpart of
 ``spiking_fullsubnet_tpu/models/spiking_fullsubnet.py``).
 
-The port covers eval:
+The port covers:
 - ``scan_mode="layered"`` (the default, as ``separator_config`` leaves it)
   and whatever ``"auto"`` sends there: STFT, the laplace norms, the
-  fullband and sub-band sequence models with every GSU stack on kernel F
-  (``ops/gsu_kernels.gsu_stack_eval_x``), the deep filter and the iSTFT,
-  every layer's spikes returned;
+  fullband and sub-band sequence models, the deep filter and the iSTFT,
+  every layer's spikes returned. In eval every GSU stack runs on kernel F
+  (``ops/gsu_kernels.gsu_stack_eval_x``); with ``train=True`` every GSU
+  layer runs on kernels D and E (``ops/gsu.GSULayerTrain``), the forward is
+  differentiable and the new BN running statistics are returned;
 - serving through ``scan_mode="auto"`` (``models/stream_forward.py``): the
   offline laplace norm without pre-LayerNorm (the shipped zoo checkpoints,
   ``separator_config(norm_type="offline_laplace_norm", shared_weights=True,
   bn=True)``) on the two-launch path (kernels A, B); pre-LayerNorm (the
   flagship preset, ``models/presets.flagship_m``), the cumulative laplace
-  norm and no norm on the whole-model monolith (kernel C).
+  norm and no norm on the whole-model monolith (kernel C). Training through
+  the stream path (the stream-train stack) is training slice 2 of ROADMAP
+  queue 2.
 Weights come from a JAX-package ``.npz`` (``SpikingFullSubNet.from_npz``)
 or from a seeded init (``SpikingFullSubNet.from_init``, ``build``).
 Anything else raises ``NotImplementedError`` naming the ROADMAP item that
@@ -210,41 +214,44 @@ def spiking_fullsubnet_apply(cfg: SpikingFullSubNetConfig, params, state,
     """Forward: ``noisy_y [B, T]`` -> dict with ``enhanced_y`` (``[B, T]``,
     or ``[B, S, T]`` for ``num_spks > 1``), ``enhanced_mag [B, F, T]``
     (``num_spks == 1``; None on the monolith), the per-layer output lists
-    (empty on the serving paths) and the unchanged ``state``. Runs on the
-    device of ``noisy_y``: the kernels on a CUDA tensor, their plain versions
-    on a CPU tensor."""
+    (empty on the serving paths) and ``state`` (the new BN running
+    statistics with ``train``, else the state given). Runs on the device of
+    ``noisy_y``: the kernels on a CUDA tensor, their plain versions on a CPU
+    tensor."""
     from .stream_forward import spiking_fullsubnet_stream_forward, stream_supported
 
     if noisy_y.ndim != 2:
         raise ValueError(f"Input tensor must be 2D, but got {noisy_y.ndim}D.")
-    if train:
-        raise NotImplementedError(
-            "training is not ported yet (ROADMAP queue 1 item 8; kernels D/E of queue 2)")
     scan_mode = cfg.scan_mode
     if scan_mode == "auto":
         # spiking_fullsubnet.py:251-275 with "a CUDA tensor" for
-        # gsu_pallas.available(): eval takes the stream path when supported
+        # gsu_pallas.available(): eval takes the stream path when supported;
+        # training takes it only on the card, and else the layered path
         fused_ok = (cfg.norm_type is None and cfg.sequence_model == "GSN"
                     and not cfg.sb_shared_bottleneck)
-        if stream_supported(cfg):
+        if stream_supported(cfg) and (not train or noisy_y.is_cuda):
             scan_mode = "stream"
-        elif fused_ok:
+        elif fused_ok and not train:
             scan_mode = "fused"
         else:
             scan_mode = "layered"
     if scan_mode == "stream":
+        if train:
+            raise NotImplementedError(
+                "training on the stream path is not ported yet (ROADMAP queue 2, training "
+                "slice 2: the stream-train stack); scan_mode='layered' trains")
         return spiking_fullsubnet_stream_forward(cfg, params, state, noisy_y)
     if scan_mode != "layered":
         raise NotImplementedError(
             f"scan_mode={scan_mode!r} is not ported yet (ROADMAP queue 1, item 12: the fused "
             "forward)")
-    return _layered_forward(cfg, params, state, noisy_y)
+    return _layered_forward(cfg, params, state, noisy_y, train)
 
 
 def _subband_forward(cfg: SpikingFullSubNetConfig, params, state, noisy_mag: torch.Tensor,
-                     fb_output: torch.Tensor):
+                     fb_output: torch.Tensor, train: bool = False):
     """Every section: unfold of the noisy magnitude and of the fullband
-    output, the norm, the section's sequence model on kernel F
+    output, the norm, the section's sequence model
     (``spiking_fullsubnet.py:188-230``). Returns (df coefficient tensors
     ``[B, df, S, N fc, T, 2]``, per-section layer outputs, states)."""
     norm = norm_wrapper(cfg.norm_type) if cfg.norm_type else None
@@ -259,7 +266,7 @@ def _subband_forward(cfg: SpikingFullSubNetConfig, params, state, noisy_mag: tor
             sb_input = norm(sb_input)
         out, layers, ns = subband_sequence_model_apply(
             cfg.sb_config(idx), params["sb"][idx], state["sb"][idx], sb_input,
-            cfg.df_orders[idx], cfg.num_spks)
+            cfg.df_orders[idx], cfg.num_spks, train)
         df_coefs.append(out)
         all_layer_outputs.append(layers)
         new_states.append(ns)
@@ -267,13 +274,14 @@ def _subband_forward(cfg: SpikingFullSubNetConfig, params, state, noisy_mag: tor
 
 
 def _layered_forward(cfg: SpikingFullSubNetConfig, params, state,
-                     noisy_y: torch.Tensor) -> Dict[str, Any]:
-    """The layered forward, eval (``spiking_fullsubnet.py:287-361``): STFT,
+                     noisy_y: torch.Tensor, train: bool = False) -> Dict[str, Any]:
+    """The layered forward (``spiking_fullsubnet.py:287-361``): STFT,
     ``|X|^fdrc`` without the Nyquist bin, the fullband sequence model, its
     output tiled over the bins, the sections, the deep filter per section,
-    the Nyquist passthrough and the iSTFT. Every GSU stack runs on kernel F
-    (four launches for three sections), and every layer's spikes are
-    returned."""
+    the Nyquist passthrough and the iSTFT. In eval every GSU stack runs on
+    kernel F (four launches for three sections); in training every layer on
+    kernels D and E (eight of each for two-layer stacks). Every layer's
+    spikes are returned."""
     if cfg.sb_shared_bottleneck:
         raise NotImplementedError(
             "sb_shared_bottleneck (models/shared_subband.py) is not ported yet "
@@ -293,12 +301,13 @@ def _layered_forward(cfg: SpikingFullSubNetConfig, params, state,
     if norm is not None:
         fb_input = norm(fb_input)
     fb_output, fb_all_layer_outputs, new_fb_state = sequence_model_apply(
-        cfg.fb_config(), params["fb"], state["fb"], fb_input.reshape(B, -1, fb_input.shape[-1]))
+        cfg.fb_config(), params["fb"], state["fb"], fb_input.reshape(B, -1, fb_input.shape[-1]),
+        train)
     num_repeats = (cfg.n_fft // 2 + 1) // cfg.fb_input_size
     fb_output = fb_output.to(noisy_mag.dtype)[:, None].repeat(1, 1, num_repeats, 1)
 
     df_coefs, sb_all_layer_outputs, new_sb_states = _subband_forward(
-        cfg, params, state, noisy_mag, fb_output)
+        cfg, params, state, noisy_mag, fb_output, train)
 
     enh_list, f0 = [], 0
     for df_coef, df_order in zip(df_coefs, cfg.df_orders):
@@ -327,14 +336,14 @@ def _layered_forward(cfg: SpikingFullSubNetConfig, params, state,
 
 def _tree_module(tree, as_param: bool) -> nn.Module:
     """Nested modules mirroring a JAX pytree: dict keys become submodule
-    names, lists ModuleLists, tensor leaves frozen parameters (as_param) or
-    buffers."""
+    names, lists ModuleLists, tensor leaves trainable parameters (as_param)
+    or buffers."""
     m = nn.ModuleList() if isinstance(tree, list) else nn.Module()
     for k, v in (enumerate(tree) if isinstance(tree, list) else tree.items()):
         if not isinstance(v, torch.Tensor):
             m.add_module(str(k), _tree_module(v, as_param))
         elif as_param:
-            m.register_parameter(str(k), nn.Parameter(v, requires_grad=False))
+            m.register_parameter(str(k), nn.Parameter(v))
         else:
             m.register_buffer(str(k), v)
     return m
@@ -354,8 +363,10 @@ class SpikingFullSubNet(nn.Module):
     """Weights and BN running statistics under the JAX path names: the
     ``state_dict`` keys are the ``.npz`` keys with dots
     (``params.fb.stack.layers.0.weight_hh``,
-    ``state.sb.1.stack.layers.0.bn.running_mean``). ``forward`` is
-    ``spiking_fullsubnet_apply`` on them."""
+    ``state.sb.1.stack.layers.0.bn.running_mean``). ``forward`` is the
+    no-grad eval ``spiking_fullsubnet_apply`` on them; training takes
+    ``param_tree()``/``state_tree()`` to ``recipes.denoise.train_step``
+    with ``self.parameters()`` in the optimizer."""
 
     def __init__(self, cfg: SpikingFullSubNetConfig, params, state):
         super().__init__()

@@ -1,15 +1,19 @@
-"""Gated Spiking Unit (GSU) recurrence, eval forward (counterpart of
-``spiking_fullsubnet_tpu/ops/gsu.py``).
+"""Gated Spiking Unit (GSU) recurrence, eval and training (counterpart of
+``spiking_fullsubnet_tpu/ops/gsu.py`` and of ``gsu_stack_apply_pallas``).
 
 Cell math (reference efficient_spiking_neuron.py:132-153):
     gates = x @ W_ih^T + b_ih + h @ W_hh^T          # no b_hh
     f, g  = split(gates); f = sigmoid(f)
     c'    = f * c + (1 - f) * g
-    c''   = BN(c')              eval: a folded affine of the running stats
+    c''   = BN(c')              eval: a folded affine of the running stats;
+                                training: each step's batch statistics
     h'    = spike(c'')          binary; -0.0 >= 0 fires
 The carried membrane is c'' (after BN). With shared weights the gate and
 cell halves share W and only the bias differs. bf16/f16 inputs accumulate in
-float32 and every gate, membrane and BN value stays float32.
+float32 and every gate, membrane and BN value stays float32. Eval runs a
+whole stack on kernel F; training runs each layer on kernels D and E
+(``GSULayerTrain``), whose backward passes the spike gradient through the
+triangle surrogate.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import torch
 from ..nn.core import uniform
 
 BN_EPS = 1e-5
+BN_MOMENTUM = 0.1  # torch BatchNorm1d's, the only value the JAX package passes
 
 
 def gsu_cell_init(gen: torch.Generator, input_size: int, hidden_size: int,
@@ -95,6 +100,71 @@ def bn_eval_affine(params: Dict[str, Any], bn_state: Dict[str, Any],
     return scale.to(dtype), (b - rm * scale).to(dtype)
 
 
+def bn_running_update(running: Dict[str, torch.Tensor], means: torch.Tensor,
+                      vars_: torch.Tensor, batch_rows: int) -> Dict[str, torch.Tensor]:
+    """Fold T per-step batch statistics into the running statistics
+    (``ops/gsu.py:240-258``): torch's per-step ``r <- (1 - m) r + m stat``
+    (the variance unbiased by R / max(R - 1, 1)) in closed form over the T
+    steps, in the running statistics' own type."""
+    T = means.shape[0]
+    sd = running["running_mean"].dtype
+    means, vars_ = means.to(sd), vars_.to(sd)
+    m = BN_MOMENTUM
+    decay = (1.0 - m) ** torch.arange(T - 1, -1, -1, dtype=sd, device=means.device)
+    unbiased = vars_ * (batch_rows / max(batch_rows - 1, 1))
+    return {"running_mean": (1.0 - m) ** T * running["running_mean"]
+            + m * torch.einsum("t,th->h", decay, means),
+            "running_var": (1.0 - m) ** T * running["running_var"]
+            + m * torch.einsum("t,th->h", decay, unbiased)}
+
+
+class GSULayerTrain(torch.autograd.Function):
+    """One GSU layer in training (``_gsu_train_core`` with its custom_vjp,
+    ``gsu_pallas.py:557-577``): the forward is kernel D with batch-statistics
+    BN (or none), the backward kernel E.
+
+    ``apply(xg [T, R, rows], weight_hh [rows, H], bias_ih [2H], bn_weight,
+    bn_bias, hidden, shared)`` with xg the input gates without bias in the
+    accumulation type and the BN affine None without BN -> (spikes
+    ``[T, R, H]``, stats ``[T, 2, H]`` = per-step (mean, biased var), not
+    differentiable). Gradients flow to xg, weight_hh, bias_ih and the BN
+    affine, each in its own type. The kernels are looked up in
+    ``gsu_kernels`` at each call."""
+
+    @staticmethod
+    def forward(ctx, xg, weight_hh, bias_ih, bn_weight, bn_bias, hidden: int, shared: bool):
+        from . import gsu_kernels as gk
+
+        acc = xg.dtype
+        mode = "none" if bn_weight is None else "bn"
+        whh = weight_hh.to(acc).T.contiguous()  # [H, G]: h @ whh, f half first
+        b2 = bias_ih.to(acc).reshape(2, hidden).contiguous()
+        if bn_weight is None:
+            bnp = torch.stack([torch.ones_like(b2[0]), torch.zeros_like(b2[0])])
+        else:
+            bnp = torch.stack([bn_weight.to(acc), bn_bias.to(acc)])
+        xg = xg.contiguous()
+        spikes, y, stats = gk.gsu_layer_train_fwd(xg, whh, b2, bnp, hidden, shared, mode)
+        ctx.save_for_backward(xg, whh, b2, bnp, y, stats)
+        ctx.meta = (hidden, shared, mode, weight_hh.dtype, bias_ih.dtype,
+                    None if bn_weight is None else bn_weight.dtype)
+        ctx.mark_non_differentiable(stats)
+        return spikes, stats
+
+    @staticmethod
+    def backward(ctx, g_spikes, _g_stats):
+        from . import gsu_kernels as gk
+
+        xg, whh, b2, bnp, y, stats = ctx.saved_tensors
+        hidden, shared, mode, w_dt, b_dt, bn_dt = ctx.meta
+        dxg, dw, db, dbn = gk.gsu_layer_train_bwd(
+            xg, y, g_spikes.to(xg.dtype).contiguous(), stats, whh, b2, bnp, hidden, shared, mode)
+        d_bn_w = d_bn_b = None
+        if bn_dt is not None:
+            d_bn_w, d_bn_b = dbn[0].to(bn_dt), dbn[1].to(bn_dt)
+        return (dxg, dw.T.to(w_dt), db.reshape(-1).to(b_dt), d_bn_w, d_bn_b, None, None)
+
+
 def gsu_stack_apply(
     params: Dict[str, Any],
     state: Dict[str, Any],
@@ -103,25 +173,45 @@ def gsu_stack_apply(
     shared_weights: bool = False,
     train: bool = False,
 ) -> Tuple[torch.Tensor, List[torch.Tensor], Dict[str, Any]]:
-    """The stacked GSU over a time-major sequence, eval (``ops/gsu.py:261``):
+    """The stacked GSU over a time-major sequence (``ops/gsu.py:261``):
     ``(out [T, B, H], [x] + every layer's spikes, state)``, spikes in x's
-    type. A CUDA tensor goes to kernel F (``gsu_kernels.gsu_stack_eval_x``),
-    a CPU tensor to its plain version.
+    type. A CUDA tensor goes to the kernels, a CPU tensor to their plain
+    versions.
 
-    The JAX package's dispatch sends a TPU input to its Pallas kernel only
+    Eval runs the whole stack on kernel F (``gsu_kernels.gsu_stack_eval_x``)
+    and returns ``state`` as given. Training runs the per-layer loop of
+    ``gsu_stack_apply_pallas`` (``gsu_pallas.py:703-742``): the hoisted
+    input projection ``xg = x @ W_ih^T`` with a float32 (float64 for f64
+    input) result, ``GSULayerTrain`` (kernels D and E), and the running
+    statistics updated from the batch statistics over the B rows.
+
+    The JAX package's dispatch sends a TPU input to its Pallas kernels only
     for ``T >= 8`` and falls back to the scan when the shape misses the VMEM
     plan (``ops/gsu.py:285-293``). Both clauses are TPU rules and are
-    dropped: kernel F takes any T >= 1 and nothing falls back."""
+    dropped: the kernels take any T >= 1 and nothing falls back."""
     from .gsu_kernels import gsu_stack_eval_x, pack_stack_x
 
-    if train:
-        raise NotImplementedError(
-            "training is not ported yet (ROADMAP queue 1 items 4 and 8; kernels D/E of "
-            "queue 2)")
-    packed = pack_stack_x(params["layers"], state["layers"], hidden_size, x.dtype)
-    spikes = gsu_stack_eval_x(x.contiguous(), *packed, hidden_size, shared_weights)
-    outs = list(spikes.unbind(0))
-    return outs[-1], [x] + outs, state
+    if not train:
+        packed = pack_stack_x(params["layers"], state["layers"], hidden_size, x.dtype)
+        spikes = gsu_stack_eval_x(x.contiguous(), *packed, hidden_size, shared_weights)
+        outs = list(spikes.unbind(0))
+        return outs[-1], [x] + outs, state
+    acc = acc_dtype_for(x.dtype)
+    out, all_layer_outputs, new_states = x, [x], []
+    for lp, ls in zip(params["layers"], state["layers"]):
+        T, B, F = out.shape
+        xg = (out.reshape(T * B, F).to(acc) @ lp["weight_ih"].to(acc).T).reshape(T, B, -1)
+        bn = lp.get("bn")
+        bn_w, bn_b = (bn["weight"], bn["bias"]) if bn is not None else (None, None)
+        spikes, stats = GSULayerTrain.apply(xg, lp["weight_hh"], lp["bias_ih"], bn_w, bn_b,
+                                            hidden_size, shared_weights)
+        ns = ls
+        if bn is not None:
+            ns = {"bn": bn_running_update(ls["bn"], stats[:, 0], stats[:, 1], B)}
+        out = spikes.to(x.dtype)
+        new_states.append(ns)
+        all_layer_outputs.append(out)
+    return out, all_layer_outputs, {"layers": new_states}
 
 
 def gsu_layer_eval(

@@ -1,7 +1,7 @@
-"""Hopper kernels of the GSU serving path, their plain PyTorch versions and
+"""Hopper kernels of the GSU recurrence, their plain PyTorch versions and
 their loader (counterpart of ``spiking_fullsubnet_tpu/ops/gsu_pallas.py``).
 
-Four kernels, each a hand-written CUDA C++ source under ``../csrc``:
+Six kernels, each a hand-written CUDA C++ source under ``../csrc``:
 
 - ``gsu_stack_eval`` (kernel A, ``csrc/gsu_stack_eval.cu``) replaces
   ``_stack_eval_xg_kernel`` / ``gsu_stack_eval_pallas_xg``: an L-layer GSU
@@ -16,12 +16,21 @@ Four kernels, each a hand-written CUDA C++ source under ``../csrc``:
   ``_stack_eval_kernel`` / ``gsu_stack_eval_pallas``: an L-layer GSU stack
   in eval mode from the raw features (layer 0's input projection inside the
   kernel), every layer's spikes out; the layered forward's stacks.
+- ``gsu_layer_train_fwd`` (kernel D, ``csrc/gsu_train_fwd.cu``) replaces
+  ``_fwd_kernel`` / ``_run_fwd``: one GSU layer over the sequence with
+  batch-statistics BatchNorm (training), a folded affine (eval) or none,
+  saving the membranes and the per-step statistics for the backward.
+- ``gsu_layer_train_bwd`` (kernel E, ``csrc/gsu_train_bwd.cu``) replaces
+  ``_bwd_kernel`` / ``_run_bwd``: D's reverse-time backward; its weight
+  gradient is a second kernel of the same source, ``gsu_train_dw``.
 
 A wrapper launches its kernel for CUDA tensors and runs the plain version
 for CPU tensors; a CUDA tensor never takes the plain path. Each wrapper
 counts its launches in ``<wrapper>.launches``. The plain versions are
 public (``stack_eval_plain``, ``sections_eval_plain``,
-``monolith_serve_plain``, ``stack_eval_x_plain``), accept float64 and are the kernels' oracles.
+``monolith_serve_plain``, ``stack_eval_x_plain``, ``layer_train_fwd_plain``,
+``layer_train_bwd_plain``, ``train_dw_plain``), accept float64 and are the
+kernels' oracles.
 
 The kernels are compiled at first use with ``nvcc -gencode
 arch=compute_90a,code=sm_90a -O3 -shared`` (one nvcc per library, all
@@ -44,14 +53,15 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .gsu import acc_dtype_for, bn_eval_affine
+from .gsu import BN_EPS, acc_dtype_for, bn_eval_affine
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 # library name -> (source, defines). Kernel C builds one library per stream
 # type and sub-band depth, so that its instances compile in parallel.
 SOURCES = {"stack": ("gsu_stack_eval.cu", ()), "sections": ("gsu_sections_eval.cu", ()),
-           "stack_x": ("gsu_stack_eval_x.cu", ())}
+           "stack_x": ("gsu_stack_eval_x.cu", ()), "train_fwd": ("gsu_train_fwd.cu", ()),
+           "train_bwd": ("gsu_train_bwd.cu", ())}
 SOURCES.update({
     f"monolith_{io}_l{L}": ("sfsb_monolith_serve.cu", (f"-DMONO_BF16={int(io == 'bf16')}",
                                                         f"-DMONO_L={L}"))
@@ -125,6 +135,14 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
         lib.gsu_sections_eval_launch.argtypes = (
             [I, I, P] + [P] * 14 + [I] * 10 + [P])
         lib.gsu_sections_eval_launch.restype = I
+    elif name == "train_fwd":
+        lib.gsu_train_fwd_launch.argtypes = [P] * 7 + [I] * 5 + [P]
+        lib.gsu_train_fwd_launch.restype = I
+    elif name == "train_bwd":
+        lib.gsu_train_bwd_launch.argtypes = [P] * 12 + [I] * 5 + [P]
+        lib.gsu_train_bwd_launch.restype = I
+        lib.gsu_train_dw_launch.argtypes = [P] * 3 + [I] * 4 + [P]
+        lib.gsu_train_dw_launch.restype = I
     else:
         lib.sfsb_monolith_launch.argtypes = [I, ctypes.POINTER(_MonoArgs), P]
         lib.sfsb_monolith_launch.restype = I
@@ -373,6 +391,246 @@ def gsu_stack_eval_x(x: torch.Tensor, wih0: torch.Tensor, wihr: torch.Tensor,
 
 
 gsu_stack_eval_x.launches = 0
+
+
+# ------------------------------------------------------------------ kernels D and E
+#
+# One GSU layer in the kernel layout: xg [T, R, G] input gates without bias
+# (G = H shared, else 2H with the f half first), whh [H, G] (``h @ whh``),
+# b2 [2, H] = (b_f, b_c), bnp [2, H] = (BN weight, bias) in mode "bn" or
+# (scale, shift) in mode "affine", unused in mode "none". Both kernels run
+# the stack's rows as one thread-block cluster (BN statistics cross every
+# row at every step): ``_cluster_rows`` gives its blocks and rows per block.
+
+TRAIN_MODES = {"none": 0, "bn": 1, "affine": 2}
+MAX_CLUSTER = 8
+SMEM_BYTES = 232448  # a block's shared memory on sm_90
+
+
+def _cluster_rows(R: int) -> Tuple[int, int]:
+    """(blocks, rows per block) of the cluster that runs R rows: up to 8
+    blocks, each a whole number of 8-row tiles."""
+    nb = min(MAX_CLUSTER, -(-R // 8))
+    return nb, -(-(-(-R // nb)) // 8) * 8
+
+
+def _gates(xg_t, h, w, b_f, b_c, H: int, shared: bool):
+    """(f, g) of one step: ``pre = xg_t + h @ w``, f = sigmoid(pre_f + b_f),
+    g = pre_c + b_c (``_fwd_kernel``'s order of sums)."""
+    pre = xg_t + h @ w
+    if shared:
+        return torch.sigmoid(pre + b_f), pre + b_c
+    return torch.sigmoid(pre[:, :H] + b_f), pre[:, H:] + b_c
+
+
+def layer_train_fwd_plain(xg: torch.Tensor, whh: torch.Tensor, b2: torch.Tensor,
+                          bnp: torch.Tensor, hidden: int, shared: bool, mode: str
+                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of kernel D (same arguments and result), step
+    by step as ``_fwd_kernel`` (``gsu_pallas.py:226-287``), in xg's type
+    (float32 or float64): mode "bn" normalises each step's membranes by
+    their mean and biased variance over the R rows (two passes, sums times
+    1/R), "affine" applies ``c' bnp[0] + bnp[1]``."""
+    T, R, _ = xg.shape
+    H, acc, dev = hidden, xg.dtype, xg.device
+    w, b2, bnp = whh.to(acc), b2.to(acc), bnp.to(acc)
+    h = torch.zeros(R, H, dtype=acc, device=dev)
+    c = torch.zeros(R, H, dtype=acc, device=dev)
+    spikes = torch.empty(T, R, H, dtype=acc, device=dev)
+    y = torch.empty(T, R, H, dtype=acc, device=dev)
+    stats = torch.zeros(T, 2, H, dtype=acc, device=dev)
+    inv_n = 1.0 / R
+    for t in range(T):
+        f, g = _gates(xg[t], h, w, b2[0], b2[1], H, shared)
+        cy = f * c + (1.0 - f) * g
+        if mode == "bn":
+            mean = cy.sum(0) * inv_n
+            var = (cy - mean).square().sum(0) * inv_n
+            c = (cy - mean) * torch.rsqrt(var + BN_EPS) * bnp[0] + bnp[1]
+            stats[t, 0], stats[t, 1] = mean, var
+        elif mode == "affine":
+            c = cy * bnp[0] + bnp[1]
+        else:
+            c = cy
+        h = (c >= 0.0).to(acc)
+        spikes[t], y[t] = h, c
+    return spikes, y, stats
+
+
+def _check_train_layer(kernel: str, xg: torch.Tensor, whh: torch.Tensor, b2: torch.Tensor,
+                       bnp: torch.Tensor, hidden: int, shared: bool, mode: str
+                       ) -> Tuple[int, int, int]:
+    """Checks common to kernels D and E; returns (T, R, G)."""
+    H = hidden
+    G = H if shared else 2 * H
+    if mode not in TRAIN_MODES:
+        raise ValueError(f"mode {mode!r}: expected one of {sorted(TRAIN_MODES)}")
+    if xg.ndim != 3 or xg.shape[-1] != G:
+        raise ValueError(f"xg shape {tuple(xg.shape)}: expected [T, R, {G}]")
+    if xg.dtype != torch.float32:
+        raise ValueError(f"xg dtype {xg.dtype}: the kernel takes float32")
+    T, R, _ = xg.shape
+    rows = _cluster_rows(R)[1] if R >= 1 else 0
+    # shared memory: D holds spikes and membranes of its rows, E the rows'
+    # gate gradients, both a few H-wide partial sums
+    words = 2 * rows * H + 2 * H if kernel == "D" else rows * G + 6 * H
+    if not 1 <= H <= 512 or R < 1 or words * 4 > SMEM_BYTES:
+        raise ValueError(f"kernel {kernel}: H={H}, R={R}: it takes H <= 512 and one cluster of "
+                         f"{MAX_CLUSTER} blocks whose rows fit 227 KB of shared memory")
+    dev = xg.device
+    _check_cuda("xg", xg, torch.float32, dev)
+    _check_cuda("whh", whh, torch.float32, dev, (H, G))
+    _check_cuda("b2", b2, torch.float32, dev, (2, H))
+    _check_cuda("bnp", bnp, torch.float32, dev, (2, H))
+    return T, R, G
+
+
+def gsu_layer_train_fwd(xg: torch.Tensor, whh: torch.Tensor, b2: torch.Tensor,
+                        bnp: torch.Tensor, hidden: int, shared: bool, mode: str
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One GSU layer forward (kernel D): returns (spikes ``[T, R, H]``, the
+    membranes y after BN ``[T, R, H]``, the per-step (mean, biased var)
+    ``[T, 2, H]``, zero outside mode "bn"), float32 on the card (the
+    layered path's streams); also float64 on the CPU."""
+    if not xg.is_cuda:
+        return layer_train_fwd_plain(xg, whh, b2, bnp, hidden, shared, mode)
+    H = hidden
+    T, R, _ = _check_train_layer("D", xg, whh, b2, bnp, H, shared, mode)
+    dev = xg.device
+    spikes = torch.empty(T, R, H, dtype=torch.float32, device=dev)
+    y = torch.empty_like(spikes)
+    stats = torch.zeros(T, 2, H, dtype=torch.float32, device=dev)
+    lib = _lib("train_fwd")
+    with torch.cuda.device(dev):
+        rc = lib.gsu_train_fwd_launch(_ptr(xg), _ptr(whh), _ptr(b2), _ptr(bnp), _ptr(spikes),
+                                      _ptr(y), _ptr(stats), T, R, H, int(shared),
+                                      TRAIN_MODES[mode], _stream())
+    _check_rc(lib, rc, "gsu_layer_train_fwd")
+    gsu_layer_train_fwd.launches += 1
+    return spikes, y, stats
+
+
+gsu_layer_train_fwd.launches = 0
+
+
+def layer_train_bwd_plain(xg: torch.Tensor, y: torch.Tensor, gout: torch.Tensor,
+                          stats: torch.Tensor, whh: torch.Tensor, b2: torch.Tensor,
+                          bnp: torch.Tensor, hidden: int, shared: bool, mode: str
+                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of kernel E (and of ``gsu_train_dw``): the
+    reverse-time loop of ``_bwd_kernel`` (``gsu_pallas.py:358-466``) line by
+    line, in xg's type. Each step recomputes the gates from y[t-1] (h = 0
+    and c = 0 before the first step), passes the spike gradient through the
+    triangle surrogate max(1 - |y|, 0), applies the exact batch-statistics
+    BN backward (mode "bn") and accumulates the weight, bias and BN
+    gradients. Returns (dxg ``[T, R, G]``, dW ``[H, G]``, db ``[2, H]``,
+    dbn ``[2, H]``)."""
+    if mode == "affine":
+        raise ValueError("kernel E takes mode 'bn' or 'none' (the affine mode is eval only)")
+    T, R, G = xg.shape
+    H, acc, dev = hidden, xg.dtype, xg.device
+    w, b2, gamma = whh.to(acc), b2.to(acc), bnp[0].to(acc)
+    zeros = torch.zeros(R, H, dtype=acc, device=dev)
+    dh, dc = zeros, zeros
+    dxg = torch.empty(T, R, G, dtype=acc, device=dev)
+    dw = torch.zeros(H, G, dtype=acc, device=dev)
+    db = torch.zeros(2, H, dtype=acc, device=dev)
+    dbn = torch.zeros(2, H, dtype=acc, device=dev)
+    inv_n = 1.0 / R
+    for t in range(T - 1, -1, -1):
+        c_prev = y[t - 1].to(acc) if t > 0 else zeros
+        h_prev = (c_prev >= 0.0).to(acc) if t > 0 else zeros
+        f, g = _gates(xg[t], h_prev, w, b2[0], b2[1], H, shared)
+        surr = torch.clamp(1.0 - y[t].to(acc).abs(), min=0.0)
+        dy = (gout[t].to(acc) + dh) * surr + dc
+        if mode == "bn":
+            rstd = torch.rsqrt(stats[t, 1].to(acc) + BN_EPS)
+            xhat = (f * c_prev + (1.0 - f) * g - stats[t, 0].to(acc)) * rstd
+            sum_dy, sum_dyx = dy.sum(0), (dy * xhat).sum(0)
+            dbn[0] += sum_dyx
+            dbn[1] += sum_dy
+            dcr = gamma * rstd * (dy - inv_n * sum_dy - xhat * (inv_n * sum_dyx))
+        else:
+            dcr = dy
+        dpre_f = dcr * (c_prev - g) * f * (1.0 - f)
+        dpre_c = dcr * (1.0 - f)
+        dc = dcr * f
+        drg = dpre_f + dpre_c if shared else torch.cat([dpre_f, dpre_c], dim=1)
+        dxg[t] = drg
+        db[0] += dpre_f.sum(0)
+        db[1] += dpre_c.sum(0)
+        dw += h_prev.T @ drg
+        dh = drg @ w.T
+    return dxg, dw, db, dbn
+
+
+def train_dw_plain(y: torch.Tensor, dxg: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of ``gsu_train_dw``: ``dW [H, G] = sum over t
+    and rows of h_{t-1}^T dxg_t``, h_{t-1} = (y[t-1] >= 0), zero at t = 0."""
+    H, G = y.shape[-1], dxg.shape[-1]
+    h_prev = (y[:-1] >= 0.0).to(dxg.dtype).reshape(-1, H)
+    return h_prev.T @ dxg[1:].reshape(-1, G)
+
+
+def gsu_train_dw(y: torch.Tensor, dxg: torch.Tensor) -> torch.Tensor:
+    """Kernel E's weight gradient: ``train_dw_plain``'s product summed in
+    float32 over every step and row, the zero spikes skipped."""
+    if not y.is_cuda:
+        return train_dw_plain(y, dxg)
+    T, R, H = y.shape
+    G = dxg.shape[-1]
+    dev = y.device
+    _check_cuda("y", y, torch.float32, dev)
+    _check_cuda("dxg", dxg, torch.float32, dev, (T, R, G))
+    dw = torch.empty(H, G, dtype=torch.float32, device=dev)
+    lib = _lib("train_bwd")
+    with torch.cuda.device(dev):
+        rc = lib.gsu_train_dw_launch(_ptr(y), _ptr(dxg), _ptr(dw), T, R, H, G, _stream())
+    _check_rc(lib, rc, "gsu_train_dw")
+    gsu_train_dw.launches += 1
+    return dw
+
+
+gsu_train_dw.launches = 0
+
+
+def gsu_layer_train_bwd(xg: torch.Tensor, y: torch.Tensor, gout: torch.Tensor,
+                        stats: torch.Tensor, whh: torch.Tensor, b2: torch.Tensor,
+                        bnp: torch.Tensor, hidden: int, shared: bool, mode: str
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Kernel D's backward (kernel E, then ``gsu_train_dw`` for dW): the
+    inputs and saved tensors of ``gsu_layer_train_fwd`` and the spikes'
+    gradient ``gout [T, R, H]`` -> (dxg ``[T, R, G]``, dW ``[H, G]``, db
+    ``[2, H]``, dbn ``[2, H]``, zero outside mode "bn"). The statistics get
+    no gradient (running statistics are not differentiated, as in torch's
+    BatchNorm)."""
+    if not xg.is_cuda:
+        return layer_train_bwd_plain(xg, y, gout, stats, whh, b2, bnp, hidden, shared, mode)
+    if mode == "affine":
+        raise ValueError("kernel E takes mode 'bn' or 'none' (the affine mode is eval only)")
+    H = hidden
+    T, R, G = _check_train_layer("E", xg, whh, b2, bnp, H, shared, mode)
+    dev = xg.device
+    _check_cuda("y", y, torch.float32, dev, (T, R, H))
+    _check_cuda("gout", gout, torch.float32, dev, (T, R, H))
+    _check_cuda("stats", stats, torch.float32, dev, (T, 2, H))
+    dxg = torch.empty(T, R, G, dtype=torch.float32, device=dev)
+    db = torch.empty(2, H, dtype=torch.float32, device=dev)
+    dbn = torch.empty(2, H, dtype=torch.float32, device=dev)
+    scratch = torch.zeros(4, R, H, dtype=torch.float32, device=dev)  # dh, dc, f, g
+    whh_t = whh.t().contiguous()
+    lib = _lib("train_bwd")
+    with torch.cuda.device(dev):
+        rc = lib.gsu_train_bwd_launch(
+            _ptr(xg), _ptr(y), _ptr(gout), _ptr(stats), _ptr(whh), _ptr(whh_t), _ptr(b2),
+            _ptr(bnp), _ptr(dxg), _ptr(db), _ptr(dbn), _ptr(scratch), T, R, H, int(shared),
+            TRAIN_MODES[mode], _stream())
+    _check_rc(lib, rc, "gsu_layer_train_bwd")
+    gsu_layer_train_bwd.launches += 1
+    return dxg, gsu_train_dw(y, dxg), db, dbn
+
+
+gsu_layer_train_bwd.launches = 0
 
 
 # ------------------------------------------------------------------ kernel B

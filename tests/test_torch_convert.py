@@ -34,7 +34,8 @@ def _flat(tree, prefix=""):
         return {k2: v for k, x in tree.items() for k2, v in _flat(x, f"{prefix}{k}/").items()}
     if isinstance(tree, (list, tuple)):
         return {k2: v for i, x in enumerate(tree) for k2, v in _flat(x, f"{prefix}{i}/").items()}
-    return {prefix[:-1]: np.asarray(tree)}
+    # the module's weights are trainable parameters: detach before numpy
+    return {prefix[:-1]: np.asarray(tree.detach() if isinstance(tree, torch.Tensor) else tree)}
 
 
 def test_load_npz_matches_jax_loader():

@@ -8,7 +8,11 @@ JAX nor the JAX package, so it runs where only PyTorch is installed:
 At these small shapes no near-threshold spike flips occur, so A's and F's
 spikes must match exactly (mismatch < 1e-3 allows one stray flip), B's
 enhanced spectrum and C's enhanced audio to f32 rounding (relative L2 <
-1e-4; C in bf16 < 2e-3, see C_TOL).
+1e-4; C in bf16 < 2e-3, see C_TOL). Kernel D's spikes likewise (one stray
+flip allowed), its membranes and batch statistics within rtol 1e-5 up to
+the first flip; kernel E and its weight-gradient kernel, fed the same
+saved tensors as their plain versions (so no spike can flip), within a
+relative L2 error of 1e-5.
 """
 
 from __future__ import annotations
@@ -274,3 +278,106 @@ def test_monolith_wrapper_rejects_what_the_kernel_does_not_take(dev):
         gk.sfsb_monolith_serve(mono, chunks.transpose(0, 1).contiguous().transpose(0, 1))
     with pytest.raises(ValueError, match="n_fft"):
         gk.sfsb_monolith_serve(mono, torch.randn(11, 4, 8, device=dev))
+
+
+# ------------------------------------------------------------------ kernels D and E
+
+# (R, H, T): one row, a ragged tile, zoo M's fullband (64 x 320) and section
+# 0 (512 x 224, eight blocks of 64 rows), T from 1 up
+TRAIN_SHAPES = [(1, 24, 7), (5, 224, 40), (64, 320, 7), (512, 224, 40), (512, 320, 1),
+                (64, 24, 40)]
+
+
+def _train_layer(R, H, T, shared, mode, dev, seed):
+    g = torch.Generator().manual_seed(seed)
+    G = H if shared else 2 * H
+    xg = torch.randn(T, R, G, generator=g)
+    whh = torch.randn(H, G, generator=g) / H ** 0.5
+    b2 = torch.randn(2, H, generator=g) * 0.1
+    if mode == "bn":
+        bnp = torch.stack([1 + 0.1 * torch.randn(H, generator=g), 0.1 * torch.randn(H, generator=g)])
+    else:  # affine: an eval fold; none: unused
+        bnp = torch.stack([torch.rand(H, generator=g) + 0.5, 0.1 * torch.randn(H, generator=g)])
+    return [t.to(dev) for t in (xg, whh, b2, bnp)]
+
+
+@pytest.mark.parametrize("mode", ["bn", "affine", "none"])
+@pytest.mark.parametrize("shared", [True, False])
+@pytest.mark.parametrize("R,H,T", TRAIN_SHAPES)
+def test_train_fwd_kernel_matches_plain(dev, mode, shared, R, H, T):
+    args = _train_layer(R, H, T, shared, mode, dev, seed=R + H + T)
+    before = gk.gsu_layer_train_fwd.launches
+    got = gk.gsu_layer_train_fwd(*args, H, shared, mode)
+    ref = gk.layer_train_fwd_plain(*args, H, shared, mode)
+    torch.cuda.synchronize()
+    assert gk.gsu_layer_train_fwd.launches == before + 1
+    spikes, y, stats = got
+    assert spikes.shape == y.shape == (T, R, H) and stats.shape == (T, 2, H)
+    assert torch.equal(spikes, (y >= 0).float())
+    flips = (spikes != ref[0]).any(-1).any(-1)
+    first = int(flips.float().argmax()) if bool(flips.any()) else T
+    assert (spikes != ref[0]).float().mean().item() < 1e-3
+    # membranes and statistics agree to f32 rounding up to the first flip
+    # (atol for membranes near 0, where (c' - mean) cancels)
+    torch.testing.assert_close(y[:first], ref[1][:first], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(stats[:first], ref[2][:first], rtol=1e-5, atol=1e-6)
+    if mode != "bn":
+        assert not stats.any()
+    assert 0.02 < spikes.mean().item() < 0.98
+
+
+def _rel(got, ref):
+    return ((got.double() - ref.double()).norm() / ref.double().norm().clamp_min(1e-30)).item()
+
+
+@pytest.mark.parametrize("mode", ["bn", "none"])
+@pytest.mark.parametrize("shared", [True, False])
+@pytest.mark.parametrize("R,H,T", TRAIN_SHAPES)
+def test_train_bwd_kernels_match_plain(dev, mode, shared, R, H, T):
+    xg, whh, b2, bnp = _train_layer(R, H, T, shared, mode, dev, seed=3 * R + H + T)
+    _, y, stats = gk.layer_train_fwd_plain(xg, whh, b2, bnp, H, shared, mode)
+    gout = torch.randn(T, R, H, generator=torch.Generator().manual_seed(T)).to(dev)
+    args = (xg, y.contiguous(), gout, stats.contiguous(), whh, b2, bnp, H, shared, mode)
+    before = (gk.gsu_layer_train_bwd.launches, gk.gsu_train_dw.launches)
+    got = gk.gsu_layer_train_bwd(*args)
+    ref = gk.layer_train_bwd_plain(*args)
+    torch.cuda.synchronize()
+    assert (gk.gsu_layer_train_bwd.launches, gk.gsu_train_dw.launches) == (before[0] + 1,
+                                                                           before[1] + 1)
+    names = ("dxg", "dW", "db", "dbn")
+    for name, a, b in zip(names, got, ref):
+        assert a.shape == b.shape and torch.isfinite(a).all(), name
+        if name == "dbn" and mode == "none":
+            assert not a.any()
+            continue
+        if R == 1 and mode == "bn":
+            # a batch of one: xhat and BN's backward are exactly 0, which the
+            # plain version reproduces; the kernel's recomputed c' differs
+            # from the saved mean by a rounding (about 1e-7 |c'|), which
+            # rsqrt(eps) ~ 316 magnifies and dgamma = sum(dy xhat) adds up
+            # over the steps (2e-4 seen at T = 7). Only dbeta = sum(dy) is
+            # not zero.
+            if name == "dbn":
+                a, b = a[0], b[0]
+                assert _rel(got[3][1], ref[3][1]) <= 1e-5
+            assert not b.any() and a.abs().max().item() <= 1e-3, (name, a.abs().max())
+            continue
+        assert _rel(a, b) <= 1e-5, (name, _rel(a, b))
+    # the weight-gradient kernel alone, on the plain version's dxg
+    assert _rel(gk.gsu_train_dw(y, ref[0]), gk.train_dw_plain(y, ref[0])) <= 1e-5
+
+
+def test_train_wrappers_reject_what_the_kernels_do_not_take(dev):
+    xg, whh, b2, bnp = _train_layer(8, 16, 5, True, "bn", dev, seed=0)
+    with pytest.raises(ValueError, match="dtype"):
+        gk.gsu_layer_train_fwd(xg.double(), whh, b2, bnp, 16, True, "bn")
+    with pytest.raises(ValueError, match="shape"):
+        gk.gsu_layer_train_fwd(xg, whh, b2, bnp, 16, False, "bn")  # unshared wants 2H gates
+    with pytest.raises(ValueError, match="mode"):
+        gk.gsu_layer_train_fwd(xg, whh, b2, bnp, 16, True, "batch")
+    with pytest.raises(ValueError, match="shared memory"):
+        big = _train_layer(1024, 512, 2, True, "bn", dev, seed=1)
+        gk.gsu_layer_train_fwd(*big, 512, True, "bn")
+    _, y, stats = gk.gsu_layer_train_fwd(xg, whh, b2, bnp, 16, True, "bn")
+    with pytest.raises(ValueError, match="affine"):
+        gk.gsu_layer_train_bwd(xg, y, y, stats, whh, b2, bnp, 16, True, "affine")

@@ -135,9 +135,16 @@ def test_gsu_stack_apply_matches_jax_scan_f64(shared, bn):
     for a, b in zip(alo, ref_all):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
     np.testing.assert_array_equal(out.numpy(), np.asarray(ref_out))
-    with pytest.raises(NotImplementedError, match="training"):
-        gsu_stack_apply(params_from_numpy(p, "cpu"), state, torch.from_numpy(x), H, shared,
-                        train=True)
+    # training runs too (kernels D and E's plain versions; held against the
+    # JAX scan in tests/test_torch_train_layer.py) and leaves F unlaunched
+    before_d = gk.gsu_layer_train_fwd.launches
+    tout, talo, tstate = gsu_stack_apply(params_from_numpy(p, "cpu"), state, torch.from_numpy(x),
+                                         H, shared, train=True)
+    assert gk.gsu_stack_eval_x.launches == before and gk.gsu_layer_train_fwd.launches == before_d
+    assert tout.shape == out.shape and len(talo) == 4
+    if bn:  # the running statistics moved
+        assert not torch.equal(tstate["layers"][0]["bn"]["running_mean"],
+                               state["layers"][0]["bn"]["running_mean"])
 
 
 @pytest.mark.parametrize("pre_ln,act", [(True, "tanh"), (False, None)])
