@@ -157,7 +157,15 @@ def _lib(name: str) -> ctypes.CDLL:
     return _LIBS[name]
 
 
-def _check_rc(lib: ctypes.CDLL, rc: int, what: str) -> None:
+CUDA_ERROR_INVALID_VALUE = 1
+
+
+def _check_rc(lib: ctypes.CDLL, rc: int, what: str, limits: str = "") -> None:
+    """Raises on a launcher's error code. A launcher that checks its sizes
+    itself returns cudaErrorInvalidValue beyond them: ``limits`` says what
+    they are."""
+    if rc == CUDA_ERROR_INVALID_VALUE and limits:
+        raise ValueError(f"{what}: {limits}")
     if rc != 0:
         raise RuntimeError(f"{what} launch failed: {lib.gsu_error_string(rc).decode()} ({rc})")
 
@@ -400,18 +408,11 @@ gsu_stack_eval_x.launches = 0
 # b2 [2, H] = (b_f, b_c), bnp [2, H] = (BN weight, bias) in mode "bn" or
 # (scale, shift) in mode "affine", unused in mode "none". Both kernels run
 # the stack's rows as one thread-block cluster (BN statistics cross every
-# row at every step): ``_cluster_rows`` gives its blocks and rows per block.
+# row at every step); their launchers size it and refuse what does not fit.
 
 TRAIN_MODES = {"none": 0, "bn": 1, "affine": 2}
-MAX_CLUSTER = 8
-SMEM_BYTES = 232448  # a block's shared memory on sm_90
-
-
-def _cluster_rows(R: int) -> Tuple[int, int]:
-    """(blocks, rows per block) of the cluster that runs R rows: up to 8
-    blocks, each a whole number of 8-row tiles."""
-    nb = min(MAX_CLUSTER, -(-R // 8))
-    return nb, -(-(-(-R // nb)) // 8) * 8
+TRAIN_LIMITS = ("it takes H <= 512 and R >= 1 rows split over one cluster of at most 8 "
+                "blocks, each block's rows within 227 KB of shared memory")
 
 
 def _gates(xg_t, h, w, b_f, b_c, H: int, shared: bool):
@@ -457,7 +458,7 @@ def layer_train_fwd_plain(xg: torch.Tensor, whh: torch.Tensor, b2: torch.Tensor,
     return spikes, y, stats
 
 
-def _check_train_layer(kernel: str, xg: torch.Tensor, whh: torch.Tensor, b2: torch.Tensor,
+def _check_train_layer(xg: torch.Tensor, whh: torch.Tensor, b2: torch.Tensor,
                        bnp: torch.Tensor, hidden: int, shared: bool, mode: str
                        ) -> Tuple[int, int, int]:
     """Checks common to kernels D and E; returns (T, R, G)."""
@@ -470,13 +471,6 @@ def _check_train_layer(kernel: str, xg: torch.Tensor, whh: torch.Tensor, b2: tor
     if xg.dtype != torch.float32:
         raise ValueError(f"xg dtype {xg.dtype}: the kernel takes float32")
     T, R, _ = xg.shape
-    rows = _cluster_rows(R)[1] if R >= 1 else 0
-    # shared memory: D holds spikes and membranes of its rows, E the rows'
-    # gate gradients, both a few H-wide partial sums
-    words = 2 * rows * H + 2 * H if kernel == "D" else rows * G + 6 * H
-    if not 1 <= H <= 512 or R < 1 or words * 4 > SMEM_BYTES:
-        raise ValueError(f"kernel {kernel}: H={H}, R={R}: it takes H <= 512 and one cluster of "
-                         f"{MAX_CLUSTER} blocks whose rows fit 227 KB of shared memory")
     dev = xg.device
     _check_cuda("xg", xg, torch.float32, dev)
     _check_cuda("whh", whh, torch.float32, dev, (H, G))
@@ -495,7 +489,7 @@ def gsu_layer_train_fwd(xg: torch.Tensor, whh: torch.Tensor, b2: torch.Tensor,
     if not xg.is_cuda:
         return layer_train_fwd_plain(xg, whh, b2, bnp, hidden, shared, mode)
     H = hidden
-    T, R, _ = _check_train_layer("D", xg, whh, b2, bnp, H, shared, mode)
+    T, R, _ = _check_train_layer(xg, whh, b2, bnp, H, shared, mode)
     dev = xg.device
     spikes = torch.empty(T, R, H, dtype=torch.float32, device=dev)
     y = torch.empty_like(spikes)
@@ -505,7 +499,7 @@ def gsu_layer_train_fwd(xg: torch.Tensor, whh: torch.Tensor, b2: torch.Tensor,
         rc = lib.gsu_train_fwd_launch(_ptr(xg), _ptr(whh), _ptr(b2), _ptr(bnp), _ptr(spikes),
                                       _ptr(y), _ptr(stats), T, R, H, int(shared),
                                       TRAIN_MODES[mode], _stream())
-    _check_rc(lib, rc, "gsu_layer_train_fwd")
+    _check_rc(lib, rc, f"gsu_layer_train_fwd (H={H}, R={R})", TRAIN_LIMITS)
     gsu_layer_train_fwd.launches += 1
     return spikes, y, stats
 
@@ -609,7 +603,7 @@ def gsu_layer_train_bwd(xg: torch.Tensor, y: torch.Tensor, gout: torch.Tensor,
     if mode == "affine":
         raise ValueError("kernel E takes mode 'bn' or 'none' (the affine mode is eval only)")
     H = hidden
-    T, R, G = _check_train_layer("E", xg, whh, b2, bnp, H, shared, mode)
+    T, R, G = _check_train_layer(xg, whh, b2, bnp, H, shared, mode)
     dev = xg.device
     _check_cuda("y", y, torch.float32, dev, (T, R, H))
     _check_cuda("gout", gout, torch.float32, dev, (T, R, H))
@@ -625,7 +619,7 @@ def gsu_layer_train_bwd(xg: torch.Tensor, y: torch.Tensor, gout: torch.Tensor,
             _ptr(xg), _ptr(y), _ptr(gout), _ptr(stats), _ptr(whh), _ptr(whh_t), _ptr(b2),
             _ptr(bnp), _ptr(dxg), _ptr(db), _ptr(dbn), _ptr(scratch), T, R, H, int(shared),
             TRAIN_MODES[mode], _stream())
-    _check_rc(lib, rc, "gsu_layer_train_bwd")
+    _check_rc(lib, rc, f"gsu_layer_train_bwd (H={H}, R={R})", TRAIN_LIMITS)
     gsu_layer_train_bwd.launches += 1
     return dxg, gsu_train_dw(y, dxg), db, dbn
 
