@@ -94,16 +94,48 @@ is non-zero:
             - the train step at 64 x 6 s bf16: one warm-up step counted
               as in the quality phase (D and E as above, A, B, C, F none;
               the kernels line's launches), then forward, backward, clip
-              and AdamW step timed with CUDA events, audio-s/s, its own
-              peak memory; D, E and E's dW kernel alone at each of the ten
+              and AdamW step timed with CUDA events from the same starting
+              weights (time_train says why), audio-s/s, its own peak
+              memory; D, E and E's dW kernel alone at each of the ten
               layers, their plain versions, bounds (D: xg read, spikes, y and
               statistics written; operations the fired spikes' products and
               the cell and BN arithmetic; E: xg, y and gout read, dxg
               written; the recompute, the dense dh = drg W^T and the
               spike-sparse dW) and torch.matmul on dW's product as the
               library yardstick.
+7. stream   training on the stream path (scan_mode="auto" on the card),
+            the bf16 policy, every GSU layer on kernels D and E with bf16
+            streams (membranes float32), batch 64 x 6 s:
+            - D, E and the dW kernel with bf16 streams against their plain
+              versions on the arguments recorded at the wrappers during one
+              forward and backward of flagship M (bench.py:56-69's training
+              configuration, random weights from seed 0; 8 layers): D held
+              at every step as in phase 6; E over whole sequences, the
+              kernel and its plain version each against a float64 run of
+              the plain version (which does not round drg to bf16), the
+              kernel within 3x (+1e-5) of the plain version's error (a drg
+              at a bf16 midpoint rounds either way); dW on identical inputs,
+              relative L2 < 1e-3;
+            - the same at baseline L's section stacks of 1024 and 1536 rows
+              x 256 units (recipes/intel_ndns/spiking_fullsubnet_freeze_phase/
+              baseline_l.toml [model.args], random weights from seed 0):
+              beyond kernel D's former row cap;
+            - one step's gradients through the kernels against E's plain
+              version on the same forward, flagship M and zoo M on the
+              fixture batch with f32 streams (relative L2 < 1e-2 per leaf,
+              as phase 6); flagship M with bf16 streams: the kernels' and
+              the plain version's gradients each against the same step with
+              E in float64, the kernel's largest leaf error within 3x
+              (+1e-5) of the plain version's;
+            - train steps timed as in phase 6 (one counted warm-up step,
+              then forward, backward and clip-and-AdamW): flagship M and
+              zoo M (D, E and dW 8 launches each, A, B, C and F none) and
+              baseline L (10 each, one timed step); D, E and dW alone at
+              flagship M's eight layers and at baseline L's four section
+              layers of 1024 and 1536 rows, their plain versions, bounds and
+              torch.matmul on dW's product in bf16.
 
-About 7 minutes on one H100, the build included.
+7 to 9 minutes on one H100, the build included.
 
 The last line is {"ok": true, "device": {...}}. Without a CUDA device, or
 without the rest of the repository beside it, it prints no result and
@@ -116,6 +148,7 @@ import functools
 import json
 import subprocess
 import sys
+import time
 from dataclasses import replace
 from pathlib import Path
 
@@ -137,8 +170,15 @@ CIRM_GSN = dict(n_fft=512, hop_length=128, win_length=512, fdrc=0.5, input_size=
                 sequence_model="GSN", num_spks=1)
 
 
+T0 = time.perf_counter()
+
+
 def log(*a):
     print(*a, flush=True)
+
+
+def stamp(phase):
+    log(f"[time] {phase} starts at {time.perf_counter() - T0:.1f} s")
 
 
 def require(ok, what):
@@ -192,6 +232,12 @@ TRAIN_B, TRAIN_SECONDS = 64, 6.0  # bench.py:254's training shape (T = 751 frame
 FIXTURE_COPIES = 8
 
 ROWS_F64 = 256  # rows of each F stack held against float64 over the whole bench
+BASELINE_L_TOML = (ROOT / "recipes" / "intel_ndns" / "spiking_fullsubnet_freeze_phase"
+                   / "baseline_l.toml")
+# kernel D's and E's launches of the stream-train steps checked in phase 7
+LAYERS_FLAGSHIP = tuple(f"flagship M {stack} layer {k}"
+                        for stack in ("fullband", "section 0", "section 1", "section 2")
+                        for k in (0, 1))
 # kernel F's launches checked: zoo M layered's four stacks, then cIRM-GSN's one
 STACKS_F = ("zoo M fullband", "zoo M section 0", "zoo M section 1", "zoo M section 2",
             "cIRM-GSN")
@@ -461,10 +507,14 @@ def fwd_bwd(apply, cfg, params, state, noisy, clean):
 
 def capture_de_args(gk, run):
     """The positional arguments of each launch of kernels D and E in
-    ``run()``; E's in D's order (E receives the xg that D read)."""
+    ``run()``, detached from autograd (D's xg is the gate product of
+    trainable weights, and the checks must not build graphs through the
+    plain versions); E's in D's order (E receives the xg that D read)."""
     seen = record_calls(gk, ["gsu_layer_train_fwd", "gsu_layer_train_bwd"], run)
-    d = [a for a, _ in seen["gsu_layer_train_fwd"]]
-    e = [a for a, _ in seen["gsu_layer_train_bwd"]]
+    detach = lambda a: tuple(t.detach() if isinstance(t, torch.Tensor) else t  # noqa: E731
+                             for t in a)
+    d = [detach(a) for a, _ in seen["gsu_layer_train_fwd"]]
+    e = [detach(a) for a, _ in seen["gsu_layer_train_bwd"]]
     return d, [next(x for x in e if x[0].data_ptr() == a[0].data_ptr()) for a in d]
 
 
@@ -558,13 +608,23 @@ def d_checks(gk, d_args):
 def e_checks(gk, e_args, steps=None):
     """Kernel E (and the dW kernel, on the plain version's dxg) against
     their plain versions at each recorded launch, on its first ``steps``
-    steps or the whole sequence: relative L2 and largest abs error."""
-    rec = {"rel_l2": [], "max_abs_err": 0.0, "dw_rel_l2": [], "dw_max_abs_err": 0.0}
+    steps or the whole sequence: relative L2 and largest abs error. With
+    bf16 streams also each against a float64 run of the plain version
+    (which does not round drg to bf16): ``rel_l2_f64``, ``plain_rel_l2_f64``,
+    the largest over the four outputs."""
+    rec = {"rel_l2": [], "max_abs_err": 0.0, "dw_rel_l2": [], "dw_max_abs_err": 0.0,
+           "rel_l2_f64": [], "plain_rel_l2_f64": []}
     for ea in e_args:
         args = head_e(ea, steps) if steps else ea
         rel, err, dxg = e_errors(gk, args)
         rec["rel_l2"].append(rel)
         rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        if args[0].dtype == torch.bfloat16:
+            got, ref = gk.gsu_layer_train_bwd(*args), gk.layer_train_bwd_plain(*args)
+            ora = gk.layer_train_bwd_plain(*as_f64_d(args))
+            rec["rel_l2_f64"].append(max(rel_l2(g, o) for g, o in zip(got, ora)))
+            rec["plain_rel_l2_f64"].append(max(rel_l2(r, o) for r, o in zip(ref, ora)))
+            del got, ref, ora
         got_w, ref_w = gk.gsu_train_dw(args[1], dxg), gk.train_dw_plain(args[1], dxg)
         rec["dw_rel_l2"].append(rel_l2(got_w, ref_w))
         rec["dw_max_abs_err"] = max(rec["dw_max_abs_err"], max_abs(got_w, ref_w))
@@ -577,36 +637,44 @@ def fired(y):
 
 
 def bound_d(args, spikes):
-    """(bytes, operations, operation seconds) of kernel D's function."""
+    """(bytes, operations, operation seconds) of kernel D's function: xg,
+    W_hh and the spikes in the stream type, the rest float32; the spike
+    products at the stream type's peak, the cell and BN arithmetic at
+    float32's."""
     xg, whh, b2, bnp, H, shared, mode = args
     T, R, G = xg.shape
-    nbytes = (xg.numel() + whh.numel() + b2.numel() + bnp.numel() + 2 * T * R * H + 2 * T * H) * 4
-    ops = 2.0 * G * spikes + float(CELL_OPS + BN_OPS) * T * R * H
-    return nbytes, ops, ops / PEAK_OPS[torch.float32]
+    es = xg.element_size()
+    nbytes = ((xg.numel() + whh.numel() + T * R * H) * es
+              + (b2.numel() + bnp.numel() + T * R * H + 2 * T * H) * 4)
+    mm = 2.0 * G * spikes
+    cell = float(CELL_OPS + BN_OPS) * T * R * H
+    return nbytes, mm + cell, mm / PEAK_OPS[xg.dtype] + cell / PEAK_OPS[torch.float32]
 
 
 def bound_e(args, spikes):
     """(bytes, operations, operation seconds) of kernel E's function, dW
     included: the recompute and dW take the fired spikes, dh = drg W^T is
-    dense."""
+    dense; xg, gout, W_hh and dxg in the stream type."""
     xg, y, gout, stats, whh, b2, bnp, H, shared, mode = args
     T, R, G = xg.shape
-    nbytes = (xg.numel() + y.numel() + gout.numel() + stats.numel() + whh.numel() + b2.numel()
-              + bnp.numel() + T * R * G + H * G + 4 * H) * 4
-    ops = 4.0 * G * spikes + 2.0 * T * R * G * H + float(E_CELL_OPS) * T * R * H
-    return nbytes, ops, ops / PEAK_OPS[torch.float32]
+    es = xg.element_size()
+    nbytes = ((xg.numel() + gout.numel() + whh.numel() + T * R * G) * es
+              + (y.numel() + stats.numel() + b2.numel() + bnp.numel() + H * G + 4 * H) * 4)
+    mm = 4.0 * G * spikes + 2.0 * T * R * G * H
+    cell = float(E_CELL_OPS) * T * R * H
+    return nbytes, mm + cell, mm / PEAK_OPS[xg.dtype] + cell / PEAK_OPS[torch.float32]
 
 
 def bound_dw(y, dxg, spikes):
     H, G = y.shape[-1], dxg.shape[-1]
-    nbytes = (y.numel() + dxg.numel() + H * G) * 4
+    nbytes = y.numel() * 4 + dxg.numel() * dxg.element_size() + H * G * 4
     ops = 2.0 * G * spikes
-    return nbytes, ops, ops / PEAK_OPS[torch.float32]
+    return nbytes, ops, ops / PEAK_OPS[dxg.dtype]
 
 
-def train_launches(name):
-    """Each kernel's launches in one train step of configuration ``name``."""
-    n_de = 8 if name == "zoo M" else 2
+def train_launches(n_de):
+    """Each kernel's launches in one train step of a model of ``n_de`` GSU
+    layers."""
     return {"A": 0, "B": 0, "C": 0, "F": 0, "D": n_de, "E": n_de, "dW": n_de}
 
 
@@ -615,16 +683,23 @@ def time_train(apply, cfg, params, state, noisy, clean, want, iters=2):
     just before it, read just after, required to be ``want``), then
     ``iters`` steps with the forward (to the loss), the backward and the
     clip-and-AdamW step timed by CUDA events, the step's own peak memory
-    beside them."""
+    beside them. Every step starts from the same weights and state: the
+    training batch's rows are statistically alike (Gaussian noise), and
+    after a few AdamW steps a BN unit can see near-zero batch variance at
+    consecutive frames, where its backward multiplies by gamma /
+    sqrt(eps) ~ 316 a frame until it overflows (seen on zoo M's stream
+    path with bf16 streams, E's inputs finite). The step's cost does not
+    depend on where the weights are."""
     from spiking_fullsubnet_torch.ops import gsu_kernels as gk
     from spiking_fullsubnet_torch.recipes.denoise import adamw, denoise_loss, train_step
     params = fresh(params)
     leaves = tensors_of(params)
+    start = [t.detach().clone() for t in leaves]
     opt = adamw(leaves)
     counters = {**COUNTERS, **TRAIN_WRAPPERS}
     for name in counters.values():
         getattr(gk, name).launches = 0
-    _, state, _ = train_step(apply, cfg, params, state, noisy, clean, opt)
+    train_step(apply, cfg, params, state, noisy, clean, opt)
     torch.cuda.synchronize()
     counts = {k: getattr(gk, name).launches for k, name in counters.items()}
     require(counts == want, f"train step {cfg.compute_dtype} {tuple(noisy.shape)}: "
@@ -633,6 +708,9 @@ def time_train(apply, cfg, params, state, noisy, clean, want, iters=2):
     torch.cuda.reset_peak_memory_stats()
     ms = {"forward_ms": 0.0, "backward_ms": 0.0, "step_ms": 0.0}
     for _ in range(iters):
+        with torch.no_grad():
+            for t, t0 in zip(leaves, start):
+                t.copy_(t0)
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
         ev[0].record()
         opt.zero_grad(set_to_none=True)
@@ -641,14 +719,14 @@ def time_train(apply, cfg, params, state, noisy, clean, want, iters=2):
         ev[1].record()
         loss.backward()
         ev[2].record()
-        torch.nn.utils.clip_grad_norm_(leaves, 10.0)
+        norm = torch.nn.utils.clip_grad_norm_(leaves, 10.0)
         opt.step()
         ev[3].record()
         torch.cuda.synchronize()
-        state = out["state"]
         for i, k in enumerate(ms):
             ms[k] += ev[i].elapsed_time(ev[i + 1]) / iters
-        require(bool(torch.isfinite(loss)), "non-finite training loss")
+        require(bool(torch.isfinite(loss)) and bool(torch.isfinite(norm)),
+                f"non-finite training loss {loss.item()} or gradient norm {norm.item()}")
     total = sum(ms.values())
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     return dict(ms, total_ms=total, audio_s_per_s=TRAIN_B * TRAIN_SECONDS / total * 1e3,
@@ -656,66 +734,257 @@ def time_train(apply, cfg, params, state, noisy, clean, want, iters=2):
                 launches=counts)
 
 
-def train_kernel_entries(gk, d_b, e_b, checks, launches, d_plain_ms, e_plain_ms):
-    """The JSON entries of kernels D, E and E's dW kernel: each of the ten
-    layers' launches (training batch 64 x 6 s) timed alone; ms, plain_ms and
-    bound_ms are the sums over zoo M's eight layers, cIRM-GSN's two stand
-    beside them. E's time and bound include its dW kernel. The library
-    yardstick of dW is torch.matmul on the same [H, (T-1) R] x [(T-1) R, G]
-    product."""
+def time_de_layers(gk, names, d_args, e_args, d_plain_ms, e_plain_ms, with_dw=True):
+    """Kernels D, E (with its dW kernel) and dW alone at each recorded
+    launch, beside their plain versions' ms, bounds and, for dW,
+    torch.matmul on the same [H, (T-1) R] x [(T-1) R, G] product in the
+    stream type. Returns {"D": rows, "E": rows, "dW": rows}."""
     per = {"D": [], "E": [], "dW": []}
-    for i, (name, da, ea) in enumerate(zip(LAYERS_DE, d_b, e_b)):
+    for i, (name, da, ea) in enumerate(zip(names, d_args, e_args)):
         y = ea[1]
         spikes = fired(y)
         dxg = gk.gsu_layer_train_bwd(*ea)[0]
         H, G = y.shape[-1], dxg.shape[-1]
-        hp = (y[:-1] >= 0).float().reshape(-1, H).T.contiguous()
-        dx1 = dxg[1:].reshape(-1, G)
         rows = {
             "D": (cuda_ms(lambda: gk.gsu_layer_train_fwd(*da), iters=3), d_plain_ms[i],
                   bound_d(da, spikes), None),
             "E": (cuda_ms(lambda: gk.gsu_layer_train_bwd(*ea), iters=3), e_plain_ms[i],
                   bound_e(ea, spikes), None),
-            "dW": (cuda_ms(lambda: gk.gsu_train_dw(y, dxg), iters=3),
-                   cuda_ms(lambda: gk.train_dw_plain(y, dxg), warmup=0),
-                   bound_dw(y, dxg, spikes), cuda_ms(lambda: torch.matmul(hp, dx1), iters=3)),
         }
+        if with_dw:
+            hp = (y[:-1] >= 0).to(dxg.dtype).reshape(-1, H).T.contiguous()
+            dx1 = dxg[1:].reshape(-1, G)
+            rows["dW"] = (cuda_ms(lambda: gk.gsu_train_dw(y, dxg), iters=3),
+                          cuda_ms(lambda: gk.train_dw_plain(y, dxg), warmup=0),
+                          bound_dw(y, dxg, spikes),
+                          cuda_ms(lambda: torch.matmul(hp, dx1), iters=3))
+            del hp, dx1
         for k, (ms, plain, (nbytes, ops, ops_s), lib) in rows.items():
             row = {"layer": name, "shape": list(da[0].shape), "ms": ms, "plain_ms": plain,
                    "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3, "ops_ms": ops_s * 1e3,
                    "bytes": nbytes, "ops": ops, "spikes": spikes, "library_ms": lib}
             row["bound_ms"] = max(row["bytes_ms"], row["ops_ms"])
             per[k].append(row)
-        log(f"[timing] {name} {tuple(da[0].shape)}: " + "; ".join(
+        log(f"[timing] {name} {tuple(da[0].shape)} {str(da[0].dtype)[6:]}: " + "; ".join(
             f"{k} {per[k][-1]['ms']:.3f} ms (plain {per[k][-1]['plain_ms']:.1f}, bound "
             f"{per[k][-1]['bound_ms']:.4f}"
             + (f", matmul {per[k][-1]['library_ms']:.3f}" if k == "dW" else "") + ")"
-            for k in per))
-        del dxg, hp, dx1
-    meta = {"D": ("gsu_layer_train_fwd", "gsu_train_fwd.cu", 226),
-            "E": ("gsu_layer_train_bwd", "gsu_train_bwd.cu", 358),
-            "dW": ("gsu_train_dw", "gsu_train_bwd.cu", 454)}
+            for k in rows))
+        del dxg
+    return per
+
+
+DE_META = {"D": ("gsu_layer_train_fwd", "gsu_train_fwd.cu", 226),
+           "E": ("gsu_layer_train_bwd", "gsu_train_bwd.cu", 358),
+           "dW": ("gsu_train_dw", "gsu_train_bwd.cu", 454)}
+
+
+def sums_of(rows):
+    out = {f: sum(p[f] for p in rows) for f in ("ms", "plain_ms", "bytes_ms", "ops_ms")}
+    out["bound_ms"] = max(out["bytes_ms"], out["ops_ms"])
+    out["bound_by"] = "bytes" if out["bytes_ms"] >= out["ops_ms"] else "operations"
+    lib = [p["library_ms"] for p in rows]
+    out["library_ms"] = None if None in lib else sum(lib)
+    return out
+
+
+def de_entries(per, checks, launches, tag="", beside=None):
+    """The JSON entries of kernels D, E and dW from ``per`` (the main
+    configuration's layers; ms, plain_ms and bound_ms are their sums),
+    ``beside`` naming other configurations' rows to stand beside them."""
     entries = []
-    for k, (name, src, line) in meta.items():
-        zoo, cirm = per[k][:8], per[k][8:]
-        sums = {f: {part: sum(p[f] for p in rows_) for part, rows_ in (("zoo", zoo), ("cirm", cirm))}
-                for f in ("ms", "plain_ms", "bytes_ms", "ops_ms")}
-        lib = ({part: sum(p["library_ms"] for p in rows_) for part, rows_ in
-                (("zoo", zoo), ("cirm", cirm))} if k == "dW" else {"zoo": None, "cirm": None})
-        b_bytes, b_ops = sums["bytes_ms"]["zoo"], sums["ops_ms"]["zoo"]
-        entries.append({
-            "name": name, "route": "cuda", "source": f"spiking_fullsubnet_torch/csrc/{src}",
+    for k, (name, src, line) in DE_META.items():
+        t = sums_of(per[k])
+        entry = {
+            "name": name + tag, "route": "cuda", "source": f"spiking_fullsubnet_torch/csrc/{src}",
             "replaces": f"spiking_fullsubnet_tpu/ops/gsu_pallas.py:{line}",
-            "launches": launches["zoo M"][k], "max_abs_err": checks[k]["max_abs_err"],
-            "ms": sums["ms"]["zoo"], "plain_ms": sums["plain_ms"]["zoo"],
-            "bound_ms": max(b_bytes, b_ops), "bound_by": "bytes" if b_bytes >= b_ops else "operations",
-            "library_ms": lib["zoo"], "per_launch": zoo, "checks": checks[k],
-            "cirm_gsn": {"launches": launches["cIRM-GSN"][k], "ms": sums["ms"]["cirm"],
-                         "plain_ms": sums["plain_ms"]["cirm"],
-                         "bound_ms": max(sums["bytes_ms"]["cirm"], sums["ops_ms"]["cirm"]),
-                         "library_ms": lib["cirm"]},
-        })
+            "launches": launches[k], "max_abs_err": checks[k]["max_abs_err"],
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"], "per_launch": per[k],
+            "checks": checks[k]}
+        for label, (rows, n) in (beside or {}).items():
+            if rows.get(k):
+                entry[label] = dict(sums_of(rows[k]), launches=n[k], per_launch=rows[k])
+        entries.append(entry)
     return entries
+
+
+def check_d(tag, rec, names):
+    """Phase 6's requirements on ``d_checks``: every step of every layer
+    to the plain version's rounding, flips at the threshold; the mean drift
+    from a float64 run within 3x (+1e-3) of the plain version's."""
+    for i, layer in enumerate(names):
+        require(rec["step_y_err"][i] <= 3 * rec["plain_step_y_err"][i] + 1e-4
+                and rec["step_stats_err"][i] <= 3 * rec["plain_step_stats_err"][i] + 1e-4
+                and rec["step_flip_max_abs_y"][i] < 1e-3, f"kernel D {layer} {tag}: {rec}")
+    require(np.mean(rec["drift_f64"]) <= 3 * np.mean(rec["plain_drift_f64"]) + 1e-3,
+            f"kernel D {tag}: drift {rec}")
+
+
+def log_d(tag, shape, rec):
+    fmt = lambda v: "[" + ", ".join("-" if x is None else f"{x:.3e}" for x in v) + "]"  # noqa: E731
+    log(f"[stream] D {tag} {shape}: spike mismatch {fmt(rec['spike_mismatch'])}; each step "
+        f"against one float64 step from its own y[t-1]: membranes kernel "
+        f"{fmt(rec['step_y_err'])}, plain {fmt(rec['plain_step_y_err'])}; statistics kernel "
+        f"{fmt(rec['step_stats_err'])}, plain {fmt(rec['plain_step_stats_err'])}; spikes of "
+        f"the other sign {rec['step_flips']} with step |y| <= "
+        f"{fmt(rec['step_flip_max_abs_y'])}; against a float64 run kernel "
+        f"{fmt(rec['drift_f64'])}, plain {fmt(rec['plain_drift_f64'])}; plain ms "
+        f"{fmt(rec['plain_ms'])}")
+
+
+def step_grads(gk, apply, cfg, p, st, noisy, clean, bwd):
+    """(loss, gradient leaves) of one step with kernel E's wrapper swapped
+    for ``bwd``."""
+    real = gk.gsu_layer_train_bwd
+    gk.gsu_layer_train_bwd = bwd
+    try:
+        q = fresh(p)
+        loss, _ = fwd_bwd(apply, cfg, q, st, noisy, clean)
+    finally:
+        gk.gsu_layer_train_bwd = real
+    return loss, [t.grad for t in tensors_of(q)]
+
+
+def grads_vs_plain_e(gk, apply, cfg, p, st, noisy, clean):
+    """One step's gradients through the kernels against the same step with
+    E (and so dW) swapped for E's plain version: the largest leaf's
+    relative L2 and whether the losses are equal (D is deterministic, so
+    both steps see the same forward)."""
+    loss_k, g_k = step_grads(gk, apply, cfg, p, st, noisy, clean, gk.gsu_layer_train_bwd)
+    loss_q, g_q = step_grads(gk, apply, cfg, p, st, noisy, clean, gk.layer_train_bwd_plain)
+    rels = [rel_l2(a, b) for a, b in zip(g_k, g_q)]
+    return {"vs_plain_backward": max(rels), "losses_equal": bool(torch.equal(loss_k, loss_q)),
+            "leaves": len(rels)}
+
+
+def grads_vs_f64_e(gk, apply, cfg, p, st, noisy, clean):
+    """With bf16 streams: one step's gradients through the kernels and
+    through E's plain version, each against the same step with E run in
+    float64 (no bf16 rounding of drg inside the recurrence; its outputs
+    return in the kernel's types): the largest leaf's relative L2 of each."""
+    def e_f64(*args):
+        out = gk.layer_train_bwd_plain(*as_f64_d(args))
+        return (out[0].to(args[0].dtype),) + tuple(o.float() for o in out[1:])
+
+    g = {name: step_grads(gk, apply, cfg, p, st, noisy, clean, bwd)[1] for name, bwd in (
+        ("kernel", gk.gsu_layer_train_bwd), ("plain", gk.layer_train_bwd_plain),
+        ("f64", e_f64))}
+    return {who: max(rel_l2(a, o) for a, o in zip(g[who], g["f64"]))
+            for who in ("kernel", "plain")}
+
+
+def stream_phase(gk, apply, flag, flag_base, model, base, fix_noisy, fix_clean, tb_noisy,
+                 tb_clean, dev):
+    """Phase 7 (the module docstring): training on the stream path with
+    bf16 streams. Returns the kernels line's bf16-stream entries of D, E
+    and dW, the timed steps and the checks."""
+    import tomllib
+
+    from spiking_fullsubnet_torch.models.spiking_fullsubnet import build_separator
+    bf16 = "bfloat16"
+    flag_cfg = replace(flag_base, compute_dtype=bf16)
+    zoo_cfg = replace(base, compute_dtype=bf16)
+    l_args = tomllib.loads(BASELINE_L_TOML.read_text())["model"]["args"]
+    big = build_separator(seed=0, device=dev, **l_args)
+    l_cfg = replace(big["config"], scan_mode="auto", compute_dtype=bf16,
+                    collect_layer_outputs=False)
+    confs = {"flagship M": (flag_cfg, flag.param_tree(), flag.state_tree(), 8),
+             "zoo M stream": (zoo_cfg, model.param_tree(), model.state_tree(), 8),
+             "baseline L": (l_cfg, big["params"], big["state"], 10)}
+    out = {"checks": {}}
+
+    # (a) D, E and dW with bf16 streams against their plain versions:
+    # flagship M's eight layers, baseline L's four section layers of 1024
+    # and 1536 rows, recorded from one forward and backward each
+    recorded = {}
+    for name in ("flagship M", "baseline L"):
+        cfg, p, st, n = confs[name]
+        d, e = capture_de_args(gk, lambda: fwd_bwd(apply, cfg, fresh(p), st, tb_noisy, tb_clean))
+        require(len(d) == len(e) == n, f"{name}: {len(d)} launches of D and {len(e)} of E")
+        require(all(a[0].dtype == torch.bfloat16 for a in d), f"{name}: D's streams not bf16")
+        if name == "baseline L":
+            keep = [i for i, a in enumerate(d) if a[0].shape[1] >= 1024]
+            require([d[i][0].shape[1] for i in keep] == [1024, 1024, 1536, 1536],
+                    f"baseline L rows {[a[0].shape for a in d]}")
+            d, e = [d[i] for i in keep], [e[i] for i in keep]
+        recorded[name] = (d, e)
+    names = {"flagship M": LAYERS_FLAGSHIP,
+             "baseline L": tuple(f"baseline L section {s} layer {k}" for s in (0, 1)
+                                 for k in (0, 1))}
+    checks = {"D": {}, "E": {}}
+    e_plain_ms = {}
+    for name, (d, e) in recorded.items():
+        rec = d_checks(gk, d)
+        shape = [tuple(a[0].shape) for a in d]
+        log_d(name, shape, rec)
+        check_d(name, rec, names[name])
+        erec = e_checks(gk, e)
+        log(f"[stream] E {name} whole sequences rel L2 {erec['rel_l2']}, max abs err "
+            f"{erec['max_abs_err']:.3e}; against float64 kernel {erec['rel_l2_f64']}, plain "
+            f"{erec['plain_rel_l2_f64']}; dW rel L2 {erec['dw_rel_l2']}")
+        # a drg within a float32 rounding of a bf16 midpoint rounds the other
+        # way in the kernel than in the plain version: both are held against
+        # float64, the kernel within 3x (+1e-5) of the plain version's error
+        for i, layer in enumerate(names[name]):
+            require(erec["rel_l2_f64"][i] <= 3 * erec["plain_rel_l2_f64"][i] + 1e-5
+                    and erec["dw_rel_l2"][i] < 1e-3, f"kernel E bf16 {layer}: {erec}")
+        checks["D"][name], checks["E"][name] = rec, erec
+        e_plain_ms[name] = [cuda_ms(lambda: gk.layer_train_bwd_plain(*ea), warmup=0) for ea in e]
+    checks["D"]["max_abs_err"] = max(max(checks["D"][n]["step_y_err"]) for n in recorded)
+    checks["E"]["max_abs_err"] = max(checks["E"][n]["max_abs_err"] for n in recorded)
+    checks["dW"] = {"rel_l2": checks["E"]["flagship M"]["dw_rel_l2"],
+                    "max_abs_err": checks["E"]["flagship M"]["dw_max_abs_err"]}
+
+    # (b) one step's gradients on the stream path through the kernels
+    # against E's plain version: f32 streams as in phase 6; with bf16
+    # streams the rounding of drg at a bf16 midpoint goes either way, so
+    # there the kernel and the plain version are each held against E in
+    # float64 (the kernel within 3x (+1e-5) of the plain version's error)
+    for name in ("flagship M", "zoo M stream"):
+        cfg, p, st, _ = confs[name]
+        g = grads_vs_plain_e(gk, apply, replace(cfg, compute_dtype=None), p, st, fix_noisy,
+                             fix_clean)
+        log(f"[stream] {name} float32 one step through the kernels against E's plain version "
+            f"on the same forward (losses equal: {g['losses_equal']}): largest gradient-leaf "
+            f"rel L2 {g['vs_plain_backward']:.3e} over {g['leaves']} leaves")
+        require(g["vs_plain_backward"] < 1e-2, f"{name}: gradients {g}")
+        out["checks"][f"{name} grads_vs_plain"] = g
+    cfg, p, st, _ = confs["flagship M"]
+    g = grads_vs_f64_e(gk, apply, cfg, p, st, fix_noisy, fix_clean)
+    log(f"[stream] flagship M bf16 one step, largest gradient-leaf rel L2 against E in float64: "
+        f"kernel {g['kernel']:.3e}, plain {g['plain']:.3e}")
+    require(g["kernel"] <= 3 * g["plain"] + 1e-5, f"flagship M bf16: gradients {g}")
+    out["checks"]["flagship M bf16 grads_vs_f64_e"] = g
+
+    # (c) the train steps at 64 x 6 s, bf16, each counted
+    timed = {}
+    for name, (cfg, p, st, n) in confs.items():
+        t = time_train(apply, cfg, p, st, tb_noisy, tb_clean, train_launches(n),
+                       iters=1 if name == "baseline L" else 2)
+        timed[name] = t
+        log(f"[timing] train step {name} (stream path) bf16 {TRAIN_B} x {TRAIN_SECONDS:g} s: "
+            f"forward {t['forward_ms']:.3f} ms, backward {t['backward_ms']:.3f} ms, clip and "
+            f"AdamW {t['step_ms']:.3f} ms, total {t['total_ms']:.3f} ms "
+            f"({t['audio_s_per_s']:.1f} audio-s/s), own peak memory {t['own_peak_gb']:.2f} GB "
+            f"({t['held_gb']:.2f} GB held before), launches {t['launches']}")
+        torch.cuda.empty_cache()
+
+    # (d) the kernels alone: flagship M's eight layers, baseline L's four
+    d_f, e_f = recorded["flagship M"]
+    per = time_de_layers(gk, names["flagship M"], d_f, e_f,
+                         checks["D"]["flagship M"]["plain_ms"], e_plain_ms["flagship M"])
+    d_l, e_l = recorded["baseline L"]
+    per_l = time_de_layers(gk, names["baseline L"], d_l, e_l,
+                           checks["D"]["baseline L"]["plain_ms"], e_plain_ms["baseline L"],
+                           with_dw=False)
+    lk = {k: timed["baseline L"]["launches"][k] for k in ("D", "E", "dW")}
+    out["kernels"] = de_entries(per, checks, timed["flagship M"]["launches"],
+                                tag=" (bf16 streams)",
+                                beside={"baseline_l_sections_0_1": (per_l, lk)})
+    out["training"] = timed
+    out["checks"].update(d=checks["D"], e=checks["E"])
+    return out
 
 
 def main() -> int:
@@ -749,6 +1018,7 @@ def main() -> int:
         f"| CUDA {torch.version.cuda} | count {torch.cuda.device_count()}")
 
     # ---- 2. build ----
+    stamp("2. build")
     secs_build = gk.build_kernels()
     log(f"[build] kernels built and loaded in {secs_build:.2f} s")
     for name, text in gk.BUILD_LOG.items():
@@ -757,6 +1027,7 @@ def main() -> int:
                 log(f"[build] {name}: {line.strip()}")
 
     # ---- 3. kernels against their plain versions, main-path inputs ----
+    stamp("3. kernels against their plain versions, main-path inputs")
     torch.set_grad_enabled(False)  # phases 3-5 are eval; SpikingFullSubNet's weights are trainable
     base = replace(separator_config(norm_type="offline_laplace_norm", shared_weights=True,
                                     bn=True), scan_mode="auto", collect_layer_outputs=False)
@@ -956,6 +1227,7 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     # ---- 4. quality: the main paths, each counted ----
+    stamp("4. quality: the main paths, each counted")
     def counted(m, x):
         for name in COUNTERS.values():
             getattr(gk, name).launches = 0
@@ -1022,6 +1294,7 @@ def main() -> int:
     launches["F cIRM-GSN"] = cirm_launches["F"]
 
     # ---- 5. timing ----
+    stamp("5. timing")
     forwards = {}
     for name, m in (("zoo M", model), ("flagship M", flag), ("zoo M layered", layered),
                     ("cIRM-GSN", cirm_forward)):
@@ -1078,6 +1351,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 6. training ----
+    stamp("6. training")
     torch.set_grad_enabled(True)
     confs = {"zoo M": (spiking_fullsubnet_apply, lay_base, model.param_tree(), model.state_tree()),
              "cIRM-GSN": (cm.cirm_model_apply, cirm["config"], cirm["params"], cirm["state"])}
@@ -1129,23 +1403,16 @@ def main() -> int:
         f"training batch first {WINDOW} frames {fmt(trec['E']['training_batch_head']['rel_l2'])}; "
         f"dW rel L2 {fmt(trec['dW']['rel_l2'])}")
     log(f"[training] plain D {fmt(d_plain_ms)} ms, plain E {fmt(e_plain_ms)} ms")
+    # the batch statistics couple every row, so one rounding flip (a membrane
+    # within rounding of the threshold, every few dozen steps at these sizes)
+    # moves the whole layer onto another trajectory. Every step of every
+    # layer is therefore held against one float64 step from the layer's own
+    # previous membranes, to the plain f32 version's rounding, and a spike of
+    # the other sign must sit at the threshold. A layer's later drift is one
+    # sample of that chaos, not an average over independent rows as for F,
+    # so the whole-sequence drift holds the ten layers together (check_d).
     for tag in ("fixture", "training_batch"):
-        r = trec["D"][tag]
-        # the batch statistics couple every row, so one rounding flip (a
-        # membrane within rounding of the threshold, every few dozen steps at
-        # these sizes) moves the whole layer onto another trajectory. Every
-        # step of every layer is therefore held against one float64 step
-        # from the layer's own previous membranes, to the plain f32
-        # version's rounding, and a spike of the other sign must sit at the
-        # threshold. A layer's later drift is one sample of that chaos, not
-        # an average over independent rows as for F, so the whole-sequence
-        # drift holds the ten layers together.
-        for i, layer in enumerate(LAYERS_DE):
-            require(r["step_y_err"][i] <= 3 * r["plain_step_y_err"][i] + 1e-4
-                    and r["step_stats_err"][i] <= 3 * r["plain_step_stats_err"][i] + 1e-4
-                    and r["step_flip_max_abs_y"][i] < 1e-3, f"kernel D {layer} {tag}: {r}")
-        require(np.mean(r["drift_f64"]) <= 3 * np.mean(r["plain_drift_f64"]) + 1e-3,
-                f"kernel D {tag}: drift {r}")
+        check_d(tag, trec["D"][tag], LAYERS_DE)
     for layer, rel, head, w in zip(LAYERS_DE, trec["E"]["fixture"]["rel_l2"],
                                    trec["E"]["training_batch_head"]["rel_l2"],
                                    trec["dW"]["rel_l2"]):
@@ -1171,7 +1438,7 @@ def main() -> int:
             require(all(bool(torch.isfinite(t.grad).all()) for t in tensors_of(params)),
                     f"{name}: non-finite gradient")
             losses.append(ld["loss"].item())
-        want = train_launches(name)
+        want = train_launches(8 if name == "zoo M" else 2)
         moved = [not torch.equal(a, b) for a, b in zip(tensors_of(st), tensors_of(st0))]
         log(f"[training] {name} five steps on the fixture: losses {fmt(losses)}, launches per "
             f"step {counts[0]}, BN running statistics moved in {sum(moved)} of {len(moved)}")
@@ -1184,32 +1451,19 @@ def main() -> int:
         # E (and so dW) swapped for E's plain version: D's forward is
         # deterministic (no atomics), so both steps see the same spikes and
         # the backward is held alone; D is held step by step in (a)
-        def step_grads(bwd):
-            real = gk.gsu_layer_train_bwd
-            gk.gsu_layer_train_bwd = bwd
-            try:
-                q = fresh(p)
-                loss, _ = fwd_bwd(apply, cfg, q, st0, fix_noisy, fix_clean)
-            finally:
-                gk.gsu_layer_train_bwd = real
-            return loss, [t.grad for t in tensors_of(q)]
-
-        loss_k, g_k = step_grads(gk.gsu_layer_train_bwd)
-        loss_q, g_q = step_grads(gk.layer_train_bwd_plain)
-        rels = [rel_l2(a, b) for a, b in zip(g_k, g_q)]
-        same = bool(torch.equal(loss_k, loss_q))
-        grad_rel[name] = {"vs_plain_backward": max(rels), "losses_equal": same}
+        grad_rel[name] = g = grads_vs_plain_e(gk, apply, cfg, p, st0, fix_noisy, fix_clean)
         log(f"[training] {name} one step through the kernels against E's plain version on the "
-            f"same forward (losses equal: {same}): largest gradient-leaf rel L2 "
-            f"{max(rels):.3e} over {len(rels)} leaves")
-        require(max(rels) < 1e-2, f"{name}: gradient rel L2 {rels}")
-        del params, opt, g_k, g_q
+            f"same forward (losses equal: {g['losses_equal']}): largest gradient-leaf rel L2 "
+            f"{g['vs_plain_backward']:.3e} over {g['leaves']} leaves")
+        require(g["vs_plain_backward"] < 1e-2, f"{name}: gradients {g}")
+        del params, opt
 
     # (d) the train step at the training shape, bf16, and the kernels alone
     train_t = {}
     for name, (apply, cfg, p, st0) in confs.items():
         train_t[name] = t = time_train(apply, replace(cfg, compute_dtype="bfloat16"), p, st0,
-                                       tb_noisy, tb_clean, train_launches(name))
+                                       tb_noisy, tb_clean,
+                                       train_launches(8 if name == "zoo M" else 2))
         t["grads_vs_plain"] = grad_rel[name]
         log(f"[timing] train step {name} bf16 {TRAIN_B} x {TRAIN_SECONDS:g} s: forward "
             f"{t['forward_ms']:.3f} ms, backward {t['backward_ms']:.3f} ms, clip and AdamW "
@@ -1217,11 +1471,22 @@ def main() -> int:
             f"audio-s/s), own peak memory {t['own_peak_gb']:.2f} GB ({t['held_gb']:.2f} GB held "
             f"before), launches {t['launches']}")
         torch.cuda.empty_cache()
-    kernels += train_kernel_entries(gk, d_b, e_b, trec, {k: t["launches"] for k, t in
-                                                         train_t.items()}, d_plain_ms, e_plain_ms)
+    per = time_de_layers(gk, LAYERS_DE, d_b, e_b, d_plain_ms, e_plain_ms)
+    kernels += de_entries({k: v[:8] for k, v in per.items()}, trec, train_t["zoo M"]["launches"],
+                          beside={"cirm_gsn": ({k: v[8:] for k, v in per.items()},
+                                               train_t["cIRM-GSN"]["launches"])})
+    del d_b, e_b, d_q, e_q, per
+    torch.cuda.empty_cache()
+
+    # ---- 7. training on the stream path, bf16 streams ----
+    stamp("7. training on the stream path, bf16 streams")
+    stream = stream_phase(gk, spiking_fullsubnet_apply, flag, flag_base, model, base,
+                          fix_noisy, fix_clean, tb_noisy, tb_clean, dev)
+    kernels += stream.pop("kernels")
+    train_t.update(stream.pop("training"))
     print(json.dumps({"kernels": kernels, "forwards": forwards, "training": train_t,
-                      "batch": BENCH_B, "seconds": BENCH_SECONDS, "train_batch": TRAIN_B,
-                      "train_seconds": TRAIN_SECONDS}), flush=True)
+                      "stream_checks": stream, "batch": BENCH_B, "seconds": BENCH_SECONDS,
+                      "train_batch": TRAIN_B, "train_seconds": TRAIN_SECONDS}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

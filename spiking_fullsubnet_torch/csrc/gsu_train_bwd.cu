@@ -17,7 +17,11 @@
 //   dxg[t] = drg, dh = drg @ W_hh^T (dense: drg is not sparse),
 // with db, dgamma = sum(dy xhat) and dbeta = sum(dy) summed over steps and
 // rows. dW_hh = sum over t, r of h_prev^T drg is train_dw_kernel's, from the
-// saved y and dxg. All float32, precise expf and 1/sqrtf, no fast math.
+// saved y and dxg. Two stream types, as kernel D: float32, or bfloat16 xg,
+// gout, dxg and W_hh. With bf16 streams drg is rounded to bf16 before dh =
+// drg @ W_hh^T and before dW, as the TPU kernel rounds its matmul operands
+// (gsu_pallas.py:449-460); y, the carried dh and dc, db and dgamma/dbeta
+// stay float32. Precise expf and 1/sqrtf, no fast math.
 //
 // What bounds it on an H100: as kernel D, the serial chain of each step (a
 // dot over H for the recomputed gates and one over G for dh, both through
@@ -38,8 +42,9 @@
 // train_dw_kernel: dW [H, G] = sum over n of h_prev[n]^T dxg[n], n over the
 // T R rows (h_prev of rows n < R is zero). A block owns a 32 x 64 tile of
 // dW and walks every row in chunks of 32 staged in shared memory, skipping
-// zero spikes; sums in float32 in row order. No library GEMM: the TPU
-// kernel computes this product in its body.
+// zero spikes; sums in float32 in row order (dxg in the stream type, so with
+// bf16 streams the rounded drg). No library GEMM: the TPU kernel computes
+// this product in its body.
 #include <cooperative_groups.h>
 
 #include "gsu_common.cuh"
@@ -52,12 +57,19 @@ namespace {
 constexpr int MAX_CLUSTER = 8;
 constexpr float BN_EPS = 1e-5f;
 
+// v rounded to the stream type and back (the identity for float32)
+__device__ __forceinline__ float rnd(float v, const float*) { return v; }
+__device__ __forceinline__ float rnd(float v, const __nv_bfloat16*) {
+  return __bfloat162float(__float2bfloat16(v));
+}
+
+template <typename IO>
 __global__ void __launch_bounds__(512)
-train_bwd_kernel(const float* __restrict__ xg, const float* __restrict__ y,
-                 const float* __restrict__ gout, const float* __restrict__ stats,
-                 const float* __restrict__ whh, const float* __restrict__ whh_t,
+train_bwd_kernel(const IO* __restrict__ xg, const float* __restrict__ y,
+                 const IO* __restrict__ gout, const float* __restrict__ stats,
+                 const IO* __restrict__ whh, const IO* __restrict__ whh_t,
                  const float* __restrict__ b2, const float* __restrict__ bnp,
-                 float* __restrict__ dxg, float* __restrict__ db, float* __restrict__ dbn,
+                 IO* __restrict__ dxg, float* __restrict__ db, float* __restrict__ dbn,
                  float* __restrict__ scratch, int T, int R, int H, int shared, int bn,
                  int rows_blk) {
   extern __shared__ float4 smem4[];
@@ -113,14 +125,14 @@ train_bwd_kernel(const float* __restrict__ xg, const float* __restrict__ y,
         for (int r = 0; r < nr; ++r) {
           const int row = row0 + k * RB + r;
           const size_t i = (size_t)row * H + j;
-          const float* x = xg + ((size_t)t * R + row) * G;
-          const float pre_f = x[j] + a[r];
-          const float pre_c = shared ? pre_f : x[H + j] + a2[r];
+          const IO* x = xg + ((size_t)t * R + row) * G;
+          const float pre_f = ld(x + j) + a[r];
+          const float pre_c = shared ? pre_f : ld(x + H + j) + a2[r];
           const float f = 1.f / (1.f + expf(-(pre_f + b_f)));
           const float g = pre_c + b_c;
           const size_t o = ((size_t)t * R + row) * H + j;
           const float surr = fmaxf(1.f - fabsf(y[o]), 0.f);
-          const float dy = (gout[o] + dh[i]) * surr + dc[i];
+          const float dy = (ld(gout + o) + dh[i]) * surr + dc[i];
           fs[i] = f;
           gs[i] = g;
           dh[i] = dy;
@@ -172,15 +184,17 @@ train_bwd_kernel(const float* __restrict__ xg, const float* __restrict__ y,
           dc[i] = dcr * f;
           db_f += dpre_f;
           db_c += dpre_c;
-          float* dx = dxg + ((size_t)t * R + row) * G;
+          IO* dx = dxg + ((size_t)t * R + row) * G;
           if (shared) {
-            dx[j] = dpre_f + dpre_c;
-            buf[((size_t)k * G + j) * RB + r] = dpre_f + dpre_c;
+            const float d = rnd(dpre_f + dpre_c, dx);
+            st(dx + j, d);
+            buf[((size_t)k * G + j) * RB + r] = d;
           } else {
-            dx[j] = dpre_f;
-            dx[H + j] = dpre_c;
-            buf[((size_t)k * G + j) * RB + r] = dpre_f;
-            buf[((size_t)k * G + H + j) * RB + r] = dpre_c;
+            const float d_f = rnd(dpre_f, dx), d_c = rnd(dpre_c, dx);
+            st(dx + j, d_f);
+            st(dx + H + j, d_c);
+            buf[((size_t)k * G + j) * RB + r] = d_f;
+            buf[((size_t)k * G + H + j) * RB + r] = d_c;
           }
         }
       }
@@ -227,8 +241,9 @@ constexpr int DW_THREADS = 256;
 // dw[i][g] = sum over n >= R of (y[n - R][i] >= 0) dxg[n][g], n over T R rows
 // of the flattened [T, R] sequence. Thread (ti, tg) owns dw[i0 + ti][g0 + tg
 // .. + 8].
+template <typename IO>
 __global__ void __launch_bounds__(DW_THREADS)
-train_dw_kernel(const float* __restrict__ y, const float* __restrict__ dxg,
+train_dw_kernel(const float* __restrict__ y, const IO* __restrict__ dxg,
                 float* __restrict__ dw, int T, int R, int H, int G) {
   __shared__ float hsm[DW_TK][DW_TI];
   __shared__ float dsm[DW_TK][DW_TG];
@@ -246,7 +261,7 @@ train_dw_kernel(const float* __restrict__ y, const float* __restrict__ dxg,
     for (int q = threadIdx.x; q < DW_TK * DW_TG; q += DW_THREADS) {
       const int kk = q / DW_TG, gg = q % DW_TG;
       const long long n = n0 + kk;
-      dsm[kk][gg] = (n < N && g0 + gg < G) ? dxg[n * G + g0 + gg] : 0.f;
+      dsm[kk][gg] = (n < N && g0 + gg < G) ? ld(dxg + n * G + g0 + gg) : 0.f;
     }
     __syncthreads();
     for (int kk = 0; kk < DW_TK; ++kk) {
@@ -262,28 +277,18 @@ train_dw_kernel(const float* __restrict__ y, const float* __restrict__ dxg,
       if (g0 + tg + q < G) dw[(size_t)(i0 + ti) * G + g0 + tg + q] = acc[q];
 }
 
-}  // namespace
-
-extern "C" {
-
-// xg [T, R, G], y and gout [T, R, H], stats [T, 2, H], whh [H, G], whh_t
-// [G, H], b2 and bnp [2, H] (bnp[0] = gamma) f32; out dxg [T, R, G], db and
-// dbn [2, H]; scratch [4, R, H] f32, its first 2 R H zeroed by the caller.
-// mode: 0 none, 1 batch-statistics BN. One cluster of min(8, ceil(R / 8))
-// blocks runs every row. Returns the CUDA error code of the launch.
-int gsu_train_bwd_launch(const float* xg, const float* y, const float* gout, const float* stats,
-                         const float* whh, const float* whh_t, const float* b2, const float* bnp,
-                         float* dxg, float* db, float* dbn, float* scratch, int T, int R, int H,
-                         int shared, int mode, void* stream) {
-  if (H < 1 || H > 512 || R < 1 || T < 1 || (mode != 0 && mode != 1))
-    return (int)cudaErrorInvalidValue;
+template <typename IO>
+int launch_bwd(const void* xg, const float* y, const void* gout, const float* stats,
+               const void* whh, const void* whh_t, const float* b2, const float* bnp, void* dxg,
+               float* db, float* dbn, float* scratch, int T, int R, int H, int shared, int mode,
+               cudaStream_t stream) {
   const int G = shared ? H : 2 * H;
   int nblk = (R + RB - 1) / RB;
   nblk = nblk < MAX_CLUSTER ? nblk : MAX_CLUSTER;
   const int rows_blk = ((R + nblk - 1) / nblk + RB - 1) / RB * RB;
   const size_t smem = ((size_t)rows_blk * G + 6 * H) * sizeof(float);
   if (smem > 232448) return (int)cudaErrorInvalidValue;  // 227 KB a block
-  auto kern = train_bwd_kernel;
+  auto kern = train_bwd_kernel<IO>;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)smem);
   if (e != cudaSuccess) return (int)e;
@@ -291,7 +296,7 @@ int gsu_train_bwd_launch(const float* xg, const float* y, const float* gout, con
   cfg.gridDim = dim3((unsigned)nblk);
   cfg.blockDim = dim3((unsigned)((H + 31) / 32 * 32));
   cfg.dynamicSmemBytes = smem;
-  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = (unsigned)nblk;
@@ -299,20 +304,53 @@ int gsu_train_bwd_launch(const float* xg, const float* y, const float* gout, con
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, kern, xg, y, gout, stats, whh, whh_t, b2, bnp, dxg, db, dbn,
+  e = cudaLaunchKernelEx(&cfg, kern, static_cast<const IO*>(xg), y,
+                         static_cast<const IO*>(gout), stats, static_cast<const IO*>(whh),
+                         static_cast<const IO*>(whh_t), b2, bnp, static_cast<IO*>(dxg), db, dbn,
                          scratch, T, R, H, shared, mode, rows_blk);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
-// y [T, R, H] and dxg [T, R, G] f32 -> dw [H, G] f32. Returns the CUDA error
-// code of the launch.
-int gsu_train_dw_launch(const float* y, const float* dxg, float* dw, int T, int R, int H, int G,
-                        void* stream) {
-  if (H < 1 || G < 1 || R < 1 || T < 1) return (int)cudaErrorInvalidValue;
+}  // namespace
+
+extern "C" {
+
+// io: 0 float32 streams, 1 bfloat16. xg [T, R, G], gout [T, R, H], whh
+// [H, G] and whh_t [G, H] in the stream type; y [T, R, H], stats [T, 2, H],
+// b2 and bnp [2, H] (bnp[0] = gamma) f32; out dxg [T, R, G] in the stream
+// type, db and dbn [2, H] f32; scratch [4, R, H] f32, its first 2 R H zeroed
+// by the caller. mode: 0 none, 1 batch-statistics BN. One cluster of
+// min(8, ceil(R / 8)) blocks runs every row. Returns the CUDA error code of
+// the launch.
+int gsu_train_bwd_launch(int io, const void* xg, const float* y, const void* gout,
+                         const float* stats, const void* whh, const void* whh_t,
+                         const float* b2, const float* bnp, void* dxg, float* db, float* dbn,
+                         float* scratch, int T, int R, int H, int shared, int mode,
+                         void* stream) {
+  if (H < 1 || H > 512 || R < 1 || T < 1 || (mode != 0 && mode != 1) || io < 0 || io > 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (io == 1)
+    return launch_bwd<__nv_bfloat16>(xg, y, gout, stats, whh, whh_t, b2, bnp, dxg, db, dbn,
+                                     scratch, T, R, H, shared, mode, s);
+  return launch_bwd<float>(xg, y, gout, stats, whh, whh_t, b2, bnp, dxg, db, dbn, scratch, T,
+                           R, H, shared, mode, s);
+}
+
+// io as above. y [T, R, H] f32 and dxg [T, R, G] in the stream type -> dw
+// [H, G] f32. Returns the CUDA error code of the launch.
+int gsu_train_dw_launch(int io, const float* y, const void* dxg, float* dw, int T, int R, int H,
+                        int G, void* stream) {
+  if (H < 1 || G < 1 || R < 1 || T < 1 || io < 0 || io > 1) return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)((G + DW_TG - 1) / DW_TG), (unsigned)((H + DW_TI - 1) / DW_TI));
-  train_dw_kernel<<<grid, DW_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(y, dxg, dw, T, R,
-                                                                              H, G);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (io == 1)
+    train_dw_kernel<<<grid, DW_THREADS, 0, s>>>(
+        y, static_cast<const __nv_bfloat16*>(dxg), dw, T, R, H, G);
+  else
+    train_dw_kernel<<<grid, DW_THREADS, 0, s>>>(y, static_cast<const float*>(dxg), dw, T, R, H,
+                                                G);
   return (int)cudaGetLastError();
 }
 

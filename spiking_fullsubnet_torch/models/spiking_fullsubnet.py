@@ -14,9 +14,11 @@ The port covers:
   ``separator_config(norm_type="offline_laplace_norm", shared_weights=True,
   bn=True)``) on the two-launch path (kernels A, B); pre-LayerNorm (the
   flagship preset, ``models/presets.flagship_m``), the cumulative laplace
-  norm and no norm on the whole-model monolith (kernel C). Training through
-  the stream path (the stream-train stack) is training slice 2 of ROADMAP
-  queue 2.
+  norm and no norm on the whole-model monolith (kernel C);
+- training through the stream path (``scan_mode="stream"``, and
+  ``"auto"`` on a CUDA tensor, as the JAX package on its chip): every GSU
+  layer on kernels D and E with streams in the compute type (bfloat16
+  under the bf16 policy), the glue in autograd.
 Weights come from a JAX-package ``.npz`` (``SpikingFullSubNet.from_npz``)
 or from a seeded init (``SpikingFullSubNet.from_init``, ``build``).
 Anything else raises ``NotImplementedError`` naming the ROADMAP item that
@@ -236,11 +238,7 @@ def spiking_fullsubnet_apply(cfg: SpikingFullSubNetConfig, params, state,
         else:
             scan_mode = "layered"
     if scan_mode == "stream":
-        if train:
-            raise NotImplementedError(
-                "training on the stream path is not ported yet (ROADMAP queue 2, training "
-                "slice 2: the stream-train stack); scan_mode='layered' trains")
-        return spiking_fullsubnet_stream_forward(cfg, params, state, noisy_y)
+        return spiking_fullsubnet_stream_forward(cfg, params, state, noisy_y, train)
     if scan_mode != "layered":
         raise NotImplementedError(
             f"scan_mode={scan_mode!r} is not ported yet (ROADMAP queue 1, item 12: the fused "

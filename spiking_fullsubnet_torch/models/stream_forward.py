@@ -1,6 +1,7 @@
-"""Stream (serve) forward, eval (counterpart of
+"""Stream forward, eval and training (counterpart of
 ``spiking_fullsubnet_tpu/models/stream_forward.py``). Two serving paths, as
-the JAX package dispatches them (``stream_forward.py:734-759``):
+the JAX package dispatches them (``stream_forward.py:734-759``), and the
+stream-train path:
 
 **Monolith** (norms "ln" = pre-LayerNorm, "cum" = cumulative laplace norm,
 "raw" = none; the flagship preset): the audio is left-padded by n_fft/2 and
@@ -32,15 +33,30 @@ checkpoints; time-major ``[T, B, ...]`` from the STFT to the iSTFT):
    their projection and the deep filter;
 5. the Nyquist bin passes through and the iSTFT gives the audio.
 
+**Training** (``train=True``, any norm the stream gate takes; the merged
+kernels need ``not train``, ``stream_forward.py:519-523``, so neither B nor C
+runs): the same time-major glue, differentiable end to end in autograd. The
+fullband input norm (offline or cumulative laplace norm, or pre-LN), the
+hoisted layer-0 product, the fullband stack on kernels D and E
+(``ops/gsu.gsu_stack_train_xg``: one ``GSULayerTrain`` a layer, the
+inter-layer products as matmuls) and the projection; then per section each
+unit's layer-0 gates ``alpha ck - beta u + v`` from one-hot scattered
+weights (the LN fold for pre-LN; alpha and beta from the section's norm),
+the units folded into rows unit-major ``[T, n B, G]`` for the section's
+stack on D and E, the projection with its columns in (c, d, fc) order and
+the deep filter; the Nyquist passthrough, the iSTFT and the new BN running
+statistics. The kernels' streams are the compute type: bfloat16 under the
+bf16 policy (``gsu_layer_pallas_train_padded``'s io), membranes float32.
+
 The TPU layout padding of the JAX package (``Tp = round_up(T, 128)``,
 128-lane gate, projection and spectrum widths, 128-aligned windows, batch
 rows padded to 8) is gone: the port runs at the real T (the monolith runs
 exactly T + 3 steps), H, G and window widths.
 
-Covered: eval, ``collect_layer_outputs=False``. A causal-norm or pre-LN
-config that misses the monolith's gate would take kernel B's pre-LN and
-per-frame alpha/beta terms, which are not ported yet, and raises
-``NotImplementedError``.
+Covered: ``collect_layer_outputs=False``, eval and training. In eval a
+causal-norm or pre-LN config that misses the monolith's gate would take
+kernel B's pre-LN and per-frame alpha/beta terms, which are not ported yet,
+and raises ``NotImplementedError``; training takes any of them.
 """
 
 from __future__ import annotations
@@ -53,10 +69,13 @@ import torch.nn.functional as F
 
 from ..dsp.mask import EPSILON
 from ..dsp.spectral import istft_real_imag_tmajor, num_frames, stft_real_imag_tmajor
-from ..nn.core import cast_floating, output_activation
+from ..nn.core import cast_floating, layer_norm_apply, output_activation
 from ..ops.freq_unfold import reflect_unfold_indices
+from ..ops.gsu import gsu_stack_train_xg
 from ..ops.gsu_kernels import (
     gsu_sections_eval, gsu_stack_eval, monolith_dft_matrices, pack_stack, sfsb_monolith_serve)
+
+LN_EPS = 1e-5
 
 
 def stream_supported(cfg) -> bool:
@@ -106,20 +125,20 @@ def monolith_ok(cfg) -> bool:
             and not cfg.fb_output_activate_function)
 
 
-def _check_covered(cfg) -> None:
+def _check_covered(cfg, train: bool) -> None:
     if not stream_supported(cfg):
         raise ValueError("stream forward: unsupported config (see stream_supported)")
     if cfg.collect_layer_outputs:
         raise NotImplementedError(
-            "collect_layer_outputs=True (per-layer spike tensors for synops) is not "
-            "ported yet (ROADMAP queue 2: the collect path, kernel A's 4-D form)")
-    if norm_mode(cfg) != "off" and not monolith_ok(cfg):
+            "collect_layer_outputs=True (per-layer spike tensors for synops) on the stream "
+            "path is not ported yet (ROADMAP queue 1, item 6: the collect path)")
+    if not train and norm_mode(cfg) != "off" and not monolith_ok(cfg):
         raise NotImplementedError(
             f"norm_type={cfg.norm_type!r} with pre-LN fb/sb "
             f"{cfg.use_pre_layer_norm_fb}/{cfg.use_pre_layer_norm_sb} misses the monolith "
             "(fdrc 0.5, n_fft = win = 4 hop, no fullband output activation) and needs "
             "kernel B's pre-LN and per-frame alpha/beta terms, not ported yet "
-            "(ROADMAP queue 2, item 2)")
+            "(ROADMAP queue 2, item 3)")
 
 
 def _fold_ln(params, acc: torch.dtype):
@@ -132,6 +151,36 @@ def _fold_ln(params, acc: torch.dtype):
         return w_t, None, None
     w_fold = params["pre_ln"]["weight"].to(acc)[:, None] * w_t
     return w_fold, w_fold.sum(dim=0), params["pre_ln"]["bias"].to(acc) @ w_t
+
+
+def _section_geometry(cfg, i: int) -> Dict[str, Any]:
+    """Section i's units and their frequency unfold as one-hot maps
+    (``stream_forward.py:541-556``): ``n`` units of ``ctr`` centre bins and
+    deep-filter order ``df``; ``w_noisy`` lanes of the noisy magnitude and
+    ``w_tot`` in all a unit; ``idx_noisy [n, w_noisy]`` their source bins
+    (reflect padding included), ``a`` the first bin of the section's window
+    ``[a, b)``; ``oh_n [n, w_noisy, b - a]`` and ``oh_f [n, w_fb, fb_proj]``
+    (the fullband tile folded back onto the projection lanes), numpy."""
+    lo, hi = cfg.freq_cutoffs[i], cfg.freq_cutoffs[i + 1]
+    ctr, nbr = cfg.center_freq_sizes[i], cfg.neighbor_freq_sizes[i]
+    w_noisy = ctr + 2 * nbr
+    idx_noisy = reflect_unfold_indices(lo, hi, ctr, nbr, cfg.num_freqs)  # [n, w_noisy]
+    idx_fb = reflect_unfold_indices(
+        lo, hi, cfg.fb_ctrs[i], cfg.fb_nbrs[i], cfg.num_freqs) % cfg.fb_proj_size
+    a, b = int(idx_noisy.min()), int(idx_noisy.max()) + 1
+    return {"n": (hi - lo) // ctr, "ctr": ctr, "df": cfg.df_orders[i], "w_noisy": w_noisy,
+            "w_tot": w_noisy + cfg.fb_ctrs[i] + 2 * cfg.fb_nbrs[i], "idx_noisy": idx_noisy,
+            "a": a, "b": b, "oh_n": _one_hot_scatter(idx_noisy - a, b - a),
+            "oh_f": _one_hot_scatter(idx_fb, cfg.fb_proj_size)}
+
+
+def _df_column_order(ctr: int, df: int) -> np.ndarray:
+    """The projection's columns from the reference's (c, fc, d) order to
+    (c, d, fc), so that each deep-filter tap is a contiguous slice:
+    ``new[(c df + d) ctr + fc] = old[(c ctr + fc) df + d]``."""
+    return (np.arange(2)[:, None, None] * ctr * df
+            + np.arange(ctr)[None, None, :] * df
+            + np.arange(df)[None, :, None]).reshape(-1)
 
 
 def _section_specs(cfg, sb_params, sb_states, io: torch.dtype, acc: torch.dtype):
@@ -147,42 +196,30 @@ def _section_specs(cfg, sb_params, sb_states, io: torch.dtype, acc: torch.dtype)
     sel_cols_m, sel_cols_f, groups = [], [], []
     u0 = 0
     for i in range(cfg.num_sections):
-        lo, hi = cfg.freq_cutoffs[i], cfg.freq_cutoffs[i + 1]
-        ctr, nbr, df = cfg.center_freq_sizes[i], cfg.neighbor_freq_sizes[i], cfg.df_orders[i]
-        n = (hi - lo) // ctr
-        w_noisy = ctr + 2 * nbr
-        w_tot = w_noisy + cfg.fb_ctrs[i] + 2 * cfg.fb_nbrs[i]
-        idx_noisy = reflect_unfold_indices(lo, hi, ctr, nbr, full_f)  # [n, w_noisy]
-        idx_fb = reflect_unfold_indices(
-            lo, hi, cfg.fb_ctrs[i], cfg.fb_nbrs[i], full_f) % cfg.fb_proj_size
-        a, b = int(idx_noisy.min()), int(idx_noisy.max()) + 1
-        oh_n = torch.as_tensor(_one_hot_scatter(idx_noisy - a, b - a), dtype=acc, device=dev)
-        oh_f = torch.as_tensor(_one_hot_scatter(idx_fb, cfg.fb_proj_size), dtype=acc, device=dev)
+        g = _section_geometry(cfg, i)
+        n, w_noisy = g["n"], g["w_noisy"]
+        oh_n = torch.as_tensor(g["oh_n"], dtype=acc, device=dev)
+        oh_f = torch.as_tensor(g["oh_f"], dtype=acc, device=dev)
 
         p = sb_params[i]
         w_t0, u_ln, v_ln = _fold_ln(p, acc)  # [w_tot, G]
         # scatter[n, p, j] = sum_w onehot[n, w, p] W[w, j], rounded once to io
         wa = torch.einsum("nwp,wj->npj", oh_n, w_t0[:w_noisy]).to(io).contiguous()
         wb = torch.einsum("nwp,wj->npj", oh_f, w_t0[w_noisy:]).to(io).contiguous()
-        # projection rows from (c, fc, d) to (c, d, fc) order:
-        # new[(c*df + d)*ctr + fc] = old[(c*ctr + fc)*df + d]
-        src = (np.arange(2)[:, None, None] * ctr * df
-               + np.arange(ctr)[None, None, :] * df
-               + np.arange(df)[None, :, None]).reshape(-1)
-        src_t = torch.as_tensor(src, device=dev)
+        src_t = torch.as_tensor(_df_column_order(g["ctr"], g["df"]), device=dev)
         wihr, whh, coef = pack_stack(p["stack"]["layers"], sb_states[i]["stack"]["layers"],
                                      H, io)
         secs.append({
-            "wa": wa, "a0": a, "wb": wb, "wihr": wihr, "whh": whh, "coef": coef,
+            "wa": wa, "a0": g["a"], "wb": wb, "wihr": wihr, "whh": whh, "coef": coef,
             "wproj": p["proj"]["weight"][src_t].T.to(io).contiguous(),
             "bproj": p["proj"]["bias"][src_t].to(acc).contiguous(),
-            "ctr": ctr, "df": df,
+            "ctr": g["ctr"], "df": g["df"],
         })
         if u_ln is not None:
             secs[-1]["uv"] = torch.stack([u_ln, v_ln]).contiguous()
-        sel_cols_m.append(_one_hot_scatter(idx_noisy, full_f).sum(axis=1).T)  # [F, n]
+        sel_cols_m.append(_one_hot_scatter(g["idx_noisy"], full_f).sum(axis=1).T)  # [F, n]
         sel_cols_f.append(oh_f.sum(dim=1).T)  # [fb_proj, n]
-        groups.append((u0, n, w_tot))
+        groups.append((u0, n, g["w_tot"]))
         u0 += n
     sel_mag = torch.as_tensor(np.concatenate(sel_cols_m, axis=1), dtype=acc, device=dev)
     return secs, sel_mag, torch.cat(sel_cols_f, dim=1), groups
@@ -281,50 +318,244 @@ def _serve_monolith(cfg, params, state, noisy_y: torch.Tensor, compute: torch.dt
     }
 
 
-@torch.no_grad()
-def spiking_fullsubnet_stream_forward(cfg, params, state, noisy_y: torch.Tensor):
-    """Eval forward in stream layout; same output dict as the JAX package
-    (``enhanced_y [B, T]``, ``enhanced_mag [B, F+1, T]`` on the two-launch
-    path and None on the monolith, empty per-layer output lists, ``state``
-    unchanged)."""
-    _check_covered(cfg)
-    if noisy_y.ndim != 2:
-        raise ValueError(f"Input tensor must be 2D, but got {noisy_y.ndim}D.")
-    B, sequence_length = noisy_y.shape
-    mixed = cfg.compute_dtype is not None
-    compute = getattr(torch, cfg.compute_dtype) if mixed else noisy_y.dtype
-    acc = torch.float32 if mixed else noisy_y.dtype
-    if norm_mode(cfg) != "off":
-        return _serve_monolith(cfg, params, state, noisy_y, compute, acc)
-    dft_dtype = compute if mixed else None
-    H_fb, shared = cfg.fb_hidden_size, cfg.shared_weights
-    full_f = cfg.num_freqs
+def _policy(cfg, noisy_y: torch.Tensor):
+    """(compute type, accumulation type, DFT matmul type) of the bf16 policy
+    or of the input's own type."""
+    if cfg.compute_dtype is None:
+        return noisy_y.dtype, noisy_y.dtype, None
+    compute = getattr(torch, cfg.compute_dtype)
+    return compute, torch.float32, compute
 
-    # ---- STFT, magnitude ----
-    T = num_frames(sequence_length, cfg.n_fft, cfg.hop_length)
+
+def _magnitude(cfg, noisy_y: torch.Tensor, dft_dtype, compute: torch.dtype):
+    """Time-major STFT ``(re, im) [T, B, F+1]`` and ``|X|^fdrc`` without the
+    Nyquist bin ``[T, B, F]`` in the compute type."""
     re_t, im_t = stft_real_imag_tmajor(
         noisy_y, cfg.n_fft, cfg.hop_length, cfg.win_length, matmul_dtype=dft_dtype)
-    re_t, im_t = re_t.contiguous(), im_t.contiguous()  # [T, B, F+1]
-    mag_t = ((re_t.square() + im_t.square()) ** (cfg.fdrc / 2))[..., :full_f]
-    mag_t = mag_t.to(compute).contiguous()  # [T, B, F]
+    re_t, im_t = re_t.contiguous(), im_t.contiguous()
+    mag_t = ((re_t.square() + im_t.square()) ** (cfg.fdrc / 2))[..., :cfg.num_freqs]
+    return re_t, im_t, mag_t.to(compute).contiguous()
+
+
+def _fullband_gates(cfg, fb_params, mag_t: torch.Tensor, compute: torch.dtype,
+                    acc: torch.dtype) -> torch.Tensor:
+    """The fullband stack's layer-0 gates ``[T, B, rows]`` in the compute
+    type (``stream_forward.py:415-442``): the input norm (the offline
+    laplace norm, one scalar per utterance over the frames; the cumulative
+    one, a running mean; or pre-LN), then the hoisted product with
+    ``W_ih^T`` summed in the accumulation type."""
+    T, B, _ = mag_t.shape
+    fb_in = mag_t[..., :cfg.fb_input_size]
+    if cfg.norm_type is not None:
+        f_sum = fb_in.to(acc).sum(dim=-1)  # [T, B]
+        if cfg.norm_type == "cumulative_laplace_norm":
+            cnt = torch.arange(1, T + 1, dtype=acc, device=mag_t.device)[:, None]
+            mu = torch.cumsum(f_sum, dim=0) / (cnt * cfg.fb_input_size)
+        else:
+            mu = (f_sum.sum(dim=0) / (cfg.fb_input_size * T))[None].expand(T, B)
+        fb_in = (fb_in.to(acc) / (mu[..., None] + EPSILON)).to(compute)
+    elif cfg.use_pre_layer_norm_fb:
+        fb_in = layer_norm_apply(fb_params["pre_ln"], fb_in)
+    w0 = fb_params["stack"]["layers"][0]["weight_ih"].T.to(acc)
+    return (fb_in.reshape(T * B, -1).to(acc) @ w0).reshape(T, B, -1).to(compute)
+
+
+def _fullband_output(cfg, fb_params, spikes: torch.Tensor, compute: torch.dtype,
+                     acc: torch.dtype) -> torch.Tensor:
+    """The fullband projection and output activation ``[T, B, fb_proj]`` in
+    the compute type (``stream_forward.py:458-466``)."""
+    proj = (spikes.to(acc) @ fb_params["proj"]["weight"].T.to(acc)
+            + fb_params["proj"]["bias"].to(acc))
+    return output_activation(cfg.fb_output_activate_function)(proj).to(compute)
+
+
+def _section_train_gates(cfg, i: int, p, mag_t: torch.Tensor, fb_act: torch.Tensor,
+                         compute: torch.dtype, acc: torch.dtype) -> torch.Tensor:
+    """Section i's layer-0 gates with its units folded into the rows
+    unit-major, ``[T, n B, rows]`` in the compute type (the train branch of
+    ``stream_forward.py:527-673``). Each unit's frequency unfold (reflect
+    padding and the fullband tile included) is folded into one-hot scattered
+    layer-0 weights over a window of the magnitude and over the fullband
+    output, ``ck = mag_win @ Wn_k + fb @ Wf_k``, and the norm enters as
+    ``xg = alpha ck - beta u + v``: "ln" the pre-LN fold (``_fold_ln``, its
+    u and v) with alpha = rstd and beta = rstd mu of the unit's input, "cum"
+    the reciprocal running mean, "off" one reciprocal mean per utterance and
+    section, "raw" ``ck`` as it is. Everything that reaches a parameter
+    (the fold, the scattered weights, the fullband output in alpha) stays in
+    autograd."""
+    T, B, _ = mag_t.shape
+    g = _section_geometry(cfg, i)
+    n, w_noisy, w_tot, a, b = g["n"], g["w_noisy"], g["w_tot"], g["a"], g["b"]
+    oh_n, oh_f = g["oh_n"], g["oh_f"]
+    dev = mag_t.device
+    mode = norm_mode(cfg)
+    w_t0, u, v = _fold_ln(p, compute)  # [w_tot, rows]; u, v only with pre-LN
+    # scatter[k, p, j] = sum_w onehot[k, w, p] W[w, j]
+    wsc_n = torch.einsum("nwp,wj->npj", torch.as_tensor(oh_n, dtype=compute, device=dev),
+                         w_t0[:w_noisy])
+    wsc_f = torch.einsum("nwp,wj->npj", torch.as_tensor(oh_f, dtype=compute, device=dev),
+                         w_t0[w_noisy:])
+    mag_sec = mag_t[:, :, a:b].reshape(T * B, b - a).to(acc)
+    fb32 = fb_act.reshape(T * B, -1).to(acc)
+    # [n, T B, rows]: each product summed in the accumulation type, rounded to the compute type
+    ck = (mag_sec @ wsc_n.to(acc)).to(compute) + (fb32 @ wsc_f.to(acc)).to(compute)
+    if mode == "raw":
+        xg = ck
+    else:
+        sel_n = torch.as_tensor(oh_n.sum(axis=1).T, dtype=acc, device=dev)  # [b - a, n]
+        sel_f = torch.as_tensor(oh_f.sum(axis=1).T, dtype=acc, device=dev)  # [fb_proj, n]
+        s1 = (mag_sec @ sel_n + fb32 @ sel_f).reshape(T, B, n)
+        beta = None
+        if mode == "ln":
+            s2 = (mag_sec.square() @ sel_n + fb32.square() @ sel_f).reshape(T, B, n)
+            mu = s1 / w_tot
+            rstd = torch.rsqrt(s2 / w_tot - mu.square() + LN_EPS)
+            alpha, beta = rstd, rstd * mu
+        elif mode == "cum":
+            cnt = torch.arange(1, T + 1, dtype=acc, device=dev)[:, None, None] * w_tot
+            alpha = 1.0 / (torch.cumsum(s1, dim=0) / cnt + EPSILON)
+        else:  # "off": one scalar per utterance over (units, window, frames)
+            tot = s1.sum(dim=(0, 2)) / (n * w_tot * T)  # [B]
+            alpha = (1.0 / (tot + EPSILON))[None, :, None].expand(T, B, n)
+        to_units = lambda z: z.permute(2, 0, 1).reshape(n, T * B, 1)  # noqa: E731
+        xg = to_units(alpha) * ck.to(acc)
+        if beta is not None:
+            xg = xg - to_units(beta) * u.to(acc) + v.to(acc)
+        xg = xg.to(compute)
+    return xg.reshape(n, T, B, -1).transpose(0, 1).reshape(T, n * B, -1)
+
+
+def _section_coefs(cfg, i: int, p, spikes: torch.Tensor, compute: torch.dtype,
+                   acc: torch.dtype) -> torch.Tensor:
+    """Section i's projection of its last layer's spikes ``[T, n B, H]``
+    (rows unit-major) -> deep-filter coefficients ``[T, B, 2, df, n ctr]``
+    (``stream_forward.py:586-590``, ``:691-696`` and ``_df_section``
+    ``:475-512``): the projection's columns permuted from (c, fc, d) to
+    (c, d, fc) order, then the units laid beside each other within each tap."""
+    ctr, df = cfg.center_freq_sizes[i], cfg.df_orders[i]
+    n = (cfg.freq_cutoffs[i + 1] - cfg.freq_cutoffs[i]) // ctr
+    T, B = spikes.shape[0], spikes.shape[1] // n
+    src_t = torch.as_tensor(_df_column_order(ctr, df), device=spikes.device)
+    w_proj, b_proj = p["proj"]["weight"][src_t], p["proj"]["bias"][src_t]
+    proj = (spikes.to(acc) @ w_proj.T.to(acc)).to(compute) + b_proj.to(compute)
+    proj = output_activation(cfg.sb_config(i).output_activate_function)(proj)
+    coef = proj.reshape(T, n, B, 2, df, ctr).permute(0, 2, 3, 4, 1, 5)
+    return coef.reshape(T, B, 2, df, n * ctr)
+
+
+def _deep_filter_tmajor(coef: torch.Tensor, sre: torch.Tensor, sim: torch.Tensor,
+                        acc: torch.dtype):
+    """The complex deep filter in real arithmetic (``_df_section``,
+    ``stream_forward.py:475-512``): coef ``[T, B, 2, df, W]``, the noisy
+    spectrum's bins ``sre, sim [T, B, W]``; tap d weighs frame t - df + 1 + d.
+    Returns the enhanced ``(re, im) [T, B, W]``."""
+    T, df = coef.shape[0], coef.shape[3]
+    pad = (0, 0, 0, 0, df - 1, 0)
+    pr, pi = F.pad(sre, pad), F.pad(sim, pad)
+    er = ei = None
+    for d in range(df):
+        tr, ti = pr[d:d + T], pi[d:d + T]
+        cr, ci = coef[:, :, 0, d].to(acc), coef[:, :, 1, d].to(acc)
+        t_re, t_im = tr * cr - ti * ci, tr * ci + ti * cr
+        er = t_re if er is None else er + t_re
+        ei = t_im if ei is None else ei + t_im
+    return er, ei
+
+
+def _stream_train(cfg, params, state, noisy_y: torch.Tensor) -> Dict[str, Any]:
+    """The stream forward with ``train=True`` (``stream_forward.py:368-870``
+    on its train branches, at the real T and widths): differentiable, the
+    GSU stacks on kernels D and E with streams in the compute type, and the
+    new BN running statistics in ``state`` (the state as given without
+    BN)."""
+    B, sequence_length = noisy_y.shape
+    compute, acc, dft_dtype = _policy(cfg, noisy_y)
+    mixed = cfg.compute_dtype is not None
+    shared = cfg.shared_weights
+    re_t, im_t, mag_t = _magnitude(cfg, noisy_y, dft_dtype, compute)
+    fb_params = cast_floating(params["fb"], compute) if mixed else params["fb"]
+    sb_params = [cast_floating(p, compute) if mixed else p for p in params["sb"]]
+
+    xg0_fb = _fullband_gates(cfg, fb_params, mag_t, compute, acc)
+    fb_spikes, new_fb_stack = gsu_stack_train_xg(
+        fb_params["stack"], state["fb"]["stack"], xg0_fb, cfg.fb_hidden_size, shared)
+    fb_act = _fullband_output(cfg, fb_params, fb_spikes[-1], compute, acc)
+
+    enh_re: List[torch.Tensor] = []
+    enh_im: List[torch.Tensor] = []
+    new_sb_stacks = []
+    f0 = 0
+    for i in range(cfg.num_sections):
+        xg0 = _section_train_gates(cfg, i, sb_params[i], mag_t, fb_act, compute, acc)
+        spikes, ns = gsu_stack_train_xg(sb_params[i]["stack"], state["sb"][i]["stack"], xg0,
+                                        cfg.sb_hidden_size, shared)
+        new_sb_stacks.append(ns)
+        coef = _section_coefs(cfg, i, sb_params[i], spikes[-1], compute, acc)
+        w = coef.shape[-1]
+        er, ei = _deep_filter_tmajor(coef, re_t[:, :, f0:f0 + w], im_t[:, :, f0:f0 + w], acc)
+        enh_re.append(er)
+        enh_im.append(ei)
+        f0 += w
+
+    out_re = torch.cat(enh_re + [re_t[..., cfg.num_freqs:]], dim=-1)
+    out_im = torch.cat(enh_im + [im_t[..., cfg.num_freqs:]], dim=-1)
+    enhanced_y = istft_real_imag_tmajor(
+        out_re, out_im, cfg.n_fft, cfg.hop_length, cfg.win_length,
+        length=sequence_length, matmul_dtype=dft_dtype)
+    new_state = state
+    if cfg.bn:
+        new_state = {"fb": {"stack": new_fb_stack},
+                     "sb": [{"stack": s} for s in new_sb_stacks]}
+    return {
+        "enhanced_y": enhanced_y,
+        "enhanced_mag": torch.sqrt(out_re.square() + out_im.square()).permute(1, 2, 0),
+        "fb_all_layer_outputs": [],
+        "sb_all_layer_outputs": [],
+        "state": new_state,
+    }
+
+
+def spiking_fullsubnet_stream_forward(cfg, params, state, noisy_y: torch.Tensor,
+                                      train: bool = False):
+    """Forward in stream layout; same output dict as the JAX package
+    (``enhanced_y [B, T]``, ``enhanced_mag [B, F+1, T]`` on the two-launch
+    and training paths and None on the monolith, empty per-layer output
+    lists). Eval runs without autograd and returns ``state`` unchanged;
+    ``train=True`` runs ``_stream_train``."""
+    _check_covered(cfg, train)
+    if noisy_y.ndim != 2:
+        raise ValueError(f"Input tensor must be 2D, but got {noisy_y.ndim}D.")
+    if train:
+        return _stream_train(cfg, params, state, noisy_y)
+    return _serve(cfg, params, state, noisy_y)
+
+
+@torch.no_grad()
+def _serve(cfg, params, state, noisy_y: torch.Tensor) -> Dict[str, Any]:
+    """Eval: the monolith for the causal norms and pre-LN, else the
+    two-launch path (the module docstring)."""
+    B, sequence_length = noisy_y.shape
+    compute, acc, dft_dtype = _policy(cfg, noisy_y)
+    mixed = cfg.compute_dtype is not None
+    if norm_mode(cfg) != "off":
+        return _serve_monolith(cfg, params, state, noisy_y, compute, acc)
+    H_fb, shared = cfg.fb_hidden_size, cfg.shared_weights
+
+    # ---- STFT, magnitude ----
+    re_t, im_t, mag_t = _magnitude(cfg, noisy_y, dft_dtype, compute)
 
     fb_params = cast_floating(params["fb"], compute) if mixed else params["fb"]
     sb_params = [cast_floating(p, compute) if mixed else p for p in params["sb"]]
 
     # ---- fullband: offline laplace norm, hoisted layer 0, kernel A ----
-    fb_in = mag_t[..., :cfg.fb_input_size].to(acc)
-    mu_fb = fb_in.sum(dim=-1).sum(dim=0) / (cfg.fb_input_size * T)  # [B]
-    fb_ln = (fb_in / (mu_fb[None, :, None] + EPSILON)).to(compute)
-    w0_fb = fb_params["stack"]["layers"][0]["weight_ih"].T.to(acc)
-    xg0_fb = (fb_ln.reshape(T * B, -1).to(acc) @ w0_fb).reshape(T, B, -1).to(compute)
+    xg0_fb = _fullband_gates(cfg, fb_params, mag_t, compute, acc)
     wihr, whh, coef = pack_stack(fb_params["stack"]["layers"],
                                  state["fb"]["stack"]["layers"], H_fb, compute)
     fb_spikes = gsu_stack_eval(xg0_fb.contiguous(), wihr, whh, coef, H_fb, shared)
-    fb_proj = (fb_spikes.to(acc) @ fb_params["proj"]["weight"].T.to(acc)
-               + fb_params["proj"]["bias"].to(acc))  # [T, B, fb_proj]
-    fb_act_c = output_activation(cfg.fb_output_activate_function)(fb_proj).to(compute)
+    fb_act_c = _fullband_output(cfg, fb_params, fb_spikes, compute, acc)
 
     # ---- sub-band sections: statistics sweep, kernel B ----
+    T = mag_t.shape[0]
     secs, sel_mag, sel_fb, groups = _section_specs(
         cfg, sb_params, state["sb"], compute, acc)
     s1 = mag_t.to(acc) @ sel_mag + fb_act_c.to(acc) @ sel_fb  # [T, B, U]
@@ -337,6 +568,7 @@ def spiking_fullsubnet_stream_forward(cfg, params, state, noisy_y: torch.Tensor)
         secs, mag_t, fb_act_c.contiguous(), alpha, re_t, im_t, cfg.sb_hidden_size, shared)
 
     # ---- Nyquist passthrough + iSTFT ----
+    full_f = cfg.num_freqs
     out_re = torch.cat([enh_re, re_t[..., full_f:]], dim=-1)
     out_im = torch.cat([enh_im, im_t[..., full_f:]], dim=-1)
     enhanced_y = istft_real_imag_tmajor(

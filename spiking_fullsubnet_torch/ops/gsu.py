@@ -124,20 +124,25 @@ class GSULayerTrain(torch.autograd.Function):
     BN (or none), the backward kernel E.
 
     ``apply(xg [T, R, rows], weight_hh [rows, H], bias_ih [2H], bn_weight,
-    bn_bias, hidden, shared)`` with xg the input gates without bias in the
-    accumulation type and the BN affine None without BN -> (spikes
-    ``[T, R, H]``, stats ``[T, 2, H]`` = per-step (mean, biased var), not
-    differentiable). Gradients flow to xg, weight_hh, bias_ih and the BN
-    affine, each in its own type. The kernels are looked up in
+    bn_bias, hidden, shared)`` with xg the input gates without bias and the
+    BN affine None without BN -> (spikes ``[T, R, H]`` in xg's type, stats
+    ``[T, 2, H]`` = per-step (mean, biased var), not differentiable). xg's
+    type is the kernels' stream type (``_KCfg.io``): float32 on the layered
+    path, bfloat16 on the stream-train path under the bf16 policy, float64
+    on the CPU; ``weight_hh`` goes to the kernels in it, the bias and the BN
+    affine in the accumulation type (float32 beside bfloat16), where the
+    membranes and statistics stay. Gradients flow to xg, weight_hh, bias_ih
+    and the BN affine, each in its own type. The kernels are looked up in
     ``gsu_kernels`` at each call."""
 
     @staticmethod
     def forward(ctx, xg, weight_hh, bias_ih, bn_weight, bn_bias, hidden: int, shared: bool):
         from . import gsu_kernels as gk
 
-        acc = xg.dtype
+        io = xg.dtype
+        acc = acc_dtype_for(io)
         mode = "none" if bn_weight is None else "bn"
-        whh = weight_hh.to(acc).T.contiguous()  # [H, G]: h @ whh, f half first
+        whh = weight_hh.to(io).T.contiguous()  # [H, G]: h @ whh, f half first
         b2 = bias_ih.to(acc).reshape(2, hidden).contiguous()
         if bn_weight is None:
             bnp = torch.stack([torch.ones_like(b2[0]), torch.zeros_like(b2[0])])
@@ -165,6 +170,41 @@ class GSULayerTrain(torch.autograd.Function):
         return (dxg, dw.T.to(w_dt), db.reshape(-1).to(b_dt), d_bn_w, d_bn_b, None, None)
 
 
+def gsu_stack_train_xg(params: Dict[str, Any], state: Dict[str, Any], xg0: torch.Tensor,
+                       hidden_size: int, shared_weights: bool
+                       ) -> Tuple[List[torch.Tensor], Dict[str, Any]]:
+    """A GSU stack in training from layer 0's input gates ``xg0 [T, R,
+    rows]`` (no bias), whose type is the stream type: every layer on
+    ``GSULayerTrain`` (kernels D and E), the inter-layer input products
+    ``spikes @ W_ih^T`` summed in the accumulation type and rounded to the
+    stream type, the running statistics updated from each layer's batch
+    statistics over the R rows. Returns (every layer's spikes in the stream
+    type, the new stack state). The per-layer loop of
+    ``gsu_stack_apply_pallas`` (``gsu_pallas.py:703-742``) and of the
+    stream-train stack ``_stack_train_xg`` (``stream_forward.py:203-256``)
+    at the real widths."""
+    io = xg0.dtype
+    acc = acc_dtype_for(io)
+    T, R, _ = xg0.shape
+    spikes, new_states = [], []
+    for k, (lp, ls) in enumerate(zip(params["layers"], state["layers"])):
+        if k == 0:
+            xg = xg0
+        else:
+            xg = (spikes[-1].reshape(T * R, -1).to(acc) @ lp["weight_ih"].to(acc).T
+                  ).reshape(T, R, -1).to(io)
+        bn = lp.get("bn")
+        bn_w, bn_b = (bn["weight"], bn["bias"]) if bn is not None else (None, None)
+        spk, stats = GSULayerTrain.apply(xg, lp["weight_hh"], lp["bias_ih"], bn_w, bn_b,
+                                         hidden_size, shared_weights)
+        ns = ls
+        if bn is not None:
+            ns = {"bn": bn_running_update(ls["bn"], stats[:, 0], stats[:, 1], R)}
+        spikes.append(spk)
+        new_states.append(ns)
+    return spikes, {"layers": new_states}
+
+
 def gsu_stack_apply(
     params: Dict[str, Any],
     state: Dict[str, Any],
@@ -180,10 +220,11 @@ def gsu_stack_apply(
 
     Eval runs the whole stack on kernel F (``gsu_kernels.gsu_stack_eval_x``)
     and returns ``state`` as given. Training runs the per-layer loop of
-    ``gsu_stack_apply_pallas`` (``gsu_pallas.py:703-742``): the hoisted
-    input projection ``xg = x @ W_ih^T`` with a float32 (float64 for f64
-    input) result, ``GSULayerTrain`` (kernels D and E), and the running
-    statistics updated from the batch statistics over the B rows.
+    ``gsu_stack_apply_pallas`` (``gsu_pallas.py:703-742``) through
+    ``gsu_stack_train_xg``: the hoisted input projection ``xg = x @
+    W_ih^T`` with a float32 (float64 for f64 input) result, so float32
+    streams through kernels D and E, and the running statistics updated
+    from the batch statistics over the B rows.
 
     The JAX package's dispatch sends a TPU input to its Pallas kernels only
     for ``T >= 8`` and falls back to the scan when the shape misses the VMEM
@@ -197,21 +238,12 @@ def gsu_stack_apply(
         outs = list(spikes.unbind(0))
         return outs[-1], [x] + outs, state
     acc = acc_dtype_for(x.dtype)
-    out, all_layer_outputs, new_states = x, [x], []
-    for lp, ls in zip(params["layers"], state["layers"]):
-        T, B, F = out.shape
-        xg = (out.reshape(T * B, F).to(acc) @ lp["weight_ih"].to(acc).T).reshape(T, B, -1)
-        bn = lp.get("bn")
-        bn_w, bn_b = (bn["weight"], bn["bias"]) if bn is not None else (None, None)
-        spikes, stats = GSULayerTrain.apply(xg, lp["weight_hh"], lp["bias_ih"], bn_w, bn_b,
-                                            hidden_size, shared_weights)
-        ns = ls
-        if bn is not None:
-            ns = {"bn": bn_running_update(ls["bn"], stats[:, 0], stats[:, 1], B)}
-        out = spikes.to(x.dtype)
-        new_states.append(ns)
-        all_layer_outputs.append(out)
-    return out, all_layer_outputs, {"layers": new_states}
+    T, B, F = x.shape
+    w0 = params["layers"][0]["weight_ih"].to(acc)
+    xg0 = (x.reshape(T * B, F).to(acc) @ w0.T).reshape(T, B, -1)
+    spikes, new_state = gsu_stack_train_xg(params, state, xg0, hidden_size, shared_weights)
+    outs = [s.to(x.dtype) for s in spikes]
+    return outs[-1], [x] + outs, new_state
 
 
 def gsu_layer_eval(

@@ -23,6 +23,8 @@ Six kernels, each a hand-written CUDA C++ source under ``../csrc``:
 - ``gsu_layer_train_bwd`` (kernel E, ``csrc/gsu_train_bwd.cu``) replaces
   ``_bwd_kernel`` / ``_run_bwd``: D's reverse-time backward; its weight
   gradient is a second kernel of the same source, ``gsu_train_dw``.
+  D and E take float32 streams (the layered path) or bfloat16 streams (the
+  stream-train path, ``_KCfg.io``); membranes and statistics are float32.
 
 A wrapper launches its kernel for CUDA tensors and runs the plain version
 for CPU tensors; a CUDA tensor never takes the plain path. Each wrapper
@@ -136,12 +138,12 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
             [I, I, P] + [P] * 14 + [I] * 10 + [P])
         lib.gsu_sections_eval_launch.restype = I
     elif name == "train_fwd":
-        lib.gsu_train_fwd_launch.argtypes = [P] * 7 + [I] * 5 + [P]
+        lib.gsu_train_fwd_launch.argtypes = [I] + [P] * 7 + [I] * 5 + [P]
         lib.gsu_train_fwd_launch.restype = I
     elif name == "train_bwd":
-        lib.gsu_train_bwd_launch.argtypes = [P] * 12 + [I] * 5 + [P]
+        lib.gsu_train_bwd_launch.argtypes = [I] + [P] * 12 + [I] * 5 + [P]
         lib.gsu_train_bwd_launch.restype = I
-        lib.gsu_train_dw_launch.argtypes = [P] * 3 + [I] * 4 + [P]
+        lib.gsu_train_dw_launch.argtypes = [I] + [P] * 3 + [I] * 4 + [P]
         lib.gsu_train_dw_launch.restype = I
     else:
         lib.sfsb_monolith_launch.argtypes = [I, ctypes.POINTER(_MonoArgs), P]
@@ -406,11 +408,16 @@ gsu_stack_eval_x.launches = 0
 # One GSU layer in the kernel layout: xg [T, R, G] input gates without bias
 # (G = H shared, else 2H with the f half first), whh [H, G] (``h @ whh``),
 # b2 [2, H] = (b_f, b_c), bnp [2, H] = (BN weight, bias) in mode "bn" or
-# (scale, shift) in mode "affine", unused in mode "none". Both kernels run
-# the stack's rows as one thread-block cluster (BN statistics cross every
-# row at every step); their launchers size it and refuse what does not fit.
+# (scale, shift) in mode "affine", unused in mode "none". The streams (xg,
+# whh, the spikes, the spikes' gradient and dxg) are float32 or bfloat16
+# (``_KCfg.io``, ``gsu_pallas.py:129-133``); the membranes y, the statistics,
+# b2, bnp and the weight gradients are float32 (float64 beside float64
+# streams in the plain versions). Both kernels run the stack's rows as one
+# thread-block cluster (BN statistics cross every row at every step); their
+# launchers size it and refuse what does not fit.
 
 TRAIN_MODES = {"none": 0, "bn": 1, "affine": 2}
+TRAIN_IO = {torch.float32: 0, torch.bfloat16: 1}
 TRAIN_LIMITS = ("it takes H <= 512 and R >= 1 rows split over one cluster of at most 8 "
                 "blocks, each block's rows within 227 KB of shared memory")
 
@@ -428,21 +435,25 @@ def layer_train_fwd_plain(xg: torch.Tensor, whh: torch.Tensor, b2: torch.Tensor,
                           bnp: torch.Tensor, hidden: int, shared: bool, mode: str
                           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of kernel D (same arguments and result), step
-    by step as ``_fwd_kernel`` (``gsu_pallas.py:226-287``), in xg's type
-    (float32 or float64): mode "bn" normalises each step's membranes by
-    their mean and biased variance over the R rows (two passes, sums times
-    1/R), "affine" applies ``c' bnp[0] + bnp[1]``."""
+    by step as ``_fwd_kernel`` (``gsu_pallas.py:226-287``): mode "bn"
+    normalises each step's membranes by their mean and biased variance over
+    the R rows (two passes, sums times 1/R), "affine" applies ``c' bnp[0] +
+    bnp[1]``. The stream type is xg's (float32, bfloat16 or float64): W_hh
+    is rounded to it, the arithmetic runs in ``acc_dtype_for`` of it, and
+    the spikes return in it; y and the statistics in the accumulation
+    type."""
     T, R, _ = xg.shape
-    H, acc, dev = hidden, xg.dtype, xg.device
-    w, b2, bnp = whh.to(acc), b2.to(acc), bnp.to(acc)
+    H, io, dev = hidden, xg.dtype, xg.device
+    acc = acc_dtype_for(io)
+    w, b2, bnp = whh.to(io).to(acc), b2.to(acc), bnp.to(acc)
     h = torch.zeros(R, H, dtype=acc, device=dev)
     c = torch.zeros(R, H, dtype=acc, device=dev)
-    spikes = torch.empty(T, R, H, dtype=acc, device=dev)
+    spikes = torch.empty(T, R, H, dtype=io, device=dev)
     y = torch.empty(T, R, H, dtype=acc, device=dev)
     stats = torch.zeros(T, 2, H, dtype=acc, device=dev)
     inv_n = 1.0 / R
     for t in range(T):
-        f, g = _gates(xg[t], h, w, b2[0], b2[1], H, shared)
+        f, g = _gates(xg[t].to(acc), h, w, b2[0], b2[1], H, shared)
         cy = f * c + (1.0 - f) * g
         if mode == "bn":
             mean = cy.sum(0) * inv_n
@@ -468,12 +479,12 @@ def _check_train_layer(xg: torch.Tensor, whh: torch.Tensor, b2: torch.Tensor,
         raise ValueError(f"mode {mode!r}: expected one of {sorted(TRAIN_MODES)}")
     if xg.ndim != 3 or xg.shape[-1] != G:
         raise ValueError(f"xg shape {tuple(xg.shape)}: expected [T, R, {G}]")
-    if xg.dtype != torch.float32:
-        raise ValueError(f"xg dtype {xg.dtype}: the kernel takes float32")
+    if xg.dtype not in TRAIN_IO:
+        raise ValueError(f"xg dtype {xg.dtype}: the kernel takes float32 or bfloat16 streams")
     T, R, _ = xg.shape
     dev = xg.device
-    _check_cuda("xg", xg, torch.float32, dev)
-    _check_cuda("whh", whh, torch.float32, dev, (H, G))
+    _check_cuda("xg", xg, xg.dtype, dev)
+    _check_cuda("whh", whh, xg.dtype, dev, (H, G))
     _check_cuda("b2", b2, torch.float32, dev, (2, H))
     _check_cuda("bnp", bnp, torch.float32, dev, (2, H))
     return T, R, G
@@ -482,23 +493,24 @@ def _check_train_layer(xg: torch.Tensor, whh: torch.Tensor, b2: torch.Tensor,
 def gsu_layer_train_fwd(xg: torch.Tensor, whh: torch.Tensor, b2: torch.Tensor,
                         bnp: torch.Tensor, hidden: int, shared: bool, mode: str
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One GSU layer forward (kernel D): returns (spikes ``[T, R, H]``, the
-    membranes y after BN ``[T, R, H]``, the per-step (mean, biased var)
-    ``[T, 2, H]``, zero outside mode "bn"), float32 on the card (the
-    layered path's streams); also float64 on the CPU."""
+    """One GSU layer forward (kernel D): xg and whh in the stream type
+    (float32 or bfloat16 on the card; also float64 on the CPU), b2 and bnp
+    in the accumulation type -> (spikes ``[T, R, H]`` in the stream type,
+    the membranes y after BN ``[T, R, H]`` and the per-step (mean, biased
+    var) ``[T, 2, H]`` in the accumulation type, zero outside mode "bn")."""
     if not xg.is_cuda:
         return layer_train_fwd_plain(xg, whh, b2, bnp, hidden, shared, mode)
     H = hidden
     T, R, _ = _check_train_layer(xg, whh, b2, bnp, H, shared, mode)
     dev = xg.device
-    spikes = torch.empty(T, R, H, dtype=torch.float32, device=dev)
-    y = torch.empty_like(spikes)
+    spikes = torch.empty(T, R, H, dtype=xg.dtype, device=dev)
+    y = torch.empty(T, R, H, dtype=torch.float32, device=dev)
     stats = torch.zeros(T, 2, H, dtype=torch.float32, device=dev)
     lib = _lib("train_fwd")
     with torch.cuda.device(dev):
-        rc = lib.gsu_train_fwd_launch(_ptr(xg), _ptr(whh), _ptr(b2), _ptr(bnp), _ptr(spikes),
-                                      _ptr(y), _ptr(stats), T, R, H, int(shared),
-                                      TRAIN_MODES[mode], _stream())
+        rc = lib.gsu_train_fwd_launch(TRAIN_IO[xg.dtype], _ptr(xg), _ptr(whh), _ptr(b2),
+                                      _ptr(bnp), _ptr(spikes), _ptr(y), _ptr(stats), T, R, H,
+                                      int(shared), TRAIN_MODES[mode], _stream())
     _check_rc(lib, rc, f"gsu_layer_train_fwd (H={H}, R={R})", TRAIN_LIMITS)
     gsu_layer_train_fwd.launches += 1
     return spikes, y, stats
@@ -513,20 +525,24 @@ def layer_train_bwd_plain(xg: torch.Tensor, y: torch.Tensor, gout: torch.Tensor,
                           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of kernel E (and of ``gsu_train_dw``): the
     reverse-time loop of ``_bwd_kernel`` (``gsu_pallas.py:358-466``) line by
-    line, in xg's type. Each step recomputes the gates from y[t-1] (h = 0
-    and c = 0 before the first step), passes the spike gradient through the
-    triangle surrogate max(1 - |y|, 0), applies the exact batch-statistics
-    BN backward (mode "bn") and accumulates the weight, bias and BN
-    gradients. Returns (dxg ``[T, R, G]``, dW ``[H, G]``, db ``[2, H]``,
-    dbn ``[2, H]``)."""
+    line. Each step recomputes the gates from y[t-1] (h = 0 and c = 0 before
+    the first step), passes the spike gradient through the triangle
+    surrogate max(1 - |y|, 0), applies the exact batch-statistics BN
+    backward (mode "bn") and accumulates the weight, bias and BN gradients.
+    Types as ``layer_train_fwd_plain``: with bfloat16 streams drg is
+    rounded to bfloat16 before dW and dh = drg W_hh^T (``:449-460``), and
+    everything else is float32. Returns (dxg ``[T, R, G]`` in the stream
+    type, dW ``[H, G]``, db ``[2, H]``, dbn ``[2, H]`` in the accumulation
+    type)."""
     if mode == "affine":
         raise ValueError("kernel E takes mode 'bn' or 'none' (the affine mode is eval only)")
     T, R, G = xg.shape
-    H, acc, dev = hidden, xg.dtype, xg.device
-    w, b2, gamma = whh.to(acc), b2.to(acc), bnp[0].to(acc)
+    H, io, dev = hidden, xg.dtype, xg.device
+    acc = acc_dtype_for(io)
+    w, b2, gamma = whh.to(io).to(acc), b2.to(acc), bnp[0].to(acc)
     zeros = torch.zeros(R, H, dtype=acc, device=dev)
     dh, dc = zeros, zeros
-    dxg = torch.empty(T, R, G, dtype=acc, device=dev)
+    dxg = torch.empty(T, R, G, dtype=io, device=dev)
     dw = torch.zeros(H, G, dtype=acc, device=dev)
     db = torch.zeros(2, H, dtype=acc, device=dev)
     dbn = torch.zeros(2, H, dtype=acc, device=dev)
@@ -534,7 +550,7 @@ def layer_train_bwd_plain(xg: torch.Tensor, y: torch.Tensor, gout: torch.Tensor,
     for t in range(T - 1, -1, -1):
         c_prev = y[t - 1].to(acc) if t > 0 else zeros
         h_prev = (c_prev >= 0.0).to(acc) if t > 0 else zeros
-        f, g = _gates(xg[t], h_prev, w, b2[0], b2[1], H, shared)
+        f, g = _gates(xg[t].to(acc), h_prev, w, b2[0], b2[1], H, shared)
         surr = torch.clamp(1.0 - y[t].to(acc).abs(), min=0.0)
         dy = (gout[t].to(acc) + dh) * surr + dc
         if mode == "bn":
@@ -549,10 +565,11 @@ def layer_train_bwd_plain(xg: torch.Tensor, y: torch.Tensor, gout: torch.Tensor,
         dpre_f = dcr * (c_prev - g) * f * (1.0 - f)
         dpre_c = dcr * (1.0 - f)
         dc = dcr * f
-        drg = dpre_f + dpre_c if shared else torch.cat([dpre_f, dpre_c], dim=1)
-        dxg[t] = drg
         db[0] += dpre_f.sum(0)
         db[1] += dpre_c.sum(0)
+        drg = dpre_f + dpre_c if shared else torch.cat([dpre_f, dpre_c], dim=1)
+        drg = drg.to(io).to(acc)  # the matmul operands in the stream type
+        dxg[t] = drg
         dw += h_prev.T @ drg
         dh = drg @ w.T
     return dxg, dw, db, dbn
@@ -560,26 +577,31 @@ def layer_train_bwd_plain(xg: torch.Tensor, y: torch.Tensor, gout: torch.Tensor,
 
 def train_dw_plain(y: torch.Tensor, dxg: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of ``gsu_train_dw``: ``dW [H, G] = sum over t
-    and rows of h_{t-1}^T dxg_t``, h_{t-1} = (y[t-1] >= 0), zero at t = 0."""
+    and rows of h_{t-1}^T dxg_t``, h_{t-1} = (y[t-1] >= 0), zero at t = 0,
+    in y's type."""
     H, G = y.shape[-1], dxg.shape[-1]
-    h_prev = (y[:-1] >= 0.0).to(dxg.dtype).reshape(-1, H)
-    return h_prev.T @ dxg[1:].reshape(-1, G)
+    h_prev = (y[:-1] >= 0.0).to(y.dtype).reshape(-1, H)
+    return h_prev.T @ dxg[1:].reshape(-1, G).to(y.dtype)
 
 
 def gsu_train_dw(y: torch.Tensor, dxg: torch.Tensor) -> torch.Tensor:
     """Kernel E's weight gradient: ``train_dw_plain``'s product summed in
-    float32 over every step and row, the zero spikes skipped."""
+    float32 over every step and row, the zero spikes skipped; y float32,
+    dxg in the stream type."""
     if not y.is_cuda:
         return train_dw_plain(y, dxg)
     T, R, H = y.shape
     G = dxg.shape[-1]
     dev = y.device
+    if dxg.dtype not in TRAIN_IO:
+        raise ValueError(f"dxg dtype {dxg.dtype}: the kernel takes float32 or bfloat16 streams")
     _check_cuda("y", y, torch.float32, dev)
-    _check_cuda("dxg", dxg, torch.float32, dev, (T, R, G))
+    _check_cuda("dxg", dxg, dxg.dtype, dev, (T, R, G))
     dw = torch.empty(H, G, dtype=torch.float32, device=dev)
     lib = _lib("train_bwd")
     with torch.cuda.device(dev):
-        rc = lib.gsu_train_dw_launch(_ptr(y), _ptr(dxg), _ptr(dw), T, R, H, G, _stream())
+        rc = lib.gsu_train_dw_launch(TRAIN_IO[dxg.dtype], _ptr(y), _ptr(dxg), _ptr(dw), T, R, H,
+                                     G, _stream())
     _check_rc(lib, rc, "gsu_train_dw")
     gsu_train_dw.launches += 1
     return dw
@@ -594,9 +616,10 @@ def gsu_layer_train_bwd(xg: torch.Tensor, y: torch.Tensor, gout: torch.Tensor,
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Kernel D's backward (kernel E, then ``gsu_train_dw`` for dW): the
     inputs and saved tensors of ``gsu_layer_train_fwd`` and the spikes'
-    gradient ``gout [T, R, H]`` -> (dxg ``[T, R, G]``, dW ``[H, G]``, db
-    ``[2, H]``, dbn ``[2, H]``, zero outside mode "bn"). The statistics get
-    no gradient (running statistics are not differentiated, as in torch's
+    gradient ``gout [T, R, H]`` in the stream type -> (dxg ``[T, R, G]`` in
+    the stream type, dW ``[H, G]``, db ``[2, H]``, dbn ``[2, H]``, zero
+    outside mode "bn", in the accumulation type). The statistics get no
+    gradient (running statistics are not differentiated, as in torch's
     BatchNorm)."""
     if not xg.is_cuda:
         return layer_train_bwd_plain(xg, y, gout, stats, whh, b2, bnp, hidden, shared, mode)
@@ -604,11 +627,11 @@ def gsu_layer_train_bwd(xg: torch.Tensor, y: torch.Tensor, gout: torch.Tensor,
         raise ValueError("kernel E takes mode 'bn' or 'none' (the affine mode is eval only)")
     H = hidden
     T, R, G = _check_train_layer(xg, whh, b2, bnp, H, shared, mode)
-    dev = xg.device
+    dev, io = xg.device, xg.dtype
     _check_cuda("y", y, torch.float32, dev, (T, R, H))
-    _check_cuda("gout", gout, torch.float32, dev, (T, R, H))
+    _check_cuda("gout", gout, io, dev, (T, R, H))
     _check_cuda("stats", stats, torch.float32, dev, (T, 2, H))
-    dxg = torch.empty(T, R, G, dtype=torch.float32, device=dev)
+    dxg = torch.empty(T, R, G, dtype=io, device=dev)
     db = torch.empty(2, H, dtype=torch.float32, device=dev)
     dbn = torch.empty(2, H, dtype=torch.float32, device=dev)
     scratch = torch.zeros(4, R, H, dtype=torch.float32, device=dev)  # dh, dc, f, g
@@ -616,9 +639,9 @@ def gsu_layer_train_bwd(xg: torch.Tensor, y: torch.Tensor, gout: torch.Tensor,
     lib = _lib("train_bwd")
     with torch.cuda.device(dev):
         rc = lib.gsu_train_bwd_launch(
-            _ptr(xg), _ptr(y), _ptr(gout), _ptr(stats), _ptr(whh), _ptr(whh_t), _ptr(b2),
-            _ptr(bnp), _ptr(dxg), _ptr(db), _ptr(dbn), _ptr(scratch), T, R, H, int(shared),
-            TRAIN_MODES[mode], _stream())
+            TRAIN_IO[io], _ptr(xg), _ptr(y), _ptr(gout), _ptr(stats), _ptr(whh), _ptr(whh_t),
+            _ptr(b2), _ptr(bnp), _ptr(dxg), _ptr(db), _ptr(dbn), _ptr(scratch), T, R, H,
+            int(shared), TRAIN_MODES[mode], _stream())
     _check_rc(lib, rc, f"gsu_layer_train_bwd (H={H}, R={R})", TRAIN_LIMITS)
     gsu_layer_train_bwd.launches += 1
     return dxg, gsu_train_dw(y, dxg), db, dbn

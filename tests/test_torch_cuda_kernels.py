@@ -12,7 +12,16 @@ enhanced spectrum and C's enhanced audio to f32 rounding (relative L2 <
 flip allowed), its membranes and batch statistics within rtol 1e-5 up to
 the first flip; kernel E and its weight-gradient kernel, fed the same
 saved tensors as their plain versions (so no spike can flip), within a
-relative L2 error of 1e-5.
+relative L2 error of 1e-5. With bf16 streams D's arithmetic is float32 as
+before (the same bounds); E rounds drg to bf16 at every step, and a drg
+within a float32 rounding of a bf16 midpoint rounds the other way in the
+kernel than in the plain version (1.8e-3 relative L2 seen at 5 rows with
+BN), so E's outputs and the plain version's are each held against a float64
+run of the plain version, which does not round drg: the kernel's error
+within 3x (+1e-5) of the plain version's own. D
+at baseline L's section rows (1024 and 1536 x 256) is held one step at a
+time: every step recomputed in float64 from the kernel's own previous
+membranes, the kernel within 3x (+1e-4) of the plain version's own error.
 """
 
 from __future__ import annotations
@@ -381,3 +390,121 @@ def test_train_wrappers_reject_what_the_kernels_do_not_take(dev):
     _, y, stats = gk.gsu_layer_train_fwd(xg, whh, b2, bnp, 16, True, "bn")
     with pytest.raises(ValueError, match="affine"):
         gk.gsu_layer_train_bwd(xg, y, y, stats, whh, b2, bnp, 16, True, "affine")
+
+
+# ------------------------------------------------------------------ D and E: bf16 streams, row cap
+
+BF16_SHAPES = [(5, 224, 40), (64, 320, 7), (512, 224, 40)]
+
+
+def _bf16_layer(R, H, T, shared, mode, dev, seed):
+    xg, whh, b2, bnp = _train_layer(R, H, T, shared, mode, dev, seed)
+    return xg.to(torch.bfloat16), whh.to(torch.bfloat16), b2, bnp
+
+
+@pytest.mark.parametrize("mode", ["bn", "affine", "none"])
+@pytest.mark.parametrize("shared", [True, False])
+@pytest.mark.parametrize("R,H,T", BF16_SHAPES)
+def test_train_fwd_kernel_bf16_streams_matches_plain(dev, mode, shared, R, H, T):
+    args = _bf16_layer(R, H, T, shared, mode, dev, seed=R + H + T + 1)
+    spikes, y, stats = gk.gsu_layer_train_fwd(*args, H, shared, mode)
+    ref = gk.layer_train_fwd_plain(*args, H, shared, mode)
+    torch.cuda.synchronize()
+    assert spikes.dtype == ref[0].dtype == torch.bfloat16
+    assert y.dtype == stats.dtype == ref[1].dtype == torch.float32
+    assert torch.equal(spikes, (y >= 0).to(torch.bfloat16))
+    flips = (spikes != ref[0]).any(-1).any(-1)
+    first = int(flips.float().argmax()) if bool(flips.any()) else T
+    assert (spikes != ref[0]).float().mean().item() < 1e-3
+    torch.testing.assert_close(y[:first], ref[1][:first], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(stats[:first], ref[2][:first], rtol=1e-5, atol=1e-6)
+    assert 0.02 < spikes.float().mean().item() < 0.98
+
+
+@pytest.mark.parametrize("mode", ["bn", "none"])
+@pytest.mark.parametrize("shared", [True, False])
+@pytest.mark.parametrize("R,H,T", BF16_SHAPES)
+def test_train_bwd_kernels_bf16_streams_match_plain(dev, mode, shared, R, H, T):
+    xg, whh, b2, bnp = _bf16_layer(R, H, T, shared, mode, dev, seed=3 * R + H + T + 1)
+    _, y, stats = gk.layer_train_fwd_plain(xg, whh, b2, bnp, H, shared, mode)
+    gout = torch.randn(T, R, H, generator=torch.Generator().manual_seed(T)).to(
+        dev, torch.bfloat16)
+    args = (xg, y.contiguous(), gout, stats.contiguous(), whh, b2, bnp, H, shared, mode)
+    got = gk.gsu_layer_train_bwd(*args)
+    ref = gk.layer_train_bwd_plain(*args)
+    torch.cuda.synchronize()
+    assert got[0].dtype == ref[0].dtype == torch.bfloat16
+    _assert_bf16_e_close(args, got, ref, skip_dbn=mode == "none")
+    # the weight-gradient kernel alone, on the plain version's bf16 dxg
+    assert _rel(gk.gsu_train_dw(y, ref[0]), gk.train_dw_plain(y, ref[0])) <= 1e-5
+
+
+def _assert_bf16_e_close(args, got, ref, skip_dbn=False):
+    """Kernel E's outputs with bf16 streams (``got``) and its plain
+    version's (``ref``), each against a float64 run of the plain version on
+    the same inputs: the kernel within 3x (+1e-5) of the plain version's
+    relative L2 error."""
+    f64 = gk.layer_train_bwd_plain(*[a.double() if isinstance(a, torch.Tensor) else a
+                                     for a in args])
+    for name, a, b, o in zip(("dxg", "dW", "db", "dbn"), got, ref, f64):
+        assert a.shape == b.shape and torch.isfinite(a.float()).all(), name
+        if name == "dbn" and skip_dbn:
+            assert not a.any()
+            continue
+        assert _rel(a, o) <= 3 * _rel(b, o) + 1e-5, (name, _rel(a, o), _rel(b, o), _rel(a, b))
+
+
+def _step_errors(args, y, stats):
+    """Largest |y - step| and statistics error of a BN layer's membranes
+    ``y`` and statistics, each step recomputed in float64 from the same
+    run's y[t-1] (h = c = 0 before the first step)."""
+    xg, whh, b2, bnp, H, shared, _ = args
+    yd = y.double()
+    zero = torch.zeros_like(yd[:1])
+    c_prev = torch.cat([zero, yd[:-1]])
+    pre = xg.double() + torch.cat([zero, (yd[:-1] >= 0).double()]) @ whh.double()
+    f = torch.sigmoid((pre if shared else pre[..., :H]) + b2[0].double())
+    cy = f * c_prev + (1 - f) * ((pre if shared else pre[..., H:]) + b2[1].double())
+    mean = cy.mean(1)
+    var = (cy - mean[:, None]).square().mean(1)
+    step = (cy - mean[:, None]) * torch.rsqrt(var + gk.BN_EPS)[:, None] * bnp[0].double() \
+        + bnp[1].double()
+    stats_err = max((stats[:, 0].double() - mean).abs().max().item(),
+                    ((stats[:, 1].double() - var).abs() / (var + gk.BN_EPS)).max().item())
+    return (yd - step).abs().max().item(), stats_err
+
+
+@pytest.mark.parametrize("io", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("R", [1024, 1536])
+def test_train_kernels_take_baseline_l_section_rows(dev, io, R):
+    """Baseline L's sections 0 and 1 at batch 64 (16 and 24 units) at H 256:
+    beyond kernel D's old cap of 896 rows, within its 1792."""
+    H, T, shared = 256, 12, True
+    xg, whh, b2, bnp = _train_layer(R, H, T, shared, "bn", dev, seed=R)
+    xg, whh = xg.to(io), whh.to(io)
+    args = (xg, whh, b2, bnp, H, shared, "bn")
+    spikes, y, stats = gk.gsu_layer_train_fwd(*args)
+    ref = gk.layer_train_fwd_plain(*args)
+    torch.cuda.synchronize()
+    assert spikes.shape == (T, R, H) and torch.equal(spikes, (y >= 0).to(io))
+    k_y, k_s = _step_errors(args, y, stats)
+    p_y, p_s = _step_errors(args, ref[1], ref[2])
+    assert k_y <= 3 * p_y + 1e-4 and k_s <= 3 * p_s + 1e-4, (k_y, p_y, k_s, p_s)
+    gout = torch.randn(T, R, H, generator=torch.Generator().manual_seed(R)).to(dev, io)
+    e_args = (xg, ref[1], gout, ref[2], whh, b2, bnp, H, shared, "bn")
+    got, want = gk.gsu_layer_train_bwd(*e_args), gk.layer_train_bwd_plain(*e_args)
+    torch.cuda.synchronize()
+    if io == torch.bfloat16:
+        _assert_bf16_e_close(e_args, got, want)
+        return
+    for name, a, b in zip(("dxg", "dW", "db", "dbn"), got, want):
+        assert _rel(a, b) <= 1e-5, (name, _rel(a, b))
+
+
+def test_train_wrappers_reject_mixed_stream_types(dev):
+    xg, whh, b2, bnp = _train_layer(8, 16, 5, True, "bn", dev, seed=0)
+    with pytest.raises(ValueError, match="whh: dtype"):
+        gk.gsu_layer_train_fwd(xg.to(torch.bfloat16), whh, b2, bnp, 16, True, "bn")
+    _, y, stats = gk.gsu_layer_train_fwd(xg, whh, b2, bnp, 16, True, "bn")
+    with pytest.raises(ValueError, match="gout: dtype"):
+        gk.gsu_layer_train_bwd(xg, y, y.to(torch.bfloat16), stats, whh, b2, bnp, 16, True, "bn")

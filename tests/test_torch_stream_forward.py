@@ -233,12 +233,20 @@ def test_uncovered_configs_raise_naming_the_roadmap_item(change, match):
     cfg = replace(pcfg, **change)
     with pytest.raises(NotImplementedError, match=match):
         _port(cfg, params, state, np.zeros((1, 2000), np.float32))
-    # training on the stream path (the stream-train stack) is a later slice
-    with pytest.raises(NotImplementedError, match="training"):
-        P.spiking_fullsubnet_apply(replace(pcfg, scan_mode="stream"),
-                                   params_from_numpy(params, "cpu"),
-                                   params_from_numpy(state, "cpu"), torch.zeros(1, 2000),
-                                   train=True)
+    # training on the stream path takes every norm (no monolith), but not
+    # the collect path
+    train_cfg = replace(pcfg, scan_mode="stream", **{k: v for k, v in change.items()
+                                                       if k != "scan_mode"})
+    args = (params_from_numpy(params, "cpu"), params_from_numpy(state, "cpu"),
+            torch.from_numpy(np.random.default_rng(0).standard_normal((2, 2000)).astype(
+                np.float32) * 0.1))
+    if "collect_layer_outputs" in change:
+        with pytest.raises(NotImplementedError, match=match):
+            P.spiking_fullsubnet_apply(train_cfg, *args, train=True)
+    elif "fdrc" in change:  # the monolith's gate binds eval only (the weights fit this one)
+        out = P.spiking_fullsubnet_apply(train_cfg, *args, train=True)
+        assert out["enhanced_y"].shape == (2, 2000)
+        assert bool(torch.isfinite(out["enhanced_y"]).all())
 
 
 # ------------------------------------------------------------------ monolith

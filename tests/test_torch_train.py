@@ -10,7 +10,8 @@
   1e-12, every gradient leaf within 1e-9 max|g|, the new BN state within
   rtol 1e-12, the parameters after the step within 1e-10;
 - the dispatch: on a CPU tensor scan_mode="auto" with train=True takes the
-  layered path, as JAX on a CPU does.
+  layered path, as JAX on a CPU does; the stream path trains too, but not
+  with collect_layer_outputs=True.
 The layer-level checks of kernels D and E are in test_torch_train_layer.py.
 Inputs are made with numpy from a seed and handed to both packages.
 """
@@ -194,7 +195,8 @@ def test_auto_trains_layered_on_cpu_and_stream_training_raises(monkeypatch):
     """On a CPU tensor "auto" with train=True takes the layered path
     (spiking_fullsubnet.py:265-275: JAX on a CPU keeps the layered
     reference), even for a config the stream path supports; the stream
-    path itself does not train yet."""
+    path trains (tests/test_torch_stream_train.py) but raises for the
+    per-layer outputs it does not collect yet."""
     from spiking_fullsubnet_torch.models.stream_forward import stream_supported
 
     cfg = replace(P.separator_config(**ZOO_KW), scan_mode="auto", collect_layer_outputs=False)
@@ -211,6 +213,6 @@ def test_auto_trains_layered_on_cpu_and_stream_training_raises(monkeypatch):
     new_rm = out["state"]["sb"][0]["stack"]["layers"][0]["bn"]["running_mean"]
     assert not torch.equal(new_rm, state["sb"][0]["stack"]["layers"][0]["bn"]["running_mean"])
     assert not model(noisy)["enhanced_y"].requires_grad  # forward stays the no-grad eval
-    with pytest.raises(NotImplementedError, match="training slice 2"):
-        P.spiking_fullsubnet_apply(replace(cfg, scan_mode="stream"), params, state, noisy,
-                                   train=True)
+    with pytest.raises(NotImplementedError, match="collect_layer_outputs"):
+        P.spiking_fullsubnet_apply(replace(cfg, scan_mode="stream", collect_layer_outputs=True),
+                                   params, state, noisy, train=True)

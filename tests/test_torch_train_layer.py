@@ -18,7 +18,12 @@ versions, reached on the CPU) against the JAX package.
   projection (f32, atol 1e-4, tests/test_gsu_pallas.py:98-108);
 - gsu_stack_apply(train=True) against the JAX scan in f64: every layer's
   spikes equal, the new BN state within rtol 1e-12, every gradient leaf and
-  dx within 1e-9 max|g|.
+  dx within 1e-9 max|g|;
+- kernels D and E with bf16 streams (the stream-train path) against
+  gsu_layer_pallas_train_padded with a bf16 xg_p in interpret mode: spikes
+  equal, statistics within 1e-6, y to bf16 rounding, the gradients within
+  a relative L2 of 1e-2 (the JAX kernel recomputes from its bf16 y; see the
+  test).
 Inputs are made with numpy from a seed and handed to both packages.
 """
 
@@ -278,3 +283,101 @@ def test_gsu_stack_apply_train_matches_jax_scan_f64(shared, bn):
     for g, r in zip(_grads_of(tp), jax.tree.leaves(g_p)):
         _close_by_max(g, r, 1e-9)
     _close_by_max(tx.grad.numpy(), g_x, 1e-9, "dx")
+
+
+# ------------------------------------------------------------------ bf16 streams
+
+
+def _bf16(a):
+    """Values rounded to bfloat16 (by JAX), as float32 numpy."""
+    return np.asarray(jnp.asarray(a).astype(jnp.bfloat16).astype(jnp.float32))
+
+
+def _rel_l2(got, ref):
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    return float(np.linalg.norm(got - ref) / max(np.linalg.norm(ref), 1e-30))
+
+
+def _pad_lanes(a, H, shared, hp=128):
+    """[T, R, rows] -> the JAX stream-train layout [T, R, G] (G = hp shared,
+    else 2 hp), each half at its lane offset, zeros elsewhere."""
+    T, R, _ = a.shape
+    out = np.zeros((T, R, hp if shared else 2 * hp), a.dtype)
+    out[..., :H] = a[..., :H]
+    if not shared:
+        out[..., hp:hp + H] = a[..., H:]
+    return out
+
+
+@pytest.mark.parametrize("shared,bn", [(True, True), (False, True), (True, False)])
+def test_plain_de_bf16_streams_match_pallas_padded_interpret(shared, bn, monkeypatch):
+    """Kernels D and E with bf16 streams (the stream-train path) against
+    gsu_layer_pallas_train_padded with a bf16 xg_p in interpret mode, R = 16,
+    T = 48 (two time blocks of 24 there), H = 24 (lanes padded to 128 on the
+    JAX side only). D: spikes equal, statistics within 1e-6, the JAX kernel's
+    bf16 y equal to the port's float32 y rounded to bf16. E (and the dW
+    kernel): the JAX kernel saves y in bf16 and recomputes each step of a
+    time block from it (only the block's first step from float32), the port
+    keeps y float32, so the surrogate, the gates and BN's xhat see y rounded
+    differently; dxg, dW, db and dgamma/dbeta within a relative L2 of 1e-2
+    (measured: at most 3.1e-3; fed y rounded to bf16, the port's dxg comes
+    within 2e-4 to 1.4e-3 of the JAX kernel's)."""
+    monkeypatch.setattr(gp, "_INTERPRET", True)
+    R, T = 16, 48
+    xg, w, b, bw, bb = _layer(shared, bn, R, T, seed=21 + 2 * shared + bn)
+    xg = _bf16(xg)
+    gout = _bf16(np.random.default_rng(3).standard_normal((T, R, H)))
+    bnargs = (_j(bw), _j(bb)) if bn else (None, None)
+
+    def fwd(xg_p, w_, b_, bw_, bb_):
+        return gp.gsu_layer_pallas_train_padded(xg_p, w_, b_, H, shared, bw_, bb_)
+
+    xg_p = jnp.asarray(_pad_lanes(xg, H, shared)).astype(jnp.bfloat16)
+    (ref_spikes, ref_stats), vjp = jax.vjp(fwd, xg_p, _j(w), _j(b), *bnargs)
+    assert ref_spikes.dtype == jnp.bfloat16
+    zero_stats = None if not bn else tuple(jnp.zeros_like(s) for s in ref_stats)
+    g_pad = jnp.asarray(_pad_lanes(gout, H, True)).astype(jnp.bfloat16)
+    ref_g = vjp((g_pad, zero_stats))
+    # the kernel's saved y, through the same plan
+    cfg = gp._make_cfg(T, R, H, shared, bn=bn, affine=False, train=True, save_res=True,
+                       io="bfloat16")
+    cfg = gp._make_cfg(T, R, H, shared, bn=bn, affine=False, train=True, save_res=True,
+                       io="bfloat16", t_blk=gp._divisor_at_most(T, cfg.t_blk))
+    assert cfg.n_t == 2
+    _, ref_y, _, _ = gp._run_fwd(cfg, xg_p, gp._pack_w(_j(w), H, cfg.hp, cfg.g, shared),
+                                 gp._pack_b2(_j(b), H, cfg.hp),
+                                 gp._pack_pair(*bnargs, H, cfg.hp), save_res=True)
+
+    leaves = [torch.from_numpy(xg).to(torch.bfloat16).requires_grad_(True)] + [
+        _t(a, True) for a in (w, b, bw, bb)]
+    spikes, stats = PG.GSULayerTrain.apply(*leaves, H, shared)
+    assert spikes.dtype == torch.bfloat16 and stats.dtype == torch.float32
+    np.testing.assert_array_equal(spikes.detach().float().numpy(),
+                                  np.asarray(ref_spikes[..., :H].astype(jnp.float32)))
+    # the port's y: kernel D's plain version on the same arguments
+    kx, kw, kb2, kbnp = _kernel_args(xg, w, b, bw, bb)
+    _, y, _ = gk.layer_train_fwd_plain(kx.to(torch.bfloat16), kw.to(torch.bfloat16), kb2, kbnp,
+                                       H, shared, "bn" if bn else "none")
+    assert y.dtype == torch.float32
+    # the JAX y is the port's y rounded to bf16: equal, but for the few
+    # membranes within a float32 rounding (1e-6 near 0, where c' - mean
+    # cancels) of a bf16 midpoint, which round the other way
+    ref_y = np.asarray(ref_y[..., :H].astype(jnp.float32))
+    y = y.numpy()
+    assert np.mean(_bf16(y) != ref_y) < 1e-3
+    half_ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(y), 1e-30))) - 8)
+    assert (np.abs(ref_y - y) <= half_ulp * (1 + 1e-4) + 1e-6).all()
+    if bn:
+        for k in range(2):
+            np.testing.assert_allclose(stats[:, k].numpy(), np.asarray(ref_stats[k]),
+                                       rtol=1e-6, atol=1e-6)
+    spikes.backward(torch.from_numpy(gout).to(torch.bfloat16))
+    assert leaves[0].grad.dtype == torch.bfloat16
+    dxg_ref = np.asarray(ref_g[0].astype(jnp.float32))
+    dxg_ref = (dxg_ref[..., :H] if shared
+               else np.concatenate([dxg_ref[..., :H], dxg_ref[..., 128:128 + H]], -1))
+    rels = {"dxg": _rel_l2(leaves[0].grad.float().numpy(), dxg_ref)}
+    for name, t, r in zip(("dW", "db", "dgamma", "dbeta"), leaves[1:], ref_g[1:]):
+        if t is not None:
+            rels[name] = _rel_l2(t.grad.numpy(), r)
+    assert max(rels.values()) < 1e-2, rels
