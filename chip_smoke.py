@@ -94,9 +94,9 @@ is non-zero:
             - the train step at 64 x 6 s bf16: one warm-up step counted
               as in the quality phase (D and E as above, A, B, C, F none;
               the kernels line's launches), then forward, backward, clip
-              and AdamW step timed with CUDA events from the same starting
-              weights (time_train says why), audio-s/s, its own peak
-              memory; D, E and E's dW kernel alone at each of the ten
+              and AdamW timed with CUDA events over two more consecutive
+              steps, audio-s/s, its own peak memory, every step's loss and
+              gradient norm; D, E and E's dW kernel alone at each of the ten
               layers, their plain versions, bounds (D: xg read, spikes, y and
               statistics written; operations the fired spikes' products and
               the cell and BN arithmetic; E: xg, y and gout read, dxg
@@ -198,6 +198,32 @@ def speech_fixture():
         -0.5 * ((t % 1.0) - 0.5) ** 2 / 0.09)
     clean = (0.2 * env * sig).astype(np.float32)
     return clean, clean + 0.05 * rng.standard_normal(len(t)).astype(np.float32)
+
+
+def card_name():
+    """The card's name and power limit as nvidia-smi gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          timeout=60, check=True).stdout.strip().splitlines()[0]
+
+
+def training_batches(dev):
+    """(noisy, clean) of the fixture batch (FIXTURE_COPIES shifted copies of
+    the speech fixture, each with its own noise) and of the training batch
+    (TRAIN_B x TRAIN_SECONDS of Gaussian noise as clean, more as noise),
+    from one generator seeded 1."""
+    clean, _ = speech_fixture()
+    trng = np.random.default_rng(1)
+    fix_clean = np.stack([np.roll(clean, k * clean.size // FIXTURE_COPIES)
+                          for k in range(FIXTURE_COPIES)])
+    fix_noisy = torch.from_numpy(fix_clean + (0.05 * trng.standard_normal(
+        fix_clean.shape)).astype(np.float32)).to(dev)
+    tb_shape = (TRAIN_B, int(TRAIN_SECONDS * SR))
+    tb_clean = (trng.standard_normal(tb_shape) * 0.1).astype(np.float32)
+    tb_noisy = torch.from_numpy(tb_clean + (0.05 * trng.standard_normal(tb_shape)).astype(
+        np.float32)).to(dev)
+    return (fix_noisy, torch.from_numpy(fix_clean).to(dev), tb_noisy,
+            torch.from_numpy(tb_clean).to(dev))
 
 
 def si_sdr(est, ref):
@@ -681,36 +707,30 @@ def train_launches(n_de):
 def time_train(apply, cfg, params, state, noisy, clean, want, iters=2):
     """One counted warm-up ``train_step`` (every kernel's count set to 0
     just before it, read just after, required to be ``want``), then
-    ``iters`` steps with the forward (to the loss), the backward and the
-    clip-and-AdamW step timed by CUDA events, the step's own peak memory
-    beside them. Every step starts from the same weights and state: the
-    training batch's rows are statistically alike (Gaussian noise), and
-    after a few AdamW steps a BN unit can see near-zero batch variance at
-    consecutive frames, where its backward multiplies by gamma /
-    sqrt(eps) ~ 316 a frame until it overflows (seen on zoo M's stream
-    path with bf16 streams, E's inputs finite). The step's cost does not
-    depend on where the weights are."""
+    ``iters`` more steps, each from the weights, optimizer state and BN
+    state the step before left, with the forward (to the loss), the
+    backward and the clip-and-AdamW step timed by CUDA events, the step's
+    own peak memory beside them. Every timed step's loss must be finite;
+    every step's loss and gradient norm come back, and ``nonfinite_steps``
+    lists the steps (0 the warm-up) where either is not finite."""
     from spiking_fullsubnet_torch.ops import gsu_kernels as gk
     from spiking_fullsubnet_torch.recipes.denoise import adamw, denoise_loss, train_step
     params = fresh(params)
     leaves = tensors_of(params)
-    start = [t.detach().clone() for t in leaves]
     opt = adamw(leaves)
     counters = {**COUNTERS, **TRAIN_WRAPPERS}
     for name in counters.values():
         getattr(gk, name).launches = 0
-    train_step(apply, cfg, params, state, noisy, clean, opt)
+    ld, state, norm = train_step(apply, cfg, params, state, noisy, clean, opt)
     torch.cuda.synchronize()
     counts = {k: getattr(gk, name).launches for k, name in counters.items()}
     require(counts == want, f"train step {cfg.compute_dtype} {tuple(noisy.shape)}: "
                             f"launches {counts}, expected {want}")
+    losses, norms = [ld["loss"].item()], [norm.item()]
     held_gb = torch.cuda.memory_allocated() / 1e9
     torch.cuda.reset_peak_memory_stats()
     ms = {"forward_ms": 0.0, "backward_ms": 0.0, "step_ms": 0.0}
     for _ in range(iters):
-        with torch.no_grad():
-            for t, t0 in zip(leaves, start):
-                t.copy_(t0)
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
         ev[0].record()
         opt.zero_grad(set_to_none=True)
@@ -723,15 +743,19 @@ def time_train(apply, cfg, params, state, noisy, clean, want, iters=2):
         opt.step()
         ev[3].record()
         torch.cuda.synchronize()
+        state = out["state"]
         for i, k in enumerate(ms):
             ms[k] += ev[i].elapsed_time(ev[i + 1]) / iters
-        require(bool(torch.isfinite(loss)) and bool(torch.isfinite(norm)),
-                f"non-finite training loss {loss.item()} or gradient norm {norm.item()}")
+        losses.append(loss.item())
+        norms.append(norm.item())
+        require(bool(torch.isfinite(loss)), f"non-finite training loss {losses}")
     total = sum(ms.values())
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    bad = [i for i, (a, b) in enumerate(zip(losses, norms))
+           if not (np.isfinite(a) and np.isfinite(b))]
     return dict(ms, total_ms=total, audio_s_per_s=TRAIN_B * TRAIN_SECONDS / total * 1e3,
                 peak_gb=peak_gb, held_gb=held_gb, own_peak_gb=peak_gb - held_gb,
-                launches=counts)
+                launches=counts, losses=losses, grad_norms=norms, nonfinite_steps=bad)
 
 
 def time_de_layers(gk, names, d_args, e_args, d_plain_ms, e_plain_ms, with_dw=True):
@@ -849,8 +873,8 @@ def step_grads(gk, apply, cfg, p, st, noisy, clean, bwd):
 def grads_vs_plain_e(gk, apply, cfg, p, st, noisy, clean):
     """One step's gradients through the kernels against the same step with
     E (and so dW) swapped for E's plain version: the largest leaf's
-    relative L2 and whether the losses are equal (D is deterministic, so
-    both steps see the same forward)."""
+    relative L2 and whether the losses are equal (the step is deterministic,
+    so both see the same forward and the same gradient up to the first E)."""
     loss_k, g_k = step_grads(gk, apply, cfg, p, st, noisy, clean, gk.gsu_layer_train_bwd)
     loss_q, g_q = step_grads(gk, apply, cfg, p, st, noisy, clean, gk.layer_train_bwd_plain)
     rels = [rel_l2(a, b) for a, b in zip(g_k, g_q)]
@@ -967,7 +991,9 @@ def stream_phase(gk, apply, flag, flag_base, model, base, fix_noisy, fix_clean, 
             f"forward {t['forward_ms']:.3f} ms, backward {t['backward_ms']:.3f} ms, clip and "
             f"AdamW {t['step_ms']:.3f} ms, total {t['total_ms']:.3f} ms "
             f"({t['audio_s_per_s']:.1f} audio-s/s), own peak memory {t['own_peak_gb']:.2f} GB "
-            f"({t['held_gb']:.2f} GB held before), launches {t['launches']}")
+            f"({t['held_gb']:.2f} GB held before), launches {t['launches']}; losses "
+            f"{t['losses']}, gradient norms {t['grad_norms']}, non-finite steps "
+            f"{t['nonfinite_steps']}")
         torch.cuda.empty_cache()
 
     # (d) the kernels alone: flagship M's eight layers, baseline L's four
@@ -1010,9 +1036,7 @@ def main() -> int:
     dev = torch.device("cuda")
 
     # ---- 1. card ----
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         timeout=60, check=True).stdout.strip().splitlines()[0]
+    smi = card_name()
     log(f"[card] {smi}")
     log(f"[card] {torch.cuda.get_device_name(0)} | torch {torch.__version__} "
         f"| CUDA {torch.version.cuda} | count {torch.cuda.device_count()}")
@@ -1355,17 +1379,7 @@ def main() -> int:
     torch.set_grad_enabled(True)
     confs = {"zoo M": (spiking_fullsubnet_apply, lay_base, model.param_tree(), model.state_tree()),
              "cIRM-GSN": (cm.cirm_model_apply, cirm["config"], cirm["params"], cirm["state"])}
-    trng = np.random.default_rng(1)
-    fix_clean = np.stack([np.roll(clean, k * clean.size // FIXTURE_COPIES)
-                          for k in range(FIXTURE_COPIES)])
-    fix_noisy = torch.from_numpy(fix_clean + (0.05 * trng.standard_normal(
-        fix_clean.shape)).astype(np.float32)).to(dev)
-    fix_clean = torch.from_numpy(fix_clean).to(dev)
-    tb_shape = (TRAIN_B, int(TRAIN_SECONDS * SR))
-    tb_clean = (trng.standard_normal(tb_shape) * 0.1).astype(np.float32)
-    tb_noisy = torch.from_numpy(tb_clean + (0.05 * trng.standard_normal(tb_shape)).astype(
-        np.float32)).to(dev)
-    tb_clean = torch.from_numpy(tb_clean).to(dev)
+    fix_noisy, fix_clean, tb_noisy, tb_clean = training_batches(dev)
 
     # (a) D and E against their plain versions on the arguments of one f32
     # forward and backward: the fixture batch and the training batch
@@ -1448,9 +1462,13 @@ def main() -> int:
             require(losses[-1] < losses[0], f"cIRM-GSN: loss {losses}")
 
         # one step's gradients through the kernels against the same step with
-        # E (and so dW) swapped for E's plain version: D's forward is
-        # deterministic (no atomics), so both steps see the same spikes and
-        # the backward is held alone; D is held step by step in (a)
+        # E (and so dW) swapped for E's plain version: the whole step is
+        # deterministic on the card (D and E sum without atomics, and the
+        # loss's STFT does not use torch.stft's reflect padding, whose
+        # gradient is summed with atomic adds; train_witness.py shows two
+        # steps bitwise equal), so both runs see the same forward and the
+        # same gradient into the last layer, and E is held alone; D is held
+        # step by step in (a)
         grad_rel[name] = g = grads_vs_plain_e(gk, apply, cfg, p, st0, fix_noisy, fix_clean)
         log(f"[training] {name} one step through the kernels against E's plain version on the "
             f"same forward (losses equal: {g['losses_equal']}): largest gradient-leaf rel L2 "
@@ -1469,7 +1487,8 @@ def main() -> int:
             f"{t['forward_ms']:.3f} ms, backward {t['backward_ms']:.3f} ms, clip and AdamW "
             f"{t['step_ms']:.3f} ms, total {t['total_ms']:.3f} ms ({t['audio_s_per_s']:.1f} "
             f"audio-s/s), own peak memory {t['own_peak_gb']:.2f} GB ({t['held_gb']:.2f} GB held "
-            f"before), launches {t['launches']}")
+            f"before), launches {t['launches']}; losses {t['losses']}, gradient norms "
+            f"{t['grad_norms']}, non-finite steps {t['nonfinite_steps']}")
         torch.cuda.empty_cache()
     per = time_de_layers(gk, LAYERS_DE, d_b, e_b, d_plain_ms, e_plain_ms)
     kernels += de_entries({k: v[:8] for k, v in per.items()}, trec, train_t["zoo M"]["launches"],

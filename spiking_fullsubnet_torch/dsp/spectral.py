@@ -89,15 +89,26 @@ def stft_complex(y: torch.Tensor, n_fft: int, hop_length: int, win_length: int,
     """Complex STFT with ``torch.stft`` conventions (periodic hann window in
     the signal's type, onesided; ``pad_mode`` "constant" or "reflect" for
     the centring, ``normalized`` scales by n_fft^-1/2): ``[..., T] -> [...,
-    F, T_frames]`` (``dsp/spectral.py:120``, its FFT branch)."""
+    F, T_frames]`` (``dsp/spectral.py:120``, its FFT branch). torch.stft's
+    own steps written out (the centring pad, the frames times the window,
+    the real FFT), so that the gradient is deterministic on a card: there
+    torch.stft's reflect padding sums its gradient with atomic adds."""
     if pad_mode not in ("constant", "reflect"):
         raise ValueError(f"Unsupported pad_mode: {pad_mode}")
     window = _pad_window(hann_window(win_length, y.dtype, y.device), win_length, n_fft)
     lead = y.shape[:-1]
-    spec = torch.stft(y.reshape(-1, y.shape[-1]), n_fft, hop_length, n_fft, window,
-                      center=center, pad_mode=pad_mode, normalized=normalized,
-                      return_complex=True)
-    return spec.reshape(lead + spec.shape[-2:])
+    y = y.reshape(-1, y.shape[-1])
+    if center:
+        p = n_fft // 2
+        if pad_mode == "constant":
+            y = F.pad(y, (p, p))
+        elif p >= y.shape[-1]:
+            raise ValueError(f"reflect padding of {p} needs more than {y.shape[-1]} samples")
+        else:
+            y = torch.cat([y[:, 1:p + 1].flip(-1), y, y[:, -p - 1:-1].flip(-1)], dim=-1)
+    frames = y.unfold(-1, n_fft, hop_length) * window  # [N, T_frames, n_fft]
+    spec = torch.fft.rfft(frames, dim=-1, norm="ortho" if normalized else "backward")
+    return spec.transpose(-1, -2).reshape(lead + spec.shape[-1:] + spec.shape[-2:-1])
 
 
 def istft_complex(spec: torch.Tensor, n_fft: int, hop_length: int, win_length: int,

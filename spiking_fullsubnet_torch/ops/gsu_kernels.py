@@ -521,7 +521,8 @@ gsu_layer_train_fwd.launches = 0
 
 def layer_train_bwd_plain(xg: torch.Tensor, y: torch.Tensor, gout: torch.Tensor,
                           stats: torch.Tensor, whh: torch.Tensor, b2: torch.Tensor,
-                          bnp: torch.Tensor, hidden: int, shared: bool, mode: str
+                          bnp: torch.Tensor, hidden: int, shared: bool, mode: str,
+                          operands: Optional[torch.dtype] = None
                           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of kernel E (and of ``gsu_train_dw``): the
     reverse-time loop of ``_bwd_kernel`` (``gsu_pallas.py:358-466``) line by
@@ -531,9 +532,11 @@ def layer_train_bwd_plain(xg: torch.Tensor, y: torch.Tensor, gout: torch.Tensor,
     backward (mode "bn") and accumulates the weight, bias and BN gradients.
     Types as ``layer_train_fwd_plain``: with bfloat16 streams drg is
     rounded to bfloat16 before dW and dh = drg W_hh^T (``:449-460``), and
-    everything else is float32. Returns (dxg ``[T, R, G]`` in the stream
-    type, dW ``[H, G]``, db ``[2, H]``, dbn ``[2, H]`` in the accumulation
-    type)."""
+    everything else is float32. ``operands`` names another type for that
+    rounding (float64 streams with ``operands=torch.bfloat16`` give the
+    bf16-stream semantics with every other sum exact). Returns (dxg ``[T,
+    R, G]`` in the stream type, dW ``[H, G]``, db ``[2, H]``, dbn ``[2, H]``
+    in the accumulation type)."""
     if mode == "affine":
         raise ValueError("kernel E takes mode 'bn' or 'none' (the affine mode is eval only)")
     T, R, G = xg.shape
@@ -568,7 +571,7 @@ def layer_train_bwd_plain(xg: torch.Tensor, y: torch.Tensor, gout: torch.Tensor,
         db[0] += dpre_f.sum(0)
         db[1] += dpre_c.sum(0)
         drg = dpre_f + dpre_c if shared else torch.cat([dpre_f, dpre_c], dim=1)
-        drg = drg.to(io).to(acc)  # the matmul operands in the stream type
+        drg = drg.to(operands or io).to(acc)  # the matmul operands in the stream type
         dxg[t] = drg
         dw += h_prev.T @ drg
         dh = drg @ w.T

@@ -22,6 +22,10 @@ within 3x (+1e-5) of the plain version's own. D
 at baseline L's section rows (1024 and 1536 x 256) is held one step at a
 time: every step recomputed in float64 from the kernel's own previous
 membranes, the kernel within 3x (+1e-4) of the plain version's own error.
+E's bf16 rounding points are also held directly, at 3 or 4 steps, against
+a float64 run that rounds drg where the TPU kernel does: the kernel within
+a quarter of the distance of a version that leaves the rounding out. The
+recipe's loss gives the same gradient on every backward.
 """
 
 from __future__ import annotations
@@ -508,3 +512,58 @@ def test_train_wrappers_reject_mixed_stream_types(dev):
     _, y, stats = gk.gsu_layer_train_fwd(xg, whh, b2, bnp, 16, True, "bn")
     with pytest.raises(ValueError, match="gout: dtype"):
         gk.gsu_layer_train_bwd(xg, y, y.to(torch.bfloat16), stats, whh, b2, bnp, 16, True, "bn")
+
+
+# a direct witness of E's bf16 rounding points: a float64 run of the plain
+# version that rounds drg to bf16 where the TPU kernel does (before dh =
+# drg W^T and dW, gsu_pallas.py:449-460) is the oracle; beside the kernel,
+# the plain version with bf16 streams but drg left unrounded before dh and
+# dW (only its dxg store rounds), which a kernel that skipped or misplaced
+# the rounding would match. Short sequences, so that the few drg within a
+# float32 rounding of a bf16 midpoint (which round either way) cannot
+# carry their one-ulp difference far (at 40 steps they move the plain
+# version as far from the oracle as leaving the rounding out does; at 3 or 4
+# steps it stays within a tenth of it).
+BF16_ROUNDING_SHAPES = [(64, 320, 4), (512, 224, 4), (5, 224, 3)]
+
+
+@pytest.mark.parametrize("mode", ["bn", "none"])
+@pytest.mark.parametrize("shared", [True, False])
+@pytest.mark.parametrize("R,H,T", BF16_ROUNDING_SHAPES)
+def test_train_bwd_kernel_bf16_rounds_drg_where_the_reference_does(dev, mode, shared, R, H, T):
+    xg, whh, b2, bnp = _bf16_layer(R, H, T, shared, mode, dev, seed=5 * R + H + T)
+    _, y, stats = gk.layer_train_fwd_plain(xg, whh, b2, bnp, H, shared, mode)
+    gout = torch.randn(T, R, H, generator=torch.Generator().manual_seed(R + T)).to(
+        dev, torch.bfloat16)
+    args = (xg, y.contiguous(), gout, stats.contiguous(), whh, b2, bnp, H, shared, mode)
+    got = gk.gsu_layer_train_bwd(*args)
+    plain = gk.layer_train_bwd_plain(*args)
+    unrounded = gk.layer_train_bwd_plain(*args, operands=torch.float32)
+    oracle = gk.layer_train_bwd_plain(*[a.double() if isinstance(a, torch.Tensor) else a
+                                        for a in args], operands=torch.bfloat16)
+    torch.cuda.synchronize()
+    for name, a, p, u, o in zip(("dxg", "dW", "db", "dbn"), got, plain, unrounded, oracle):
+        if name == "dbn" and mode == "none":
+            continue
+        # the kernel's distance from the oracle, beside the plain version's
+        # and the unrounded version's (1e-3 to 2e-3 at these shapes)
+        k, q, m = _rel(a, o), _rel(p, o), _rel(u, o)
+        assert k < 0.25 * m, (name, k, q, m)
+
+
+# ------------------------------------------------------------------ the loss's gradient
+
+def test_denoise_loss_gradient_is_deterministic_on_the_card(dev):
+    """The recipe's loss (SI-SNR and the STFT MAE losses, whose STFT pads by
+    reflection) gives the same gradient bit for bit on every backward:
+    ``stft_complex`` writes the reflection out instead of calling
+    torch.stft, whose reflect padding sums its gradient with atomic adds."""
+    from spiking_fullsubnet_torch.recipes.denoise import denoise_loss
+    g = torch.Generator().manual_seed(11)
+    clean = (0.1 * torch.randn(8, 96000, generator=g)).to(dev)
+    est = (clean + 0.05 * torch.randn(8, 96000, generator=g).to(dev)).requires_grad_(True)
+    grads = []
+    for _ in range(3):
+        loss = denoise_loss(est, clean)["loss"]
+        grads.append(torch.autograd.grad(loss, est)[0])
+    assert torch.equal(grads[0], grads[1]) and torch.equal(grads[0], grads[2])

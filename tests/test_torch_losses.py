@@ -20,7 +20,7 @@ import jax.numpy as jnp
 from spiking_fullsubnet_tpu import losses as JL
 from spiking_fullsubnet_tpu.dsp.spectral import stft_complex as jax_stft_complex
 
-from spiking_fullsubnet_torch.dsp.spectral import stft_complex
+from spiking_fullsubnet_torch.dsp.spectral import hann_window, stft_complex
 from spiking_fullsubnet_torch.losses import losses as PL
 from spiking_fullsubnet_torch.recipes.denoise import denoise_loss
 
@@ -62,6 +62,26 @@ def test_stft_complex_pad_mode_and_normalized_match_jax(pad_mode, normalized):
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-12)
     with pytest.raises(ValueError, match="pad_mode"):
         stft_complex(torch.from_numpy(y), 512, 128, 512, pad_mode="edge")
+
+
+@pytest.mark.parametrize("pad_mode", ["constant", "reflect"])
+@pytest.mark.parametrize("normalized", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_stft_complex_is_torch_stft_written_out(pad_mode, normalized, dtype):
+    """stft_complex writes torch.stft's steps out (the centring pad, the
+    windowed frames, the real FFT) so that its gradient is deterministic on
+    a card: the same spectrum bit for bit, the same gradient to rounding."""
+    x = torch.from_numpy(_pair(np.float64, seed=7, shape=(2, 5000))[0]).to(dtype)
+    a, b = x.clone().requires_grad_(True), x.clone().requires_grad_(True)
+    ours = stft_complex(a, 512, 128, 512, pad_mode=pad_mode, normalized=normalized)
+    theirs = torch.stft(b, 512, 128, 512, hann_window(512, dtype), center=True,
+                        pad_mode=pad_mode, normalized=normalized, return_complex=True)
+    assert torch.equal(ours, theirs)
+    w = torch.from_numpy(np.random.default_rng(8).standard_normal(ours.shape)).to(dtype)
+    (ours.real * w + ours.imag * w.flip(-1)).sum().backward()
+    (theirs.real * w + theirs.imag * w.flip(-1)).sum().backward()
+    torch.testing.assert_close(a.grad, b.grad, rtol=0, atol=TOL[np.dtype(str(dtype)[6:]).type]
+                               * b.grad.abs().max().item())
 
 
 def test_denoise_loss_matches_the_recipe():
