@@ -134,8 +134,44 @@ is non-zero:
               flagship M's eight layers and at baseline L's four section
               layers of 1024 and 1536 rows, their plain versions, bounds and
               torch.matmul on dW's product in bf16.
+8. modes    serving in every mode of kernel B and on the collect path,
+            each on a configuration whose forward takes it (each misses the
+            monolith's gate): "ln" flagship M with a fullband tanh (its
+            weights), "cum" zoo M with the cumulative norm at fdrc 0.4
+            (baseline_m.npz), "raw" flagship widths without norm or pre-LN
+            with a fullband tanh (random weights from seed 0):
+            - B against its plain version on the inputs each path gives it,
+              f32 and bf16: 1 x 2 s whole and the bench's first 16 frames,
+              enhanced-spectrum relative L2 < 0.05; "ln" over the whole
+              bench against a float64 run of the plain version, within 3x
+              (+1e-3) of the f32 plain version's drift; the projection mode
+              (no deep filter; no caller reaches it) at 16 frames: on "ln"'s
+              inputs against its plain version, relative L2 < 1e-3, and on
+              every mode's, deep-filtered here, against the kernel's own
+              deep-filter mode on the same inputs (the same spikes): < 1e-4
+              in f32, < 1e-2 in bf16 (projections rounded to bf16 first);
+            - B against C on one model: the two-launch path
+              (stream_forward._serve_two_launch) and the monolith on
+              flagship M and on zoo M with the cumulative norm, f32,
+              1 x 12345 samples, enhanced audio SNR > 60 dB (the JAX
+              package's bound for two formulations of one forward,
+              tests/test_stream_forward.py:65-90); zoo M's cumulative norm
+              through B gains > 8 dB on the fixture, A and B one launch;
+            - each mode's path counted (A and B one launch, C and F none);
+              the collect path on zoo M (collect_layer_outputs=True, the
+              config's default): gain > 8 dB, A four launches (fullband and
+              three sections in the units form), B, C and F none, the
+              synops lists shaped as the layered forward's, their spikes
+              within a mismatch of 1e-3 of the same forward on the plain
+              versions;
+            - at 256 x 30 s bf16: the forwards of flagship M with collect
+              (the preset's default) and of the three mode configurations,
+              each counted in a warm-up that also records the kernels'
+              inputs, with own peak memory; A alone at the collect path's
+              four launches and B alone in each mode (and the projection
+              mode on "ln"'s inputs), their plain versions and bounds.
 
-7 to 9 minutes on one H100, the build included.
+9 to 11 minutes on one H100, the build included.
 
 The last line is {"ok": true, "device": {...}}. Without a CUDA device, or
 without the rest of the repository beside it, it prints no result and
@@ -231,6 +267,14 @@ def si_sdr(est, ref):
     return 10 * np.log10(np.sum((a * ref) ** 2) / np.sum((a * ref - est) ** 2))
 
 
+def si_sdr_gain(y, clean, noisy):
+    """SI-SDR gain in dB of the enhanced fixture ``y [1, T]`` over the noisy
+    one; the audio must be finite and of the fixture's shape."""
+    enh = y[0].float().cpu().numpy()
+    require(enh.shape == clean.shape and np.isfinite(enh).all(), "enhanced audio shape/finite")
+    return float(si_sdr(enh, clean) - si_sdr(noisy, clean))
+
+
 def cuda_ms(fn, iters=1, warmup=1):
     """Mean milliseconds of fn() over iters runs, CUDA events, after warmup."""
     for _ in range(warmup):
@@ -243,6 +287,14 @@ def cuda_ms(fn, iters=1, warmup=1):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def plain_run(plain, args, **kw):
+    """One run of a plain version: (its ms by CUDA events, the per-layer
+    spike counts it took, its output)."""
+    counts, box = [], []
+    ms = cuda_ms(lambda: box.append(plain(*args, spike_counts=counts, **kw)), warmup=0)
+    return ms, counts, box[0]
 
 
 WRAPPERS = {"A": "gsu_stack_eval", "B": "gsu_sections_eval", "C": "sfsb_monolith_serve"}
@@ -342,11 +394,26 @@ def as_f64_a(args):
 
 
 def as_f64_b(args):
-    secs, xa, xb, alpha, sre, sim, H, shared = args
-    secs = [{k: v.double() if isinstance(v, torch.Tensor) else v for k, v in s.items()}
-            for s in secs]
-    return (secs, xa.double(), xb.double(), alpha.double(), sre.double(), sim.double(),
-            H, shared)
+    secs, *tensors, H, shared, beta = args
+    f64 = lambda v: v.double() if isinstance(v, torch.Tensor) else v  # noqa: E731
+    secs = [{k: f64(v) for k, v in s.items()} for s in secs]
+    return (secs, *[f64(t) for t in tensors], H, shared, f64(beta))
+
+
+def head_b(args, steps):
+    """Kernel B's inputs cut to the first ``steps`` frames (a per-frame
+    alpha and beta too)."""
+    secs, xa, xb, alpha, sre, sim, H, shared, beta = args
+    cut = lambda t: None if t is None else t[:steps].contiguous()  # noqa: E731
+    return (secs, cut(xa), cut(xb), cut(alpha) if alpha is not None and alpha.ndim == 3 else alpha,
+            cut(sre), cut(sim), H, shared, cut(beta))
+
+
+def without_df(args):
+    """Kernel B's inputs in its mode without the deep filter: the spectrum
+    left out, each section's projection out."""
+    secs, xa, xb, alpha, _, _, H, shared, beta = args
+    return (secs, xa, xb, alpha, None, None, H, shared, beta)
 
 
 def as_f64_c(args):
@@ -379,17 +446,21 @@ def tensors_of(tree):
     return []
 
 
-def bound_a(args, spikes):
+def bound_a(args, spikes, collect_all=False):
     """(bytes, operations, operation seconds) of kernel A's function on
-    these inputs; ``spikes`` are the plain version's per-layer counts."""
+    these inputs (``[(U,) T, R, G]``; with ``collect_all`` every layer's
+    spikes written); ``spikes`` are the plain version's per-layer counts."""
     xg0, wihr, whh, coef, H, shared = args
-    T, R, G = xg0.shape
+    G = xg0.shape[-1]
+    rows = xg0.numel() // G  # (U) T R row-steps
     L = whh.shape[0]
     es = xg0.element_size()
-    nbytes = (xg0.numel() + wihr.numel() + whh.numel() + T * R * H) * es + coef.numel() * 4
+    n_out = L if collect_all else 1
+    nbytes = (xg0.numel() + wihr.numel() + whh.numel() + n_out * rows * H) * es
+    nbytes += coef.numel() * 4
     # recurrent products take every layer's spikes, inter-layer ones all but the last's
     mm = 2.0 * G * (sum(spikes) + sum(spikes[:-1]))
-    cell = float(CELL_OPS) * L * T * R * H
+    cell = float(CELL_OPS) * L * rows * H
     return nbytes, mm + cell, mm / PEAK_OPS[xg0.dtype] + cell / PEAK_OPS[torch.float32]
 
 
@@ -409,27 +480,38 @@ def bound_f(args, spikes):
 
 
 def bound_b(args, spikes):
-    """(bytes, operations, operation seconds) of kernel B's function;
-    ``spikes`` holds each section's per-layer counts."""
-    secs, xa, xb, alpha, sre, sim, H, shared = args
+    """(bytes, operations, operation seconds) of kernel B's function in any
+    of its modes; ``spikes`` holds each section's per-layer counts."""
+    secs, xa, xb, alpha, sre, sim, H, shared, beta = args
     T, B, _ = xa.shape
     G = H if shared else 2 * H
     es = xa.element_size()
+    df_mode = sre is not None
     W = sum(s["wa"].shape[0] * s["ctr"] for s in secs)
-    # inputs read once: the streams, the spectrum bins filtered, the weights
-    nbytes = (xa.numel() + xb.numel()) * es + (alpha.numel() + 2 * T * B * W) * 4
-    nbytes += 2 * T * B * W * 4  # enhanced re/im out
+    # inputs read once: the streams, the unit scales (per utterance or per
+    # frame, and the pre-LN means), the spectrum bins filtered, the weights
+    nbytes = (xa.numel() + xb.numel()) * es
+    nbytes += sum(t.numel() * 4 for t in (alpha, beta) if t is not None)
+    if df_mode:
+        nbytes += 2 * T * B * W * 4 + 2 * T * B * W * 4  # spectrum in, enhanced re/im out
     mm = f32 = 0.0
     for s, n_sp in zip(secs, spikes):
         n, L, P = s["wa"].shape[0], s["whh"].shape[0], s["wproj"].shape[1]
         nbytes += sum(s[k].numel() * s[k].element_size()
-                      for k in ("wa", "wb", "wihr", "whh", "coef", "wproj", "bproj"))
+                      for k in ("wa", "wb", "wihr", "whh", "coef", "wproj", "bproj", "uv")
+                      if k in s)
+        if not df_mode:
+            nbytes += n * T * B * P * es  # the projection out
         # layer 0 reads only the lanes a unit's unfold touches (nonzero rows
         # of its one-hot-scattered weights), not the dense window
         lanes = ((s["wa"] != 0).any(-1).sum() + (s["wb"] != 0).any(-1).sum()).item()
         mm += 2.0 * G * lanes * T * B
         mm += 2.0 * G * (sum(n_sp) + sum(n_sp[:-1])) + 2.0 * P * n_sp[-1]
-        f32 += float(T) * B * n * (CELL_OPS * L * H + G + 8 * s["df"] * s["ctr"])
+        # the gates' scaling: alpha ck (one operation a gate), alpha ck -
+        # beta u + v (four), none without alpha; the deep filter's complex taps
+        scale = 0 if alpha is None else (4 if "uv" in s else 1)
+        f32 += float(T) * B * n * (CELL_OPS * L * H + scale * G
+                                    + (8 * s["df"] * s["ctr"] if df_mode else 0))
     return nbytes, mm + f32, mm / PEAK_OPS[xa.dtype] + f32 / PEAK_OPS[torch.float32]
 
 
@@ -1013,6 +1095,305 @@ def stream_phase(gk, apply, flag, flag_base, model, base, fix_noisy, fix_clean, 
     return out
 
 
+def snr_db(got, ref):
+    ref, got = ref.double(), got.double()
+    return 10.0 * np.log10(ref.square().sum().item() / max((got - ref).square().sum().item(),
+                                                           1e-30))
+
+
+def deep_filtered(sf, projs, args):
+    """Kernel B's deep filter applied to its projection mode's outputs
+    (``[n, T, B, P]`` per section) against the spectrum of ``args``: the
+    enhanced (re, im) ``[T, B, W]``."""
+    secs, sre, sim = args[0], args[4], args[5]
+    er, ei, f0 = [], [], 0
+    for s, proj in zip(secs, projs):
+        w = proj.shape[0] * s["ctr"]
+        a, b = sf._deep_filter_tmajor(proj, s["ctr"], s["df"], sre[:, :, f0:f0 + w],
+                                      sim[:, :, f0:f0 + w], torch.float32)
+        er.append(a)
+        ei.append(b)
+        f0 += w
+    return torch.cat(er, dim=-1), torch.cat(ei, dim=-1)
+
+
+def counted_run(gk, fn):
+    """``fn()`` with every kernel's count set to 0 just before and read
+    just after: (its result, the counts)."""
+    counters = {**COUNTERS, **TRAIN_WRAPPERS}
+    for name in counters.values():
+        getattr(gk, name).launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: getattr(gk, name).launches for k, name in COUNTERS.items()}
+
+
+def b_entry(name, mode, args, spikes, ms, plain_ms, launches, checks):
+    """A kernels-line entry of kernel B in one of its modes."""
+    nbytes, ops, ops_s = bound_b(args, spikes)
+    b_bytes, b_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops_s * 1e3
+    log(f"[timing] gsu_sections_eval ({mode}) {name} {tuple(args[1].shape)}: {ms:.3f} ms, "
+        f"plain {plain_ms:.1f} ms, bound {max(b_bytes, b_ops):.4f} ms (bytes {b_bytes:.4f} ms, "
+        f"operations {b_ops:.4f} ms)")
+    return {"name": f"gsu_sections_eval ({mode})", "route": "cuda",
+            "source": "spiking_fullsubnet_torch/csrc/gsu_sections_eval.cu",
+            "replaces": "spiking_fullsubnet_tpu/ops/gsu_pallas.py:1174", "launches": launches,
+            "max_abs_err": checks["max_abs_err"], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(b_bytes, b_ops), "bound_by": "bytes" if b_bytes >= b_ops else "operations",
+            "library_ms": None, "bytes": nbytes, "ops": ops, "spikes": spikes, "config": name,
+            "shape": list(args[1].shape), "checks": checks}
+
+
+def modes_phase(gk, sf, model, flag, flag_base, base, quality_x, clean, noisy, dev):
+    """Phase 8 (the module docstring): kernel B in its per-frame, pre-LN,
+    raw and projection modes, B against C on the same models, the collect
+    path, and their forwards timed at the bench shape. Returns the kernels
+    line's entries, the timed forwards and the checks."""
+    from spiking_fullsubnet_torch.models.presets import flagship_m
+    from spiking_fullsubnet_torch.models.spiking_fullsubnet import (
+        SpikingFullSubNet, separator_config, spiking_fullsubnet_apply)
+    bf16 = "bfloat16"
+    rng = np.random.default_rng(0)  # phase 3's bench batch again
+    bench = torch.from_numpy(
+        (rng.standard_normal((BENCH_B, int(BENCH_SECONDS * SR))) * 0.1).astype(np.float32)).to(dev)
+    zoo = lambda **kw: replace(separator_config(shared_weights=True, bn=True, **kw),  # noqa: E731
+                               scan_mode="auto", collect_layer_outputs=False)
+    raw = flagship_m(seed=0, device=dev, scan_mode="auto", collect_layer_outputs=False,
+                     use_pre_layer_norm_fb=False, use_pre_layer_norm_sb=False,
+                     fb_output_activate_function="tanh")
+    # the configurations that take kernel B in each mode (each misses the
+    # monolith's gate): name -> (mode, model)
+    confs = {
+        "flagship M, fullband tanh": (
+            "ln", SpikingFullSubNet(replace(flag_base, fb_output_activate_function="tanh"),
+                                    flag.param_tree(), flag.state_tree())),
+        "zoo M, cumulative norm, fdrc 0.4": (
+            "cum", SpikingFullSubNet.from_npz(str(ZOO_M), zoo(norm_type="cumulative_laplace_norm",
+                                                              fdrc=0.4), device=dev)),
+        "flagship widths, no norm, fullband tanh": (
+            "raw", SpikingFullSubNet(raw["config"], raw["params"], raw["state"])),
+    }
+    for name, (mode, m) in confs.items():
+        require(sf.norm_mode(m.cfg) == mode and not sf.monolith_ok(m.cfg), f"{name}: {mode}")
+    out = {"checks": {}, "kernels": [], "forwards": {}}
+    fmt = lambda v: "[" + ", ".join(f"{x:.3e}" for x in v) + "]"  # noqa: E731
+
+    # (a) kernel B in each mode against its plain version on the inputs its
+    # path gives it, f32 and bf16: 1 x 2 s whole, the bench's first WINDOW
+    # frames; "ln" over the whole bench against float64; the projection mode
+    # (no caller) on the same inputs at WINDOW frames
+    bench_args, plain_ms, b_spikes = {}, {}, {}
+    for name, (mode, m) in confs.items():
+        rec = {}
+        for dt in (None, bf16):
+            tag = dt or "float32"
+            cfg = replace(m.cfg, compute_dtype=dt)
+            q_args, _ = capture_kernel_args(sf, cfg, m, quality_x)["B"]
+            got, ref = gk.gsu_sections_eval(*q_args), gk.sections_eval_plain(*q_args)
+            torch.cuda.synchronize()
+            r = {"rel_l2": rel_l2(got, ref), "max_abs_err": max_abs(got, ref)}
+            b_args, _ = capture_kernel_args(sf, cfg, m, bench)["B"]
+            require(b_args[3] is None if mode == "raw" else b_args[3].ndim == 3,
+                    f"{name}: alpha {None if b_args[3] is None else tuple(b_args[3].shape)}")
+            require((b_args[8] is not None) == (mode == "ln"), f"{name}: beta")
+            bh = head_b(b_args, WINDOW)
+            r["bench_head_rel_l2"] = rel_l2(gk.gsu_sections_eval(*bh), gk.sections_eval_plain(*bh))
+            # the projection mode: on "ln"'s inputs against its plain version;
+            # on every mode's, deep-filtered here, against the kernel's own
+            # deep-filter mode (the same gates and spikes, so no flip between)
+            ph = without_df(bh)
+            proj = gk.gsu_sections_eval(*ph)
+            if mode == "ln":
+                r["proj_head_rel_l2"] = rel_l2(tuple(proj), tuple(gk.sections_eval_plain(*ph)))
+            r["proj_vs_df_rel_l2"] = rel_l2(deep_filtered(sf, proj, bh), gk.gsu_sections_eval(*bh))
+            del proj
+            if mode == "ln" or dt:
+                # one plain run over the whole bench: timed, its spikes
+                # counted, and for "ln" held with the kernel against float64
+                ms_p, counts, ref_b = plain_run(gk.sections_eval_plain, b_args)
+                if mode == "ln":
+                    got_b = gk.gsu_sections_eval(*b_args)
+                    ora = gk.sections_eval_plain(*as_f64_b(b_args))
+                    r.update(bench_drift_f64=rel_l2(got_b, ora), plain_drift_f64=rel_l2(ref_b, ora),
+                             bench_vs_plain=rel_l2(got_b, ref_b))
+                    del got_b, ora
+                if dt:
+                    bench_args[name], plain_ms[name], b_spikes[name] = b_args, ms_p, counts
+                del ref_b
+            log(f"[modes] B {mode} {tag} {name}: 1 x 2 s rel L2 {r['rel_l2']:.3e} (max abs err "
+                f"{r['max_abs_err']:.3e}); bench first {WINDOW} frames {r['bench_head_rel_l2']:.3e}, "
+                f"projection mode deep-filtered against the deep-filter mode "
+                f"{r['proj_vs_df_rel_l2']:.3e}"
+                + (f", against its plain version {r['proj_head_rel_l2']:.3e}" if mode == "ln" else "")
+                + (f"; whole bench against float64 kernel {r['bench_drift_f64']:.3e}, plain "
+                   f"{r['plain_drift_f64']:.3e} (kernel vs plain {r['bench_vs_plain']:.3e})"
+                   if mode == "ln" else ""))
+            require(r["rel_l2"] < 0.05 and r["bench_head_rel_l2"] < 0.05,
+                    f"kernel B {mode} {tag}: {r}")
+            # bf16 projections are rounded before this deep filter, f32 in the kernel's
+            require(r["proj_vs_df_rel_l2"] < (1e-4 if dt is None else 1e-2),
+                    f"kernel B projection mode {mode} {tag}: {r}")
+            if mode == "ln":
+                require(r["proj_head_rel_l2"] < 1e-3, f"kernel B projection mode {tag}: {r}")
+            if mode == "ln":
+                require(r["bench_drift_f64"] <= 3 * r["plain_drift_f64"] + 1e-3,
+                        f"kernel B ln {tag}: drift {r}")
+            rec[tag] = r
+            del q_args, b_args, bh, ph
+            torch.cuda.empty_cache()
+        out["checks"][f"B {mode}"] = rec
+
+    # (b) B against C on the same model: the two-launch path and the
+    # monolith, f32, 1 x 12345 samples (tests/test_stream_forward.py:65-90's
+    # bound for two formulations of one forward), and zoo M's cumulative norm
+    # through B on the speech fixture, counted
+    cum_cfg = zoo(norm_type="cumulative_laplace_norm")
+    cum_model = SpikingFullSubNet.from_npz(str(ZOO_M), cum_cfg, device=dev)
+    x = torch.from_numpy((np.random.default_rng(3).standard_normal((1, 12345)) * 0.1).astype(
+        np.float32)).to(dev)
+    for name, m in (("flagship M", flag), ("zoo M cumulative norm", cum_model)):
+        cfg = replace(m.cfg, compute_dtype=None)
+        require(sf.monolith_ok(cfg), f"{name}: the monolith's config")
+        p, st = m.param_tree(), m.state_tree()
+        two, c2 = counted_run(gk, lambda: sf._serve_two_launch(cfg, p, st, x)["enhanced_y"])
+        mono, c1 = counted_run(gk, lambda: spiking_fullsubnet_apply(cfg, p, st, x)["enhanced_y"])
+        snr = snr_db(two, mono)
+        log(f"[modes] {name} f32 1 x 12345: two-launch (launches {c2}) against the monolith "
+            f"(launches {c1}): SNR {snr:.2f} dB")
+        require(c2 == {"A": 1, "B": 1, "C": 0, "F": 0} and c1 == {"A": 0, "B": 0, "C": 1, "F": 0},
+                f"{name}: launches {c2}, {c1}")
+        require(snr > 60.0, f"{name}: two-launch against the monolith SNR {snr} dB")
+        out["checks"][f"{name} B vs C snr_db"] = snr
+
+    cfg = replace(cum_cfg, compute_dtype=bf16)
+    y, c = counted_run(gk, lambda: sf._serve_two_launch(
+        cfg, cum_model.param_tree(), cum_model.state_tree(), quality_x)["enhanced_y"])
+    gain = si_sdr_gain(y, clean, noisy)
+    log(f"[quality] zoo M cumulative norm bf16 1 x 2 s through kernel B: SI-SDR gain {gain:.3f} "
+        f"dB, launches {c}")
+    require(gain > 8.0 and c == {"A": 1, "B": 1, "C": 0, "F": 0}, f"zoo M cum via B: {gain}, {c}")
+    out["checks"]["zoo M cum via B gain_db"] = gain
+    del cum_model
+
+    # (c) each mode's own path, counted (bf16, 1 x 2 s)
+    launches = {}
+    for name, (mode, m) in confs.items():
+        m.cfg = replace(m.cfg, compute_dtype=bf16)
+        o, c = counted_run(gk, lambda: m(quality_x))
+        y = o["enhanced_y"]
+        log(f"[quality] {name} bf16 1 x 2 s (B {mode}): {tuple(y.shape)} finite "
+            f"{bool(torch.isfinite(y).all())}, launches {c}")
+        require(tuple(y.shape) == tuple(quality_x.shape) and bool(torch.isfinite(y).all()),
+                f"{name}: enhanced audio shape/finite")
+        require(c == {"A": 1, "B": 1, "C": 0, "F": 0}, f"{name}: launches {c}")
+        launches[name] = c["B"]
+
+    # (d) the collect path: zoo M with every layer's outputs (the config's
+    # default), bf16, counted; the lists shaped as the layered forward's, their
+    # spikes against the same forward on the plain versions
+    col = SpikingFullSubNet(replace(base, collect_layer_outputs=True, compute_dtype=bf16),
+                            model.param_tree(), model.state_tree())
+    o, c = counted_run(gk, lambda: col(quality_x))
+    gain = si_sdr_gain(o["enhanced_y"], clean, noisy)
+    lay = spiking_fullsubnet_apply(replace(base, scan_mode="layered", collect_layer_outputs=True,
+                                           compute_dtype=bf16), model.param_tree(),
+                                   model.state_tree(), quality_x)
+    shapes = lambda r: [[tuple(t.shape) for t in x] if isinstance(x, list) else tuple(x.shape)  # noqa: E731
+                        for x in r["fb_all_layer_outputs"] + r["sb_all_layer_outputs"]]
+    real = sf.gsu_stack_eval
+    sf.gsu_stack_eval = gk.stack_eval_plain
+    try:
+        plain_o = col(quality_x)
+    finally:
+        sf.gsu_stack_eval = real
+    spikes_of = lambda r: r["fb_all_layer_outputs"][1:-1] + [  # noqa: E731
+        t for sec in r["sb_all_layer_outputs"] for t in sec[1:-1]]
+    pairs = list(zip(spikes_of(o), spikes_of(plain_o)))
+    mism = [spike_mismatch(a, b) for a, b in pairs]
+    err = max(max_abs(a, b) for a, b in pairs)
+    log(f"[quality] zoo M collect path bf16 1 x 2 s: SI-SDR gain {gain:.3f} dB, launches {c}, "
+        f"lists {shapes(o)} (layered {shapes(lay)}); spike mismatch against the plain versions "
+        f"{fmt(mism)}")
+    require(gain > 8.0, f"collect path SI-SDR gain {gain} dB")
+    require(c == {"A": 4, "B": 0, "C": 0, "F": 0}, f"collect path launches {c}")
+    require(shapes(o) == shapes(lay), f"collect lists {shapes(o)} vs layered {shapes(lay)}")
+    require(len(mism) == 8 and max(mism) < 1e-3, f"collect spikes vs plain {mism}")
+    out["checks"]["collect"] = {"gain_db": gain, "launches": c, "spike_mismatch": mism,
+                                "max_abs_err": err}
+    del o, lay, plain_o, col, pairs
+
+    # (e) timing at the bench shape, bf16: each path's forward (its own
+    # launches counted in a warm-up that also records the kernels' inputs),
+    # then the kernel alone in that mode, its plain version and bound
+    flag_col = SpikingFullSubNet(replace(flag_base, collect_layer_outputs=True, compute_dtype=bf16),
+                                 flag.param_tree(), flag.state_tree())
+    runs = [("flagship M, collect", flag_col, {"A": 4, "B": 0, "C": 0, "F": 0})]
+    runs += [(name, m, {"A": 1, "B": 1, "C": 0, "F": 0}) for name, (_, m) in confs.items()]
+    a_args = None
+    for name, m, want in runs:
+        held_gb = torch.cuda.memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+        for k in COUNTERS.values():
+            getattr(gk, k).launches = 0
+        seen = record_calls(sf, ["gsu_stack_eval"], lambda: m(bench)["enhanced_y"])
+        counts = {k: getattr(gk, w).launches for k, w in COUNTERS.items()}
+        require(counts == want, f"{name} bench: launches {counts}, expected {want}")
+        if m is flag_col:
+            a_args = seen["gsu_stack_eval"]
+        del seen
+        fwd_ms = cuda_ms(lambda: m(bench)["enhanced_y"], iters=2, warmup=0)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        out["forwards"][name] = {"ms": fwd_ms, "audio_s_per_s": BENCH_B * BENCH_SECONDS / fwd_ms * 1e3,
+                                 "peak_gb": peak_gb, "held_gb": held_gb,
+                                 "own_peak_gb": peak_gb - held_gb, "launches": counts}
+        log(f"[timing] forward {name} bf16 {BENCH_B} x {BENCH_SECONDS:g} s: {fwd_ms:.3f} ms "
+            f"({out['forwards'][name]['audio_s_per_s']:.1f} audio-s/s), own peak memory "
+            f"{peak_gb - held_gb:.2f} GB ({held_gb:.2f} GB held before), launches {counts}")
+        torch.cuda.empty_cache()
+    del flag_col
+
+    # kernel A in the collect path's forms: the fullband stack (3-D) and the
+    # three sections' units form [n, T, B, G], every layer collected
+    per = []
+    for i, (args, kw) in enumerate(a_args):
+        ms = cuda_ms(lambda: gk.gsu_stack_eval(*args, **kw), iters=3)
+        ms_p, counts, _ = plain_run(gk.stack_eval_plain, args, **kw)
+        nbytes, ops, ops_s = bound_a(args, counts, kw.get("collect_all", False))
+        row = {"stack": "fullband" if i == 0 else f"section {i - 1}", "shape": list(args[0].shape),
+               "ms": ms, "plain_ms": ms_p, "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+               "ops_ms": ops_s * 1e3, "bytes": nbytes, "ops": ops, "spikes": counts,
+               "library_ms": None}
+        row["bound_ms"] = max(row["bytes_ms"], row["ops_ms"])
+        per.append(row)
+        log(f"[timing] gsu_stack_eval collect_all {row['stack']} {tuple(args[0].shape)}: "
+            f"{ms:.3f} ms, plain {ms_p:.1f} ms, bound {row['bound_ms']:.4f} ms")
+    del a_args
+    t = sums_of(per)
+    out["kernels"].append({
+        "name": "gsu_stack_eval (collect path: 3-D fullband, 4-D units sections, collect_all)",
+        "route": "cuda", "source": "spiking_fullsubnet_torch/csrc/gsu_stack_eval.cu",
+        "replaces": "spiking_fullsubnet_tpu/ops/gsu_pallas.py:923",
+        "launches": out["forwards"]["flagship M, collect"]["launches"]["A"],
+        "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None,
+        "config": "flagship M, collect", "per_launch": per,
+        "checks": out["checks"]["collect"]})
+    for name, (mode, _) in confs.items():
+        args = bench_args[name]
+        ms = cuda_ms(lambda: gk.gsu_sections_eval(*args), iters=3)
+        out["kernels"].append(b_entry(name, mode, args, b_spikes[name], ms, plain_ms[name],
+                                      launches[name], out["checks"][f"B {mode}"]["bfloat16"]))
+    # the projection mode on the "ln" configuration's inputs: no caller
+    args = without_df(bench_args["flagship M, fullband tanh"])
+    ms = cuda_ms(lambda: gk.gsu_sections_eval(*args), iters=3)
+    ms_p, counts, _ = plain_run(gk.sections_eval_plain, args)
+    out["kernels"].append(b_entry("flagship M, fullband tanh", "ln, projection out", args, counts,
+                                  ms, ms_p, 0, out["checks"]["B ln"]["bfloat16"]))
+    del bench_args, args, bench
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing to run", file=sys.stderr)
@@ -1105,10 +1486,8 @@ def main() -> int:
         x4 = head.reshape(T, 4, R // 4, G).transpose(0, 1).contiguous()
         got4 = gk.gsu_stack_eval(x4, *wa).transpose(0, 1).reshape(T, R, -1)
         plain3 = gk.stack_eval_plain(head, *wa)
-        secs, xa, xb, alpha, sre, sim, H, shared = b_args
-        head_b = (secs, xa[:WINDOW].contiguous(), xb[:WINDOW].contiguous(), alpha,
-                  sre[:WINDOW].contiguous(), sim[:WINDOW].contiguous(), H, shared)
-        rel_h = rel_l2(gk.gsu_sections_eval(*head_b), gk.sections_eval_plain(*head_b))
+        bh = head_b(b_args, WINDOW)
+        rel_h = rel_l2(gk.gsu_sections_eval(*bh), gk.sections_eval_plain(*bh))
         torch.cuda.synchronize()
         require(torch.equal(all3[-1], ref3), f"kernel A {tag}: collect_all != 3-D")
         require(torch.equal(got4, ref3), f"kernel A {tag}: 4-D form != 3-D")
@@ -1124,17 +1503,13 @@ def main() -> int:
         # (c) the whole bench sequence, kernel and plain version each against
         # a float64 run of the plain version (see the module docstring)
         got_a = gk.gsu_stack_eval(*a_args)
-        counts_a = []
-        ms_a = cuda_ms(lambda: gk.stack_eval_plain(*a_args, spike_counts=counts_a), warmup=0)
-        ref_a = gk.stack_eval_plain(*a_args)
+        ms_a, counts_a, ref_a = plain_run(gk.stack_eval_plain, a_args)
         ora_a = gk.stack_eval_plain(*as_f64_a(a_args))
         k_a, p_a = spike_mismatch(got_a, ora_a), spike_mismatch(ref_a, ora_a)
         kp_a = spike_mismatch(got_a, ref_a)
         del got_a, ref_a, ora_a
         got_b = gk.gsu_sections_eval(*b_args)
-        counts_b = []
-        ms_b = cuda_ms(lambda: gk.sections_eval_plain(*b_args, spike_counts=counts_b), warmup=0)
-        ref_b = gk.sections_eval_plain(*b_args)
+        ms_b, counts_b, ref_b = plain_run(gk.sections_eval_plain, b_args)
         ora_b = gk.sections_eval_plain(*as_f64_b(b_args))
         k_b, p_b, kp_b = rel_l2(got_b, ora_b), rel_l2(ref_b, ora_b), rel_l2(got_b, ref_b)
         del got_b, ref_b, ora_b
@@ -1149,7 +1524,7 @@ def main() -> int:
             captured_bf16.update(A=seen["A"], B=seen["B"])
             plain_ms.update(A=ms_a, B=ms_b)
             spikes.update(A=counts_a, B=counts_b)
-        del seen, a_args, b_args, xg0, wa, secs, xa, xb, alpha, sre, sim, head_b
+        del seen, a_args, b_args, xg0, wa, bh
         torch.cuda.empty_cache()
 
         # kernel C on flagship M: (a) 1 x 2 s whole, (b) bench first WINDOW
@@ -1167,9 +1542,7 @@ def main() -> int:
         require(rel_c < 0.05, f"kernel C {tag}: rel L2 {rel_c}")
         require(rel_ch < 0.05, f"kernel C {tag} first {WINDOW} steps: {rel_ch}")
         got_c = gk.sfsb_monolith_serve(*c_args)
-        counts_c = []
-        ms_c = cuda_ms(lambda: gk.monolith_serve_plain(*c_args, spike_counts=counts_c), warmup=0)
-        ref_c = gk.monolith_serve_plain(*c_args)
+        ms_c, counts_c, ref_c = plain_run(gk.monolith_serve_plain, c_args)
         ora_c = gk.monolith_serve_plain(*as_f64_c(c_args))
         k_c, p_c, kp_c = rel_l2(got_c, ora_c), rel_l2(ref_c, ora_c), rel_l2(got_c, ref_c)
         del got_c, ref_c, ora_c
@@ -1253,17 +1626,10 @@ def main() -> int:
     # ---- 4. quality: the main paths, each counted ----
     stamp("4. quality: the main paths, each counted")
     def counted(m, x):
-        for name in COUNTERS.values():
-            getattr(gk, name).launches = 0
-        out = m(x)
-        torch.cuda.synchronize()
-        return out, {k: getattr(gk, name).launches for k, name in COUNTERS.items()}
+        return counted_run(gk, lambda: m(x))
 
     def gain_of(out):
-        enh = out["enhanced_y"][0].float().cpu().numpy()
-        require(enh.shape == clean.shape and np.isfinite(enh).all(),
-                "enhanced audio shape/finite")
-        return si_sdr(enh, clean) - si_sdr(noisy, clean)
+        return si_sdr_gain(out["enhanced_y"], clean, noisy)
 
     model.cfg = replace(base, compute_dtype="bfloat16")
     out, launches = counted(model, quality_x)
@@ -1503,8 +1869,17 @@ def main() -> int:
                           fix_noisy, fix_clean, tb_noisy, tb_clean, dev)
     kernels += stream.pop("kernels")
     train_t.update(stream.pop("training"))
+
+    # ---- 8. serving in every mode: kernel B's modes, B against C, the collect path ----
+    stamp("8. serving in every mode")
+    torch.set_grad_enabled(False)
+    modes = modes_phase(gk, sf, model, flag, flag_base, base, quality_x, clean, noisy, dev)
+    kernels += modes.pop("kernels")
+    forwards.update(modes.pop("forwards"))
+    stamp("end")
     print(json.dumps({"kernels": kernels, "forwards": forwards, "training": train_t,
-                      "stream_checks": stream, "batch": BENCH_B, "seconds": BENCH_SECONDS,
+                      "stream_checks": stream, "mode_checks": modes["checks"],
+                      "batch": BENCH_B, "seconds": BENCH_SECONDS,
                       "train_batch": TRAIN_B, "train_seconds": TRAIN_SECONDS}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

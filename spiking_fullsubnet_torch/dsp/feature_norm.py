@@ -37,6 +37,6 @@ def norm_wrapper(norm_type: str):
     """Lookup by name (``feature_norm.py:153``)."""
     if norm_type not in _NORMS:
         raise NotImplementedError(
-            f"norm {norm_type!r} is not ported yet (ROADMAP queue 1, item 2: the rest of "
-            f"dsp/feature_norm.py); ported: {sorted(_NORMS)}")
+            f"norm {norm_type!r} is not ported yet (ROADMAP queue 1: remaining models and "
+            f"recipes, the rest of dsp/feature_norm.py); ported: {sorted(_NORMS)}")
     return _NORMS[norm_type]

@@ -3,7 +3,7 @@
 every magnitude bin emits the deep-filter coefficients of every bin (proj =
 F x spks x df x 2), its GSU stack on kernel F in eval and on kernels D and
 E in training. The LSTM variant (cIRM-LSTM)
-is not ported yet (ROADMAP queue 1, item 12)."""
+is not ported yet (ROADMAP queue 1: remaining models and recipes)."""
 
 from __future__ import annotations
 

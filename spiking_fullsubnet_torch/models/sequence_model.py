@@ -3,7 +3,7 @@
 and the forward of the layered path (pre-LN, the GSU stack on kernel F in
 eval and on kernels D and E in training, projection, output activation),
 differentiable end to end. The LSTM, LIF and ALIF backbones are not
-ported yet (ROADMAP queue 1, item 12)."""
+ported yet (ROADMAP queue 1: remaining models and recipes)."""
 
 from __future__ import annotations
 
@@ -38,7 +38,7 @@ def _gsn_only(cfg: SequenceModelConfig, what: str) -> None:
     if cfg.sequence_model != "GSN":
         raise NotImplementedError(
             f"sequence_model={cfg.sequence_model!r}: only the GSN {what} is ported "
-            "(ROADMAP queue 1, item 12: the remaining models)")
+            "(ROADMAP queue 1: remaining models and recipes)")
 
 
 def sequence_model_init(gen: torch.Generator, cfg: SequenceModelConfig):

@@ -9,20 +9,24 @@ The port covers:
   (``ops/gsu_kernels.gsu_stack_eval_x``); with ``train=True`` every GSU
   layer runs on kernels D and E (``ops/gsu.GSULayerTrain``), the forward is
   differentiable and the new BN running statistics are returned;
-- serving through ``scan_mode="auto"`` (``models/stream_forward.py``): the
-  offline laplace norm without pre-LayerNorm (the shipped zoo checkpoints,
-  ``separator_config(norm_type="offline_laplace_norm", shared_weights=True,
-  bn=True)``) on the two-launch path (kernels A, B); pre-LayerNorm (the
-  flagship preset, ``models/presets.flagship_m``), the cumulative laplace
-  norm and no norm on the whole-model monolith (kernel C);
+- serving through ``scan_mode="auto"`` (``models/stream_forward.py``) with
+  ``collect_layer_outputs=False``: pre-LayerNorm (the flagship preset,
+  ``models/presets.flagship_m``), the cumulative laplace norm and no norm on
+  the whole-model monolith (kernel C) where its gate admits the config;
+  every other config, the shipped zoo checkpoints' offline laplace norm
+  (``separator_config(norm_type="offline_laplace_norm", shared_weights=True,
+  bn=True)``) among them, on the two-launch path (kernels A, B);
+- with ``collect_layer_outputs=True`` (the default) on ``"auto"``: the
+  stream path's per-section forward, every GSU stack on kernel A, and the
+  synops lists of every layer;
 - training through the stream path (``scan_mode="stream"``, and
   ``"auto"`` on a CUDA tensor, as the JAX package on its chip): every GSU
   layer on kernels D and E with streams in the compute type (bfloat16
   under the bf16 policy), the glue in autograd.
 Weights come from a JAX-package ``.npz`` (``SpikingFullSubNet.from_npz``)
 or from a seeded init (``SpikingFullSubNet.from_init``, ``build``).
-Anything else raises ``NotImplementedError`` naming the ROADMAP item that
-will bring it.
+Anything else raises ``NotImplementedError`` naming, by title, the ROADMAP
+item that will bring it.
 """
 
 from __future__ import annotations
@@ -189,7 +193,7 @@ def spiking_fullsubnet_init(seed: int, cfg: SpikingFullSubNetConfig, device=None
     if cfg.sb_shared_bottleneck:
         raise NotImplementedError(
             "sb_shared_bottleneck (models/shared_subband.py) is not ported yet "
-            "(ROADMAP queue 1, item 12)")
+            "(ROADMAP queue 1: remaining models and recipes)")
     dev = resolve_device(device)
     gen = torch.Generator().manual_seed(int(seed))
     fb_params, fb_state = sequence_model_init(gen, cfg.fb_config())
@@ -216,7 +220,8 @@ def spiking_fullsubnet_apply(cfg: SpikingFullSubNetConfig, params, state,
     """Forward: ``noisy_y [B, T]`` -> dict with ``enhanced_y`` (``[B, T]``,
     or ``[B, S, T]`` for ``num_spks > 1``), ``enhanced_mag [B, F, T]``
     (``num_spks == 1``; None on the monolith), the per-layer output lists
-    (empty on the serving paths) and ``state`` (the new BN running
+    (the layered path's always, the stream path's with
+    ``collect_layer_outputs``) and ``state`` (the new BN running
     statistics with ``train``, else the state given). Runs on the device of
     ``noisy_y``: the kernels on a CUDA tensor, their plain versions on a CPU
     tensor."""
@@ -241,8 +246,7 @@ def spiking_fullsubnet_apply(cfg: SpikingFullSubNetConfig, params, state,
         return spiking_fullsubnet_stream_forward(cfg, params, state, noisy_y, train)
     if scan_mode != "layered":
         raise NotImplementedError(
-            f"scan_mode={scan_mode!r} is not ported yet (ROADMAP queue 1, item 12: the fused "
-            "forward)")
+            f"scan_mode={scan_mode!r} is not ported yet (ROADMAP queue 1: the fused forward)")
     return _layered_forward(cfg, params, state, noisy_y, train)
 
 
@@ -283,7 +287,7 @@ def _layered_forward(cfg: SpikingFullSubNetConfig, params, state,
     if cfg.sb_shared_bottleneck:
         raise NotImplementedError(
             "sb_shared_bottleneck (models/shared_subband.py) is not ported yet "
-            "(ROADMAP queue 1, item 12)")
+            "(ROADMAP queue 1: remaining models and recipes)")
     B, sequence_length = noisy_y.shape
     spec = stft_complex(noisy_y, cfg.n_fft, cfg.hop_length, cfg.win_length)  # [B, F+1, T]
     noisy_cmp = spec[:, None]  # [B, 1, F+1, T]

@@ -1,62 +1,69 @@
 """Stream forward, eval and training (counterpart of
-``spiking_fullsubnet_tpu/models/stream_forward.py``). Two serving paths, as
-the JAX package dispatches them (``stream_forward.py:734-759``), and the
-stream-train path:
+``spiking_fullsubnet_tpu/models/stream_forward.py``). Three paths, as the
+JAX package dispatches them (``stream_forward.py:519-523`` and ``:734-759``):
 
-**Monolith** (norms "ln" = pre-LayerNorm, "cum" = cumulative laplace norm,
-"raw" = none; the flagship preset): the audio is left-padded by n_fft/2 and
-cut into hop chunks, and **kernel C** (``ops/gsu_kernels.
-sfsb_monolith_serve``) runs the whole model per step: windowed DFT,
-``|X|^0.5``, the norm statistics, the fullband stack and projection, every
-unit's layer-0 gates, the section stacks, projection and deep filter, the
-inverse DFT and the overlap-add. Here around it: the LN fold into the
-layer-0 weights (``_fold_ln``), the one-hot scatter of each unit's unfold
-into its weights, the statistics columns, the chunking, the trim and the
-COLA start- and end-edge corrections.
+**Monolith** (eval without collecting the per-layer outputs; norms "ln" =
+pre-LayerNorm, "cum" = cumulative laplace norm, "raw" = none, when the
+config passes the monolith's gate ``monolith_ok``; the flagship preset):
+the audio is left-padded by n_fft/2 and cut into hop chunks, and **kernel
+C** (``ops/gsu_kernels.sfsb_monolith_serve``) runs the whole model per
+step: windowed DFT, ``|X|^0.5``, the norm statistics, the fullband stack
+and projection, every unit's layer-0 gates, the section stacks, projection
+and deep filter, the inverse DFT and the overlap-add. Here around it: the
+LN fold into the layer-0 weights (``_fold_ln``), the one-hot scatter of
+each unit's unfold into its weights, the statistics columns, the chunking,
+the trim and the COLA start- and end-edge corrections.
 
-**Two-launch** (the offline laplace norm without pre-LN: the zoo
-checkpoints; time-major ``[T, B, ...]`` from the STFT to the iSTFT):
+**Two-launch** (eval without collecting, every other config: the offline
+laplace norm of the zoo checkpoints, and the "ln"/"cum"/"raw" configs that
+miss the monolith's gate; time-major ``[T, B, ...]`` from the STFT to the
+iSTFT; ``_serve_two_launch``):
 
 1. STFT as a windowed-DFT matmul (``dsp/spectral.py``), ``mag = |X|^fdrc``
    without the Nyquist bin;
-2. the offline laplace norm of the fullband input (one scalar per utterance
-   over the real frames), the hoisted layer-0 fullband matmul, **kernel A**
+2. the fullband input norm (offline or cumulative laplace norm, pre-LN or
+   none), the hoisted layer-0 fullband matmul, **kernel A**
    (``ops/gsu_kernels.gsu_stack_eval``) for the fullband stack, and the
    fullband projection;
 3. the merged sub-band build: each unit's frequency unfold (reflect padding
    and the fullband tile included) is folded into one-hot scattered layer-0
-   weights over a window of the magnitude and over the fullband output, and
-   the projection's columns are permuted to (c, d, fc) order so that every
-   deep-filter tap is a contiguous slice;
-4. one statistics sweep gives every unit's offline-norm scale, then
-   **kernel B** (``ops/gsu_kernels.gsu_sections_eval``) runs all sections,
-   their projection and the deep filter;
+   weights over a window of the magnitude and over the fullband output (with
+   pre-LN folded in, ``alpha ck - beta u + v``), and the projection's
+   columns are permuted to (c, d, fc) order so that every deep-filter tap is
+   a contiguous slice;
+4. one statistics sweep gives every unit's scale (``_unit_scales``: one
+   per utterance and unit for the offline norm, per frame for the others,
+   none without a norm), then **kernel B** (``ops/gsu_kernels.
+   gsu_sections_eval``) runs all sections, their projection and the deep
+   filter;
 5. the Nyquist bin passes through and the iSTFT gives the audio.
 
-**Training** (``train=True``, any norm the stream gate takes; the merged
-kernels need ``not train``, ``stream_forward.py:519-523``, so neither B nor C
-runs): the same time-major glue, differentiable end to end in autograd. The
-fullband input norm (offline or cumulative laplace norm, or pre-LN), the
-hoisted layer-0 product, the fullband stack on kernels D and E
-(``ops/gsu.gsu_stack_train_xg``: one ``GSULayerTrain`` a layer, the
-inter-layer products as matmuls) and the projection; then per section each
-unit's layer-0 gates ``alpha ck - beta u + v`` from one-hot scattered
-weights (the LN fold for pre-LN; alpha and beta from the section's norm),
-the units folded into rows unit-major ``[T, n B, G]`` for the section's
-stack on D and E, the projection with its columns in (c, d, fc) order and
-the deep filter; the Nyquist passthrough, the iSTFT and the new BN running
-statistics. The kernels' streams are the compute type: bfloat16 under the
-bf16 policy (``gsu_layer_pallas_train_padded``'s io), membranes float32.
+**Per section** (``_sectioned``: eval with ``collect_layer_outputs=True``,
+and every training step; the merged kernels need ``not train and not
+collect``, ``stream_forward.py:519-523``, so neither B nor C runs): the
+same time-major glue. The fullband stack on kernel A with every layer
+collected (eval) or on kernels D and E (training: ``ops/gsu.
+gsu_stack_train_xg``, one ``GSULayerTrain`` a layer, the inter-layer
+products as matmuls), its projection; then per section each unit's layer-0
+gates ``alpha ck - beta u + v`` from one-hot scattered weights
+(``_section_gates``: the LN fold for pre-LN, alpha and beta from the
+section's norm), the section's stack on kernel A's units form ``[n, T, B,
+G]`` with every layer collected (eval) or, with the units folded into rows
+unit-major ``[T, n B, G]``, on D and E (training), the projection with its
+columns in (c, d, fc) order and the deep filter; the Nyquist passthrough,
+the iSTFT, the synops lists of the JAX package (``:706-732``, ``:841-845``:
+fullband ``[normed input, spikes..., projection]``, each section ``[normed
+unfolded input, spikes..., projection]`` with ``(b n)`` rows) when
+collecting, and in training the new BN running statistics. Training is
+differentiable end to end in autograd; the kernels' streams are the compute
+type, bfloat16 under the bf16 policy (``gsu_layer_pallas_train_padded``'s
+io), membranes float32.
 
 The TPU layout padding of the JAX package (``Tp = round_up(T, 128)``,
 128-lane gate, projection and spectrum widths, 128-aligned windows, batch
 rows padded to 8) is gone: the port runs at the real T (the monolith runs
-exactly T + 3 steps), H, G and window widths.
-
-Covered: ``collect_layer_outputs=False``, eval and training. In eval a
-causal-norm or pre-LN config that misses the monolith's gate would take
-kernel B's pre-LN and per-frame alpha/beta terms, which are not ported yet,
-and raises ``NotImplementedError``; training takes any of them.
+exactly T + 3 steps), H, G and window widths. Every config that
+``stream_supported`` takes runs, in eval and in training.
 """
 
 from __future__ import annotations
@@ -125,22 +132,6 @@ def monolith_ok(cfg) -> bool:
             and not cfg.fb_output_activate_function)
 
 
-def _check_covered(cfg, train: bool) -> None:
-    if not stream_supported(cfg):
-        raise ValueError("stream forward: unsupported config (see stream_supported)")
-    if cfg.collect_layer_outputs:
-        raise NotImplementedError(
-            "collect_layer_outputs=True (per-layer spike tensors for synops) on the stream "
-            "path is not ported yet (ROADMAP queue 1, item 6: the collect path)")
-    if not train and norm_mode(cfg) != "off" and not monolith_ok(cfg):
-        raise NotImplementedError(
-            f"norm_type={cfg.norm_type!r} with pre-LN fb/sb "
-            f"{cfg.use_pre_layer_norm_fb}/{cfg.use_pre_layer_norm_sb} misses the monolith "
-            "(fdrc 0.5, n_fft = win = 4 hop, no fullband output activation) and needs "
-            "kernel B's pre-LN and per-frame alpha/beta terms, not ported yet "
-            "(ROADMAP queue 2, item 3)")
-
-
 def _fold_ln(params, acc: torch.dtype):
     """Pre-LN folded into the layer-0 input weights (``_fold_ln_weights``,
     ``stream_forward.py:153-170``, at the real widths): LN(x) @ W^T ==
@@ -160,7 +151,8 @@ def _section_geometry(cfg, i: int) -> Dict[str, Any]:
     ``w_tot`` in all a unit; ``idx_noisy [n, w_noisy]`` their source bins
     (reflect padding included), ``a`` the first bin of the section's window
     ``[a, b)``; ``oh_n [n, w_noisy, b - a]`` and ``oh_f [n, w_fb, fb_proj]``
-    (the fullband tile folded back onto the projection lanes), numpy."""
+    (the fullband tile folded back onto the projection lanes), with
+    ``idx_fb [n, w_fb]`` its source lanes, numpy."""
     lo, hi = cfg.freq_cutoffs[i], cfg.freq_cutoffs[i + 1]
     ctr, nbr = cfg.center_freq_sizes[i], cfg.neighbor_freq_sizes[i]
     w_noisy = ctr + 2 * nbr
@@ -170,7 +162,7 @@ def _section_geometry(cfg, i: int) -> Dict[str, Any]:
     a, b = int(idx_noisy.min()), int(idx_noisy.max()) + 1
     return {"n": (hi - lo) // ctr, "ctr": ctr, "df": cfg.df_orders[i], "w_noisy": w_noisy,
             "w_tot": w_noisy + cfg.fb_ctrs[i] + 2 * cfg.fb_nbrs[i], "idx_noisy": idx_noisy,
-            "a": a, "b": b, "oh_n": _one_hot_scatter(idx_noisy - a, b - a),
+            "idx_fb": idx_fb, "a": a, "b": b, "oh_n": _one_hot_scatter(idx_noisy - a, b - a),
             "oh_f": _one_hot_scatter(idx_fb, cfg.fb_proj_size)}
 
 
@@ -291,9 +283,7 @@ def _serve_monolith(cfg, params, state, noisy_y: torch.Tensor, compute: torch.dt
     ``stream_forward.py:259-366``). ``enhanced_mag`` is not materialized on
     this path, as in the JAX package."""
     B, seq_len = noisy_y.shape
-    mixed = cfg.compute_dtype is not None
-    fb_params = cast_floating(params["fb"], compute) if mixed else params["fb"]
-    sb_params = [cast_floating(p, compute) if mixed else p for p in params["sb"]]
+    fb_params, sb_params = _cast_params(cfg, params, compute)
     hop, half = cfg.hop_length, cfg.n_fft // 2
     T = num_frames(seq_len, cfg.n_fft, hop)
     S = T + 3  # the tail frames cover the COLA end edge
@@ -327,6 +317,14 @@ def _policy(cfg, noisy_y: torch.Tensor):
     return compute, torch.float32, compute
 
 
+def _cast_params(cfg, params, compute: torch.dtype):
+    """(fullband, [section]) weights in the compute type under the bf16
+    policy, as given otherwise."""
+    if cfg.compute_dtype is None:
+        return params["fb"], params["sb"]
+    return cast_floating(params["fb"], compute), [cast_floating(p, compute) for p in params["sb"]]
+
+
 def _magnitude(cfg, noisy_y: torch.Tensor, dft_dtype, compute: torch.dtype):
     """Time-major STFT ``(re, im) [T, B, F+1]`` and ``|X|^fdrc`` without the
     Nyquist bin ``[T, B, F]`` in the compute type."""
@@ -338,12 +336,13 @@ def _magnitude(cfg, noisy_y: torch.Tensor, dft_dtype, compute: torch.dtype):
 
 
 def _fullband_gates(cfg, fb_params, mag_t: torch.Tensor, compute: torch.dtype,
-                    acc: torch.dtype) -> torch.Tensor:
-    """The fullband stack's layer-0 gates ``[T, B, rows]`` in the compute
-    type (``stream_forward.py:415-442``): the input norm (the offline
-    laplace norm, one scalar per utterance over the frames; the cumulative
-    one, a running mean; or pre-LN), then the hoisted product with
-    ``W_ih^T`` summed in the accumulation type."""
+                    acc: torch.dtype):
+    """The fullband stack's normed input ``[T, B, Fin]`` and layer-0 gates
+    ``[T, B, rows]``, both in the compute type (``stream_forward.py:
+    415-442``): the input norm (the offline laplace norm, one scalar per
+    utterance over the frames; the cumulative one, a running mean; pre-LN;
+    or none), then the hoisted product with ``W_ih^T`` summed in the
+    accumulation type."""
     T, B, _ = mag_t.shape
     fb_in = mag_t[..., :cfg.fb_input_size]
     if cfg.norm_type is not None:
@@ -357,32 +356,104 @@ def _fullband_gates(cfg, fb_params, mag_t: torch.Tensor, compute: torch.dtype,
     elif cfg.use_pre_layer_norm_fb:
         fb_in = layer_norm_apply(fb_params["pre_ln"], fb_in)
     w0 = fb_params["stack"]["layers"][0]["weight_ih"].T.to(acc)
-    return (fb_in.reshape(T * B, -1).to(acc) @ w0).reshape(T, B, -1).to(compute)
+    return fb_in, (fb_in.reshape(T * B, -1).to(acc) @ w0).reshape(T, B, -1).to(compute)
 
 
 def _fullband_output(cfg, fb_params, spikes: torch.Tensor, compute: torch.dtype,
-                     acc: torch.dtype) -> torch.Tensor:
-    """The fullband projection and output activation ``[T, B, fb_proj]`` in
-    the compute type (``stream_forward.py:458-466``)."""
+                     acc: torch.dtype):
+    """The fullband projection ``[T, B, fb_proj]`` in the accumulation type
+    and its output activation in the compute type (``stream_forward.py:
+    458-466``)."""
     proj = (spikes.to(acc) @ fb_params["proj"]["weight"].T.to(acc)
             + fb_params["proj"]["bias"].to(acc))
-    return output_activation(cfg.fb_output_activate_function)(proj).to(compute)
+    return proj, output_activation(cfg.fb_output_activate_function)(proj).to(compute)
 
 
-def _section_train_gates(cfg, i: int, p, mag_t: torch.Tensor, fb_act: torch.Tensor,
-                         compute: torch.dtype, acc: torch.dtype) -> torch.Tensor:
-    """Section i's layer-0 gates with its units folded into the rows
-    unit-major, ``[T, n B, rows]`` in the compute type (the train branch of
-    ``stream_forward.py:527-673``). Each unit's frequency unfold (reflect
-    padding and the fullband tile included) is folded into one-hot scattered
-    layer-0 weights over a window of the magnitude and over the fullband
-    output, ``ck = mag_win @ Wn_k + fb @ Wf_k``, and the norm enters as
-    ``xg = alpha ck - beta u + v``: "ln" the pre-LN fold (``_fold_ln``, its
-    u and v) with alpha = rstd and beta = rstd mu of the unit's input, "cum"
-    the reciprocal running mean, "off" one reciprocal mean per utterance and
-    section, "raw" ``ck`` as it is. Everything that reaches a parameter
-    (the fold, the scattered weights, the fullband output in alpha) stays in
-    autograd."""
+def _unit_scales(cfg, mag_t: torch.Tensor, fb_act: torch.Tensor, sel_mag: torch.Tensor,
+                 sel_fb: torch.Tensor, groups, acc: torch.dtype):
+    """Kernel B's (alpha, beta) from one statistics sweep over every unit
+    (``stream_forward.py:761-807``, at the real T): "off" one scale per
+    utterance and section ``[B, U]``; "cum" the reciprocal running mean
+    ``[T, B, U]``; "ln" ``rstd`` and ``rstd mu`` of each unit's input ``[T,
+    B, U]``; "raw" none."""
+    mode = norm_mode(cfg)
+    if mode == "raw":
+        return None, None
+    T, B, _ = mag_t.shape
+    mag32, fb32 = mag_t.to(acc), fb_act.to(acc)
+    s1 = mag32 @ sel_mag + fb32 @ sel_fb  # [T, B, U]
+    if mode == "off":
+        sec_sum = s1.sum(dim=0)  # [B, U]
+        return torch.cat([
+            (1.0 / (sec_sum[:, u0:u0 + n].sum(dim=-1) / (n * w_tot * T) + EPSILON))[:, None]
+            .expand(B, n) for u0, n, w_tot in groups], dim=1).contiguous(), None
+    inv_wt = torch.cat([torch.full((n,), 1.0 / w_tot, dtype=acc, device=mag_t.device)
+                        for _, n, w_tot in groups])
+    if mode == "ln":
+        s2 = mag32.square() @ sel_mag + fb32.square() @ sel_fb
+        mu = s1 * inv_wt
+        rstd = torch.rsqrt(s2 * inv_wt - mu.square() + LN_EPS)
+        return rstd.contiguous(), (rstd * mu).contiguous()
+    cnt = torch.arange(1, T + 1, dtype=acc, device=mag_t.device)[:, None, None]
+    return (1.0 / (torch.cumsum(s1, dim=0) * inv_wt / cnt + EPSILON)).contiguous(), None
+
+
+def _assemble(cfg, enh_re: List[torch.Tensor], enh_im: List[torch.Tensor], re_t, im_t,
+              seq_len: int, dft_dtype):
+    """The enhanced bins with the Nyquist bin passed through: (enhanced_y
+    ``[B, seq_len]`` from the iSTFT, enhanced_mag ``[B, F+1, T]``)."""
+    out_re = torch.cat(enh_re + [re_t[..., cfg.num_freqs:]], dim=-1)
+    out_im = torch.cat(enh_im + [im_t[..., cfg.num_freqs:]], dim=-1)
+    enhanced_y = istft_real_imag_tmajor(
+        out_re, out_im, cfg.n_fft, cfg.hop_length, cfg.win_length,
+        length=seq_len, matmul_dtype=dft_dtype)
+    return enhanced_y, torch.sqrt(out_re.square() + out_im.square()).permute(1, 2, 0)
+
+
+@torch.no_grad()
+def _serve_two_launch(cfg, params, state, noisy_y: torch.Tensor) -> Dict[str, Any]:
+    """Eval on kernels A and B, any norm (the module docstring). ``_serve``
+    takes it for the offline norm and for the configs the monolith does not
+    take; it runs any config ``stream_supported`` takes."""
+    compute, acc, dft_dtype = _policy(cfg, noisy_y)
+    H_fb, shared = cfg.fb_hidden_size, cfg.shared_weights
+    re_t, im_t, mag_t = _magnitude(cfg, noisy_y, dft_dtype, compute)
+    fb_params, sb_params = _cast_params(cfg, params, compute)
+
+    # ---- fullband: input norm, hoisted layer 0, kernel A ----
+    _, xg0_fb = _fullband_gates(cfg, fb_params, mag_t, compute, acc)
+    wihr, whh, coef = pack_stack(fb_params["stack"]["layers"],
+                                 state["fb"]["stack"]["layers"], H_fb, compute)
+    fb_spikes = gsu_stack_eval(xg0_fb.contiguous(), wihr, whh, coef, H_fb, shared)
+    fb_act = _fullband_output(cfg, fb_params, fb_spikes, compute, acc)[1].contiguous()
+
+    # ---- sub-band sections: statistics sweep, kernel B ----
+    secs, sel_mag, sel_fb, groups = _section_specs(cfg, sb_params, state["sb"], compute, acc)
+    alpha, beta = _unit_scales(cfg, mag_t, fb_act, sel_mag, sel_fb, groups, acc)
+    enh_re, enh_im = gsu_sections_eval(secs, mag_t, fb_act, alpha, re_t, im_t,
+                                       cfg.sb_hidden_size, shared, beta)
+    enhanced_y, enhanced_mag = _assemble(cfg, [enh_re], [enh_im], re_t, im_t,
+                                         noisy_y.shape[1], dft_dtype)
+    return {"enhanced_y": enhanced_y, "enhanced_mag": enhanced_mag,
+            "fb_all_layer_outputs": [], "sb_all_layer_outputs": [], "state": state}
+
+
+def _section_gates(cfg, i: int, p, mag_t: torch.Tensor, fb_act: torch.Tensor,
+                   compute: torch.dtype, acc: torch.dtype):
+    """Section i's layer-0 gates, units-major ``[n, T, B, rows]`` in the
+    compute type (``stream_forward.py:527-665``), with the unit scales
+    ``alpha`` and means ``mu`` ``[T, B, n]`` they came from. Each unit's
+    frequency unfold (reflect padding and the fullband tile included) is
+    folded into one-hot scattered layer-0 weights over a window of the
+    magnitude and over the fullband output, ``ck = mag_win @ Wn_k + fb @
+    Wf_k``, and the norm enters as ``xg = alpha ck - beta u + v``: "ln" the
+    pre-LN fold (``_fold_ln``, its u and v) with alpha = rstd and beta =
+    rstd mu of the unit's input, "cum" the reciprocal running mean, "off"
+    one reciprocal mean per utterance and section, "raw" ``ck`` as it is
+    (alpha None). One unit at a time, as the JAX package: the f32
+    intermediates of a whole section at the serving batch would take tens of
+    GB. Everything that reaches a parameter (the fold, the scattered
+    weights, the fullband output in alpha) stays in autograd."""
     T, B, _ = mag_t.shape
     g = _section_geometry(cfg, i)
     n, w_noisy, w_tot, a, b = g["n"], g["w_noisy"], g["w_tot"], g["a"], g["b"]
@@ -397,59 +468,78 @@ def _section_train_gates(cfg, i: int, p, mag_t: torch.Tensor, fb_act: torch.Tens
                          w_t0[w_noisy:])
     mag_sec = mag_t[:, :, a:b].reshape(T * B, b - a).to(acc)
     fb32 = fb_act.reshape(T * B, -1).to(acc)
-    # [n, T B, rows]: each product summed in the accumulation type, rounded to the compute type
-    ck = (mag_sec @ wsc_n.to(acc)).to(compute) + (fb32 @ wsc_f.to(acc)).to(compute)
-    if mode == "raw":
-        xg = ck
-    else:
+    alpha = beta = mu = None
+    if mode != "raw":
         sel_n = torch.as_tensor(oh_n.sum(axis=1).T, dtype=acc, device=dev)  # [b - a, n]
         sel_f = torch.as_tensor(oh_f.sum(axis=1).T, dtype=acc, device=dev)  # [fb_proj, n]
         s1 = (mag_sec @ sel_n + fb32 @ sel_f).reshape(T, B, n)
-        beta = None
         if mode == "ln":
             s2 = (mag_sec.square() @ sel_n + fb32.square() @ sel_f).reshape(T, B, n)
             mu = s1 / w_tot
-            rstd = torch.rsqrt(s2 / w_tot - mu.square() + LN_EPS)
-            alpha, beta = rstd, rstd * mu
+            alpha = torch.rsqrt(s2 / w_tot - mu.square() + LN_EPS)
+            beta = alpha * mu
         elif mode == "cum":
             cnt = torch.arange(1, T + 1, dtype=acc, device=dev)[:, None, None] * w_tot
             alpha = 1.0 / (torch.cumsum(s1, dim=0) / cnt + EPSILON)
         else:  # "off": one scalar per utterance over (units, window, frames)
             tot = s1.sum(dim=(0, 2)) / (n * w_tot * T)  # [B]
             alpha = (1.0 / (tot + EPSILON))[None, :, None].expand(T, B, n)
-        to_units = lambda z: z.permute(2, 0, 1).reshape(n, T * B, 1)  # noqa: E731
-        xg = to_units(alpha) * ck.to(acc)
-        if beta is not None:
-            xg = xg - to_units(beta) * u.to(acc) + v.to(acc)
-        xg = xg.to(compute)
-    return xg.reshape(n, T, B, -1).transpose(0, 1).reshape(T, n * B, -1)
+    units = []
+    for k in range(n):
+        # each product summed in the accumulation type, rounded to the compute type
+        ck = (mag_sec @ wsc_n[k].to(acc)).to(compute) + (fb32 @ wsc_f[k].to(acc)).to(compute)
+        if alpha is not None:
+            xg = alpha[:, :, k].reshape(T * B, 1) * ck.to(acc)
+            if beta is not None:
+                xg = xg - beta[:, :, k].reshape(T * B, 1) * u.to(acc) + v.to(acc)
+            ck = xg.to(compute)
+        units.append(ck.reshape(T, B, -1))
+    return torch.stack(units), alpha, mu
 
 
-def _section_coefs(cfg, i: int, p, spikes: torch.Tensor, compute: torch.dtype,
-                   acc: torch.dtype) -> torch.Tensor:
-    """Section i's projection of its last layer's spikes ``[T, n B, H]``
-    (rows unit-major) -> deep-filter coefficients ``[T, B, 2, df, n ctr]``
-    (``stream_forward.py:586-590``, ``:691-696`` and ``_df_section``
-    ``:475-512``): the projection's columns permuted from (c, fc, d) to
-    (c, d, fc) order, then the units laid beside each other within each tap."""
-    ctr, df = cfg.center_freq_sizes[i], cfg.df_orders[i]
-    n = (cfg.freq_cutoffs[i + 1] - cfg.freq_cutoffs[i]) // ctr
-    T, B = spikes.shape[0], spikes.shape[1] // n
-    src_t = torch.as_tensor(_df_column_order(ctr, df), device=spikes.device)
+def _section_input(cfg, i: int, p, mag_t: torch.Tensor, fb_act: torch.Tensor, alpha, mu,
+                   compute: torch.dtype, acc: torch.dtype) -> torch.Tensor:
+    """The synops list's first entry of section i (``stream_forward.py:
+    706-722``): each unit's unfolded input after the section's norm, ``[T,
+    B n, w_tot]`` (rows b-major) in the compute type: the LayerNorm for "ln",
+    ``x alpha`` for "cum" and "off", the input as it is for "raw"."""
+    T, B, _ = mag_t.shape
+    g = _section_geometry(cfg, i)
+    dev = mag_t.device
+    x = torch.cat([mag_t[:, :, torch.as_tensor(g["idx_noisy"], device=dev)],
+                   fb_act[:, :, torch.as_tensor(g["idx_fb"], device=dev)]], dim=-1).to(acc)
+    if mu is not None:
+        x = (x - mu[..., None]) * alpha[..., None]
+        x = x * p["pre_ln"]["weight"].to(acc) + p["pre_ln"]["bias"].to(acc)
+    elif alpha is not None:
+        x = x * alpha[..., None]
+    return x.to(compute).reshape(T, B * g["n"], g["w_tot"])
+
+
+def _section_proj(cfg, i: int, p, spikes: torch.Tensor, compute: torch.dtype,
+                  acc: torch.dtype) -> torch.Tensor:
+    """Section i's projection of its last layer's spikes ``[n, T, B, H]``
+    -> ``[n, T, B, P]`` in the compute type, the columns permuted from the
+    reference's (c, fc, d) order to (c, d, fc) (``stream_forward.py:
+    586-590``, ``:691-696``)."""
+    src_t = torch.as_tensor(_df_column_order(cfg.center_freq_sizes[i], cfg.df_orders[i]),
+                            device=spikes.device)
     w_proj, b_proj = p["proj"]["weight"][src_t], p["proj"]["bias"][src_t]
     proj = (spikes.to(acc) @ w_proj.T.to(acc)).to(compute) + b_proj.to(compute)
-    proj = output_activation(cfg.sb_config(i).output_activate_function)(proj)
-    coef = proj.reshape(T, n, B, 2, df, ctr).permute(0, 2, 3, 4, 1, 5)
-    return coef.reshape(T, B, 2, df, n * ctr)
+    return output_activation(cfg.sb_config(i).output_activate_function)(proj)
 
 
-def _deep_filter_tmajor(coef: torch.Tensor, sre: torch.Tensor, sim: torch.Tensor,
-                        acc: torch.dtype):
+def _deep_filter_tmajor(proj: torch.Tensor, ctr: int, df: int, sre: torch.Tensor,
+                        sim: torch.Tensor, acc: torch.dtype):
     """The complex deep filter in real arithmetic (``_df_section``,
-    ``stream_forward.py:475-512``): coef ``[T, B, 2, df, W]``, the noisy
-    spectrum's bins ``sre, sim [T, B, W]``; tap d weighs frame t - df + 1 + d.
-    Returns the enhanced ``(re, im) [T, B, W]``."""
-    T, df = coef.shape[0], coef.shape[3]
+    ``stream_forward.py:475-512``): a section's projection ``[n, T, B, 2 df
+    ctr]`` in (c, d, fc) order, the units laid beside each other within each
+    tap, against the noisy spectrum's bins ``sre, sim [T, B, n ctr]``; tap d
+    weighs frame t - df + 1 + d. Returns the enhanced ``(re, im) [T, B, n
+    ctr]``."""
+    n, T, B = proj.shape[:3]
+    coef = proj.reshape(n, T, B, 2, df, ctr).permute(1, 2, 3, 4, 0, 5).reshape(
+        T, B, 2, df, n * ctr)
     pad = (0, 0, 0, 0, df - 1, 0)
     pr, pi = F.pad(sre, pad), F.pad(sim, pad)
     er = ei = None
@@ -462,55 +552,79 @@ def _deep_filter_tmajor(coef: torch.Tensor, sre: torch.Tensor, sim: torch.Tensor
     return er, ei
 
 
-def _stream_train(cfg, params, state, noisy_y: torch.Tensor) -> Dict[str, Any]:
-    """The stream forward with ``train=True`` (``stream_forward.py:368-870``
-    on its train branches, at the real T and widths): differentiable, the
-    GSU stacks on kernels D and E with streams in the compute type, and the
-    new BN running statistics in ``state`` (the state as given without
-    BN)."""
-    B, sequence_length = noisy_y.shape
+def _sectioned(cfg, params, state, noisy_y: torch.Tensor, train: bool) -> Dict[str, Any]:
+    """The per-section stream forward (``stream_forward.py:368-870`` on its
+    train and collecting branches, at the real T and widths): eval with the
+    GSU stacks on kernel A, every layer collected, or training with them on
+    kernels D and E and the new BN running statistics in ``state`` (the
+    state as given without BN, and in eval). The synops lists when
+    ``collect_layer_outputs``, else empty."""
+    B, seq_len = noisy_y.shape
     compute, acc, dft_dtype = _policy(cfg, noisy_y)
-    mixed = cfg.compute_dtype is not None
-    shared = cfg.shared_weights
+    collect, shared = cfg.collect_layer_outputs, cfg.shared_weights
     re_t, im_t, mag_t = _magnitude(cfg, noisy_y, dft_dtype, compute)
-    fb_params = cast_floating(params["fb"], compute) if mixed else params["fb"]
-    sb_params = [cast_floating(p, compute) if mixed else p for p in params["sb"]]
+    fb_params, sb_params = _cast_params(cfg, params, compute)
+    T = mag_t.shape[0]
 
-    xg0_fb = _fullband_gates(cfg, fb_params, mag_t, compute, acc)
-    fb_spikes, new_fb_stack = gsu_stack_train_xg(
-        fb_params["stack"], state["fb"]["stack"], xg0_fb, cfg.fb_hidden_size, shared)
-    fb_act = _fullband_output(cfg, fb_params, fb_spikes[-1], compute, acc)
+    def stack(p, st, xg0, hidden):
+        """Every layer's spikes ``[(n,) T, B, H]`` and the new stack state
+        from layer 0's gates ``[(n,) T, B, G]``."""
+        if not train:
+            w = pack_stack(p["stack"]["layers"], st["stack"]["layers"], hidden, compute)
+            out = gsu_stack_eval(xg0.contiguous(), *w, hidden, shared, collect_all=collect)
+            return (list(out) if collect else [out]), st
+        if xg0.ndim == 3:
+            spikes, new = gsu_stack_train_xg(p["stack"], st["stack"], xg0, hidden, shared)
+            return spikes, {"stack": new}
+        # units fold into rows unit-major, so that BN's statistics span them all
+        n = xg0.shape[0]
+        spikes, new = gsu_stack_train_xg(p["stack"], st["stack"],
+                                         xg0.transpose(0, 1).reshape(T, n * B, -1), hidden,
+                                         shared)
+        return [s.reshape(T, n, B, hidden).transpose(0, 1) for s in spikes], {"stack": new}
+
+    fb_in, xg0_fb = _fullband_gates(cfg, fb_params, mag_t, compute, acc)
+    fb_spikes, new_fb = stack(fb_params, state["fb"], xg0_fb, cfg.fb_hidden_size)
+    fb_proj, fb_act = _fullband_output(cfg, fb_params, fb_spikes[-1], compute, acc)
 
     enh_re: List[torch.Tensor] = []
     enh_im: List[torch.Tensor] = []
-    new_sb_stacks = []
+    new_sb, sb_lists = [], []
     f0 = 0
     for i in range(cfg.num_sections):
-        xg0 = _section_train_gates(cfg, i, sb_params[i], mag_t, fb_act, compute, acc)
-        spikes, ns = gsu_stack_train_xg(sb_params[i]["stack"], state["sb"][i]["stack"], xg0,
-                                        cfg.sb_hidden_size, shared)
-        new_sb_stacks.append(ns)
-        coef = _section_coefs(cfg, i, sb_params[i], spikes[-1], compute, acc)
-        w = coef.shape[-1]
-        er, ei = _deep_filter_tmajor(coef, re_t[:, :, f0:f0 + w], im_t[:, :, f0:f0 + w], acc)
+        p = sb_params[i]
+        ctr, df = cfg.center_freq_sizes[i], cfg.df_orders[i]
+        xg0, alpha, mu = _section_gates(cfg, i, p, mag_t, fb_act, compute, acc)
+        n = xg0.shape[0]
+        spikes, ns = stack(p, state["sb"][i], xg0, cfg.sb_hidden_size)
+        del xg0
+        new_sb.append(ns)
+        proj = _section_proj(cfg, i, p, spikes[-1], compute, acc)
+        w = n * ctr
+        er, ei = _deep_filter_tmajor(proj, ctr, df, re_t[:, :, f0:f0 + w],
+                                     im_t[:, :, f0:f0 + w], acc)
         enh_re.append(er)
         enh_im.append(ei)
         f0 += w
+        if collect:
+            # the contract's rows are b-major (t (b n) feat), the projection's
+            # columns in the reference's order
+            to_bn = lambda x: x.permute(1, 2, 0, 3).reshape(T, B * n, x.shape[-1])  # noqa: E731
+            inv = torch.as_tensor(np.argsort(_df_column_order(ctr, df)), device=proj.device)
+            sb_lists.append(
+                [_section_input(cfg, i, p, mag_t, fb_act, alpha, mu, compute, acc)]
+                + [to_bn(s) for s in spikes] + [to_bn(proj)[..., inv].to(acc)])
+        del spikes, proj
 
-    out_re = torch.cat(enh_re + [re_t[..., cfg.num_freqs:]], dim=-1)
-    out_im = torch.cat(enh_im + [im_t[..., cfg.num_freqs:]], dim=-1)
-    enhanced_y = istft_real_imag_tmajor(
-        out_re, out_im, cfg.n_fft, cfg.hop_length, cfg.win_length,
-        length=sequence_length, matmul_dtype=dft_dtype)
+    enhanced_y, enhanced_mag = _assemble(cfg, enh_re, enh_im, re_t, im_t, seq_len, dft_dtype)
     new_state = state
-    if cfg.bn:
-        new_state = {"fb": {"stack": new_fb_stack},
-                     "sb": [{"stack": s} for s in new_sb_stacks]}
+    if train and cfg.bn:
+        new_state = {"fb": new_fb, "sb": new_sb}
     return {
         "enhanced_y": enhanced_y,
-        "enhanced_mag": torch.sqrt(out_re.square() + out_im.square()).permute(1, 2, 0),
-        "fb_all_layer_outputs": [],
-        "sb_all_layer_outputs": [],
+        "enhanced_mag": enhanced_mag,
+        "fb_all_layer_outputs": [fb_in, *fb_spikes, fb_proj] if collect else [],
+        "sb_all_layer_outputs": sb_lists,
         "state": new_state,
     }
 
@@ -518,67 +632,27 @@ def _stream_train(cfg, params, state, noisy_y: torch.Tensor) -> Dict[str, Any]:
 def spiking_fullsubnet_stream_forward(cfg, params, state, noisy_y: torch.Tensor,
                                       train: bool = False):
     """Forward in stream layout; same output dict as the JAX package
-    (``enhanced_y [B, T]``, ``enhanced_mag [B, F+1, T]`` on the two-launch
-    and training paths and None on the monolith, empty per-layer output
-    lists). Eval runs without autograd and returns ``state`` unchanged;
-    ``train=True`` runs ``_stream_train``."""
-    _check_covered(cfg, train)
+    (``enhanced_y [B, T]``, ``enhanced_mag [B, F+1, T]``, None on the
+    monolith, the per-layer output lists when collecting, else empty). Eval
+    runs without autograd and returns ``state`` unchanged; ``train=True``
+    runs the per-section path in autograd."""
+    if not stream_supported(cfg):
+        raise ValueError("stream forward: unsupported config (see stream_supported)")
     if noisy_y.ndim != 2:
         raise ValueError(f"Input tensor must be 2D, but got {noisy_y.ndim}D.")
     if train:
-        return _stream_train(cfg, params, state, noisy_y)
+        return _sectioned(cfg, params, state, noisy_y, train=True)
     return _serve(cfg, params, state, noisy_y)
 
 
 @torch.no_grad()
 def _serve(cfg, params, state, noisy_y: torch.Tensor) -> Dict[str, Any]:
-    """Eval: the monolith for the causal norms and pre-LN, else the
-    two-launch path (the module docstring)."""
-    B, sequence_length = noisy_y.shape
-    compute, acc, dft_dtype = _policy(cfg, noisy_y)
-    mixed = cfg.compute_dtype is not None
-    if norm_mode(cfg) != "off":
+    """Eval, dispatched as the JAX package: the per-section path when
+    collecting the per-layer outputs, else the monolith where its gate
+    admits the config, else the two-launch path."""
+    if cfg.collect_layer_outputs:
+        return _sectioned(cfg, params, state, noisy_y, train=False)
+    if monolith_ok(cfg):
+        compute, acc, _ = _policy(cfg, noisy_y)
         return _serve_monolith(cfg, params, state, noisy_y, compute, acc)
-    H_fb, shared = cfg.fb_hidden_size, cfg.shared_weights
-
-    # ---- STFT, magnitude ----
-    re_t, im_t, mag_t = _magnitude(cfg, noisy_y, dft_dtype, compute)
-
-    fb_params = cast_floating(params["fb"], compute) if mixed else params["fb"]
-    sb_params = [cast_floating(p, compute) if mixed else p for p in params["sb"]]
-
-    # ---- fullband: offline laplace norm, hoisted layer 0, kernel A ----
-    xg0_fb = _fullband_gates(cfg, fb_params, mag_t, compute, acc)
-    wihr, whh, coef = pack_stack(fb_params["stack"]["layers"],
-                                 state["fb"]["stack"]["layers"], H_fb, compute)
-    fb_spikes = gsu_stack_eval(xg0_fb.contiguous(), wihr, whh, coef, H_fb, shared)
-    fb_act_c = _fullband_output(cfg, fb_params, fb_spikes, compute, acc)
-
-    # ---- sub-band sections: statistics sweep, kernel B ----
-    T = mag_t.shape[0]
-    secs, sel_mag, sel_fb, groups = _section_specs(
-        cfg, sb_params, state["sb"], compute, acc)
-    s1 = mag_t.to(acc) @ sel_mag + fb_act_c.to(acc) @ sel_fb  # [T, B, U]
-    sec_sum = s1.sum(dim=0)  # [B, U]
-    alpha = torch.cat([
-        (1.0 / (sec_sum[:, u0:u0 + n].sum(dim=-1) / (n * w_tot * T) + EPSILON))[:, None]
-        .expand(B, n)
-        for u0, n, w_tot in groups], dim=1).contiguous()
-    enh_re, enh_im = gsu_sections_eval(
-        secs, mag_t, fb_act_c.contiguous(), alpha, re_t, im_t, cfg.sb_hidden_size, shared)
-
-    # ---- Nyquist passthrough + iSTFT ----
-    full_f = cfg.num_freqs
-    out_re = torch.cat([enh_re, re_t[..., full_f:]], dim=-1)
-    out_im = torch.cat([enh_im, im_t[..., full_f:]], dim=-1)
-    enhanced_y = istft_real_imag_tmajor(
-        out_re, out_im, cfg.n_fft, cfg.hop_length, cfg.win_length,
-        length=sequence_length, matmul_dtype=dft_dtype)
-    enhanced_mag = torch.sqrt(out_re.square() + out_im.square()).permute(1, 2, 0)
-    return {
-        "enhanced_y": enhanced_y,
-        "enhanced_mag": enhanced_mag,
-        "fb_all_layer_outputs": [],
-        "sb_all_layer_outputs": [],
-        "state": state,
-    }
+    return _serve_two_launch(cfg, params, state, noisy_y)

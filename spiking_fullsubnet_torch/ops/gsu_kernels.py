@@ -7,8 +7,10 @@ Six kernels, each a hand-written CUDA C++ source under ``../csrc``:
   ``_stack_eval_xg_kernel`` / ``gsu_stack_eval_pallas_xg``: an L-layer GSU
   stack in eval mode with the layer-0 gates given.
 - ``gsu_sections_eval`` (kernel B, ``csrc/gsu_sections_eval.cu``) replaces
-  ``_sections_kernel`` / ``gsu_sections_eval_pallas`` in its deep-filter
-  mode: all sub-band sections, their projection and the deep filter.
+  ``_sections_kernel`` / ``gsu_sections_eval_pallas`` in each of its modes:
+  all sub-band sections with their layer-0 gates scaled per utterance, per
+  frame (with the pre-LN terms or without) or not at all, their projection
+  and the deep filter, or the projection itself.
 - ``sfsb_monolith_serve`` (kernel C, ``csrc/sfsb_monolith_serve.cu``)
   replaces ``_monolith_kernel`` / ``sfsb_monolith_serve_pallas``: the whole
   serving model per step, audio hop chunks in, enhanced hop chunks out.
@@ -135,7 +137,7 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
         lib.gsu_stack_eval_x_launch.restype = I
     elif name == "sections":
         lib.gsu_sections_eval_launch.argtypes = (
-            [I, I, P] + [P] * 14 + [I] * 10 + [P])
+            [I, I, P, I, I] + [P] * 17 + [I] * 10 + [P])
         lib.gsu_sections_eval_launch.restype = I
     elif name == "train_fwd":
         lib.gsu_train_fwd_launch.argtypes = [I] + [P] * 7 + [I] * 5 + [P]
@@ -659,18 +661,41 @@ gsu_layer_train_bwd.launches = 0
 #   wa [n, aw, G]   layer-0 weights of each unit over xa[..., a0:a0+aw]
 #   a0              first xa lane of the window
 #   wb [n, Fb, G]   layer-0 weights of each unit over xb
+#   uv [2, G]       (optional) the pre-LN fold's column sums u and bias
+#                   projection v: the gates are alpha ck - beta u + v
 #   wihr, whh, coef the section's stack (pack_stack)
 #   wproj [H, P], bproj [P]   output projection, columns in (c, d, fc) order
 #   ctr, df         unit centre width and deep-filter order (P = 2 df ctr)
 # Units of section s write enhanced bins f0_s + j ctr + f, f0_s the running
-# sum of the earlier sections' n ctr.
+# sum of the earlier sections' n ctr. The unit scales ``alpha`` are None (the
+# gates are ck as they are), ``[B, U]`` (one per utterance and unit) or
+# ``[T, B, U]`` (per frame); ``beta [T, B, U]`` goes with a per-frame alpha
+# and is read by the sections that carry ``uv``.
+
+ALPHA_MODES = {None: 0, 2: 1, 3: 2}  # alpha.ndim -> the launcher's alpha_mode
+
+
+def _check_section_modes(secs: List[Dict[str, Any]], alpha: Optional[torch.Tensor],
+                         beta: Optional[torch.Tensor], T: int, B: int, U: int) -> None:
+    """Raises ValueError on a combination of unit scales and pre-LN terms
+    that kernel B (and so its plain version) does not take."""
+    ln = any("uv" in s for s in secs)
+    if alpha is not None and tuple(alpha.shape) not in ((B, U), (T, B, U)):
+        raise ValueError(f"alpha shape {tuple(alpha.shape)}: expected None, [{B}, {U}] or "
+                         f"[{T}, {B}, {U}]")
+    if (beta is not None) != ln:
+        raise ValueError("beta goes with the sections that carry the pre-LN terms 'uv' "
+                         f"({'some' if ln else 'none'} do, beta is "
+                         f"{'None' if beta is None else 'given'})")
+    if ln and (alpha is None or alpha.ndim != 3 or tuple(beta.shape) != tuple(alpha.shape)):
+        raise ValueError("the pre-LN terms need a per-frame alpha and beta [T, B, U]")
 
 
 def sections_eval_plain(secs: List[Dict[str, Any]], xa: torch.Tensor, xb: torch.Tensor,
-                        alpha: torch.Tensor, spec_re: torch.Tensor, spec_im: torch.Tensor,
-                        hidden: int, shared: bool,
-                        spike_counts: Optional[List[List[float]]] = None
-                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+                        alpha: Optional[torch.Tensor], spec_re: Optional[torch.Tensor],
+                        spec_im: Optional[torch.Tensor], hidden: int, shared: bool,
+                        beta: Optional[torch.Tensor] = None,
+                        spike_counts: Optional[List[List[float]]] = None):
     """Plain PyTorch version of kernel B (same arguments and result).
 
     ``spike_counts``, when a list, receives one list per section of each
@@ -679,9 +704,14 @@ def sections_eval_plain(secs: List[Dict[str, Any]], xa: torch.Tensor, xb: torch.
     acc = acc_dtype_for(io)
     T, B, _ = xa.shape
     dev = xa.device
+    U = sum(int(s["wa"].shape[0]) for s in secs)
+    df_mode = spec_re is not None
+    _check_section_modes(secs, alpha, beta, T, B, U)
     W = sum(int(s["wa"].shape[0]) * s["ctr"] for s in secs)
-    out_re = torch.zeros(T, B, W, dtype=spec_re.dtype, device=dev)
-    out_im = torch.zeros(T, B, W, dtype=spec_re.dtype, device=dev)
+    if df_mode:
+        out_re = torch.zeros(T, B, W, dtype=spec_re.dtype, device=dev)
+        out_im = torch.zeros(T, B, W, dtype=spec_re.dtype, device=dev)
+    projs = []
     u0 = f0 = 0
     for s in secs:
         n, aw = int(s["wa"].shape[0]), int(s["wa"].shape[1])
@@ -690,21 +720,31 @@ def sections_eval_plain(secs: List[Dict[str, Any]], xa: torch.Tensor, xb: torch.
         wa, wb = s["wa"].to(acc), s["wb"].to(acc)
         wihr, whh, coef = s["wihr"].to(acc), s["whh"].to(acc), s["coef"].to(acc)
         wproj, bproj = s["wproj"].to(acc), s["bproj"].to(acc)
-        al = alpha[:, u0:u0 + n].T.to(acc)[:, :, None]  # [n, B, 1]
+        uv = s["uv"].to(acc) if "uv" in s else None
         L = whh.shape[0]
         h = [torch.zeros(n * B, hidden, dtype=acc, device=dev) for _ in range(L)]
         c = [torch.zeros(n * B, hidden, dtype=acc, device=dev) for _ in range(L)]
-        sr = spec_re[:, :, f0:f0 + w].reshape(T, B, n, ctr).permute(0, 2, 1, 3)  # [T, n, B, ctr]
-        si = spec_im[:, :, f0:f0 + w].reshape(T, B, n, ctr).permute(0, 2, 1, 3)
+        if df_mode:
+            sr = spec_re[:, :, f0:f0 + w].reshape(T, B, n, ctr).permute(0, 2, 1, 3)  # [T, n, B, ctr]
+            si = spec_im[:, :, f0:f0 + w].reshape(T, B, n, ctr).permute(0, 2, 1, 3)
+        else:
+            proj = torch.empty(n, T, B, int(wproj.shape[1]), dtype=io, device=dev)
         tot = torch.zeros(L, dtype=torch.float64, device=dev)
         for t in range(T):
-            ck = (torch.einsum("bp,npg->nbg", xa[t, :, a0:a0 + aw].to(acc), wa)
-                  + torch.einsum("bq,nqg->nbg", xb[t].to(acc), wb))
-            _stack_layers_step((al * ck).reshape(n * B, -1), h, c, wihr, whh, coef,
-                               hidden, shared)
+            xg = (torch.einsum("bp,npg->nbg", xa[t, :, a0:a0 + aw].to(acc), wa)
+                  + torch.einsum("bq,nqg->nbg", xb[t].to(acc), wb))  # ck [n, B, G]
+            if alpha is not None:
+                al = alpha if alpha.ndim == 2 else alpha[t]
+                xg = al[:, u0:u0 + n].T.to(acc)[:, :, None] * xg
+                if uv is not None:
+                    xg = xg - beta[t, :, u0:u0 + n].T.to(acc)[:, :, None] * uv[0] + uv[1]
+            _stack_layers_step(xg.reshape(n * B, -1), h, c, wihr, whh, coef, hidden, shared)
             if spike_counts is not None:
                 tot += torch.stack([hk.sum(dtype=torch.float64) for hk in h])
             y = (h[-1] @ wproj + bproj).reshape(n, B, -1)
+            if not df_mode:
+                proj[:, t] = y.to(io)
+                continue
             er = torch.zeros(n, B, ctr, dtype=out_re.dtype, device=dev)
             ei = torch.zeros_like(er)
             for d in range(df):
@@ -719,50 +759,67 @@ def sections_eval_plain(secs: List[Dict[str, Any]], xa: torch.Tensor, xb: torch.
             out_im[t, :, f0:f0 + w] = ei.permute(1, 0, 2).reshape(B, w)
         if spike_counts is not None:
             spike_counts.append(tot.tolist())
+        if not df_mode:
+            projs.append(proj)
         u0 += n
         f0 += w
-    return out_re, out_im
+    return (out_re, out_im) if df_mode else projs
 
 
 def gsu_sections_eval(secs: List[Dict[str, Any]], xa: torch.Tensor, xb: torch.Tensor,
-                      alpha: torch.Tensor, spec_re: torch.Tensor, spec_im: torch.Tensor,
-                      hidden: int, shared: bool) -> Tuple[torch.Tensor, torch.Tensor]:
-    """All sub-band sections with the deep filter, in one launch.
+                      alpha: Optional[torch.Tensor], spec_re: Optional[torch.Tensor],
+                      spec_im: Optional[torch.Tensor], hidden: int, shared: bool,
+                      beta: Optional[torch.Tensor] = None):
+    """All sub-band sections in one launch.
 
-    xa ``[T, B, Fa]`` and xb ``[T, B, Fb]`` feature streams (io type), alpha
-    ``[B, U]`` per-utterance unit scales (f32), spec_re/spec_im ``[T, B, Fs]``
-    the noisy spectrum (f32). Returns the enhanced (re, im) ``[T, B, W]``,
-    W = sum of n ctr over the sections, in the spectrum's type."""
+    xa ``[T, B, Fa]`` and xb ``[T, B, Fb]`` feature streams (io type); alpha
+    None, ``[B, U]`` or ``[T, B, U]`` unit scales and beta ``[T, B, U]`` the
+    pre-LN mean terms (f32; the block comment above); spec_re/spec_im ``[T,
+    B, Fs]`` the noisy spectrum (f32). Returns the enhanced (re, im) ``[T, B,
+    W]``, W = sum of n ctr over the sections, in the spectrum's type; with
+    the spectrum None (no deep filter) each section's projection ``[n, T,
+    B, P]`` in the io type, a list."""
     if not xa.is_cuda:
-        return sections_eval_plain(secs, xa, xb, alpha, spec_re, spec_im, hidden, shared)
+        return sections_eval_plain(secs, xa, xb, alpha, spec_re, spec_im, hidden, shared, beta)
     H = hidden
     G = H if shared else 2 * H
     io, dev = xa.dtype, xa.device
-    if io not in (torch.float32, torch.bfloat16):
+    f32 = torch.float32
+    if io not in (f32, torch.bfloat16):
         raise ValueError(f"xa dtype {io}: the kernel takes float32 or bfloat16")
     if not 1 <= len(secs) <= 8 or not 1 <= H <= 512:
         raise ValueError(f"{len(secs)} sections, H={H}: the kernel takes 1..8 sections, H <= 512")
     T, B, Fa = xa.shape
     Fb = xb.shape[-1]
-    Fs = spec_re.shape[-1]
     U = sum(int(s["wa"].shape[0]) for s in secs)
     W = sum(int(s["wa"].shape[0]) * s["ctr"] for s in secs)
     L = secs[0]["whh"].shape[0]
     if not 1 <= L <= MAX_LAYERS:
         raise ValueError(f"L={L}: the kernel takes 1..{MAX_LAYERS} layers")
+    df_mode = spec_re is not None
+    if (spec_im is not None) != df_mode:
+        raise ValueError("spec_re and spec_im: both or neither")
+    _check_section_modes(secs, alpha, beta, T, B, U)
     _check_cuda("xa", xa, io, dev)
     _check_cuda("xb", xb, io, dev, (T, B, Fb))
-    _check_cuda("alpha", alpha, torch.float32, dev, (B, U))
-    _check_cuda("spec_re", spec_re, torch.float32, dev, (T, B, Fs))
-    _check_cuda("spec_im", spec_im, torch.float32, dev, (T, B, Fs))
-    if W > Fs:
-        raise ValueError(f"sections cover {W} bins, the spectrum has {Fs}")
+    dummy = torch.zeros(1, dtype=f32, device=dev)
+    if alpha is not None:
+        _check_cuda("alpha", alpha, f32, dev)
+    if beta is not None:
+        _check_cuda("beta", beta, f32, dev)
+    Fs = 0
+    if df_mode:
+        Fs = spec_re.shape[-1]
+        _check_cuda("spec_re", spec_re, f32, dev, (T, B, Fs))
+        _check_cuda("spec_im", spec_im, f32, dev, (T, B, Fs))
+        if W > Fs:
+            raise ValueError(f"sections cover {W} bins, the spectrum has {Fs}")
 
-    flat: Dict[str, List[torch.Tensor]] = {k: [] for k in (
-        "wa", "wb", "wihr", "whh", "coef", "wproj", "bproj")}
-    offs = {k: 0 for k in flat}
+    kinds = ("wa", "wb", "wihr", "whh", "coef", "wproj", "bproj", "uv")
+    flat: Dict[str, List[torch.Tensor]] = {k: [] for k in kinds}
+    offs = {k: 0 for k in kinds}
     table = []
-    u0 = f0 = 0
+    u0 = f0 = o_proj = 0
     for i, s in enumerate(secs):
         n, aw = int(s["wa"].shape[0]), int(s["wa"].shape[1])
         P = int(s["wproj"].shape[1])
@@ -770,31 +827,50 @@ def gsu_sections_eval(secs: List[Dict[str, Any]], xa: torch.Tensor, xb: torch.Te
             raise ValueError(f"section {i}: P={P}, window ({s['a0']}, {aw}) in Fa={Fa}")
         shapes = {"wa": (n, aw, G), "wb": (n, Fb, G), "wihr": (max(L - 1, 1), H, G),
                   "whh": (L, H, G), "coef": (L, 4, H), "wproj": (H, P), "bproj": (P,)}
-        row = [n, s["a0"], aw, s["ctr"], s["df"], P, u0, f0]
-        for k, shp in shapes.items():
-            dt = torch.float32 if k in ("coef", "bproj") else io
-            _check_cuda(f"section {i} {k}", s[k], dt, dev, shp)
+        if "uv" in s:
+            shapes["uv"] = (2, G)
+        row = [n, s["a0"], aw, s["ctr"], s["df"], P, u0, f0, int("uv" in s)]
+        for k in kinds:
             row.append(offs[k])
+            if k not in shapes:
+                continue
+            dt = f32 if k in ("coef", "bproj", "uv") else io
+            _check_cuda(f"section {i} {k}", s[k], dt, dev, shapes[k])
             flat[k].append(s[k].reshape(-1))
             offs[k] += s[k].numel()
-        table.append(row)
+        table.append(row + [o_proj])
         u0 += n
         f0 += n * s["ctr"]
-    cat = {k: torch.cat(v) for k, v in flat.items()}
-    tab = (ctypes.c_longlong * (15 * len(table)))(*[int(v) for r in table for v in r])
-    out_re = torch.empty(T, B, W, dtype=torch.float32, device=dev)
-    out_im = torch.empty_like(out_re)
+        o_proj += n * T * B * P
+    cat = {k: torch.cat(v) if v else dummy for k, v in flat.items()}
+    tab = (ctypes.c_longlong * (18 * len(table)))(*[int(v) for r in table for v in r])
+    if df_mode:
+        out_re = torch.empty(T, B, W, dtype=f32, device=dev)
+        out_im = torch.empty_like(out_re)
+        out_proj = None
+    else:
+        out_re = out_im = None
+        out_proj = torch.empty(o_proj, dtype=io, device=dev)
+    opt = lambda t: ctypes.c_void_p(None) if t is None else _ptr(t)  # noqa: E731
     lib = _lib("sections")
     with torch.cuda.device(dev):
         rc = lib.gsu_sections_eval_launch(
             int(io == torch.bfloat16), len(secs), ctypes.cast(tab, ctypes.c_void_p),
-            _ptr(xa), _ptr(xb), _ptr(alpha), _ptr(spec_re), _ptr(spec_im),
-            _ptr(cat["wa"]), _ptr(cat["wb"]), _ptr(cat["wihr"]), _ptr(cat["whh"]),
-            _ptr(cat["coef"]), _ptr(cat["wproj"]), _ptr(cat["bproj"]),
-            _ptr(out_re), _ptr(out_im), T, B, Fa, Fb, Fs, U, W, H, L, int(shared), _stream())
+            ALPHA_MODES[None if alpha is None else alpha.ndim], int(df_mode),
+            _ptr(xa), _ptr(xb), opt(alpha), opt(beta), opt(spec_re), opt(spec_im),
+            _ptr(cat["wa"]), _ptr(cat["wb"]), _ptr(cat["uv"]), _ptr(cat["wihr"]),
+            _ptr(cat["whh"]), _ptr(cat["coef"]), _ptr(cat["wproj"]), _ptr(cat["bproj"]),
+            opt(out_re), opt(out_im), opt(out_proj), T, B, Fa, Fb, Fs, U, W, H, L, int(shared),
+            _stream())
     _check_rc(lib, rc, "gsu_sections_eval")
     gsu_sections_eval.launches += 1
-    return out_re, out_im
+    if df_mode:
+        return out_re, out_im
+    projs = []
+    for row in table:
+        n, P, o = row[0], row[5], row[-1]
+        projs.append(out_proj[o:o + n * T * B * P].view(n, T, B, P))
+    return projs
 
 
 gsu_sections_eval.launches = 0

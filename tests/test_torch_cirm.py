@@ -113,5 +113,5 @@ def test_init_tree_and_lstm_raises():
     assert shapes({"p": b["params"], "s": b["state"]}) == shapes({"p": jb["params"],
                                                                    "s": jb["state"]})
     assert b["params"]["fb"]["proj"]["weight"].shape == (257 * 3 * 2, 256)
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(NotImplementedError, match="remaining models and recipes"):
         PC.build(seed=0, device="cpu", **dict(RECIPE, sequence_model="LSTM"))

@@ -8,7 +8,9 @@ JAX nor the JAX package, so it runs where only PyTorch is installed:
 At these small shapes no near-threshold spike flips occur, so A's and F's
 spikes must match exactly (mismatch < 1e-3 allows one stray flip), B's
 enhanced spectrum and C's enhanced audio to f32 rounding (relative L2 <
-1e-4; C in bf16 < 2e-3, see C_TOL). Kernel D's spikes likewise (one stray
+1e-4; C in bf16 < 2e-3, see C_TOL), B in each mode (unit scales per
+utterance, per frame, with the pre-LN terms, none; the deep filter or the
+projection out, the latter in bf16 < 2e-3, see B_PROJ_TOL). Kernel D's spikes likewise (one stray
 flip allowed), its membranes and batch statistics within rtol 1e-5 up to
 the first flip; kernel E and its weight-gradient kernel, fed the same
 saved tensors as their plain versions (so no spike can flip), within a
@@ -171,27 +173,125 @@ def _sections(shared, io, dev, g, H=48):
     return secs
 
 
+# kernel B's projection out in bf16 (no deep filter) is rounded from f32 sums
+# taken in another order than the plain version's: one bf16 step apart where
+# they straddle a rounding boundary
+B_PROJ_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-3}
+
+
+def _section_scales(mode, secs, T, B, U, G, dev, g):
+    """(alpha, beta) of kernel B's mode: "off" one scale per utterance and
+    unit, "cum" per frame, "ln" per frame with the pre-LN terms (each
+    section gets its "uv"), "raw" none."""
+    if mode == "raw":
+        return None, None
+    if mode == "ln":
+        for s in secs:
+            s["uv"] = (torch.randn(2, G, generator=g) * 0.3).to(dev)
+    alpha = (torch.rand((B, U) if mode == "off" else (T, B, U), generator=g) + 0.5).to(dev)
+    beta = (torch.rand(T, B, U, generator=g) - 0.5).to(dev) if mode == "ln" else None
+    return alpha, beta
+
+
 @pytest.mark.parametrize("io", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shared", [True, False])
-def test_sections_kernel_matches_plain(dev, io, shared):
+@pytest.mark.parametrize("mode", ["off", "cum", "ln", "raw"])
+@pytest.mark.parametrize("df_mode", [True, False], ids=["df", "proj"])
+def test_sections_kernel_matches_plain(dev, io, shared, mode, df_mode):
+    """Kernel B in each of its modes (the unit scales per utterance, per
+    frame, per frame with the pre-LN terms, none), with the deep filter
+    (enhanced spectrum) or without (each section's projection in the
+    stream type)."""
     g = torch.Generator().manual_seed(7)
     H, T, B = 48, 40, 11
+    G = H if shared else 2 * H
     secs = _sections(shared, io, dev, g, H)
     U = sum(s["wa"].shape[0] for s in secs)
     W = sum(s["wa"].shape[0] * s["ctr"] for s in secs)
-    args = (torch.rand(T, B, 64, generator=g).to(io).to(dev),
-            torch.randn(T, B, 16, generator=g).to(io).to(dev),
-            (torch.rand(B, U, generator=g) + 0.5).to(dev),
-            torch.randn(T, B, W + 1, generator=g).to(dev),
-            torch.randn(T, B, W + 1, generator=g).to(dev))
+    alpha, beta = _section_scales(mode, secs, T, B, U, G, dev, g)
+    xa = torch.rand(T, B, 64, generator=g).to(io).to(dev)
+    xb = torch.randn(T, B, 16, generator=g).to(io).to(dev)
+    spec = ((torch.randn(T, B, W + 1, generator=g).to(dev),
+             torch.randn(T, B, W + 1, generator=g).to(dev)) if df_mode else (None, None))
     before = gk.gsu_sections_eval.launches
-    got = gk.gsu_sections_eval(secs, *args, H, shared)
-    ref = gk.sections_eval_plain(secs, *args, H, shared)
+    got = gk.gsu_sections_eval(secs, xa, xb, alpha, *spec, H, shared, beta)
+    ref = gk.sections_eval_plain(secs, xa, xb, alpha, *spec, H, shared, beta)
     torch.cuda.synchronize()
     assert gk.gsu_sections_eval.launches == before + 1
-    num = sum((a - b).square().sum() for a, b in zip(got, ref))
-    den = sum(b.square().sum() for b in ref)
-    assert (num / den).sqrt().item() < 1e-4
+    if df_mode:
+        num = sum((a - b).square().sum() for a, b in zip(got, ref))
+        den = sum(b.square().sum() for b in ref)
+        assert (num / den).sqrt().item() < 1e-4
+        return
+    assert len(got) == len(secs)
+    for s, a, b in zip(secs, got, ref):
+        assert a.shape == b.shape == (s["wa"].shape[0], T, B, s["wproj"].shape[1])
+        assert a.dtype == b.dtype == io
+        assert _rel_l2(a, b) < B_PROJ_TOL[io]
+
+
+def test_sections_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    g = torch.Generator().manual_seed(1)
+    H, T, B = 16, 6, 3
+    secs = _sections(True, torch.float32, dev, g, H)
+    U = sum(s["wa"].shape[0] for s in secs)
+    W = sum(s["wa"].shape[0] * s["ctr"] for s in secs)
+    xa, xb = torch.rand(T, B, 64, device=dev), torch.randn(T, B, 16, device=dev)
+    spec = (torch.randn(T, B, W, device=dev), torch.randn(T, B, W, device=dev))
+    a3 = torch.ones(T, B, U, device=dev)
+    with pytest.raises(ValueError, match="beta"):
+        gk.gsu_sections_eval(secs, xa, xb, a3, *spec, H, True, torch.zeros_like(a3))
+    with pytest.raises(ValueError, match="alpha shape"):
+        gk.gsu_sections_eval(secs, xa, xb, torch.ones(B, U + 1, device=dev), *spec, H, True)
+    with pytest.raises(ValueError, match="dtype"):
+        gk.gsu_sections_eval(secs, xa, xb, a3.double(), *spec, H, True)
+    with pytest.raises(ValueError, match="both or neither"):
+        gk.gsu_sections_eval(secs, xa, xb, a3, spec[0], None, H, True)
+    for s in secs:
+        s["uv"] = torch.zeros(2, H, device=dev)
+    with pytest.raises(ValueError, match="per-frame"):
+        gk.gsu_sections_eval(secs, xa, xb, torch.ones(B, U, device=dev), *spec, H, True,
+                             torch.zeros_like(a3))
+    secs[0]["uv"] = torch.zeros(2, H + 1, device=dev)
+    with pytest.raises(ValueError, match="shape"):
+        gk.gsu_sections_eval(secs, xa, xb, a3, *spec, H, True, torch.zeros_like(a3))
+
+
+def test_collect_path_units_spikes_equal_plain(dev, monkeypatch):
+    """The collect path (eval with collect_layer_outputs=True) runs kernel A
+    four times: the fullband stack in its 3-D form and each section in its
+    4-D units form [n, T, B, G], every layer collected. Each launch's spikes
+    equal the plain version's on the same gates (one stray flip allowed, as
+    above), and the sections' collected spikes are those launches' rows in
+    b-major order."""
+    from spiking_fullsubnet_torch.models import stream_forward as sf
+    from spiking_fullsubnet_torch.models.spiking_fullsubnet import (SpikingFullSubNet,
+                                                                    SpikingFullSubNetConfig)
+    cfg = SpikingFullSubNetConfig(
+        n_fft=128, hop_length=32, win_length=128, fb_input_size=16, fb_hidden_size=24,
+        fb_proj_size=16, sb_hidden_size=20, freq_cutoffs=(0, 8, 32, 64), df_orders=(2, 1, 3),
+        center_freq_sizes=(2, 8, 16), neighbor_freq_sizes=(3, 3, 3),
+        fb_center_freq_sizes=(2, 8, 16), fb_neighbor_freq_sizes=(0, 0, 0),
+        use_pre_layer_norm_fb=False, use_pre_layer_norm_sb=False,
+        norm_type="offline_laplace_norm", bn=True, shared_weights=True, scan_mode="auto")
+    assert cfg.collect_layer_outputs
+    model = SpikingFullSubNet.from_init(cfg, seed=0, device=dev)
+    seen = []
+    real = sf.gsu_stack_eval
+    monkeypatch.setattr(sf, "gsu_stack_eval",
+                        lambda *a, **k: seen.append((a, k, real(*a, **k))) or seen[-1][2])
+    noisy = torch.randn(3, 4000, generator=torch.Generator().manual_seed(2)).to(dev) * 0.1
+    out = model(noisy)
+    torch.cuda.synchronize()
+    assert [a[0].ndim for a, _, _ in seen] == [3, 4, 4, 4]
+    assert all(k.get("collect_all") for _, k, _ in seen)
+    for a, k, got in seen:
+        ref = gk.stack_eval_plain(*a, **k)
+        assert got.shape == ref.shape and (got != ref).float().mean().item() < 1e-3
+    for (a, _, got), lists in zip(seen[1:], out["sb_all_layer_outputs"]):
+        n, T, B = a[0].shape[:3]
+        for layer, spikes in zip(got, lists[1:-1]):
+            assert torch.equal(spikes, layer.permute(1, 2, 0, 3).reshape(T, B * n, -1))
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):

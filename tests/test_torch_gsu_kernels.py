@@ -7,7 +7,9 @@ against the JAX package.
   spike mismatch < 1e-3 (tests/test_stream_forward.py:89), shared and
   unshared weights, BN on and off, 3-D and 4-D, collect_all;
 - plain kernel B in f32 against the Pallas sections kernel in interpret
-  mode (df mode): enhanced re/im SNR > 60 dB (test_stream_forward.py:85);
+  mode, in every mode (unit scales per utterance, per frame, per frame
+  with the pre-LN terms, none; with the deep filter or the projection out):
+  enhanced re/im or projections SNR > 60 dB (test_stream_forward.py:85);
 - the port's GSU layer and spike against ops/gsu.py.
 The CUDA kernels themselves are held against the plain versions on a card
 by tests/test_torch_cuda_kernels.py.
@@ -162,36 +164,102 @@ def _snr(a, b):
     return 10 * np.log10(np.sum(b ** 2) / max(np.sum((a - b) ** 2), 1e-30))
 
 
-@pytest.mark.parametrize("shared", [True, False])
-def test_sections_plain_f32_matches_pallas_interpret(interpret, shared):
-    H, secs_np, xa, xb, alpha, sre, sim = _sections_case(shared)
-    T, B, _ = xa.shape
-    U = alpha.shape[1]
+SECTION_MODES = ("off", "cum", "ln", "raw")
+
+
+def _section_scales(mode, T, B, U, seed=9):
+    """Kernel B's unit scales in ``mode``: the port's (alpha, beta) and the
+    JAX kernel's [T, B, Up] streams (None for "raw")."""
+    rng = np.random.default_rng(seed)
+    if mode == "raw":
+        return None, None, None, None
+    alpha = rng.uniform(0.5, 1.5, (B, U) if mode == "off" else (T, B, U)).astype(np.float32)
+    beta = rng.uniform(-0.5, 0.5, (T, B, U)).astype(np.float32) if mode == "ln" else None
     up = -(-U // 8) * 8
     al = np.zeros((T, B, up), np.float32)
-    al[:, :, :U] = alpha[None]
+    be = np.zeros((T, B, up), np.float32)
+    al[:, :, :U] = alpha[None] if mode == "off" else alpha
+    if beta is not None:
+        be[:, :, :U] = beta
+    return alpha, beta, al, be
+
+
+@pytest.mark.parametrize("df_mode", [True, False], ids=["df", "proj"])
+@pytest.mark.parametrize("mode", SECTION_MODES)
+@pytest.mark.parametrize("shared", [True, False])
+def test_sections_plain_f32_matches_pallas_interpret(interpret, shared, mode, df_mode):
+    """Every mode of kernel B: per-utterance alpha ("off"), per-frame alpha
+    ("cum"), per-frame alpha with the pre-LN terms ``alpha ck - beta u + v``
+    ("ln"), no scaling ("raw"); with the deep filter (enhanced spectrum) or
+    without (each section's projection ``[n, T, B, P]``)."""
+    H, secs_np, xa, xb, _, sre, sim = _sections_case(shared)
+    T, B, _ = xa.shape
+    U = sum(sc["n"] for sc in secs_np)
+    alpha, beta, al, be = _section_scales(mode, T, B, U)
+    G = H if shared else 2 * H
+    rng = np.random.default_rng(11)
+    uv = [(rng.standard_normal((2, G)) * 0.3).astype(np.float32) if mode == "ln" else None
+          for _ in secs_np]
     spans, f0 = [], 0
     for sc in secs_np:
         w = sc["n"] * sc["ctr"]
-        spans.append((sre[:, :, f0:f0 + w], sim[:, :, f0:f0 + w]))
+        spans.append((jnp.asarray(sre[:, :, f0:f0 + w]), jnp.asarray(sim[:, :, f0:f0 + w])))
         f0 += w
     ref = gp.gsu_sections_eval_pallas(
         [sc["p"] for sc in secs_np], [sc["s"] for sc in secs_np],
         [_lane_pad(sc["wa"], H, shared) for sc in secs_np],
-        [_lane_pad(sc["wb"], H, shared) for sc in secs_np], [None] * len(secs_np),
+        [_lane_pad(sc["wb"], H, shared) for sc in secs_np],
+        [None if x is None else (_lane_pad(x[0], H, shared), _lane_pad(x[1], H, shared))
+         for x in uv],
         [sc["wproj"] for sc in secs_np], [sc["bproj"] for sc in secs_np],
-        jnp.asarray(xa), jnp.asarray(xb), jnp.asarray(al), jnp.zeros_like(jnp.asarray(al)),
-        H, shared, sec_spec=[(jnp.asarray(r), jnp.asarray(i)) for r, i in spans],
+        jnp.asarray(xa), jnp.asarray(xb), None if al is None else jnp.asarray(al),
+        None if be is None else jnp.asarray(be), H, shared,
+        sec_spec=spans if df_mode else None,
         sec_geom=[(sc["ctr"], sc["df"]) for sc in secs_np])
-    ref_re = np.concatenate([np.asarray(r) for r, _ in ref], axis=-1)
-    ref_im = np.concatenate([np.asarray(i) for _, i in ref], axis=-1)
-    got_re, got_im = gk.gsu_sections_eval(
-        _port_secs(secs_np, H, shared, torch.float32), torch.from_numpy(xa),
-        torch.from_numpy(xb), torch.from_numpy(alpha), torch.from_numpy(sre),
-        torch.from_numpy(sim), H, shared)
-    assert got_re.shape == ref_re.shape == (T, B, f0)
-    assert _snr(got_re.numpy(), ref_re) > 60
-    assert _snr(got_im.numpy(), ref_im) > 60
+    secs = _port_secs(secs_np, H, shared, torch.float32)
+    for sec, x in zip(secs, uv):
+        if x is not None:
+            sec["uv"] = torch.from_numpy(x)
+    opt = lambda x: None if x is None else torch.from_numpy(x)  # noqa: E731
+    got = gk.gsu_sections_eval(
+        secs, torch.from_numpy(xa), torch.from_numpy(xb), opt(alpha),
+        torch.from_numpy(sre) if df_mode else None, torch.from_numpy(sim) if df_mode else None,
+        H, shared, beta=opt(beta))
+    if df_mode:
+        ref_re = np.concatenate([np.asarray(r) for r, _ in ref], axis=-1)
+        ref_im = np.concatenate([np.asarray(i) for _, i in ref], axis=-1)
+        assert got[0].shape == ref_re.shape == (T, B, f0)
+        assert _snr(got[0].numpy(), ref_re) > 60
+        assert _snr(got[1].numpy(), ref_im) > 60
+        return
+    assert len(got) == len(secs_np)
+    for g, r, sc in zip(got, ref, secs_np):
+        P = 2 * sc["df"] * sc["ctr"]
+        assert g.shape == (sc["n"], T, B, P) and g.dtype == torch.float32
+        assert _snr(g.numpy(), np.asarray(r)[..., :P]) > 60
+
+
+def test_sections_wrapper_rejects_mismatched_modes():
+    """Kernel B's plain version (the wrapper's CPU path) refuses pre-LN terms
+    without a per-frame alpha and beta, a beta without them, and an alpha of
+    another shape, as the kernel's wrapper does."""
+    H, secs_np, xa, xb, alpha, sre, sim = _sections_case(True, seed=2)
+    T, B, _ = xa.shape
+    U = alpha.shape[1]
+    secs = _port_secs(secs_np, H, True, torch.float32)
+    args = (torch.from_numpy(xa), torch.from_numpy(xb))
+    spec = (torch.from_numpy(sre), torch.from_numpy(sim))
+    a3 = torch.ones(T, B, U)
+    with pytest.raises(ValueError, match="beta"):
+        gk.gsu_sections_eval(secs, *args, a3, *spec, H, True, beta=torch.zeros(T, B, U))
+    with pytest.raises(ValueError, match="alpha shape"):
+        gk.gsu_sections_eval(secs, *args, torch.ones(B, U + 1), *spec, H, True)
+    secs[0]["uv"] = torch.zeros(2, H)
+    with pytest.raises(ValueError, match="beta"):
+        gk.gsu_sections_eval(secs, *args, a3, *spec, H, True)
+    with pytest.raises(ValueError, match="per-frame"):
+        gk.gsu_sections_eval(secs, *args, torch.from_numpy(alpha), *spec, H, True,
+                             beta=torch.zeros(T, B, U))
 
 
 @pytest.mark.parametrize("shared", [True, False])

@@ -334,10 +334,10 @@ def test_zoo_m_layered_si_sdr_gain(compute_dtype):
 
 
 @pytest.mark.parametrize("change,match", [
-    ({"scan_mode": "fused"}, "item 12"),
-    ({"sb_shared_bottleneck": 8}, "item 12"),
-    ({"norm_type": "forgetting_norm"}, "item 2"),
-    ({"sequence_model": "LSTM"}, "item 12"),
+    ({"scan_mode": "fused"}, "the fused forward"),
+    ({"sb_shared_bottleneck": 8}, "remaining models and recipes"),
+    ({"norm_type": "forgetting_norm"}, "the rest of dsp/feature_norm.py"),
+    ({"sequence_model": "LSTM"}, "remaining models and recipes"),
 ])
 def test_layered_uncovered_configs_raise_naming_the_roadmap_item(change, match):
     _, pcfg, params, state = _tiny(np.float32)

@@ -212,5 +212,5 @@ def test_init_is_seeded_and_separator_tree_matches_jax():
     assert torch.equal(w(again[0]), w(b["params"])) and not torch.equal(w(other[0]), w(b["params"]))
     m = P.SpikingFullSubNet.from_init(b["config"], seed=5, device="cpu")
     assert torch.equal(w(m.param_tree()), w(b["params"]))
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(NotImplementedError, match="remaining models and recipes"):
         P.build(seed=0, device="cpu", **dict(TINY_KW, sequence_model="LSTM"))

@@ -1,5 +1,5 @@
-"""The port's slices end to end (spiking_fullsubnet_apply, scan_mode="auto",
-collect_layer_outputs=False) against the JAX package's stream forward.
+"""The port's slices end to end (spiking_fullsubnet_apply, scan_mode="auto")
+against the JAX package's stream forward.
 
 Two-launch path (offline laplace norm, kernels A and B):
 - tiny separator config, f64: the port against the JAX stream forward
@@ -19,6 +19,18 @@ Monolith path (pre-LN and the cumulative norm, kernel C):
 - zoo M with cumulative_laplace_norm 1 x 2 s and flagship M (random JAX
   weights) 1 x 1 s at full width, f64: atol 3e-6;
 - zoo M with cumulative_laplace_norm gains > 8 dB of SI-SDR (f32, bf16).
+Two-launch path in every norm mode, and the collect path:
+- tiny configs that miss the monolith's gate (kernel B "cum", "ln",
+  "raw"), eval with and without collect_layer_outputs and training with
+  it, and the other paths' configs with collect, f64, against the JAX
+  stream forward (its per-section scan in f64): audio atol 3e-6, the synops
+  lists and new BN state atol 1e-9, each path's launches counted;
+- f32 against the JAX two-launch path with its Pallas kernels in interpret
+  mode (the monolith's configs at T = 127, round_up(T, 128) < T + 3):
+  SNR > 60 dB; the collect path against the JAX per-section Pallas path:
+  SNR > 60 dB, spike mismatch < 1e-3;
+- zoo M and flagship M with collect at full width, f64: the whole synops
+  contract.
 """
 
 from __future__ import annotations
@@ -41,6 +53,7 @@ from spiking_fullsubnet_tpu.runtime.convert import load_npz as jax_load_npz
 
 from spiking_fullsubnet_torch.models import spiking_fullsubnet as P
 from spiking_fullsubnet_torch.models import stream_forward as sf
+from spiking_fullsubnet_torch.models.presets import flagship_m
 from spiking_fullsubnet_torch.models.stream_forward import stream_supported
 from spiking_fullsubnet_torch.runtime.convert import load_npz, params_from_numpy
 
@@ -221,32 +234,184 @@ def test_stream_gate_matches_jax():
 
 
 @pytest.mark.parametrize("change,match", [
-    ({"collect_layer_outputs": True}, "collect_layer_outputs"),
-    ({"norm_type": "cumulative_laplace_norm", "fdrc": 0.4}, "kernel B's pre-LN"),
-    ({"norm_type": None, "use_pre_layer_norm_fb": True, "use_pre_layer_norm_sb": True,
-      "fb_output_activate_function": "tanh"}, "kernel B's pre-LN"),
-    ({"scan_mode": "fused"}, "item 12"),
-    ({"num_spks": 2, "sequence_model": "LSTM"}, "item 12"),
+    ({"scan_mode": "fused"}, "the fused forward"),
+    ({"num_spks": 2, "sequence_model": "LSTM"}, "remaining models and recipes"),
 ])
 def test_uncovered_configs_raise_naming_the_roadmap_item(change, match):
     _, pcfg, params, state = _tiny(np.float32)
     cfg = replace(pcfg, **change)
     with pytest.raises(NotImplementedError, match=match):
         _port(cfg, params, state, np.zeros((1, 2000), np.float32))
-    # training on the stream path takes every norm (no monolith), but not
-    # the collect path
-    train_cfg = replace(pcfg, scan_mode="stream", **{k: v for k, v in change.items()
-                                                       if k != "scan_mode"})
-    args = (params_from_numpy(params, "cpu"), params_from_numpy(state, "cpu"),
-            torch.from_numpy(np.random.default_rng(0).standard_normal((2, 2000)).astype(
-                np.float32) * 0.1))
-    if "collect_layer_outputs" in change:
-        with pytest.raises(NotImplementedError, match=match):
-            P.spiking_fullsubnet_apply(train_cfg, *args, train=True)
-    elif "fdrc" in change:  # the monolith's gate binds eval only (the weights fit this one)
-        out = P.spiking_fullsubnet_apply(train_cfg, *args, train=True)
-        assert out["enhanced_y"].shape == (2, 2000)
-        assert bool(torch.isfinite(out["enhanced_y"]).all())
+
+
+# ------------------------------------------------- two-launch in every mode, collect path
+
+# configs that miss the monolith's gate (monolith_ok), one per mode of kernel B
+GATE_MISSING = {
+    "cum_fdrc": dict(CUM, fdrc=0.4),  # B "cum"
+    "ln_fb_tanh": dict(PRE_LN, fb_output_activate_function="tanh"),  # B "ln"
+    "raw_fb_tanh": dict(norm_type=None, fb_output_activate_function="tanh"),  # B "raw"
+    "ln_sb_only": dict(norm_type=None, use_pre_layer_norm_sb=True),  # B "ln", fullband raw
+    "ln_fb_only": dict(norm_type=None, use_pre_layer_norm_fb=True),  # B "raw", fullband LN
+}
+# configs of the other two paths, which the collect path and training also take
+OTHERS = {"off": {}, "pre_ln": PRE_LN, "cum": CUM}
+# eval without collect (two-launch), eval with collect, training with collect
+PATH_CASES = ([(k, path) for k in GATE_MISSING for path in ("eval", "collect", "train")]
+              + [(k, path) for k in OTHERS for path in ("collect", "train")])
+# launches of (A, B, C) on each path: kernel A runs the fullband and each section
+LAUNCHES = {"eval": (1, 1, 0), "collect": (4, 0, 0), "train": (0, 0, 0)}
+
+
+def _count(monkeypatch, module, names):
+    calls = {k: 0 for k in names}
+    for k in names:
+        real = getattr(module, k)
+
+        def counted(*a, _k=k, _r=real, **kw):
+            calls[_k] += 1
+            return _r(*a, **kw)
+        monkeypatch.setattr(module, k, counted)
+    return calls
+
+
+def _assert_lists_close(got, ref, what, atol=None, snr=None):
+    """The synops lists: the same nesting and shapes; each entry within
+    ``atol``, or spikes within the mismatch bound and the rest above ``snr``
+    dB."""
+    assert len(got) == len(ref), what
+    for i, (g, r) in enumerate(zip(got, ref)):
+        if isinstance(r, (list, tuple)):
+            _assert_lists_close(g, r, f"{what}[{i}]", atol, snr)
+            continue
+        g, r = g.detach().double().numpy(), np.asarray(r, np.float64)
+        assert g.shape == r.shape, (what, i, g.shape, r.shape)
+        if atol is not None:
+            np.testing.assert_allclose(g, r, atol=atol, rtol=0, err_msg=f"{what}[{i}]")
+        elif np.isin(r, (0.0, 1.0)).all():
+            assert np.mean(g != r) < 1e-3, (what, i)
+        else:
+            assert _snr(g, r) > snr, (what, i)
+
+
+def _both(jcfg, pcfg, params, state, noisy, train):
+    ref = J.spiking_fullsubnet_apply(jcfg, params, state, jnp.asarray(noisy), train=train)
+    out = P.spiking_fullsubnet_apply(pcfg, params_from_numpy(params, "cpu"),
+                                     params_from_numpy(state, "cpu"), torch.from_numpy(noisy),
+                                     train=train)
+    return ref, out
+
+
+@pytest.mark.parametrize("name,path", PATH_CASES)
+def test_gate_missing_and_collect_configs_match_jax_f64(name, path, monkeypatch):
+    """The configs that miss the monolith's gate run on the two-launch path
+    with kernel B in their mode (one launch each of A and B); with
+    collect_layer_outputs=True eval runs the per-section path (kernel A four
+    times) and training returns the lists too. Against the JAX stream
+    forward in f64: enhanced_y atol 3e-6, enhanced_mag, the synops lists and
+    the new BN state atol 1e-9."""
+    jcfg, pcfg, params, state = _tiny(np.float64, **{**GATE_MISSING, **OTHERS}[name])
+    assert sf.monolith_ok(pcfg) == (name in ("pre_ln", "cum"))
+    collect, train = path != "eval", path == "train"
+    jcfg = replace(jcfg, collect_layer_outputs=collect)
+    pcfg = replace(pcfg, collect_layer_outputs=collect)
+    calls = _count(monkeypatch, sf, ("gsu_stack_eval", "gsu_sections_eval", "sfsb_monolith_serve"))
+    noisy = np.random.default_rng(8).standard_normal((2, 3000)) * 0.1
+    ref, out = _both(jcfg, pcfg, params, state, noisy, train)
+    assert tuple(calls.values()) == LAUNCHES[path]
+    np.testing.assert_allclose(out["enhanced_y"].detach().numpy(), np.asarray(ref["enhanced_y"]),
+                               atol=3e-6)
+    np.testing.assert_allclose(out["enhanced_mag"].detach().numpy(),
+                               np.asarray(ref["enhanced_mag"]), atol=1e-9)
+    for key in ("fb_all_layer_outputs", "sb_all_layer_outputs"):
+        _assert_lists_close(out[key], ref[key], key, atol=1e-9)
+    if collect:
+        assert len(out["fb_all_layer_outputs"]) == 4 and len(out["sb_all_layer_outputs"]) == 3
+    if train:
+        _assert_lists_close(jax.tree.leaves(out["state"]), jax.tree.leaves(ref["state"]),
+                            "state", atol=1e-9)
+
+
+# (name, samples): T = 127 frames for the monolith's configs, round_up(127, 128)
+# < 127 + 3, so that the JAX dispatch takes its two-launch path for them too
+F32_CASES = [("cum_fdrc", 5005), ("ln_fb_tanh", 5005), ("raw_fb_tanh", 5005),
+             ("ln_sb_only", 5005), ("pre_ln", 4040), ("cum", 4040)]
+
+
+@pytest.mark.parametrize("name,samples", F32_CASES)
+def test_two_launch_f32_matches_jax_two_launch_interpret(name, samples, monkeypatch):
+    """f32: the port's two-launch path (``_serve_two_launch``, which
+    ``_serve`` takes for the gate-missing configs) against the JAX two-launch
+    path with the Pallas kernels in interpret mode (a counter asserts that
+    its sections kernel ran and its monolith did not): SNR > 60 dB."""
+    jcfg, pcfg, params, state = _tiny(np.float32, shared=False,
+                                      **{**GATE_MISSING, **OTHERS}[name])
+    noisy = (np.random.default_rng(9).standard_normal((2, samples)) * 0.1).astype(np.float32)
+    calls = _count(monkeypatch, gp, ("gsu_sections_eval_pallas", "sfsb_monolith_serve_pallas"))
+    monkeypatch.setattr(gp, "_INTERPRET", True)
+    ref = J.spiking_fullsubnet_apply(jcfg, params, state, jnp.asarray(noisy))
+    assert calls == {"gsu_sections_eval_pallas": 1, "sfsb_monolith_serve_pallas": 0}
+    port = _count(monkeypatch, sf, ("gsu_sections_eval",))
+    out = sf._serve_two_launch(pcfg, params_from_numpy(params, "cpu"),
+                               params_from_numpy(state, "cpu"), torch.from_numpy(noisy))
+    assert port == {"gsu_sections_eval": 1}
+    if name in GATE_MISSING:  # _serve dispatches them there
+        same = _port(pcfg, params, state, noisy)
+        assert torch.equal(same["enhanced_y"], out["enhanced_y"])
+    assert out["enhanced_y"].dtype == torch.float32
+    assert _snr(out["enhanced_y"].numpy(), np.asarray(ref["enhanced_y"])) > 60
+
+
+@pytest.mark.parametrize("name", ["off", "ln_fb_tanh", "cum_fdrc"])
+def test_collect_f32_matches_jax_per_section_interpret(name, monkeypatch):
+    """f32, collect_layer_outputs=True: the port's per-section path against
+    the JAX per-section path with kernel A's Pallas kernel in interpret mode
+    (``gsu_stack_eval_pallas_xg`` with collect_all, four launches): audio SNR
+    > 60 dB, every collected spike tensor within a mismatch of 1e-3, the
+    normed inputs and projections above 60 dB."""
+    jcfg, pcfg, params, state = _tiny(np.float32, **{**GATE_MISSING, **OTHERS}[name])
+    jcfg = replace(jcfg, collect_layer_outputs=True)
+    pcfg = replace(pcfg, collect_layer_outputs=True)
+    noisy = (np.random.default_rng(10).standard_normal((2, 4000)) * 0.1).astype(np.float32)
+    calls = _count(monkeypatch, gp, ("gsu_stack_eval_pallas_xg",))
+    monkeypatch.setattr(gp, "_INTERPRET", True)
+    ref, out = _both(jcfg, pcfg, params, state, noisy, False)
+    assert calls == {"gsu_stack_eval_pallas_xg": 4}
+    assert _snr(out["enhanced_y"].numpy(), np.asarray(ref["enhanced_y"])) > 60
+    for key in ("fb_all_layer_outputs", "sb_all_layer_outputs"):
+        _assert_lists_close(out[key], ref[key], key, snr=60)
+
+
+@pytest.mark.parametrize("model", ["zoo_m", "flagship_m"])
+def test_full_width_collect_f64_matches_jax(model, monkeypatch):
+    """collect_layer_outputs=True at full width in f64, the whole synops
+    contract: zoo M from baseline_m.npz (1 x 2 s) and flagship M with the
+    preset's own collect (random JAX weights, 1 x 1 s) through "auto" run
+    the per-section path (kernel A four times, B and C never) and match the
+    JAX stream forward: audio atol 3e-6; every list entry's shape, order
+    and values atol 1e-9."""
+    if model == "zoo_m":
+        jcfg, pcfg, params, state = _zoo(np.float64)
+        samples = 32000
+    else:
+        jb = jax_flagship_m(seed=1)
+        pcfg = flagship_m(device="cpu", scan_mode="auto")["config"]
+        assert pcfg.collect_layer_outputs
+        jcfg = replace(jb["config"], scan_mode="stream")
+        to = lambda t: jax.tree.map(lambda x: np.asarray(x, np.float64), t)  # noqa: E731
+        params, state = to(jb["params"]), to(jb["state"])
+        samples = 16000
+    jcfg = replace(jcfg, collect_layer_outputs=True)
+    pcfg = replace(pcfg, collect_layer_outputs=True)
+    calls = _count(monkeypatch, sf, ("gsu_stack_eval", "gsu_sections_eval", "sfsb_monolith_serve"))
+    noisy = np.random.default_rng(12).standard_normal((1, samples)) * 0.05
+    ref, out = _both(jcfg, pcfg, params, state, noisy, False)
+    assert tuple(calls.values()) == (4, 0, 0)
+    np.testing.assert_allclose(out["enhanced_y"].numpy(), np.asarray(ref["enhanced_y"]),
+                               atol=3e-6)
+    assert [len(x) for x in out["sb_all_layer_outputs"]] == [4, 4, 4]
+    for key in ("fb_all_layer_outputs", "sb_all_layer_outputs"):
+        _assert_lists_close(out[key], ref[key], key, atol=1e-9)
 
 
 # ------------------------------------------------------------------ monolith

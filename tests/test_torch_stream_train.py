@@ -28,7 +28,8 @@ versions of kernels D and E.
   rounds them, as eager JAX and PyTorch do: jitted with excess precision
   its loss moves by 7e-4 from its own eager value;
 - the dispatch: on a CPU tensor "stream" with train=True runs the plain
-  versions of D and E; collect_layer_outputs=True raises.
+  versions of D and E; with collect_layer_outputs=True it also returns the
+  synops lists (f64 values against the JAX stream forward's, atol 1e-9).
 The layer-level bf16 checks of D and E are in test_torch_train_layer.py.
 Inputs are made with numpy from a seed and handed to both packages.
 """
@@ -265,9 +266,10 @@ def test_tiny_flagship_bf16_stream_step_close_to_jax_interpret(monkeypatch):
 def test_stream_train_on_a_cpu_tensor_runs_the_plain_kernels(monkeypatch):
     """"stream" with train=True on a CPU tensor runs the plain versions of
     D and E: one each per GSU layer (4 stacks x 2 layers), bf16 streams
-    under the bf16 policy; collect_layer_outputs=True raises naming its
-    ROADMAP item."""
-    _, pcfg, params, state = _tiny(dict(TINY_FLAGSHIP, compute_dtype="bfloat16"))
+    under the bf16 policy; with collect_layer_outputs=True the same step
+    also returns the synops lists, of the JAX stream forward's shapes and,
+    in f64 on the same config and weights, its values (atol 1e-9)."""
+    jcfg, pcfg, params, state = _tiny(dict(TINY_FLAGSHIP, compute_dtype="bfloat16"))
     seen = {"fwd": [], "bwd": []}
     for key, name in (("fwd", "layer_train_fwd_plain"), ("bwd", "layer_train_bwd_plain")):
         real = getattr(gk, name)
@@ -283,7 +285,24 @@ def test_stream_train_on_a_cpu_tensor_runs_the_plain_kernels(monkeypatch):
     assert seen == {"fwd": [torch.bfloat16] * 8, "bwd": [torch.bfloat16] * 8}
     assert out["enhanced_y"].dtype == torch.float32 and out["enhanced_mag"] is not None
     assert all(t.grad is not None for t in jax.tree.leaves(tp))
-    with pytest.raises(NotImplementedError, match="queue 1, item 6"):
-        P.spiking_fullsubnet_apply(replace(pcfg, collect_layer_outputs=True), tp,
-                                   params_from_numpy(_np(state), "cpu"), torch.from_numpy(noisy),
-                                   train=True)
+
+    seen.update(fwd=[], bwd=[])
+    coll = P.spiking_fullsubnet_apply(replace(pcfg, collect_layer_outputs=True), tp,
+                                      params_from_numpy(_np(state), "cpu"),
+                                      torch.from_numpy(noisy), train=True)
+    assert seen["fwd"] == [torch.bfloat16] * 8
+    assert torch.equal(coll["enhanced_y"], out["enhanced_y"])
+    f64 = lambda t: _np(t, np.float64)  # noqa: E731
+    jc = replace(jcfg, compute_dtype=None, collect_layer_outputs=True)
+    ref = J.spiking_fullsubnet_apply(jc, f64(params), f64(state), jnp.asarray(noisy, jnp.float64),
+                                     train=True)
+    got = P.spiking_fullsubnet_apply(
+        replace(pcfg, compute_dtype=None, collect_layer_outputs=True),
+        params_from_numpy(f64(params), "cpu"), params_from_numpy(f64(state), "cpu"),
+        torch.from_numpy(noisy.astype(np.float64)), train=True)
+    for key in ("fb_all_layer_outputs", "sb_all_layer_outputs"):
+        r_leaves = jax.tree.leaves(ref[key])
+        assert len(jax.tree.leaves(coll[key])) == len(jax.tree.leaves(got[key])) == len(r_leaves)
+        for c, g, r in zip(jax.tree.leaves(coll[key]), jax.tree.leaves(got[key]), r_leaves):
+            assert tuple(c.shape) == tuple(g.shape) == tuple(r.shape)
+            np.testing.assert_allclose(g.detach().numpy(), np.asarray(r), atol=1e-9, rtol=0)

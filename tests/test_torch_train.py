@@ -10,8 +10,9 @@
   1e-12, every gradient leaf within 1e-9 max|g|, the new BN state within
   rtol 1e-12, the parameters after the step within 1e-10;
 - the dispatch: on a CPU tensor scan_mode="auto" with train=True takes the
-  layered path, as JAX on a CPU does; the stream path trains too, but not
-  with collect_layer_outputs=True.
+  layered path, as JAX on a CPU does; the stream path trains too, with
+  collect_layer_outputs=True as well (zoo M, f64, against the JAX stream
+  forward).
 The layer-level checks of kernels D and E are in test_torch_train_layer.py.
 Inputs are made with numpy from a seed and handed to both packages.
 """
@@ -195,8 +196,9 @@ def test_auto_trains_layered_on_cpu_and_stream_training_raises(monkeypatch):
     """On a CPU tensor "auto" with train=True takes the layered path
     (spiking_fullsubnet.py:265-275: JAX on a CPU keeps the layered
     reference), even for a config the stream path supports; the stream
-    path trains (tests/test_torch_stream_train.py) but raises for the
-    per-layer outputs it does not collect yet."""
+    path trains (tests/test_torch_stream_train.py), with the per-layer
+    outputs collected too: in f64 its audio (atol 3e-6), lists and new BN
+    state (atol 1e-9) equal the JAX stream forward's."""
     from spiking_fullsubnet_torch.models.stream_forward import stream_supported
 
     cfg = replace(P.separator_config(**ZOO_KW), scan_mode="auto", collect_layer_outputs=False)
@@ -213,6 +215,22 @@ def test_auto_trains_layered_on_cpu_and_stream_training_raises(monkeypatch):
     new_rm = out["state"]["sb"][0]["stack"]["layers"][0]["bn"]["running_mean"]
     assert not torch.equal(new_rm, state["sb"][0]["stack"]["layers"][0]["bn"]["running_mean"])
     assert not model(noisy)["enhanced_y"].requires_grad  # forward stays the no-grad eval
-    with pytest.raises(NotImplementedError, match="collect_layer_outputs"):
-        P.spiking_fullsubnet_apply(replace(cfg, scan_mode="stream", collect_layer_outputs=True),
-                                   params, state, noisy, train=True)
+
+    stream = replace(cfg, scan_mode="stream", collect_layer_outputs=True)
+    jcfg = J.SpikingFullSubNetConfig(**stream.__dict__)
+    tpl = J.spiking_fullsubnet_init(jax.random.PRNGKey(0), jcfg)
+    tree = _np(jax_load_npz(str(ZOO_M), {"params": tpl[0], "state": tpl[1]}), np.float64)
+    x64 = noisy.double().numpy()
+    ref = J.spiking_fullsubnet_apply(jcfg, tree["params"], tree["state"], jnp.asarray(x64),
+                                     train=True)
+    got = P.spiking_fullsubnet_apply(stream, params_from_numpy(tree["params"], "cpu"),
+                                     params_from_numpy(tree["state"], "cpu"),
+                                     torch.from_numpy(x64), train=True)
+    np.testing.assert_allclose(got["enhanced_y"].detach().numpy(), np.asarray(ref["enhanced_y"]),
+                               atol=3e-6)
+    for key in ("fb_all_layer_outputs", "sb_all_layer_outputs", "state"):
+        r_leaves = jax.tree.leaves(ref[key])
+        assert len(jax.tree.leaves(got[key])) == len(r_leaves) > 0, key
+        for g, r in zip(jax.tree.leaves(got[key]), r_leaves):
+            assert tuple(g.shape) == tuple(r.shape), key
+            np.testing.assert_allclose(g.detach().numpy(), np.asarray(r), atol=1e-9, rtol=0)
