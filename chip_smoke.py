@@ -57,7 +57,12 @@ is non-zero:
             unit's unfold reads, F's layer-0 product and the DFT products
             dense, over 989 TFLOP/s (bf16)
             or 67 TFLOP/s (f32), and the f32 cell, statistics and deep-filter
-            arithmetic over 67 TFLOP/s.
+            arithmetic over 67 TFLOP/s. Kernel C besides: its plan (rows a
+            tile, blocks a cluster, clusters in flight against the card's
+            cudaOccupancyMaxActiveClusters, waves; one wave required), its
+            time at half the batch, two launches on the bench's inputs
+            bitwise equal, and one profiled launch's SM cycles a step in
+            each stage (io, fullband and unit blocks).
 6. training the layered training step (recipes/denoise.train_step: the
             denoise loss, backward, clipping by global norm 10, AdamW) of
             zoo M (separator_config's default, from baseline_m.npz) and of
@@ -81,7 +86,8 @@ is non-zero:
               layer's drift is one chaotic sample, unlike F's independent
               rows); E and the dW kernel on identical inputs, relative
               L2 < 1e-3 (the fixture's whole sequence, the training
-              batch's first 16 frames);
+              batch's first 16 frames), and the dW kernel's two launches on
+              the same inputs bitwise equal;
             - five train_steps on one fixed batch of the speech fixture
               (eight copies shifted in time, each with its own noise, 8 x 2 s;
               see FIXTURE_COPIES): every loss and gradient finite, the BN
@@ -115,7 +121,7 @@ is non-zero:
               the plain version (which does not round drg to bf16), the
               kernel within 3x (+1e-5) of the plain version's error (a drg
               at a bf16 midpoint rounds either way); dW on identical inputs,
-              relative L2 < 1e-3;
+              relative L2 < 1e-3, two launches bitwise equal;
             - the same at baseline L's section stacks of 1024 and 1536 rows
               x 256 units (recipes/intel_ndns/spiking_fullsubnet_freeze_phase/
               baseline_l.toml [model.args], random weights from seed 0):
@@ -133,7 +139,8 @@ is non-zero:
               baseline L (10 each, one timed step); D, E and dW alone at
               flagship M's eight layers and at baseline L's four section
               layers of 1024 and 1536 rows, their plain versions, bounds and
-              torch.matmul on dW's product in bf16.
+              torch.matmul on dW's product in bf16; dW's split-K plan (splits
+              and rows a split) at each launch.
 8. modes    serving in every mode of kernel B and on the collect path,
             each on a configuration whose forward takes it (each misses the
             monolith's gate): "ln" flagship M with a fullband tanh (its
@@ -721,7 +728,7 @@ def e_checks(gk, e_args, steps=None):
     (which does not round drg to bf16): ``rel_l2_f64``, ``plain_rel_l2_f64``,
     the largest over the four outputs."""
     rec = {"rel_l2": [], "max_abs_err": 0.0, "dw_rel_l2": [], "dw_max_abs_err": 0.0,
-           "rel_l2_f64": [], "plain_rel_l2_f64": []}
+           "dw_bitwise_twice": [], "rel_l2_f64": [], "plain_rel_l2_f64": []}
     for ea in e_args:
         args = head_e(ea, steps) if steps else ea
         rel, err, dxg = e_errors(gk, args)
@@ -734,6 +741,9 @@ def e_checks(gk, e_args, steps=None):
             rec["plain_rel_l2_f64"].append(max(rel_l2(r, o) for r, o in zip(ref, ora)))
             del got, ref, ora
         got_w, ref_w = gk.gsu_train_dw(args[1], dxg), gk.train_dw_plain(args[1], dxg)
+        rec["dw_bitwise_twice"].append(bool(torch.equal(got_w, gk.gsu_train_dw(args[1], dxg))))
+        require(rec["dw_bitwise_twice"][-1],
+                f"the dW kernel differs between two launches on the same inputs ({args[1].shape})")
         rec["dw_rel_l2"].append(rel_l2(got_w, ref_w))
         rec["dw_max_abs_err"] = max(rec["dw_max_abs_err"], max_abs(got_w, ref_w))
     return rec
@@ -860,6 +870,7 @@ def time_de_layers(gk, names, d_args, e_args, d_plain_ms, e_plain_ms, with_dw=Tr
         if with_dw:
             hp = (y[:-1] >= 0).to(dxg.dtype).reshape(-1, H).T.contiguous()
             dx1 = dxg[1:].reshape(-1, G)
+            split = gk.dw_split_plan(*y.shape, G, dxg.dtype)
             rows["dW"] = (cuda_ms(lambda: gk.gsu_train_dw(y, dxg), iters=3),
                           cuda_ms(lambda: gk.train_dw_plain(y, dxg), warmup=0),
                           bound_dw(y, dxg, spikes),
@@ -870,11 +881,14 @@ def time_de_layers(gk, names, d_args, e_args, d_plain_ms, e_plain_ms, with_dw=Tr
                    "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3, "ops_ms": ops_s * 1e3,
                    "bytes": nbytes, "ops": ops, "spikes": spikes, "library_ms": lib}
             row["bound_ms"] = max(row["bytes_ms"], row["ops_ms"])
+            if k == "dW":
+                row["splits"], row["rows_per_split"] = split
             per[k].append(row)
         log(f"[timing] {name} {tuple(da[0].shape)} {str(da[0].dtype)[6:]}: " + "; ".join(
             f"{k} {per[k][-1]['ms']:.3f} ms (plain {per[k][-1]['plain_ms']:.1f}, bound "
             f"{per[k][-1]['bound_ms']:.4f}"
-            + (f", matmul {per[k][-1]['library_ms']:.3f}" if k == "dW" else "") + ")"
+            + (f", matmul {per[k][-1]['library_ms']:.3f}, {per[k][-1]['splits']} splits of "
+               f"{per[k][-1]['rows_per_split']} rows" if k == "dW" else "") + ")"
             for k in rows))
         del dxg
     return per
@@ -1730,11 +1744,35 @@ def main() -> int:
             f"{max(b_bytes, b_ops):.4f} ms ({kernels[-1]['bound_by']}; bytes {b_bytes:.4f} ms, "
             f"operations {b_ops:.4f} ms)")
         if key == "C":
-            # half the batch is half the clusters: equal times mean that the
-            # full batch's clusters did not all run at once
+            # the plan: rows per tile, blocks per cluster, the clusters the
+            # card holds at once and the waves; half the batch is half the
+            # clusters, so with one wave the two times are about equal
+            occ = gk.monolith_occupancy(*args, cluster_sizes=(5, 6, 7, 8))
+            kernels[-1]["plan"] = occ
+            log(f"[timing] {name} plan: {occ['rows_per_tile']} rows a tile, "
+                f"{occ['blocks_per_cluster']} blocks a cluster (shared memory {occ['smem']} "
+                f"bytes; unit blocks (section, first unit, units) {occ['units']}), "
+                f"{occ['clusters']} clusters, {occ['in_flight']} in flight (the card holds "
+                f"{occ['max_active_clusters']}), {occ['waves']} wave(s); clusters of n blocks "
+                f"the card would hold at this shared memory {occ['max_active_by_cluster_size']}")
+            require(occ["waves"] == 1, f"kernel C: {occ['waves']} waves at batch {BENCH_B}")
             half = (args[0], args[1][:, :BENCH_B // 2].contiguous())
             kernels[-1]["half_batch_ms"] = cuda_ms(lambda: fn(*half), iters=2)
             log(f"[timing] {name} at batch {BENCH_B // 2}: {kernels[-1]['half_batch_ms']:.3f} ms")
+            first, again = fn(*args), fn(*args)
+            torch.cuda.synchronize()
+            require(torch.equal(first, again), "kernel C: two launches on the bench's inputs differ")
+            kernels[-1]["checks"]["bitwise_twice"] = True
+            del first, again
+            # SM cycles a step in each stage's phases (one profiled launch);
+            # the slowest block sets the pace, the others wait at the barrier
+            prof = gk.monolith_profile(*args)
+            kernels[-1]["stage_cycles_per_step"] = prof
+            for role in ("io", "fullband", "units"):
+                log(f"[timing] {name} {role} block, SM cycles a step: " + ", ".join(
+                    f"{ph} {v:.0f}" for ph, v in prof[role].items()))
+            log(f"[timing] {name} unit blocks' busy cycles a step: "
+                + ", ".join(f"{v:.0f}" for v in prof["units_busy_each"]))
     kernels.append(kernel_f_entry(gk, captured_bf16["F"], plain_ms["F"], spikes["F"],
                                   launches, checks["F"], forwards))
     del captured_bf16, bench

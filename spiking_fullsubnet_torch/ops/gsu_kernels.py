@@ -38,15 +38,15 @@ kernels' oracles.
 
 The kernels are compiled at first use with ``nvcc -gencode
 arch=compute_90a,code=sm_90a -O3 -shared`` (one nvcc per library, all
-started together; kernel C is six libraries, one per stream type and
-sub-band depth) into ``spiking_fullsubnet_torch/_build/`` and loaded with
-ctypes.
+started together; kernel C is two libraries, one per stream type) into
+``spiking_fullsubnet_torch/_build/`` and loaded with ctypes.
 """
 
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -62,14 +62,12 @@ from .gsu import BN_EPS, acc_dtype_for, bn_eval_affine
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 # library name -> (source, defines). Kernel C builds one library per stream
-# type and sub-band depth, so that its instances compile in parallel.
+# type, so that its two instances compile in parallel.
 SOURCES = {"stack": ("gsu_stack_eval.cu", ()), "sections": ("gsu_sections_eval.cu", ()),
            "stack_x": ("gsu_stack_eval_x.cu", ()), "train_fwd": ("gsu_train_fwd.cu", ()),
            "train_bwd": ("gsu_train_bwd.cu", ())}
-SOURCES.update({
-    f"monolith_{io}_l{L}": ("sfsb_monolith_serve.cu", (f"-DMONO_BF16={int(io == 'bf16')}",
-                                                        f"-DMONO_L={L}"))
-    for io in ("f32", "bf16") for L in (1, 2, 3)})
+SOURCES.update({f"monolith_{io}": ("sfsb_monolith_serve.cu", (f"-DMONO_BF16={int(io == 'bf16')}",))
+                for io in ("f32", "bf16")})
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 MAX_LAYERS = 4
@@ -145,11 +143,14 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
     elif name == "train_bwd":
         lib.gsu_train_bwd_launch.argtypes = [I] + [P] * 12 + [I] * 5 + [P]
         lib.gsu_train_bwd_launch.restype = I
-        lib.gsu_train_dw_launch.argtypes = [I] + [P] * 3 + [I] * 4 + [P]
+        lib.gsu_train_dw_launch.argtypes = [I] + [P] * 4 + [I] * 5 + [ctypes.c_longlong, P]
         lib.gsu_train_dw_launch.restype = I
     else:
         lib.sfsb_monolith_launch.argtypes = [I, ctypes.POINTER(_MonoArgs), P]
         lib.sfsb_monolith_launch.restype = I
+        lib.sfsb_monolith_max_clusters.argtypes = [I, ctypes.POINTER(_MonoArgs),
+                                                   ctypes.POINTER(I)]
+        lib.sfsb_monolith_max_clusters.restype = I
     lib.gsu_error_string.argtypes = [I]
     lib.gsu_error_string.restype = ctypes.c_char_p
     return lib
@@ -589,9 +590,35 @@ def train_dw_plain(y: torch.Tensor, dxg: torch.Tensor) -> torch.Tensor:
     return h_prev.T @ dxg[1:].reshape(-1, G).to(y.dtype)
 
 
+H100_SMS = 132
+# the dW kernel's output tile (rows and columns) by stream type (DwTile in
+# csrc/gsu_train_bwd.cu)
+DW_TILE = {torch.bfloat16: 128, torch.float32: 64}
+DW_MIN_ROWS = 256  # fewest summed rows worth a split of their own
+
+
+def dw_split_plan(T: int, R: int, H: int, G: int, io: torch.dtype,
+                  sms: int = H100_SMS) -> Tuple[int, int]:
+    """The dW kernel's split-K plan for ``io`` streams: ``(splits, chunk)``,
+    split s summing the rows ``[s chunk, min(K, (s + 1) chunk))`` of the K =
+    (T - 1) R rows of ``h_prev^T dxg`` (a split past K sums nothing and
+    writes zeros). The output tiles times the splits are the blocks: the
+    splits are the fewest that make them a multiple of ``sms`` (up to two
+    blocks per SM), unless that leaves a split fewer than DW_MIN_ROWS rows."""
+    K = (T - 1) * R
+    tile = DW_TILE[io]
+    tiles = -(-H // tile) * -(-G // tile)
+    step = sms // math.gcd(tiles, sms)
+    splits = step * max(1, (2 * sms) // (tiles * step))
+    if K < splits * DW_MIN_ROWS:
+        splits = max(1, K // DW_MIN_ROWS)
+    return splits, max(1, -(-K // splits))
+
+
 def gsu_train_dw(y: torch.Tensor, dxg: torch.Tensor) -> torch.Tensor:
     """Kernel E's weight gradient: ``train_dw_plain``'s product summed in
-    float32 over every step and row, the zero spikes skipped; y float32,
+    float32 over every step and row (split over the rows as
+    ``dw_split_plan`` says, the partials added in split order); y float32,
     dxg in the stream type."""
     if not y.is_cuda:
         return train_dw_plain(y, dxg)
@@ -602,11 +629,13 @@ def gsu_train_dw(y: torch.Tensor, dxg: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"dxg dtype {dxg.dtype}: the kernel takes float32 or bfloat16 streams")
     _check_cuda("y", y, torch.float32, dev)
     _check_cuda("dxg", dxg, dxg.dtype, dev, (T, R, G))
+    splits, chunk = dw_split_plan(T, R, H, G, dxg.dtype)
     dw = torch.empty(H, G, dtype=torch.float32, device=dev)
+    part = dw if splits == 1 else torch.empty(splits, H, G, dtype=torch.float32, device=dev)
     lib = _lib("train_bwd")
     with torch.cuda.device(dev):
-        rc = lib.gsu_train_dw_launch(TRAIN_IO[dxg.dtype], _ptr(y), _ptr(dxg), _ptr(dw), T, R, H,
-                                     G, _stream())
+        rc = lib.gsu_train_dw_launch(TRAIN_IO[dxg.dtype], _ptr(y), _ptr(dxg), _ptr(dw),
+                                     _ptr(part), T, R, H, G, splits, chunk, _stream())
     _check_rc(lib, rc, "gsu_train_dw")
     gsu_train_dw.launches += 1
     return dw
@@ -1060,34 +1089,252 @@ def monolith_serve_plain(mono: Dict[str, Any], chunks: torch.Tensor,
     return out
 
 
-class _MonoSec(ctypes.Structure):
-    _fields_ = ([(k, ctypes.c_int) for k in ("n", "a0", "aw", "ctr", "df", "P", "u0", "f0")]
-                + [(k, ctypes.c_longlong) for k in ("wa", "wb", "uv", "wihr", "whh", "coef",
-                                                     "wproj", "bproj")])
+# ---- kernel C's plan: the cluster's blocks, their shared memory, the packed
+# weights. The kernel (csrc/sfsb_monolith_serve.cu) takes every offset from
+# here, so that the CPU tests hold the plan the card runs.
+
+# bytes of dynamic shared memory a block of kernel C can have on an H100
+# (227 KB less the kernel's static profile counters)
+SMEM_MAX = 232448 - 128
+MONO_MAX_BLOCKS = 16  # blocks per cluster; above 8 the cluster is non-portable
+MONO_MAX_N = 64  # columns (units x rows) of a unit block's products
+ROLES = ("io", "fullband", "units")
 
 
-_MONO_PTRS = ("chunks", "out", "wdft", "widft", "sel_mag", "sel_fb", "fb_wa", "fb_uv",
-              "fb_wihr", "fb_whh", "fb_coef", "fb_wproj", "fb_bproj", "wa", "wb", "uv", "wihr",
-              "whh", "coef", "wproj", "bproj")
+def _r16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def _ld(k: int) -> int:
+    """Row length of a staged right operand of k summed inputs: whole
+    16-wide k-tiles plus 8 (so that eight rows' fragments fall on 32
+    distinct banks)."""
+    return _r16(k) + 8
+
+
+def _mono_dims(mono: Dict[str, Any]) -> Dict[str, Any]:
+    fb, secs = mono["fb"], mono["secs"]
+    U, W, F1 = _mono_geometry(mono)
+    return dict(
+        n_fft=mono["n_fft"], hop=mono["n_fft"] // 4, F1=F1, F=F1 - 1, W=W, U=U,
+        Fin=int(fb["wa"].shape[0]), Pfb=int(fb["wproj"].shape[1]), Hf=fb["hidden"],
+        Lf=int(fb["whh"].shape[0]), H=mono["hidden"], L=int(secs[0]["whh"].shape[0]),
+        shared=bool(mono["shared"]), norm=mono["norm"],
+        secs=[dict(n=int(s["wa"].shape[0]), a0=s["a0"], aw=int(s["wa"].shape[1]),
+                   ctr=s["ctr"], df=s["df"], P=int(s["wproj"].shape[1])) for s in secs])
+
+
+def _block_smem(d: Dict[str, Any], role: str, rt: int, es: int,
+                unit: Optional[Tuple[int, int, int]] = None) -> Tuple[List[int], int]:
+    """(region byte offsets, total bytes) of one block's shared memory; the
+    regions in the order the kernel's stages name them (o[0], o[1], ...)."""
+    n_fft, F1, F, U1, hop = d["n_fft"], d["F1"], d["F"], d["U"] + 1, d["hop"]
+    Hp, Hfp = _r16(d["H"]), _r16(d["Hf"])
+    if role == "io":  # front (DFT) and back (inverse DFT, overlap-add)
+        sizes = [max(rt * _ld(n_fft) * es, F * rt * 4), 2 * F1 * rt * 4, F * U1 * 4,
+                 2 * rt * _ld(2 * F1) * es, 4 * 2 * (F1 - d["W"]) * rt * 4, n_fft * rt * 4,
+                 6 * hop * rt * 4]
+    elif role == "fullband":
+        sizes = [2 * rt * _ld(d["Fin"]) * es, 2 * 2 * U1 * rt * 4, 2 * d["Lf"] * rt * Hfp // 8,
+                 d["Lf"] * Hfp * rt * 4, d["Pfb"] * rt * 4, d["Pfb"] * U1 * 4, U1 * rt * 4]
+    else:
+        si, _, nb = unit
+        s = d["secs"][si]
+        N = nb * rt
+        sizes = [3 * rt * _ld(s["aw"]) * es, 2 * rt * _ld(d["Pfb"]) * es, 2 * 2 * nb * rt * 4,
+                 (s["df"] + 2) * 2 * nb * s["ctr"] * rt * 4, 2 * d["L"] * N * Hp // 8,
+                 d["L"] * Hp * N * 4, N * s["P"] * 4]
+    offs, o = [], 0
+    for n in sizes:
+        offs.append(o)
+        o += -(-n // 16) * 16
+    return offs, o
+
+
+def _unit_blocks(d: Dict[str, Any], rt: int, es: int) -> List[Tuple[int, int, int]]:
+    """Unit blocks (section, first unit in the section, units): each holds
+    units of one section only, at most MONO_MAX_N / rt, as few blocks as
+    that allows (the fewer blocks a cluster has, the more clusters the card
+    holds at once); a block over SMEM_MAX is split in two, while the cluster
+    has room."""
+    cap = MONO_MAX_N // rt
+    blocks = []
+    for si, s in enumerate(d["secs"]):
+        k = -(-s["n"] // cap)
+        sizes = [s["n"] // k + (1 if i < s["n"] % k else 0) for i in range(k)]
+        jj = 0
+        for nb in sizes:
+            blocks.append((si, jj, nb))
+            jj += nb
+    while 2 + len(blocks) < MONO_MAX_BLOCKS:
+        over = [i for i, b in enumerate(blocks)
+                if b[2] > 1 and _block_smem(d, "units", rt, es, b)[1] > SMEM_MAX]
+        if not over:
+            break
+        si, jj, nb = blocks[over[0]]
+        blocks[over[0]:over[0] + 1] = [(si, jj, (nb + 1) // 2), (si, jj + (nb + 1) // 2, nb // 2)]
+    return blocks
+
+
+def monolith_plan(mono: Dict[str, Any], B: int, io: torch.dtype) -> Dict[str, Any]:
+    """Kernel C's plan for a batch of B rows with ``io`` streams: rows per
+    tile ``rt`` (16, else 8 where a block's shared memory needs it), the
+    cluster's blocks (the io block: front and back of the pipeline; the
+    fullband block; then the unit blocks, each one section's units), every
+    block's shared-memory regions and total. Raises ValueError where no
+    plan fits the card."""
+    d = _mono_dims(mono)
+    es = 2 if io == torch.bfloat16 else 4
+    for rt in (16, 8):
+        units = _unit_blocks(d, rt, es)
+        blocks = []
+        for role in ROLES[:2]:
+            offs, total = _block_smem(d, role, rt, es)
+            blocks.append(dict(role=role, sec=0, jj0=0, nb=0, o=offs, smem=total))
+        for u in units:
+            offs, total = _block_smem(d, "units", rt, es, u)
+            blocks.append(dict(role="units", sec=u[0], jj0=u[1], nb=u[2], o=offs, smem=total))
+        if len(blocks) <= MONO_MAX_BLOCKS and max(b["smem"] for b in blocks) <= SMEM_MAX:
+            break
+    else:
+        raise ValueError(f"kernel C: no plan fits {SMEM_MAX} bytes of shared memory a block "
+                         f"and {MONO_MAX_BLOCKS} blocks a cluster for this model "
+                         f"({[(b['role'], b['smem']) for b in blocks]})")
+    return dict(rt=rt, tiles=-(-B // rt), nblk=len(blocks), blocks=blocks,
+                Hp=_r16(d["H"]), Hfp=_r16(d["Hf"]),
+                ld_dft=_ld(d["n_fft"]), ld_fin=_ld(d["Fin"]), ld_pfb=_ld(d["Pfb"]),
+                ld_idft=_ld(2 * d["F1"]), dims=d)
+
+
+def _gate_perm(H: int, shared: bool) -> List[int]:
+    """The gate columns in the order the kernel's accumulators take them
+    (-1 a zero pad): shared, 16 units a tile; unshared, 8 units a tile with
+    their f columns in rows 0-7 and their c columns (H + j) in rows 8-15."""
+    if shared:
+        return [j if j < H else -1 for j in range(_r16(H))]
+    perm = []
+    for q in range(-(-H // 8)):
+        perm += [8 * q + r if 8 * q + r < H else -1 for r in range(8)]
+        perm += [H + 8 * q + r if 8 * q + r < H else -1 for r in range(8)]
+    return perm
+
+
+def mma_a_fragments(a: torch.Tensor) -> torch.Tensor:
+    """A [Mp, Kp] (multiples of 16) -> [Mp/16, Kp/16, 32, 8]: each 16 x 16
+    tile as the 32 lanes' A fragments of mma.sync m16n8k16 (row-major A):
+    lane (g, t) = (lane / 4, lane % 4) holds A[g][2t..2t+1], A[g+8][2t..],
+    A[g][2t+8..], A[g+8][2t+8..] (registers a0-a3, low half first)."""
+    Mp, Kp = a.shape
+    a4 = a.reshape(Mp // 16, 16, Kp // 16, 16).permute(0, 2, 1, 3)
+    lane = torch.arange(32)
+    e = torch.arange(8)
+    reg, half = e // 2, e % 2
+    mi = (lane // 4)[:, None] + 8 * (reg % 2)[None, :]
+    ki = (2 * (lane % 4))[:, None] + half[None, :] + 8 * (reg // 2)[None, :]
+    return a4[:, :, mi.to(a.device), ki.to(a.device)]
+
+
+def _pack_mat(w: torch.Tensor, kparts: Sequence[int], gate: Optional[Tuple[int, bool]],
+              io: torch.dtype) -> Tuple[torch.Tensor, int, int]:
+    """W [K, M] (K the concatenation of ``kparts``) as kernel C's left
+    operand W^T: each part's rows padded to whole k-tiles, the columns in
+    the gate order (``gate`` = (H, shared)) or padded to 16. bf16: mma A
+    fragments; float32: [m-tiles][Kp][16]. Returns (flat, k-tiles, m-tiles)."""
+    K, M = w.shape
+    rows, o = [], 0
+    for k in kparts:
+        part = w[o:o + k]
+        rows.append(torch.cat([part, part.new_zeros(_r16(k) - k, M)]))
+        o += k
+    wp = torch.cat(rows)
+    perm = _gate_perm(*gate) if gate else list(range(M)) + [-1] * (_r16(M) - M)
+    idx = torch.tensor([p if p >= 0 else M for p in perm], device=w.device)
+    a = torch.cat([wp, wp.new_zeros(wp.shape[0], 1)], dim=1)[:, idx].T.contiguous()  # [Mp, Kp]
+    Mp, Kp = a.shape
+    if io == torch.bfloat16:
+        flat = mma_a_fragments(a.to(io))
+    else:
+        flat = a.reshape(Mp // 16, 16, Kp).permute(0, 2, 1)
+    return flat.reshape(-1), Kp // 16, Mp // 16
+
+
+def monolith_pack(mono: Dict[str, Any], io: torch.dtype):
+    """Every weight matrix of kernel C packed into one flat tensor of the
+    io type: (flat, {name: (offset, k-tiles, m-tiles)}, per-unit layer-0
+    matrix sizes per section). Names: dft, idft, fb_in, fb_rec{k},
+    fb_proj, s{i}_rec{k}, s{i}_proj, s{i}_win{jj}."""
+    fb, secs = mono["fb"], mono["secs"]
+    H, Hf, shared = mono["hidden"], fb["hidden"], bool(mono["shared"])
+    n_fft, F1 = mono["n_fft"], mono["n_fft"] // 2 + 1
+    Fin, Pfb = int(fb["wa"].shape[0]), int(fb["wproj"].shape[1])
+    mats = [("dft", mono["wdft"], [n_fft], None), ("idft", mono["widft"], [2 * F1], None),
+            ("fb_in", fb["wa"], [Fin], (Hf, shared))]
+
+    def stack(prefix, wihr, whh, h):
+        out = [(f"{prefix}rec0", whh[0], [h], (h, shared))]
+        for k in range(1, whh.shape[0]):
+            out.append((f"{prefix}rec{k}", torch.cat([wihr[k - 1], whh[k]]), [h, h], (h, shared)))
+        return out
+
+    mats += stack("fb_", fb["wihr"], fb["whh"], Hf)
+    mats.append(("fb_proj", fb["wproj"], [Hf], None))
+    for i, s in enumerate(secs):
+        mats += stack(f"s{i}_", s["wihr"], s["whh"], H)
+        mats.append((f"s{i}_proj", s["wproj"], [H], None))
+        aw = int(s["wa"].shape[1])
+        for jj in range(int(s["wa"].shape[0])):
+            mats.append((f"s{i}_win{jj}", torch.cat([s["wa"][jj], s["wb"][jj]]), [aw, Pfb],
+                         (H, shared)))
+    flats, table, off = [], {}, 0
+    for name, w, kparts, gate in mats:
+        flat, kt, mt = _pack_mat(w, kparts, gate, io)
+        table[name] = (off, kt, mt)
+        flats.append(flat)
+        off += flat.numel()
+    return torch.cat(flats), table
+
+
+class _MonoMatC(ctypes.Structure):
+    _fields_ = [("off", ctypes.c_longlong), ("kt", ctypes.c_int), ("mt", ctypes.c_int)]
+
+
+class _MonoSecC(ctypes.Structure):
+    _fields_ = ([(k, ctypes.c_int) for k in ("n", "a0", "aw", "ctr", "df", "P", "u0", "f0",
+                                              "dr", "ld_aw", "kt_aw")]
+                + [("rec", _MonoMatC * 3), ("proj", _MonoMatC), ("win", _MonoMatC)]
+                + [(k, ctypes.c_longlong) for k in ("win_size", "uv", "coef", "bproj")])
+
+
+class _MonoBlkC(ctypes.Structure):
+    _fields_ = ([(k, ctypes.c_int) for k in ("sec", "jj0", "nb", "smem")]
+                + [("o", ctypes.c_int * 8)])
+
+
+_MONO_PTRS = ("chunks", "out", "w", "sel_mag", "sel_fb", "fb_uv", "fb_coef", "fb_bproj", "uv",
+              "coef", "bproj", "prof")
 _MONO_INTS = ("S", "B", "hop", "n_fft", "Fin", "Pfb", "U", "W", "H", "L", "Hf", "Lf", "shared",
               "norm", "t_real", "n_sec")
+_MONO_PLAN = ("rt", "nblk", "Hp", "Hfp", "ld_dft", "ld_fin", "ld_pfb", "ld_idft")
 
 
 class _MonoArgs(ctypes.Structure):
     """Mirror of ``MonoArgs`` in ``csrc/sfsb_monolith_serve.cu``."""
     _fields_ = ([(k, ctypes.c_void_p) for k in _MONO_PTRS]
                 + [(k, ctypes.c_int) for k in _MONO_INTS]
-                + [("eps", ctypes.c_float), ("cluster", ctypes.c_int), ("upc", ctypes.c_int),
-                   ("sec", _MonoSec * MAX_SEC)])
+                + [("eps", ctypes.c_float)]
+                + [(k, ctypes.c_int) for k in _MONO_PLAN]
+                + [("dft", _MonoMatC), ("idft", _MonoMatC), ("fb_in", _MonoMatC),
+                   ("fb_rec", _MonoMatC * 3), ("fb_proj", _MonoMatC),
+                   ("sec", _MonoSecC * MAX_SEC), ("blk", _MonoBlkC * MONO_MAX_BLOCKS)])
 
 
-def sfsb_monolith_serve(mono: Dict[str, Any], chunks: torch.Tensor) -> torch.Tensor:
-    """The whole serving model in one launch: hop chunks ``[S + 3, B, hop]``
-    of the left-padded audio (f32/bf16 on the card; also f64 on the CPU) ->
-    enhanced chunks ``[S, B, hop]`` in the accumulation type (f32 on the
-    card). The caller trims them and corrects the COLA edges."""
-    if not chunks.is_cuda:
-        return monolith_serve_plain(mono, chunks)
+def _set_mat(dst: _MonoMatC, entry: Tuple[int, int, int]) -> None:
+    dst.off, dst.kt, dst.mt = entry
+
+
+def _mono_launch_args(mono: Dict[str, Any], chunks: torch.Tensor):
+    """Checks a spec and its chunks for the kernel and builds its launch
+    arguments: (args, the tensors they point into, the plan, the library)."""
     io, dev = chunks.dtype, chunks.device
     if io not in (torch.float32, torch.bfloat16):
         raise ValueError(f"chunks dtype {io}: the kernel takes float32 or bfloat16")
@@ -1127,52 +1374,153 @@ def sfsb_monolith_serve(mono: Dict[str, Any], chunks: torch.Tensor) -> torch.Ten
         fb_shapes["uv"] = (f32, (2, Gf))
     for k, (dt, shp) in fb_shapes.items():
         _check_cuda(f"fb {k}", fb[k], dt, dev, shp)
-
-    kinds = ("wa", "wb", "uv", "wihr", "whh", "coef", "wproj", "bproj")
-    flat: Dict[str, List[torch.Tensor]] = {k: [] for k in kinds}
-    offs = {k: 0 for k in kinds}
-    args = _MonoArgs()
-    u0 = f0 = 0
     for i, s in enumerate(secs):
         n, aw = int(s["wa"].shape[0]), int(s["wa"].shape[1])
         P = int(s["wproj"].shape[1])
         if P != 2 * s["df"] * s["ctr"] or s["a0"] + aw > F:
             raise ValueError(f"section {i}: P={P}, window ({s['a0']}, {aw}) in F={F}")
         shapes = {"wa": (io, (n, aw, G)), "wb": (io, (n, Pfb, G)),
-                  "uv": (f32, (2, G)), "wihr": (io, (max(L - 1, 1), H, G)),
-                  "whh": (io, (L, H, G)), "coef": (f32, (L, 4, H)), "wproj": (io, (H, P)),
-                  "bproj": (f32, (P,))}
-        sec = args.sec[i]
-        sec.n, sec.a0, sec.aw, sec.ctr, sec.df, sec.P, sec.u0, sec.f0 = (
-            n, s["a0"], aw, s["ctr"], s["df"], P, u0, f0)
+                  "wihr": (io, (max(L - 1, 1), H, G)), "whh": (io, (L, H, G)),
+                  "coef": (f32, (L, 4, H)), "wproj": (io, (H, P)), "bproj": (f32, (P,))}
+        if norm == "ln":
+            shapes["uv"] = (f32, (2, G))
         for k, (dt, shp) in shapes.items():
-            if k == "uv" and norm != "ln":
-                t = torch.zeros(shp, dtype=dt, device=dev)  # read only by "ln"
-            else:
-                t = s[k]
-            _check_cuda(f"section {i} {k}", t, dt, dev, shp)
-            setattr(sec, k, offs[k])
-            flat[k].append(t.reshape(-1))
-            offs[k] += t.numel()
+            _check_cuda(f"section {i} {k}", s[k], dt, dev, shp)
+
+    plan = monolith_plan(mono, B, io)
+    packed, table = monolith_pack(mono, io)
+    args = _MonoArgs()
+    f_arr = {k: [] for k in ("uv", "coef", "bproj")}
+    f_off = {k: 0 for k in f_arr}
+    u0 = f0 = 0
+    for i, s in enumerate(secs):
+        sec = args.sec[i]
+        n, aw = int(s["wa"].shape[0]), int(s["wa"].shape[1])
+        sec.n, sec.a0, sec.aw, sec.ctr, sec.df, sec.P, sec.u0, sec.f0 = (
+            n, s["a0"], aw, s["ctr"], s["df"], int(s["wproj"].shape[1]), u0, f0)
+        sec.dr, sec.ld_aw, sec.kt_aw = s["df"] + 2, _ld(aw), _r16(aw) // 16
+        for k in range(L):
+            _set_mat(sec.rec[k], table[f"s{i}_rec{k}"])
+        _set_mat(sec.proj, table[f"s{i}_proj"])
+        _set_mat(sec.win, table[f"s{i}_win0"])
+        sec.win_size = table[f"s{i}_win1"][0] - table[f"s{i}_win0"][0] if n > 1 else 0
+        for k in f_arr:
+            t = (s["uv"] if norm == "ln" else torch.zeros(2, G, dtype=f32, device=dev)
+                 ) if k == "uv" else s[k]
+            setattr(sec, k, f_off[k])
+            f_arr[k].append(t.reshape(-1))
+            f_off[k] += t.numel()
         u0 += n
         f0 += n * s["ctr"]
-    cat = {k: torch.cat(v) for k, v in flat.items()}
+    cat = {k: torch.cat(v) for k, v in f_arr.items()}
+    _set_mat(args.dft, table["dft"])
+    _set_mat(args.idft, table["idft"])
+    _set_mat(args.fb_in, table["fb_in"])
+    for k in range(Lf):
+        _set_mat(args.fb_rec[k], table[f"fb_rec{k}"])
+    _set_mat(args.fb_proj, table["fb_proj"])
+    for b, blk in enumerate(plan["blocks"]):
+        dst = args.blk[b]
+        dst.sec, dst.jj0, dst.nb, dst.smem = blk["sec"], blk["jj0"], blk["nb"], blk["smem"]
+        for q, o in enumerate(blk["o"]):
+            dst.o[q] = o
     out = torch.empty(S, B, hop, dtype=f32, device=dev)
-    ptrs = {"chunks": chunks, "out": out, "wdft": mono["wdft"], "widft": mono["widft"],
-            "sel_mag": sel_mag, "sel_fb": sel_fb,
-            "fb_uv": fb["uv"] if norm == "ln" else dummy,
-            **{f"fb_{k}": fb[k] for k in ("wa", "wihr", "whh", "coef", "wproj", "bproj")},
-            **cat}
+    ptrs = {"chunks": chunks, "out": out, "w": packed, "sel_mag": sel_mag, "sel_fb": sel_fb,
+            "fb_uv": fb["uv"] if norm == "ln" else dummy, "fb_coef": fb["coef"],
+            "fb_bproj": fb["bproj"], "prof": None, **cat}
     for k in _MONO_PTRS:
-        setattr(args, k, ptrs[k].data_ptr())
+        setattr(args, k, None if ptrs[k] is None else ptrs[k].data_ptr())
     for k, v in dict(S=S, B=B, hop=hop, n_fft=n_fft, Fin=Fin, Pfb=Pfb, U=U, W=W, H=H, L=L,
                      Hf=Hf, Lf=Lf, shared=int(shared), norm=NORMS[norm],
                      t_real=int(mono["t_real"]), n_sec=len(secs)).items():
         setattr(args, k, v)
     args.eps = float(mono["eps"])
-    lib = _lib(f"monolith_{'bf16' if io == torch.bfloat16 else 'f32'}_l{L}")
-    with torch.cuda.device(dev):
-        rc = lib.sfsb_monolith_launch(int(io == torch.bfloat16), ctypes.byref(args), _stream())
+    for k in _MONO_PLAN:
+        setattr(args, k, plan[k])
+    lib = _lib(f"monolith_{'bf16' if io == torch.bfloat16 else 'f32'}")
+    return args, (out, ptrs), plan, lib
+
+
+def monolith_occupancy(mono: Dict[str, Any], chunks: torch.Tensor,
+                       cluster_sizes: Sequence[int] = ()) -> Dict[str, Any]:
+    """Kernel C's plan for these chunks on this card: rows per tile, blocks
+    per cluster, the clusters (row tiles) the batch needs, the clusters the
+    card holds at once (cudaOccupancyMaxActiveClusters) and the waves; and
+    for each of ``cluster_sizes`` the clusters of that many blocks (with the
+    plan's shared memory) the card would hold."""
+    args, _, plan, lib = _mono_launch_args(mono, chunks)
+    io_bf16 = int(chunks.dtype == torch.bfloat16)
+
+    def held(nblk):
+        args.nblk = nblk
+        n = ctypes.c_int(0)
+        with torch.cuda.device(chunks.device):
+            rc = lib.sfsb_monolith_max_clusters(io_bf16, ctypes.byref(args), ctypes.byref(n))
+        if rc == CUDA_ERROR_INVALID_VALUE and nblk != plan["nblk"]:
+            return None  # too few blocks for this model's sections
+        _check_rc(lib, rc, "sfsb_monolith_max_clusters")
+        return n.value
+
+    others = {k: held(k) for k in cluster_sizes}
+    active = held(plan["nblk"])
+    return dict(rows_per_tile=plan["rt"], blocks_per_cluster=plan["nblk"],
+                clusters=plan["tiles"], max_active_clusters=active,
+                in_flight=min(active, plan["tiles"]),
+                waves=-(-plan["tiles"] // active) if active else None,
+                smem=[b["smem"] for b in plan["blocks"]],
+                units=[(b["sec"], b["jj0"], b["nb"]) for b in plan["blocks"][2:]],
+                max_active_by_cluster_size=others)
+
+
+MONO_PHASES = {"io": ("frame", "DFT", "magnitude", "hand-offs and statistics",
+                      "pass-through bins", "inverse DFT", "overlap-add"),
+               "fullband": ("layer 0", "upper layers", "projection and hand-off",
+                            "unit scales"),
+               "units": ("layer 0", "upper layers", "projection", "deep filter")}
+
+
+def monolith_profile(mono: Dict[str, Any], chunks: torch.Tensor) -> Dict[str, Any]:
+    """One launch of kernel C with its stage counters on: for each role,
+    the SM cycles a step spends in each phase (``MONO_PHASES``) and waiting
+    at the cluster barrier, averaged over the steps and the row tiles (unit
+    blocks: the slowest one of each tile). Counts as a launch."""
+    args, (out, _keep), plan, lib = _mono_launch_args(mono, chunks)
+    prof = torch.zeros(plan["tiles"] * plan["nblk"], 8, dtype=torch.int64, device=chunks.device)
+    args.prof = prof.data_ptr()
+    with torch.cuda.device(chunks.device):
+        rc = lib.sfsb_monolith_launch(int(chunks.dtype == torch.bfloat16), ctypes.byref(args),
+                                      _stream())
+    _check_rc(lib, rc, "sfsb_monolith_serve (profiled)")
+    sfsb_monolith_serve.launches += 1
+    cyc = prof.view(plan["tiles"], plan["nblk"], 8).double().cpu() / (chunks.shape[0])
+    res = {}
+    for b, role in enumerate(ROLES[:2]):
+        names = MONO_PHASES[role]
+        res[role] = {n: cyc[:, b, j].mean().item() for j, n in enumerate(names)}
+        res[role]["barrier wait"] = cyc[:, b, 7].mean().item()
+    units = cyc[:, 2:]
+    busy = units[:, :, :4].sum(-1)
+    slow = busy.argmax(dim=1)
+    pick = units[torch.arange(plan["tiles"]), slow]
+    res["units"] = {n: pick[:, j].mean().item() for j, n in enumerate(MONO_PHASES["units"])}
+    res["units"]["barrier wait"] = pick[:, 7].mean().item()
+    res["units_busy_each"] = busy.mean(0).tolist()
+    return res
+
+
+def sfsb_monolith_serve(mono: Dict[str, Any], chunks: torch.Tensor) -> torch.Tensor:
+    """The whole serving model in one launch: hop chunks ``[S + 3, B, hop]``
+    of the left-padded audio (f32/bf16 on the card; also f64 on the CPU) ->
+    enhanced chunks ``[S, B, hop]`` in the accumulation type (f32 on the
+    card). The caller trims them and corrects the COLA edges. On the card
+    the weights are packed for the kernel (``monolith_pack``) and the
+    cluster laid out by ``monolith_plan`` at every call."""
+    if not chunks.is_cuda:
+        return monolith_serve_plain(mono, chunks)
+    args, (out, _keep), _, lib = _mono_launch_args(mono, chunks)
+    with torch.cuda.device(chunks.device):
+        rc = lib.sfsb_monolith_launch(int(chunks.dtype == torch.bfloat16), ctypes.byref(args),
+                                      _stream())
     _check_rc(lib, rc, "sfsb_monolith_serve")
     sfsb_monolith_serve.launches += 1
     return out

@@ -367,9 +367,10 @@ def test_monolith_kernel_matches_plain(dev, io, shared, norm, L):
     assert _rel_l2(got, ref) < C_TOL[io]
 
 
-@pytest.mark.parametrize("S", [1, 2])
+@pytest.mark.parametrize("S", [1, 2, 3, 4])
 def test_monolith_kernel_short_sequences(dev, S):
-    """T < df: the deep filter's older taps read no frame yet."""
+    """T < df: the deep filter's older taps read no frame yet; S below the
+    kernel's pipeline depth (four stages: front, fullband, units, back)."""
     g = torch.Generator().manual_seed(S)
     mono = _mono("cum", True, 2, 2, torch.float32, dev, g, S)
     chunks = (torch.randn(S + 3, 3, 16, generator=g) * 0.1).to(dev)
@@ -377,6 +378,54 @@ def test_monolith_kernel_short_sequences(dev, S):
     ref = gk.monolith_serve_plain(mono, chunks)
     torch.cuda.synchronize()
     assert _rel_l2(got, ref) < 1e-4
+
+
+@pytest.mark.parametrize("io", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B", [1, 9, 257])
+def test_monolith_kernel_ragged_batches(dev, io, B):
+    """Batches that are not a multiple of the kernel's row tile (16 rows):
+    one row, a ragged tile, and 17 tiles (more than one wave of clusters)."""
+    g = torch.Generator().manual_seed(B)
+    S = 12
+    mono = _mono("ln", True, 2, 2, io, dev, g, S)
+    chunks = (torch.randn(S + 3, B, 16, generator=g) * 0.1).to(io).to(dev)
+    got = gk.sfsb_monolith_serve(mono, chunks)
+    ref = gk.monolith_serve_plain(mono, chunks)
+    torch.cuda.synchronize()
+    assert got.shape == (S, B, 16) and torch.isfinite(got).all()
+    assert _rel_l2(got, ref) < C_TOL[io]
+
+
+@pytest.mark.parametrize("io", [torch.float32, torch.bfloat16])
+def test_monolith_kernel_on_plans_for_less_shared_memory(dev, io, monkeypatch):
+    """The plan's answers to a block that does not fit: under a 30,000-byte
+    cap the float32 spec takes the 8-row tile, the bf16 one splits its unit
+    blocks (7 blocks a cluster); the kernel follows either plan."""
+    monkeypatch.setattr(gk, "SMEM_MAX", 30000)
+    g = torch.Generator().manual_seed(5)
+    S, B = 20, 11
+    mono = _mono("cum", True, 2, 2, io, dev, g, S)
+    chunks = (torch.randn(S + 3, B, 16, generator=g) * 0.1).to(io).to(dev)
+    plan = gk.monolith_plan(mono, B, io)
+    assert (plan["rt"], plan["nblk"]) == ((8, 5) if io == torch.float32 else (16, 7))
+    got = gk.sfsb_monolith_serve(mono, chunks)
+    ref = gk.monolith_serve_plain(mono, chunks)
+    torch.cuda.synchronize()
+    assert _rel_l2(got, ref) < C_TOL[io]
+
+
+@pytest.mark.parametrize("io", [torch.float32, torch.bfloat16])
+def test_monolith_kernel_is_bitwise_deterministic(dev, io):
+    """Two launches on the same inputs give the same bits: every sum has a
+    fixed order (no atomics)."""
+    g = torch.Generator().manual_seed(3)
+    S, B = 30, 40
+    mono = _mono("cum", False, 2, 2, io, dev, g, S)
+    chunks = (torch.randn(S + 3, B, 16, generator=g) * 0.1).to(io).to(dev)
+    a = gk.sfsb_monolith_serve(mono, chunks)
+    b = gk.sfsb_monolith_serve(mono, chunks)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
 
 
 def test_monolith_wrapper_rejects_what_the_kernel_does_not_take(dev):
@@ -667,3 +716,41 @@ def test_denoise_loss_gradient_is_deterministic_on_the_card(dev):
         loss = denoise_loss(est, clean)["loss"]
         grads.append(torch.autograd.grad(loss, est)[0])
     assert torch.equal(grads[0], grads[1]) and torch.equal(grads[0], grads[2])
+
+
+# ------------------------------------------------------------------ the dW kernel
+
+# (T, R, H, G): H and G not multiples of 16, G = 2H, one step, one row, and
+# baseline L's section rows (1024 and 1536 x 256) over fewer steps
+DW_SHAPES = [(40, 5, 37, 37), (40, 5, 37, 74), (1, 8, 24, 24), (30, 1, 24, 48),
+             (101, 1024, 256, 256), (101, 1536, 256, 256), (751, 64, 320, 320)]
+
+
+@pytest.mark.parametrize("io", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,R,H,G", DW_SHAPES)
+def test_train_dw_kernel_matches_plain_at_ragged_shapes(dev, io, T, R, H, G):
+    g = torch.Generator().manual_seed(T + R + H + G)
+    y = torch.randn(T, R, H, generator=g).to(dev)
+    dxg = (torch.randn(T, R, G, generator=g) * 1e-2).to(io).to(dev)
+    before = gk.gsu_train_dw.launches
+    got = gk.gsu_train_dw(y, dxg)
+    ref = gk.train_dw_plain(y, dxg.float())
+    torch.cuda.synchronize()
+    assert gk.gsu_train_dw.launches == before + 1
+    assert got.shape == (H, G) and got.dtype == torch.float32
+    if T == 1:
+        assert not got.any()
+        return
+    assert _rel(got, ref) < 1e-3
+
+
+@pytest.mark.parametrize("io", [torch.float32, torch.bfloat16])
+def test_train_dw_kernel_is_bitwise_deterministic(dev, io):
+    """Split over 33 x 16 blocks, the partials added in a fixed order: two
+    launches give the same bits."""
+    g = torch.Generator().manual_seed(1)
+    y = torch.randn(751, 512, 224, generator=g).to(dev)
+    dxg = torch.randn(751, 512, 224, generator=g).to(io).to(dev)
+    a, b = gk.gsu_train_dw(y, dxg), gk.gsu_train_dw(y, dxg)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
