@@ -61,8 +61,9 @@ is non-zero:
             tile, blocks a cluster, clusters in flight against the card's
             cudaOccupancyMaxActiveClusters, waves; one wave required), its
             time at half the batch, two launches on the bench's inputs
-            bitwise equal, and one profiled launch's SM cycles a step in
-            each stage (io, fullband and unit blocks).
+            bitwise equal, one profiled launch's SM cycles a step in each
+            stage (io, fullband and unit blocks), and the time of packing
+            its weights (monolith_pack, done once a spec, outside its time).
 6. training the layered training step (recipes/denoise.train_step: the
             denoise loss, backward, clipping by global norm 10, AdamW) of
             zoo M (separator_config's default, from baseline_m.npz) and of
@@ -84,10 +85,11 @@ is non-zero:
               D's plain version, the kernel's mean drift over the ten
               layers within 3x (+1e-3) of the plain f32 version's (a
               layer's drift is one chaotic sample, unlike F's independent
-              rows); E and the dW kernel on identical inputs, relative
-              L2 < 1e-3 (the fixture's whole sequence, the training
-              batch's first 16 frames), and the dW kernel's two launches on
-              the same inputs bitwise equal;
+              rows); E on identical inputs, relative L2 < 1e-3 (the
+              fixture's whole sequence, the training batch's first 16
+              frames); the dW kernel on identical inputs (float32 streams),
+              relative L2 < 1e-5 (DW_F32_REL), and its two launches on the
+              same inputs bitwise equal;
             - five train_steps on one fixed batch of the speech fixture
               (eight copies shifted in time, each with its own noise, 8 x 2 s;
               see FIXTURE_COPIES): every loss and gradient finite, the BN
@@ -206,6 +208,10 @@ PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 CELL_OPS = 13
 BENCH_B, BENCH_SECONDS, SR = 256, 30.0, 16000
 WINDOW = 16  # leading bench frames held tightly
+# dW on float32 streams against its plain version: the three-way bf16 split
+# keeps float32's products (TF32 would give about 3e-4 at these shapes, the
+# hi term alone about 1e-3); bf16 streams are held at 1e-3
+DW_F32_REL = 1e-5
 # recipes/intel_ndns/cirm_gsn/default.toml [model.args]
 CIRM_GSN = dict(n_fft=512, hop_length=128, win_length=512, fdrc=0.5, input_size=257,
                 hidden_size=256, num_layers=2, proj_size=257, output_activate_function=False,
@@ -1747,14 +1753,19 @@ def main() -> int:
             # the plan: rows per tile, blocks per cluster, the clusters the
             # card holds at once and the waves; half the batch is half the
             # clusters, so with one wave the two times are about equal
-            occ = gk.monolith_occupancy(*args, cluster_sizes=(5, 6, 7, 8))
+            occ = gk.monolith_occupancy(*args)
             kernels[-1]["plan"] = occ
             log(f"[timing] {name} plan: {occ['rows_per_tile']} rows a tile, "
                 f"{occ['blocks_per_cluster']} blocks a cluster (shared memory {occ['smem']} "
                 f"bytes; unit blocks (section, first unit, units) {occ['units']}), "
                 f"{occ['clusters']} clusters, {occ['in_flight']} in flight (the card holds "
-                f"{occ['max_active_clusters']}), {occ['waves']} wave(s); clusters of n blocks "
-                f"the card would hold at this shared memory {occ['max_active_by_cluster_size']}")
+                f"{occ['max_active_clusters']}), {occ['waves']} wave(s)")
+            # the weights are packed at a spec's first launch (not timed
+            # above); the serving forward builds its spec anew, so it pays this
+            kernels[-1]["pack_ms"] = cuda_ms(lambda: gk.monolith_pack(args[0], torch.bfloat16),
+                                             iters=2)
+            log(f"[timing] {name} weight packing (monolith_pack): "
+                f"{kernels[-1]['pack_ms']:.3f} ms")
             require(occ["waves"] == 1, f"kernel C: {occ['waves']} waves at batch {BENCH_B}")
             half = (args[0], args[1][:, :BENCH_B // 2].contiguous())
             kernels[-1]["half_batch_ms"] = cuda_ms(lambda: fn(*half), iters=2)
@@ -1835,7 +1846,7 @@ def main() -> int:
                                    trec["E"]["training_batch_head"]["rel_l2"],
                                    trec["dW"]["rel_l2"]):
         require(rel < 1e-3 and head < 1e-3, f"kernel E {layer}: {trec['E']}")
-        require(w < 1e-3, f"dW kernel {layer}: {trec['dW']}")
+        require(w < DW_F32_REL, f"dW kernel {layer}: {trec['dW']}")
 
     # (b) five steps on the fixture batch, each counted; (c) one step's
     # gradients through E against E's plain version

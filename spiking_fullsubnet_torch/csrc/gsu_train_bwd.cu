@@ -59,6 +59,17 @@
 //     times the products, which the card has to spare: the bytes bound the
 //     kernel, not the products. (CUDA-core FMAs would take the float32
 //     products at 67 TFLOP/s, near the bytes' time at section 0.)
+//   - staging through registers, not cp.async or TMA: neither operand is
+//     multiplied as it lies in memory. y is float32 and becomes a bf16
+//     spike (y >= 0), and float32 dxg becomes three bf16 terms, so each
+//     value passes through a register on its way to shared memory. A copy
+//     engine would land the raw bytes (y's twice the spikes' size) in
+//     shared memory for a second pass to convert. So each thread loads the
+//     next 32-row chunk into registers while the current one is multiplied,
+//     then converts and stores it into the other of two buffers. The ring is
+//     two chunks deep; a deeper one is not measured. At flagship M's
+//     fullband (320 x 320: nine 128 x 128 tiles x 44 splits = 396 blocks, two
+//     a SM) the grid runs 1.5 waves.
 // Only the order of the float32 sums differs from the plain version.
 #include <cooperative_groups.h>
 

@@ -597,19 +597,19 @@ DW_TILE = {torch.bfloat16: 128, torch.float32: 64}
 DW_MIN_ROWS = 256  # fewest summed rows worth a split of their own
 
 
-def dw_split_plan(T: int, R: int, H: int, G: int, io: torch.dtype,
-                  sms: int = H100_SMS) -> Tuple[int, int]:
+def dw_split_plan(T: int, R: int, H: int, G: int, io: torch.dtype) -> Tuple[int, int]:
     """The dW kernel's split-K plan for ``io`` streams: ``(splits, chunk)``,
     split s summing the rows ``[s chunk, min(K, (s + 1) chunk))`` of the K =
     (T - 1) R rows of ``h_prev^T dxg`` (a split past K sums nothing and
     writes zeros). The output tiles times the splits are the blocks: the
-    splits are the fewest that make them a multiple of ``sms`` (up to two
-    blocks per SM), unless that leaves a split fewer than DW_MIN_ROWS rows."""
+    splits are the fewest that make them a multiple of the H100's 132 SMs (up to
+    two blocks per SM), unless that leaves a split fewer than DW_MIN_ROWS
+    rows."""
     K = (T - 1) * R
     tile = DW_TILE[io]
     tiles = -(-H // tile) * -(-G // tile)
-    step = sms // math.gcd(tiles, sms)
-    splits = step * max(1, (2 * sms) // (tiles * step))
+    step = H100_SMS // math.gcd(tiles, H100_SMS)
+    splits = step * max(1, (2 * H100_SMS) // (tiles * step))
     if K < splits * DW_MIN_ROWS:
         splits = max(1, K // DW_MIN_ROWS)
     return splits, max(1, -(-K // splits))
@@ -1388,7 +1388,9 @@ def _mono_launch_args(mono: Dict[str, Any], chunks: torch.Tensor):
             _check_cuda(f"section {i} {k}", s[k], dt, dev, shp)
 
     plan = monolith_plan(mono, B, io)
-    packed, table = monolith_pack(mono, io)
+    if "packed" not in mono:  # the weights are packed once a spec
+        mono["packed"] = monolith_pack(mono, io)
+    packed, table = mono["packed"]
     args = _MonoArgs()
     f_arr = {k: [] for k in ("uv", "coef", "bproj")}
     f_off = {k: 0 for k in f_arr}
@@ -1441,35 +1443,23 @@ def _mono_launch_args(mono: Dict[str, Any], chunks: torch.Tensor):
     return args, (out, ptrs), plan, lib
 
 
-def monolith_occupancy(mono: Dict[str, Any], chunks: torch.Tensor,
-                       cluster_sizes: Sequence[int] = ()) -> Dict[str, Any]:
+def monolith_occupancy(mono: Dict[str, Any], chunks: torch.Tensor) -> Dict[str, Any]:
     """Kernel C's plan for these chunks on this card: rows per tile, blocks
     per cluster, the clusters (row tiles) the batch needs, the clusters the
-    card holds at once (cudaOccupancyMaxActiveClusters) and the waves; and
-    for each of ``cluster_sizes`` the clusters of that many blocks (with the
-    plan's shared memory) the card would hold."""
+    card holds at once (cudaOccupancyMaxActiveClusters) and the waves."""
     args, _, plan, lib = _mono_launch_args(mono, chunks)
-    io_bf16 = int(chunks.dtype == torch.bfloat16)
-
-    def held(nblk):
-        args.nblk = nblk
-        n = ctypes.c_int(0)
-        with torch.cuda.device(chunks.device):
-            rc = lib.sfsb_monolith_max_clusters(io_bf16, ctypes.byref(args), ctypes.byref(n))
-        if rc == CUDA_ERROR_INVALID_VALUE and nblk != plan["nblk"]:
-            return None  # too few blocks for this model's sections
-        _check_rc(lib, rc, "sfsb_monolith_max_clusters")
-        return n.value
-
-    others = {k: held(k) for k in cluster_sizes}
-    active = held(plan["nblk"])
+    n = ctypes.c_int(0)
+    with torch.cuda.device(chunks.device):
+        rc = lib.sfsb_monolith_max_clusters(int(chunks.dtype == torch.bfloat16),
+                                            ctypes.byref(args), ctypes.byref(n))
+    _check_rc(lib, rc, "sfsb_monolith_max_clusters")
+    active = n.value
     return dict(rows_per_tile=plan["rt"], blocks_per_cluster=plan["nblk"],
                 clusters=plan["tiles"], max_active_clusters=active,
                 in_flight=min(active, plan["tiles"]),
                 waves=-(-plan["tiles"] // active) if active else None,
                 smem=[b["smem"] for b in plan["blocks"]],
-                units=[(b["sec"], b["jj0"], b["nb"]) for b in plan["blocks"][2:]],
-                max_active_by_cluster_size=others)
+                units=[(b["sec"], b["jj0"], b["nb"]) for b in plan["blocks"][2:]])
 
 
 MONO_PHASES = {"io": ("frame", "DFT", "magnitude", "hand-offs and statistics",
@@ -1513,8 +1503,10 @@ def sfsb_monolith_serve(mono: Dict[str, Any], chunks: torch.Tensor) -> torch.Ten
     of the left-padded audio (f32/bf16 on the card; also f64 on the CPU) ->
     enhanced chunks ``[S, B, hop]`` in the accumulation type (f32 on the
     card). The caller trims them and corrects the COLA edges. On the card
-    the weights are packed for the kernel (``monolith_pack``) and the
-    cluster laid out by ``monolith_plan`` at every call."""
+    the weights are packed for the kernel (``monolith_pack``) at the spec's
+    first launch and kept on it as ``mono["packed"]``, so a spec's weights
+    must not change after that; the cluster is laid out by ``monolith_plan``
+    for the batch at every call."""
     if not chunks.is_cuda:
         return monolith_serve_plain(mono, chunks)
     args, (out, _keep), _, lib = _mono_launch_args(mono, chunks)

@@ -428,6 +428,23 @@ def test_monolith_kernel_is_bitwise_deterministic(dev, io):
     assert torch.equal(a, b)
 
 
+def test_monolith_kernel_packs_a_spec_once(dev):
+    """The first launch packs the spec's weights and keeps them on it; the
+    next launch reuses that pack and gives the bits of a fresh spec's."""
+    g = torch.Generator().manual_seed(4)
+    S, B = 12, 9
+    mono = _mono("ln", True, 2, 2, torch.bfloat16, dev, g, S)
+    chunks = (torch.randn(S + 3, B, 16, generator=g) * 0.1).to(torch.bfloat16).to(dev)
+    assert "packed" not in mono
+    a = gk.sfsb_monolith_serve(mono, chunks)
+    packed = mono["packed"]
+    b = gk.sfsb_monolith_serve(mono, chunks)
+    fresh = gk.sfsb_monolith_serve({k: v for k, v in mono.items() if k != "packed"}, chunks)
+    torch.cuda.synchronize()
+    assert mono["packed"] is packed
+    assert torch.equal(a, b) and torch.equal(a, fresh)
+
+
 def test_monolith_wrapper_rejects_what_the_kernel_does_not_take(dev):
     g = torch.Generator().manual_seed(0)
     mono = _mono("ln", True, 2, 2, torch.float32, dev, g, 8)
@@ -741,7 +758,9 @@ def test_train_dw_kernel_matches_plain_at_ragged_shapes(dev, io, T, R, H, G):
     if T == 1:
         assert not got.any()
         return
-    assert _rel(got, ref) < 1e-3
+    # float32 streams keep float32's products through the three-way bf16
+    # split (TF32 would give about 3e-4, the hi term alone about 1e-3)
+    assert _rel(got, ref) < (1e-5 if io == torch.float32 else 1e-3)
 
 
 @pytest.mark.parametrize("io", [torch.float32, torch.bfloat16])

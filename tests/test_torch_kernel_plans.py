@@ -235,8 +235,8 @@ def test_monolith_plan_at_flagship_m_is_one_wave_of_six_block_clusters():
     """Flagship M at the bench's 256 rows: 16 row tiles of 16 rows and
     clusters of 6 blocks (the io and fullband blocks, four unit blocks: two
     of section 0's 8 units, section 1's 3, section 2's 2). An H100 holds 17
-    such clusters at once (cudaOccupancyMaxActiveClusters, measured with
-    chip_smoke.py), 15 of 8."""
+    such clusters at once (cudaOccupancyMaxActiveClusters, which
+    chip_smoke.py prints), 15 of 8."""
     for io in (BF16, F32):
         plan = gk.monolith_plan(_spec("flagship M"), 256, io)
         assert (plan["rt"], plan["tiles"], plan["nblk"]) == (16, 16, 6)
