@@ -89,6 +89,7 @@ is non-zero:
               fixture's whole sequence, the training batch's first 16
               frames); the dW kernel on identical inputs (float32 streams),
               relative L2 < 1e-5 (DW_F32_REL), and its two launches on the
+              same inputs bitwise equal; D's and E's two launches on the
               same inputs bitwise equal;
             - five train_steps on one fixed batch of the speech fixture
               (eight copies shifted in time, each with its own noise, 8 x 2 s;
@@ -110,7 +111,10 @@ is non-zero:
               the cell and BN arithmetic; E: xg, y and gout read, dxg
               written; the recompute, the dense dh = drg W^T and the
               spike-sparse dW) and torch.matmul on dW's product as the
-              library yardstick.
+              library yardstick; D's and E's plans (ops/gsu_kernels.
+              train_plan: blocks, units a block, what lies in shared memory)
+              and one profiled launch each (train_profile: SM cycles a step
+              in each phase of the kernel).
 7. stream   training on the stream path (scan_mode="auto" on the card),
             the bf16 policy, every GSU layer on kernels D and E with bf16
             streams (membranes float32), batch 64 x 6 s:
@@ -123,14 +127,15 @@ is non-zero:
               the plain version (which does not round drg to bf16), the
               kernel within 3x (+1e-5) of the plain version's error (a drg
               at a bf16 midpoint rounds either way); dW on identical inputs,
-              relative L2 < 1e-3, two launches bitwise equal;
+              relative L2 < 1e-3, two launches bitwise equal (D's and E's
+              too);
             - the same at baseline L's section stacks of 1024 and 1536 rows
               x 256 units (recipes/intel_ndns/spiking_fullsubnet_freeze_phase/
               baseline_l.toml [model.args], random weights from seed 0):
               beyond kernel D's former row cap;
             - one step's gradients through the kernels against E's plain
-              version on the same forward, flagship M and zoo M on the
-              fixture batch with f32 streams (relative L2 < 1e-2 per leaf,
+              version on the same forward, flagship M, zoo M and baseline L
+              on the fixture batch with f32 streams (relative L2 < 1e-2 per leaf,
               as phase 6); flagship M with bf16 streams: the kernels' and
               the plain version's gradients each against the same step with
               E in float64, the kernel's largest leaf error within 3x
@@ -142,7 +147,8 @@ is non-zero:
               flagship M's eight layers and at baseline L's four section
               layers of 1024 and 1536 rows, their plain versions, bounds and
               torch.matmul on dW's product in bf16; dW's split-K plan (splits
-              and rows a split) at each launch.
+              and rows a split) at each launch; D's and E's plans and phase
+              profiles as in phase 6.
 8. modes    serving in every mode of kernel B and on the collect path,
             each on a configuration whose forward takes it (each misses the
             monolith's gate): "ln" flagship M with a fullband tanh (its
@@ -180,7 +186,7 @@ is non-zero:
               four launches and B alone in each mode (and the projection
               mode on "ln"'s inputs), their plain versions and bounds.
 
-9 to 11 minutes on one H100, the build included.
+About 8 to 11 minutes on one H100, the build included.
 
 The last line is {"ok": true, "device": {...}}. Without a CUDA device, or
 without the rest of the repository beside it, it prints no result and
@@ -698,13 +704,17 @@ def d_checks(gk, d_args):
     sequence: the spike mismatch and the first step where any spike
     differs; each one held one step at a time (``d_step_errors``); each
     one's drift from a float64 run of the plain version; the plain
-    version's ms."""
+    version's ms; two launches bitwise equal (required)."""
     rec = {k: [] for k in ("spike_mismatch", "first_diff_step", "step_y_err",
                            "plain_step_y_err", "step_stats_err", "plain_step_stats_err",
                            "step_flips", "step_flip_max_abs_y", "drift_f64",
-                           "plain_drift_f64", "plain_ms")}
+                           "plain_drift_f64", "plain_ms", "bitwise_twice")}
     for da in d_args:
         got = gk.gsu_layer_train_fwd(*da)
+        rec["bitwise_twice"].append(all(torch.equal(a, b) for a, b in
+                                        zip(got, gk.gsu_layer_train_fwd(*da))))
+        require(rec["bitwise_twice"][-1],
+                f"kernel D differs between two launches on the same inputs ({da[0].shape})")
         box = []
         rec["plain_ms"].append(cuda_ms(lambda: box.append(gk.layer_train_fwd_plain(*da)),
                                        warmup=0))
@@ -732,12 +742,18 @@ def e_checks(gk, e_args, steps=None):
     steps or the whole sequence: relative L2 and largest abs error. With
     bf16 streams also each against a float64 run of the plain version
     (which does not round drg to bf16): ``rel_l2_f64``, ``plain_rel_l2_f64``,
-    the largest over the four outputs."""
+    the largest over the four outputs. Two launches of E (with dW) bitwise
+    equal (required)."""
     rec = {"rel_l2": [], "max_abs_err": 0.0, "dw_rel_l2": [], "dw_max_abs_err": 0.0,
-           "dw_bitwise_twice": [], "rel_l2_f64": [], "plain_rel_l2_f64": []}
+           "dw_bitwise_twice": [], "rel_l2_f64": [], "plain_rel_l2_f64": [],
+           "bitwise_twice": []}
     for ea in e_args:
         args = head_e(ea, steps) if steps else ea
         rel, err, dxg = e_errors(gk, args)
+        rec["bitwise_twice"].append(all(torch.equal(a, b) for a, b in zip(
+            gk.gsu_layer_train_bwd(*args), gk.gsu_layer_train_bwd(*args))))
+        require(rec["bitwise_twice"][-1],
+                f"kernel E differs between two launches on the same inputs ({args[0].shape})")
         rec["rel_l2"].append(rel)
         rec["max_abs_err"] = max(rec["max_abs_err"], err)
         if args[0].dtype == torch.bfloat16:
@@ -860,7 +876,9 @@ def time_de_layers(gk, names, d_args, e_args, d_plain_ms, e_plain_ms, with_dw=Tr
     """Kernels D, E (with its dW kernel) and dW alone at each recorded
     launch, beside their plain versions' ms, bounds and, for dW,
     torch.matmul on the same [H, (T-1) R] x [(T-1) R, G] product in the
-    stream type. Returns {"D": rows, "E": rows, "dW": rows}."""
+    stream type; D's and E's plans and phase profiles (one profiled launch
+    each, gk.train_profile: SM cycles a step in each phase). Returns {"D":
+    rows, "E": rows, "dW": rows}."""
     per = {"D": [], "E": [], "dW": []}
     for i, (name, da, ea) in enumerate(zip(names, d_args, e_args)):
         y = ea[1]
@@ -882,6 +900,7 @@ def time_de_layers(gk, names, d_args, e_args, d_plain_ms, e_plain_ms, with_dw=Tr
                           bound_dw(y, dxg, spikes),
                           cuda_ms(lambda: torch.matmul(hp, dx1), iters=3))
             del hp, dx1
+        prof = {"D": gk.train_profile("fwd", da), "E": gk.train_profile("bwd", ea)}
         for k, (ms, plain, (nbytes, ops, ops_s), lib) in rows.items():
             row = {"layer": name, "shape": list(da[0].shape), "ms": ms, "plain_ms": plain,
                    "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3, "ops_ms": ops_s * 1e3,
@@ -889,6 +908,8 @@ def time_de_layers(gk, names, d_args, e_args, d_plain_ms, e_plain_ms, with_dw=Tr
             row["bound_ms"] = max(row["bytes_ms"], row["ops_ms"])
             if k == "dW":
                 row["splits"], row["rows_per_split"] = split
+            else:
+                row["profile"] = prof[k]
             per[k].append(row)
         log(f"[timing] {name} {tuple(da[0].shape)} {str(da[0].dtype)[6:]}: " + "; ".join(
             f"{k} {per[k][-1]['ms']:.3f} ms (plain {per[k][-1]['plain_ms']:.1f}, bound "
@@ -896,6 +917,12 @@ def time_de_layers(gk, names, d_args, e_args, d_plain_ms, e_plain_ms, with_dw=Tr
             + (f", matmul {per[k][-1]['library_ms']:.3f}, {per[k][-1]['splits']} splits of "
                f"{per[k][-1]['rows_per_split']} rows" if k == "dW" else "") + ")"
             for k in rows))
+        for k in ("D", "E"):
+            p = prof[k]
+            log(f"[profile] {name} {k}: {p['blocks']} blocks of {p['units_per_block']} units, "
+                f"{p['row_groups_per_batch']} row groups a batch, {p['smem']} bytes of shared "
+                f"memory ({', '.join(p['in_shared_memory'])}); SM cycles a step: " + ", ".join(
+                    f"{ph} {c:.0f}" for ph, c in p["cycles_per_step"].items()))
         del dxg
     return per
 
@@ -1067,7 +1094,7 @@ def stream_phase(gk, apply, flag, flag_base, model, base, fix_noisy, fix_clean, 
     # streams the rounding of drg at a bf16 midpoint goes either way, so
     # there the kernel and the plain version are each held against E in
     # float64 (the kernel within 3x (+1e-5) of the plain version's error)
-    for name in ("flagship M", "zoo M stream"):
+    for name in ("flagship M", "zoo M stream", "baseline L"):
         cfg, p, st, _ = confs[name]
         g = grads_vs_plain_e(gk, apply, replace(cfg, compute_dtype=None), p, st, fix_noisy,
                              fix_clean)

@@ -23,21 +23,43 @@
 // (gsu_pallas.py:449-460); y, the carried dh and dc, db and dgamma/dbeta
 // stay float32. Precise expf and 1/sqrtf, no fast math.
 //
-// What bounds it on an H100: as kernel D, the serial chain of each step (a
-// dot over H for the recomputed gates and one over G for dh, both through
-// L2, and one cluster barrier for the BN sums), not bytes (xg, y, gout read,
-// dxg written) or operations.
+// What bounds it on an H100: as kernel D, the chain of 751 dependent steps
+// (two products, the cell's backward and the BN sums each step), not the
+// bytes (xg, y, gout read, dxg written) or the operations.
 //
-// Design: kernel D's cluster (up to 8 blocks over the rows, one thread per
-// hidden unit, row tiles of 8 through gsu_common's dot_rows). One shared
-// buffer per block holds the tiles' h_prev for the recompute, then their
-// drg for dh = drg @ W_hh^T (W_hh^T given, so the weight loads coalesce).
-// The carried dh and dc and the step's f and g live in a global scratch
-// [4, R, H] (each thread reads and writes only its own unit's entries, so
-// they stay in L2). The BN sums are per-block partials added across the
-// cluster in rank order through distributed shared memory, double-buffered
-// by the parity of t so that one cluster barrier a step suffices. db and
-// dgamma/dbeta stay in registers and are written once at the end.
+// Design: kernel D's unit split (gsu_train_mma.cuh): block b of one cluster
+// owns units J_b for all R rows, so the BN sums over the rows are the
+// block's own, in a fixed order, with no cluster barrier. Three kernels:
+//   - train_bits_kernel packs the signs of y into bits ([T-1][block][Rp]
+//     [2 JT] bytes, kernel D's layout);
+//   - train_gates_kernel recomputes f and g of every step at once, a block
+//     a (unit block, step) over the whole card: they depend on y alone, not
+//     on the backward's recurrence. It is D's product (the block's gate
+//     columns of W_hh as A fragments, h_{t-1} as bits; float32 weights as
+//     three exact bf16 terms) and D's cell, into a [2][T][R][H] float32
+//     scratch (0.7 GB at flagship M's section 0, 2.4 GB at baseline L's
+//     1536 rows): this takes the product and the precise expf out of the
+//     751-step chain;
+//   - train_bwd_kernel runs the chain: per step, dy and the BN sums (a warp
+//     a row, a lane a unit, so every [T, R, H] access is one run of the
+//     block's units), the cell's backward into dxg[t], one cluster barrier,
+//     then dh[:, J_b] = drg[R, G] @ W_hh[J_b, :]^T, which needs every
+//     block's drg: it reads the whole dxg[t] from L2 (ld.global.cg; the
+//     barrier orders the writes) as mma B fragments, 2-3 k-tiles ahead, a
+//     lane's four values of a row in one 8- or 16-byte load (train_pack
+//     orders dh's k slots to match), against its rows of W_hh as A
+//     fragments in shared memory. float32 streams split both operands into
+//     three exact bf16 terms and sum the six products above 2^-24.
+// The row split with tensor cores (E's former layout) would read all of
+// W_hh twice a step from L2 (2 H G bytes a block) and sum the BN terms
+// across the cluster; the unit split reads R G bytes of drg a step, the
+// same at flagship M's section 0 and less at the smaller sections, and the
+// phase profile (train_profile) times that exchange. dh and dc stay in
+// shared memory as far as the plan finds room, else in a device scratch;
+// db, dgamma and dbeta are reduced per step in a fixed order and summed
+// over the steps by one thread a unit. No atomics: the step is bitwise
+// deterministic.
+// Where it waits now: see PERF.md section 7 (the phase profile).
 //
 // train_dw_kernel: dW [H, G] = sum over n of h_prev[n]^T dxg[n], n over the
 // T R rows (h_prev of rows n < R is zero): a matrix product with K = (T-1) R
@@ -73,190 +95,475 @@
 // Only the order of the float32 sums differs from the plain version.
 #include <cooperative_groups.h>
 
-#include "gsu_common.cuh"
+#include <type_traits>
+
+#include "gsu_train_mma.cuh"
 
 namespace cg = cooperative_groups;
 using namespace gsu;
+using namespace gsut;
 
 namespace {
 
-constexpr int MAX_CLUSTER = 8;
-constexpr float BN_EPS = 1e-5f;
+constexpr int RS = 4;  // rows a warp loads at once in the recurrence's passes 1 and 2
 
-// v rounded to the stream type and back (the identity for float32)
-__device__ __forceinline__ float rnd(float v, const float*) { return v; }
-__device__ __forceinline__ float rnd(float v, const __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16(v));
+// The warp's per-unit sums (a lane's units lane % upl and + 32, two rows'
+// lanes added when upl is 16) into part[warp][u] and part2[warp][u].
+__device__ __forceinline__ void block_partials(float* part, float* part2, float (&s0)[2],
+                                               float (&s1)[2], int J, int upl, int warp,
+                                               int lane) {
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    if (upl == 16) {
+      s0[q] += __shfl_xor_sync(0xffffffffu, s0[q], 16);
+      s1[q] += __shfl_xor_sync(0xffffffffu, s1[q], 16);
+    }
+    const int u = lane + 32 * q;
+    if (lane < upl && u < J) {
+      part[warp * J + u] = s0[q];
+      part2[warp * J + u] = s1[q];
+    }
+  }
 }
 
-template <typename IO>
-__global__ void __launch_bounds__(512)
-train_bwd_kernel(const IO* __restrict__ xg, const float* __restrict__ y,
-                 const IO* __restrict__ gout, const float* __restrict__ stats,
-                 const IO* __restrict__ whh, const IO* __restrict__ whh_t,
-                 const float* __restrict__ b2, const float* __restrict__ bnp,
-                 IO* __restrict__ dxg, float* __restrict__ db, float* __restrict__ dbn,
-                 float* __restrict__ scratch, int T, int R, int H, int shared, int bn,
-                 int rows_blk) {
-  extern __shared__ float4 smem4[];
-  const int G = shared ? H : 2 * H;
-  float* buf = reinterpret_cast<float*>(smem4);  // [tile][H][RB] h_prev, then [tile][G][RB] drg
-  float* part = buf + (size_t)rows_blk * G;      // [2 parities][2][H] BN sums, [2][H] db
-  cg::cluster_group cluster = cg::this_cluster();
-  const int nblk = (int)cluster.num_blocks();
-  const int rank = (int)cluster.block_rank();
-  const int row0 = rank * rows_blk;
-  const int nrows = max(0, min(rows_blk, R - row0));
-  const int ntile = (nrows + RB - 1) / RB;
-  const int j = threadIdx.x;
-  const bool active = j < H;
-  const int j2 = shared ? -1 : H + j;
-  const float inv_n = 1.f / (float)R;
-  const size_t RH = (size_t)R * H;
-  float* dh = scratch;  // dL/dh_t from step t+1; holds dy within a step
-  float* dc = scratch + RH;
-  float* fs = scratch + 2 * RH;
-  float* gs = scratch + 3 * RH;
+// the signs of y as bits: bits[t][b][r][q] for t < T1 = T - 1, bit k = (y[t][r][b J + 8 q
+// + k] >= 0); zero past R rows and H units
+__global__ void train_bits_kernel(const float* __restrict__ y, uint8_t* __restrict__ bits,
+                                  int T1, int R, int H, int Rp, int J, int nblk) {
+  const int JB = J / 8;
+  const long long n = (long long)T1 * nblk * Rp * JB;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x) {
+    const int q = (int)(i % JB);
+    long long rest = i / JB;
+    const int r = (int)(rest % Rp);
+    rest /= Rp;
+    const int b = (int)(rest % nblk);
+    const long long t = rest / nblk;
+    unsigned v = 0;
+    if (r < R) {
+      const int u0 = b * J + 8 * q;
+      const float* yr = y + ((size_t)t * R + r) * H;
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+        if (u0 + k < H && yr[u0 + k] >= 0.f) v |= 1u << k;
+    }
+    bits[i] = (uint8_t)v;
+  }
+}
 
-  const float b_f = active ? b2[j] : 0.f, b_c = active ? b2[H + j] : 0.f;
-  const float gamma = active ? bnp[j] : 0.f;
-  float db_f = 0.f, db_c = 0.f, dgamma = 0.f, dbeta = 0.f;
+__device__ __forceinline__ uint32_t bf16_pair(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
 
-  for (int t = T - 1; t >= 0; --t) {
-    // h_prev of the block's rows, input-major per tile
-    for (int k = 0; k < rows_blk / RB && active; ++k) {
-      float hv[RB];
-      for (int r = 0; r < RB; ++r) {
-        const int lr = k * RB + r;
-        hv[r] = (t > 0 && lr < nrows &&
-                 y[((size_t)(t - 1) * R + row0 + lr) * H + j] >= 0.f) ? 1.f : 0.f;
+// the three exact bf16 terms (hi, mid, lo) of two float32 values, as pairs
+__device__ __forceinline__ void split_pair(float x, float y, uint32_t (&t)[3]) {
+  const float hx = __bfloat162float(__float2bfloat16(x)), hy = __bfloat162float(__float2bfloat16(y));
+  const float rx = x - hx, ry = y - hy;
+  const float mx = __bfloat162float(__float2bfloat16(rx)), my = __bfloat162float(__float2bfloat16(ry));
+  t[0] = bf16_pair(hx, hy);
+  t[1] = bf16_pair(mx, my);
+  t[2] = bf16_pair(rx - mx, ry - my);
+}
+
+// Four drg values of a row at gate columns g .. g + 3 (zero past G), from
+// L2: one 8-byte (bf16) or 16-byte (float32) load where the row allows.
+// train_pack permutes each 16-column k-tile of dh's weights so that lane
+// tig's four k slots of the mma (2 tig, 2 tig + 1, 2 tig + 8, 2 tig + 9)
+// are the four consecutive columns 16 kt + 4 tig .. + 3 of drg.
+__device__ __forceinline__ uint2 drg_quad(const __nv_bfloat16* row, int g, int G, bool vec) {
+  if (vec && g + 3 < G) return __ldcg(reinterpret_cast<const uint2*>(row + g));
+  unsigned h[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    h[q] = g + q < G ? __ldcg(reinterpret_cast<const unsigned short*>(row + g + q)) : 0u;
+  return make_uint2(h[0] | (h[1] << 16), h[2] | (h[3] << 16));
+}
+__device__ __forceinline__ float4 drg_quad(const float* row, int g, int G, bool vec) {
+  if (vec && g + 3 < G) return __ldcg(reinterpret_cast<const float4*>(row + g));
+  return make_float4(g < G ? __ldcg(row + g) : 0.f, g + 1 < G ? __ldcg(row + g + 1) : 0.f,
+                     g + 2 < G ? __ldcg(row + g + 2) : 0.f, g + 3 < G ? __ldcg(row + g + 3) : 0.f);
+}
+// the quad as B fragments (b0, b1) of each bf16 term
+__device__ __forceinline__ void b_terms(uint2 v, uint32_t (&b)[2][1]) {
+  b[0][0] = v.x;
+  b[1][0] = v.y;
+}
+__device__ __forceinline__ void b_terms(float4 v, uint32_t (&b)[2][3]) {
+  split_pair(v.x, v.y, b[0]);
+  split_pair(v.z, v.w, b[1]);
+}
+
+// dh of m-tiles mt0, mt0 + 1 (i < nmt) of the block's units for the warp's
+// row groups: acc[i][n] += W_hh[J_b, :] drg^T over the KTg k-tiles of gate
+// columns. wd: the block's fragments [MTd][KTg][NTERM][32]; dx: dxg[t] [R][G],
+// every block's columns, read from L2 PF k-tiles ahead (the raw values in
+// the ring; float32's three terms split at use). float32 streams split both
+// operands into three exact bf16 terms and sum the six products above
+// 2^-24 (hi hi, hi mid, mid hi, hi lo, lo hi, mid mid). Each k-tile is
+// summed from zero and added in float32.
+template <int NGB, typename IO>
+__device__ __forceinline__ void dh_product(float (&acc)[2][NGB][4], const uint4* wd, int mt0,
+                                           int nmt, const TrainPlan& p, const IO* dx, int ng0,
+                                           int lane) {
+  constexpr bool F32 = sizeof(IO) == 4;
+  constexpr int NTERM = F32 ? 3 : 1;
+  constexpr int PF = F32 ? 2 : 3;  // k-tiles in flight while one is multiplied
+  using Raw = std::conditional_t<F32, float4, uint2>;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int G = p.G, KTg = p.KTg;
+  // whole 4-column groups of every row on 8- or 16-byte boundaries
+  const bool vec = G % 4 == 0 && (reinterpret_cast<uintptr_t>(dx) & 15) == 0;
+  const IO* rows[NGB];
+  bool live[NGB];
+#pragma unroll
+  for (int n = 0; n < NGB; ++n) {
+    const int r = 8 * (ng0 + n) + gid;
+    live[n] = r < p.R;
+    rows[n] = dx + (size_t)(live[n] ? r : 0) * G;
+  }
+  Raw buf[PF + 1][NGB];
+  auto load = [&](Raw (&f)[NGB], int kt) {
+#pragma unroll
+    for (int n = 0; n < NGB; ++n) {
+      if (live[n] && kt < KTg) {
+        f[n] = drg_quad(rows[n], 16 * kt + 4 * tig, G, vec);
+      } else if constexpr (F32) {
+        f[n] = make_float4(0.f, 0.f, 0.f, 0.f);
+      } else {
+        f[n] = make_uint2(0u, 0u);
       }
-      float4* dst = reinterpret_cast<float4*>(buf + ((size_t)k * H + j) * RB);
-      dst[0] = make_float4(hv[0], hv[1], hv[2], hv[3]);
-      dst[1] = make_float4(hv[4], hv[5], hv[6], hv[7]);
+    }
+  };
+  auto mul = [&](const Raw (&f)[NGB], int kt) {
+    uint32_t b[NGB][2][NTERM];
+#pragma unroll
+    for (int n = 0; n < NGB; ++n) b_terms(f[n], b[n]);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      if (i >= nmt) break;
+      const uint4* w = wd + ((size_t)(mt0 + i) * KTg + kt) * NTERM * 32 + lane;
+      uint4 a[NTERM];
+#pragma unroll
+      for (int e = 0; e < NTERM; ++e) a[e] = w[e * 32];
+#pragma unroll
+      for (int n = 0; n < NGB; ++n) {
+        float d[4];
+        mma0(d, a[0], b[n][0][0], b[n][1][0]);
+        if constexpr (NTERM > 1) {
+          float d2[4];
+          mma0(d2, a[0], b[n][0][1], b[n][1][1]);  // hi mid
+          mma1(d2, a[1], b[n][0][0], b[n][1][0]);  // mid hi
+          mma1(d2, a[0], b[n][0][2], b[n][1][2]);  // hi lo
+          mma1(d2, a[2], b[n][0][0], b[n][1][0]);  // lo hi
+          mma1(d2, a[1], b[n][0][1], b[n][1][1]);  // mid mid
+#pragma unroll
+          for (int e = 0; e < 4; ++e) d[e] += d2[e];
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][n][e] += d[e];
+      }
+    }
+  };
+#pragma unroll
+  for (int q = 0; q < PF; ++q) load(buf[q], q);
+  for (int kt0 = 0; kt0 < KTg; kt0 += PF + 1) {
+#pragma unroll
+    for (int q = 0; q <= PF; ++q) {
+      const int kt = kt0 + q;
+      if (kt >= KTg) break;
+      load(buf[(q + PF) % (PF + 1)], kt + PF);
+      mul(buf[q], kt);
+    }
+  }
+}
+
+// The recomputed gates of every step, all at once: they depend on y alone,
+// not on the backward's recurrence. Block (b, t) takes block b's units at
+// step t for all R rows: D's product (bits of y[t-1], the gate fragments)
+// and cell, f and g into fg [2][T][R][H] (float32).
+template <typename IO, int NGB>
+__global__ void __launch_bounds__(NTHREADS, 1)
+train_gates_kernel(const IO* __restrict__ xg, const uint4* __restrict__ wgfrag,
+                   const uint8_t* __restrict__ hbits, const float* __restrict__ b2,
+                   float* __restrict__ fg, const TrainPlan p) {
+  constexpr int NTERM = sizeof(IO) == 4 ? 3 : 1;
+  const int b = blockIdx.x, t = blockIdx.y;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int H = p.H, R = p.R, G = p.G, J = p.J, shared = p.shared;
+  const int J0 = b * J, Jb = min(J, H - J0);
+  const int NG = p.Rp >> 3, NB = (NG + NGB - 1) / NGB;
+  const size_t step_bytes = (size_t)p.nblk * p.Rp * 2 * p.JT;
+  const uint4* wg = wgfrag + (size_t)b * p.MT * p.KT * NTERM * 32;
+  const uint8_t* hb = hbits + (t > 0 ? (size_t)(t - 1) * step_bytes : 0);
+  const IO* xt = xg + (size_t)t * R * G;
+  float* F = fg + (size_t)t * R * H;
+  float* Gs = F + (size_t)p.T * R * H;
+  const int nchunk = (p.MT + 1) / 2;
+  for (int c = 0; c < nchunk; ++c) {
+    const int nmt = min(2, p.MT - 2 * c);
+    for (int bt = warp; bt < NB; bt += NW) {
+      const int ng0 = bt * NGB;
+      float acc[2][NGB][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int n = 0; n < NGB; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][n][e] = 0.f;
+      if (t > 0) gate_product<NGB, NTERM>(acc, wg, 2 * c, nmt, p, hb, ng0, lane);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int n = 0; n < NGB; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            if (!elem_live(shared, e) || i >= nmt) continue;
+            const int u = elem_unit(shared, 2 * c + i, gid, e);
+            const int r = elem_row(ng0 + n, tig, e);
+            if (r >= R || u >= Jb) continue;
+            const IO* x = xt + (size_t)r * G + J0 + u;
+            const float pre_f = acc[i][n][e] + ld(x);
+            const float pre_c = shared ? pre_f : acc[i][n][(e + 2) & 3] + ld(x + H);
+            const size_t o = (size_t)r * H + J0 + u;
+            F[o] = 1.f / (1.f + expf(-(pre_f + b2[J0 + u])));
+            Gs[o] = pre_c + b2[H + J0 + u];
+          }
+    }
+  }
+}
+
+// The reverse-time recurrence. Passes 1 and 2 take one row a warp at a
+// time, a lane a unit (lane and lane + 32), so that every access to the
+// [T, R, H] tensors is one contiguous run of the block's units; pass 3 (the
+// dh product) takes the mma layout.
+template <typename IO, int NGB>
+__global__ void __launch_bounds__(NTHREADS, 1)
+train_bwd_kernel(const float* __restrict__ y, const IO* __restrict__ gout,
+                 const float* __restrict__ stats, const float* __restrict__ fg,
+                 const uint4* __restrict__ wdfrag, const float* __restrict__ bnp, IO* dxg,
+                 float* __restrict__ db, float* __restrict__ dbn, float* __restrict__ gstate,
+                 unsigned long long* __restrict__ prof, const TrainPlan p) {
+  constexpr int NTERM = sizeof(IO) == 4 ? 3 : 1;
+  extern __shared__ uint4 smem4[];
+  char* sm = reinterpret_cast<char*>(smem4);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int H = p.H, R = p.R, G = p.G, J = p.J, shared = p.shared;
+  const bool bn = p.mode == MODE_BN;
+  const int J0 = rank * J, Jb = min(J, H - J0);
+  const int NG = p.Rp >> 3, NB = (NG + NGB - 1) / NGB;
+  // [5][J]: gamma, mean, rstd, sum(dy), sum(dy xhat)
+  float* vec = reinterpret_cast<float*>(sm + p.o_vec);
+  float* part = reinterpret_cast<float*>(sm + p.o_part);  // [2][NW][J]
+  float* part2 = part + NW * J;
+  const size_t wd_n = (size_t)p.MTd * p.KTg * NTERM * 32;
+  const uint4* wd = wdfrag + rank * wd_n;
+  if (p.o_wd >= 0) {
+    uint4* dst = reinterpret_cast<uint4*>(sm + p.o_wd);
+    for (size_t i = tid; i < wd_n; i += NTHREADS) dst[i] = wd[i];
+    wd = dst;
+  }
+  // per-element state [Rp][ldJ]: dh (dy within a step) and dc
+  float* DH = p.o_state[0] >= 0 ? reinterpret_cast<float*>(sm + p.o_state[0])
+                                : gstate + ((size_t)rank * 2) * p.Rp * p.ldJ;
+  float* DC = p.o_state[1] >= 0 ? reinterpret_cast<float*>(sm + p.o_state[1])
+                                : gstate + ((size_t)rank * 2 + 1) * p.Rp * p.ldJ;
+  for (int i = tid; i < p.Rp * p.ldJ; i += NTHREADS) DH[i] = DC[i] = 0.f;
+  for (int u = tid; u < J; u += NTHREADS) vec[u] = u < Jb ? bnp[J0 + u] : 0.f;
+  __syncthreads();
+  const float inv_n = 1.f / (float)R;
+  const size_t RH = (size_t)R * H, TRH = (size_t)p.T * RH;
+  // dh's m-tiles an item: two, or one when the pairs would leave warps idle
+  const int cmd = p.MTd > 1 && (p.MTd + 1) / 2 * NB < NW ? 1 : 2;
+  const int nchunk_d = (p.MTd + cmd - 1) / cmd;
+  // passes 1 and 2: upl lanes a row (all 32, or 16 when J is 16, two rows an
+  // instruction: rpi), units lane % upl and + 32 (qn of them); nslot row slots
+  const int upl = J <= 16 ? 16 : 32, rpi = 32 / upl, qn = (J + 31) / 32;
+  const int nslot = (R + rpi - 1) / rpi;
+  const float* gamma = vec;
+  const float* mean = vec + J;
+  const float* rstd = vec + 2 * J;
+  const float* sum_dy = vec + 3 * J;
+  const float* sum_dyx = vec + 4 * J;
+  float db_f = 0.f, db_c = 0.f, dgam = 0.f, dbet = 0.f;  // thread u's unit u
+  // phases: 0 dy, 1 BN sums, 2 cell backward and dxg, 3 barrier, 4 dh, 5 block barrier
+  PhaseClock clk;
+  clk.start(prof);
+
+  for (int t = p.T - 1; t >= 0; --t) {
+    if (bn)
+      for (int u = tid; u < J; u += NTHREADS) {
+        const bool in = u < Jb;
+        vec[J + u] = in ? stats[(size_t)t * 2 * H + J0 + u] : 0.f;
+        vec[2 * J + u] = in ? 1.f / sqrtf(stats[((size_t)t * 2 + 1) * H + J0 + u] + BN_EPS) : 0.f;
+      }
+    if (t > 0) {  // the next step's inputs of the block's units, into L2
+      const size_t on = (size_t)(t - 1) * RH + J0;
+      const size_t rs = (size_t)H * sizeof(float);
+      const int nb = Jb * (int)sizeof(float);
+      prefetch_rows<false>(y + on, rs, nb, R);
+      prefetch_rows<false>(gout + on, (size_t)H * sizeof(IO), Jb * (int)sizeof(IO), R);
+      prefetch_rows<false>(fg + on, rs, nb, R);
+      prefetch_rows<false>(fg + TRH + on, rs, nb, R);
+      if (t > 1) prefetch_rows<false>(y + on - RH, rs, nb, R);
     }
     __syncthreads();
-    float mean = 0.f, rstd = 0.f;
-    if (bn && active) {
-      mean = stats[(size_t)t * 2 * H + j];
-      rstd = 1.f / sqrtf(stats[((size_t)t * 2 + 1) * H + j] + BN_EPS);
-    }
-    // recompute the gates; dy; the block's BN partial sums
-    float s_dy = 0.f, s_dyx = 0.f;
-    if (active) {
-      for (int k = 0; k < ntile; ++k) {
-        float a[RB], a2[RB];
-        dot_rows(buf + (size_t)k * H * RB, H, whh, G, j, j2, a, a2);
-        const int nr = min(RB, nrows - k * RB);
-        for (int r = 0; r < nr; ++r) {
-          const int row = row0 + k * RB + r;
-          const size_t i = (size_t)row * H + j;
-          const IO* x = xg + ((size_t)t * R + row) * G;
-          const float pre_f = ld(x + j) + a[r];
-          const float pre_c = shared ? pre_f : ld(x + H + j) + a2[r];
-          const float f = 1.f / (1.f + expf(-(pre_f + b_f)));
-          const float g = pre_c + b_c;
-          const size_t o = ((size_t)t * R + row) * H + j;
-          const float surr = fmaxf(1.f - fabsf(y[o]), 0.f);
-          const float dy = (ld(gout + o) + dh[i]) * surr + dc[i];
-          fs[i] = f;
-          gs[i] = g;
-          dh[i] = dy;
-          if (bn) {
-            const float c_prev = t > 0 ? y[o - RH] : 0.f;
-            const float xhat = (f * c_prev + (1.f - f) * g - mean) * rstd;
-            s_dy += dy;
-            s_dyx += dy * xhat;
+    const size_t ot = (size_t)t * RH;
+    // pass 1: dy from the carried dh and dc; the rows' BN sums. A warp takes
+    // rows warp, warp + NW, ..., RS of them at once: their loads first, so
+    // that RS round trips to L2 are in flight together
+    {
+      float s0[2] = {0.f, 0.f}, s1[2] = {0.f, 0.f};
+      for (int r0 = warp; r0 < nslot; r0 += NW * RS) {
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const int u = lane % upl + 32 * q;
+          if (q >= qn) break;
+          float yv[RS], gv[RS], fv[RS], gg[RS], yp[RS], dh[RS], dc[RS];
+#pragma unroll
+          for (int i = 0; i < RS; ++i) {
+            const int r = (r0 + i * NW) * rpi + lane / upl;
+            yv[i] = gv[i] = fv[i] = gg[i] = yp[i] = dh[i] = dc[i] = 0.f;
+            if (r >= R || u >= Jb) continue;
+            const size_t o = ot + (size_t)r * H + J0 + u;
+            yv[i] = y[o];
+            gv[i] = ld(gout + o);
+            dh[i] = DH[r * p.ldJ + u];
+            dc[i] = DC[r * p.ldJ + u];
+            if (bn) {
+              fv[i] = fg[o];
+              gg[i] = fg[TRH + o];
+              yp[i] = t > 0 ? y[o - RH] : 0.f;
+            }
+          }
+#pragma unroll
+          for (int i = 0; i < RS; ++i) {
+            const int r = (r0 + i * NW) * rpi + lane / upl;
+            if (r >= R || u >= Jb) continue;
+            const float surr = fmaxf(1.f - fabsf(yv[i]), 0.f);
+            const float dy = (gv[i] + dh[i]) * surr + dc[i];
+            DH[r * p.ldJ + u] = dy;
+            if (bn) {
+              const float xhat = (fv[i] * yp[i] + (1.f - fv[i]) * gg[i] - mean[u]) * rstd[u];
+              s0[q] += dy;
+              s1[q] += dy * xhat;
+            }
           }
         }
       }
+      if (bn) block_partials(part, part2, s0, s1, J, upl, warp, lane);
     }
-    float sum_dy = 0.f, sum_dyx = 0.f;
+    clk.mark(0);
     if (bn) {
-      float* pp = part + (t & 1) * 2 * H;
-      if (active) {
-        pp[j] = s_dy;
-        pp[H + j] = s_dyx;
+      __syncthreads();
+      for (int u = tid; u < J; u += NTHREADS) {
+        const float sdy = warp_sum(part, J, u), sdyx = warp_sum(part2, J, u);
+        vec[3 * J + u] = sdy;
+        vec[4 * J + u] = sdyx;
+        dgam += sdyx;
+        dbet += sdy;
       }
-      cluster.sync();  // also: every thread has read h_prev before buf takes drg
-      if (active)
-        for (int b = 0; b < nblk; ++b) {
-          const float* q = cluster.map_shared_rank(pp, b);
-          sum_dy += q[j];
-          sum_dyx += q[H + j];
-        }
-      dgamma += sum_dyx;
-      dbeta += sum_dy;
-    } else {
-      __syncthreads();  // every thread has read h_prev before buf takes drg
+      __syncthreads();
     }
-    // the membrane gradient through BN and the cell; drg into dxg and buf
-    if (active) {
-      for (int k = 0; k < ntile; ++k) {
-        const int nr = min(RB, nrows - k * RB);
-        for (int r = 0; r < nr; ++r) {
-          const int row = row0 + k * RB + r;
-          const size_t i = (size_t)row * H + j;
-          const size_t o = ((size_t)t * R + row) * H + j;
-          const float f = fs[i], g = gs[i], dy = dh[i];
-          const float c_prev = t > 0 ? y[o - RH] : 0.f;
-          float dcr = dy;
-          if (bn) {
-            const float xhat = (f * c_prev + (1.f - f) * g - mean) * rstd;
-            dcr = gamma * rstd * (dy - inv_n * sum_dy - xhat * (inv_n * sum_dyx));
+    clk.mark(1);
+    // pass 2: the membrane gradient through BN and the cell; drg into dxg[t]
+    IO* dxt = dxg + (size_t)t * R * G;
+    {
+      float s0[2] = {0.f, 0.f}, s1[2] = {0.f, 0.f};
+      for (int r0 = warp; r0 < nslot; r0 += NW * RS) {
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const int u = lane % upl + 32 * q;
+          if (q >= qn) break;
+          float fv[RS], gg[RS], yp[RS], dyv[RS];
+#pragma unroll
+          for (int i = 0; i < RS; ++i) {
+            const int r = (r0 + i * NW) * rpi + lane / upl;
+            fv[i] = gg[i] = yp[i] = dyv[i] = 0.f;
+            if (r >= R || u >= Jb) continue;
+            const size_t o = ot + (size_t)r * H + J0 + u;
+            dyv[i] = DH[r * p.ldJ + u];
+            fv[i] = fg[o];
+            gg[i] = fg[TRH + o];
+            yp[i] = t > 0 ? y[o - RH] : 0.f;
           }
-          const float dpre_f = dcr * (c_prev - g) * f * (1.f - f);
-          const float dpre_c = dcr * (1.f - f);
-          dc[i] = dcr * f;
-          db_f += dpre_f;
-          db_c += dpre_c;
-          IO* dx = dxg + ((size_t)t * R + row) * G;
-          if (shared) {
-            const float d = rnd(dpre_f + dpre_c, dx);
-            st(dx + j, d);
-            buf[((size_t)k * G + j) * RB + r] = d;
-          } else {
-            const float d_f = rnd(dpre_f, dx), d_c = rnd(dpre_c, dx);
-            st(dx + j, d_f);
-            st(dx + H + j, d_c);
-            buf[((size_t)k * G + j) * RB + r] = d_f;
-            buf[((size_t)k * G + H + j) * RB + r] = d_c;
+#pragma unroll
+          for (int i = 0; i < RS; ++i) {
+            const int r = (r0 + i * NW) * rpi + lane / upl;
+            if (r >= R || u >= Jb) continue;
+            const int k = r * p.ldJ + u;
+            const float f = fv[i], g = gg[i], dy = dyv[i], c_prev = yp[i];
+            float dcr = dy;
+            if (bn) {
+              const float xhat = (f * c_prev + (1.f - f) * g - mean[u]) * rstd[u];
+              dcr = gamma[u] * rstd[u] * (dy - inv_n * sum_dy[u] - xhat * (inv_n * sum_dyx[u]));
+            }
+            const float dpre_f = dcr * (c_prev - g) * f * (1.f - f);
+            const float dpre_c = dcr * (1.f - f);
+            DC[k] = dcr * f;
+            s0[q] += dpre_f;
+            s1[q] += dpre_c;
+            IO* dx = dxt + (size_t)r * G + J0 + u;
+            if (shared) {
+              st(dx, dpre_f + dpre_c);
+            } else {
+              st(dx, dpre_f);
+              st(dx + H, dpre_c);
+            }
           }
         }
       }
+      block_partials(part, part2, s0, s1, J, upl, warp, lane);
     }
-    __syncthreads();  // drg is staged
-    // dh_{t-1} = drg @ W_hh^T over the G gate columns
-    if (active) {
-      for (int k = 0; k < ntile; ++k) {
-        float a[RB], unused[RB];
-        dot_rows(buf + (size_t)k * G * RB, G, whh_t, H, j, -1, a, unused);
-        const int nr = min(RB, nrows - k * RB);
-        for (int r = 0; r < nr; ++r) dh[(size_t)(row0 + k * RB + r) * H + j] = a[r];
+    clk.mark(2);
+    cluster.sync();  // every block's dxg[t] written; the db partials complete
+    clk.mark(3);
+    for (int u = tid; u < J; u += NTHREADS) {
+      db_f += warp_sum(part, J, u);
+      db_c += warp_sum(part2, J, u);
+    }
+    // pass 3: dh of the block's units for step t - 1, from every block's drg
+    if (t > 0) {
+      for (int it = warp; it < nchunk_d * NB; it += NW) {  // (chunk, batch) pairs
+        const int c = it / NB, ng0 = (it - c * NB) * NGB;
+        const int nmt = min(cmd, p.MTd - cmd * c);
+        float acc[2][NGB][4];
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int n = 0; n < NGB; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[i][n][e] = 0.f;
+        dh_product<NGB, IO>(acc, wd, cmd * c, nmt, p, dxt, ng0, lane);
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int n = 0; n < NGB; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              if (i >= nmt) continue;
+              const int u = elem_unit(1, cmd * c + i, gid, e);  // 16 units an m-tile
+              const int r = elem_row(ng0 + n, tig, e);
+              if (r < R && u < Jb) DH[r * p.ldJ + u] = acc[i][n][e];
+            }
       }
     }
-    __syncthreads();  // every thread has read drg before the next step stages h_prev
+    clk.mark(4);
+    __syncthreads();  // dh in place; part and vec free
+    clk.mark(5);
   }
-  // db over every row: the cluster's partials, added by block 0 in rank order
-  float* pe = part + 4 * H;
-  if (active) {
-    pe[j] = db_f;
-    pe[H + j] = db_c;
+  for (int u = tid; u < Jb; u += NTHREADS) {
+    db[J0 + u] = db_f;
+    db[H + J0 + u] = db_c;
+    dbn[J0 + u] = dgam;
+    dbn[H + J0 + u] = dbet;
   }
-  cluster.sync();
-  if (rank == 0 && active) {
-    float sf = 0.f, sc = 0.f;
-    for (int b = 0; b < nblk; ++b) {
-      const float* q = cluster.map_shared_rank(pe, b);
-      sf += q[j];
-      sc += q[H + j];
-    }
-    db[j] = sf;
-    db[H + j] = sc;
-    dbn[j] = dgamma;  // every block holds the same cluster-wide sums
-    dbn[H + j] = dbeta;
-  }
-  cluster.sync();  // no block leaves while block 0 reads its partials
+  clk.finish(rank);
 }
 
 // ---- train_dw_kernel: split-K tensor-core product, then a fixed-order sum ----
@@ -484,65 +791,95 @@ __global__ void train_dw_reduce_kernel(const float* __restrict__ part, float* __
   }
 }
 
-template <typename IO>
+
+template <typename IO, int NGB>
 int launch_bwd(const void* xg, const float* y, const void* gout, const float* stats,
-               const void* whh, const void* whh_t, const float* b2, const float* bnp, void* dxg,
-               float* db, float* dbn, float* scratch, int T, int R, int H, int shared, int mode,
-               cudaStream_t stream) {
-  const int G = shared ? H : 2 * H;
-  int nblk = (R + RB - 1) / RB;
-  nblk = nblk < MAX_CLUSTER ? nblk : MAX_CLUSTER;
-  const int rows_blk = ((R + nblk - 1) / nblk + RB - 1) / RB * RB;
-  const size_t smem = ((size_t)rows_blk * G + 6 * H) * sizeof(float);
-  if (smem > 232448) return (int)cudaErrorInvalidValue;  // 227 KB a block
-  auto kern = train_bwd_kernel<IO>;
-  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)smem);
+               const void* wgfrag, const void* wdfrag, uint8_t* hbits, const float* b2,
+               const float* bnp, void* dxg, float* db, float* dbn, float* gstate, float* fg,
+               unsigned long long* prof, const TrainPlan& p, cudaStream_t stream) {
+  if (p.T >= 2) {
+    const long long n = (long long)(p.T - 1) * p.nblk * p.Rp * (p.J / 8);
+    const int blocks = (int)((n + 255) / 256 < 1056 ? (n + 255) / 256 : 1056);
+    train_bits_kernel<<<blocks, 256, 0, stream>>>(y, hbits, p.T - 1, p.R, p.H, p.Rp, p.J,
+                                                  p.nblk);
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  train_gates_kernel<IO, NGB><<<dim3((unsigned)p.nblk, (unsigned)p.T), NTHREADS, 0, stream>>>(
+      static_cast<const IO*>(xg), static_cast<const uint4*>(wgfrag), hbits, b2, fg, p);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  auto kern = train_bwd_kernel<IO, NGB>;
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
+  if (e == cudaSuccess) e = allow_cluster(kern, p.nblk);
   if (e != cudaSuccess) return (int)e;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)nblk);
-  cfg.blockDim = dim3((unsigned)((H + 31) / 32 * 32));
-  cfg.dynamicSmemBytes = smem;
+  cfg.gridDim = dim3((unsigned)p.nblk);
+  cfg.blockDim = dim3((unsigned)NTHREADS);
+  cfg.dynamicSmemBytes = (size_t)p.smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = (unsigned)nblk;
+  attr[0].val.clusterDim.x = (unsigned)p.nblk;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, kern, static_cast<const IO*>(xg), y,
-                         static_cast<const IO*>(gout), stats, static_cast<const IO*>(whh),
-                         static_cast<const IO*>(whh_t), b2, bnp, static_cast<IO*>(dxg), db, dbn,
-                         scratch, T, R, H, shared, mode, rows_blk);
+  e = cudaLaunchKernelEx(&cfg, kern, y, static_cast<const IO*>(gout), stats,
+                         static_cast<const float*>(fg), static_cast<const uint4*>(wdfrag), bnp,
+                         static_cast<IO*>(dxg), db, dbn, gstate, prof, p);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+template <typename IO>
+int launch_bwd_io(const void* xg, const float* y, const void* gout, const float* stats,
+                  const void* wg, const void* wd, uint8_t* hbits, const float* b2,
+                  const float* bnp, void* dxg, float* db, float* dbn, float* gstate, float* fg,
+                  unsigned long long* prof, const TrainPlan& p, cudaStream_t s) {
+  if (p.ngb == 4)
+    return launch_bwd<IO, 4>(xg, y, gout, stats, wg, wd, hbits, b2, bnp, dxg, db, dbn, gstate,
+                             fg, prof, p, s);
+  if (p.ngb == 2)
+    return launch_bwd<IO, 2>(xg, y, gout, stats, wg, wd, hbits, b2, bnp, dxg, db, dbn, gstate,
+                             fg, prof, p, s);
+  return launch_bwd<IO, 1>(xg, y, gout, stats, wg, wd, hbits, b2, bnp, dxg, db, dbn, gstate, fg,
+                           prof, p, s);
 }
 
 }  // namespace
 
 extern "C" {
 
-// io: 0 float32 streams, 1 bfloat16. xg [T, R, G], gout [T, R, H], whh
-// [H, G] and whh_t [G, H] in the stream type; y [T, R, H], stats [T, 2, H],
-// b2 and bnp [2, H] (bnp[0] = gamma) f32; out dxg [T, R, G] in the stream
-// type, db and dbn [2, H] f32; scratch [4, R, H] f32, its first 2 R H zeroed
-// by the caller. mode: 0 none, 1 batch-statistics BN. One cluster of
-// min(8, ceil(R / 8)) blocks runs every row. Returns the CUDA error code of
-// the launch.
+// io: 0 float32 streams, 1 bfloat16. xg [T, R, G] and gout [T, R, H] in the
+// stream type; wgfrag and wdfrag W_hh's packed gate columns and unit rows
+// (train_pack: [nblk][MT][KT][nterm][32] and [nblk][MTd][KTg][nterm][32] x
+// 16 bytes, dh's k-tiles permuted); y [T, R, H], stats [T, 2, H], b2 and
+// bnp [2, H] (bnp[0] = gamma) f32; out dxg [T, R, G] in the stream type, db
+// and dbn [2, H] f32; scratch: hbits [max(T - 1, 1)][nblk][Rp][J / 8]
+// bytes, gstate [nblk][2][Rp][ldJ] f32 (the state the plan leaves in device
+// memory) and fg [2][T][R][H] f32 (the recomputed gates); prof null or
+// [nblk][6] cycle counters. mode: 0 none, 1 batch-statistics BN. Three
+// kernels: the signs of y as bits, the gates of every step, the
+// recurrence (one cluster, sized by the plan, train_plan). Returns the
+// CUDA error code of the launches.
 int gsu_train_bwd_launch(int io, const void* xg, const float* y, const void* gout,
-                         const float* stats, const void* whh, const void* whh_t,
-                         const float* b2, const float* bnp, void* dxg, float* db, float* dbn,
-                         float* scratch, int T, int R, int H, int shared, int mode,
-                         void* stream) {
-  if (H < 1 || H > 512 || R < 1 || T < 1 || (mode != 0 && mode != 1) || io < 0 || io > 1)
+                         const float* stats, const void* wgfrag, const void* wdfrag,
+                         void* hbits, const float* b2, const float* bnp, void* dxg, float* db,
+                         float* dbn, float* gstate, float* fg, unsigned long long* prof,
+                         const TrainPlan* plan, void* stream) {
+  const TrainPlan& p = *plan;
+  if (!plan_ok(p) || p.T < 1 || (p.mode != 0 && p.mode != 1) || io < 0 || io > 1 ||
+      p.nterm != (io == 1 ? 1 : 3) || p.MTd != p.JT || p.KTg != (p.G + 15) / 16 ||
+      p.o_wg != -1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  uint8_t* hb = static_cast<uint8_t*>(hbits);
   if (io == 1)
-    return launch_bwd<__nv_bfloat16>(xg, y, gout, stats, whh, whh_t, b2, bnp, dxg, db, dbn,
-                                     scratch, T, R, H, shared, mode, s);
-  return launch_bwd<float>(xg, y, gout, stats, whh, whh_t, b2, bnp, dxg, db, dbn, scratch, T,
-                           R, H, shared, mode, s);
+    return launch_bwd_io<__nv_bfloat16>(xg, y, gout, stats, wgfrag, wdfrag, hb, b2, bnp, dxg,
+                                        db, dbn, gstate, fg, prof, p, s);
+  return launch_bwd_io<float>(xg, y, gout, stats, wgfrag, wdfrag, hb, b2, bnp, dxg, db, dbn,
+                              gstate, fg, prof, p, s);
 }
 
 // io as above. y [T, R, H] f32 and dxg [T, R, G] in the stream type -> dw

@@ -23,10 +23,13 @@ Six kernels, each a hand-written CUDA C++ source under ``../csrc``:
   batch-statistics BatchNorm (training), a folded affine (eval) or none,
   saving the membranes and the per-step statistics for the backward.
 - ``gsu_layer_train_bwd`` (kernel E, ``csrc/gsu_train_bwd.cu``) replaces
-  ``_bwd_kernel`` / ``_run_bwd``: D's reverse-time backward; its weight
+  ``_bwd_kernel`` / ``_run_bwd``: D's reverse-time backward (with the
+  recomputed gates of every step as a kernel of their own); its weight
   gradient is a second kernel of the same source, ``gsu_train_dw``.
   D and E take float32 streams (the layered path) or bfloat16 streams (the
   stream-train path, ``_KCfg.io``); membranes and statistics are float32.
+  Both split the units over one thread-block cluster as ``train_plan``
+  lays out, with W_hh packed by ``train_pack``.
 
 A wrapper launches its kernel for CUDA tensors and runs the plain version
 for CPU tensors; a CUDA tensor never takes the plain path. Each wrapper
@@ -45,6 +48,7 @@ started together; kernel C is two libraries, one per stream type) into
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import math
 import os
@@ -138,10 +142,10 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
             [I, I, P, I, I] + [P] * 17 + [I] * 10 + [P])
         lib.gsu_sections_eval_launch.restype = I
     elif name == "train_fwd":
-        lib.gsu_train_fwd_launch.argtypes = [I] + [P] * 7 + [I] * 5 + [P]
+        lib.gsu_train_fwd_launch.argtypes = [I] + [P] * 9 + [ctypes.POINTER(_TrainPlanC), P]
         lib.gsu_train_fwd_launch.restype = I
     elif name == "train_bwd":
-        lib.gsu_train_bwd_launch.argtypes = [I] + [P] * 12 + [I] * 5 + [P]
+        lib.gsu_train_bwd_launch.argtypes = [I] + [P] * 15 + [ctypes.POINTER(_TrainPlanC), P]
         lib.gsu_train_bwd_launch.restype = I
         lib.gsu_train_dw_launch.argtypes = [I] + [P] * 4 + [I] * 5 + [ctypes.c_longlong, P]
         lib.gsu_train_dw_launch.restype = I
@@ -415,14 +419,193 @@ gsu_stack_eval_x.launches = 0
 # whh, the spikes, the spikes' gradient and dxg) are float32 or bfloat16
 # (``_KCfg.io``, ``gsu_pallas.py:129-133``); the membranes y, the statistics,
 # b2, bnp and the weight gradients are float32 (float64 beside float64
-# streams in the plain versions). Both kernels run the stack's rows as one
-# thread-block cluster (BN statistics cross every row at every step); their
-# launchers size it and refuse what does not fit.
+# streams in the plain versions). Both kernels run one thread-block cluster
+# whose blocks split the units, each over every row (BN statistics cross
+# every row at every step, not the units): ``train_plan`` sizes it, the
+# launchers follow it and refuse what does not fit.
 
 TRAIN_MODES = {"none": 0, "bn": 1, "affine": 2}
 TRAIN_IO = {torch.float32: 0, torch.bfloat16: 1}
-TRAIN_LIMITS = ("it takes H <= 512 and R >= 1 rows split over one cluster of at most 8 "
-                "blocks, each block's rows within 227 KB of shared memory")
+TRAIN_LIMITS = ("it takes H <= 512 and R >= 1 rows, the units split over one cluster of at "
+                "most 16 blocks (train_plan), kernel D's spike bits of two steps (4 ceil(R / "
+                "8) J / 8 bytes times the blocks, J units a block) and its tiles within 227 KB "
+                "of shared memory a block: 3304 rows at H 256, 2608 at H 320")
+TRAIN_WARPS = 16  # warps a block (NW in csrc/gsu_train_mma.cuh)
+TRAIN_PRE_LD = 36  # floats a row of kernel D's pre-activation tiles (PRE_LD)
+TRAIN_MAX_CLUSTER = 16  # blocks a cluster (above 8: non-portable, as the H100 allows)
+BLOCK_SMEM = 232448  # bytes of shared memory an H100 block can have
+
+
+def train_plan(R: int, H: int, shared: bool, io: torch.dtype, kernel: str = "fwd"
+               ) -> Dict[str, Any]:
+    """The layout of kernel D (``kernel="fwd"``) or E (``"bwd"``) for R rows
+    of H units (``csrc/gsu_train_mma.cuh``), which the launchers follow:
+
+    - ``nblk`` blocks of one cluster split the units, ``J`` a block (a
+      multiple of 16, the fewest blocks of at most 16 that cover H; the last
+      block may own fewer), ``MT`` gate m-tiles a block (J / 16 shared, J / 8
+      unshared), ``KT`` k-tiles of the gate product (over H), ``MTd`` and
+      ``KTg`` the m- and k-tiles of E's dh product (units by gate columns);
+    - ``Rp`` the rows padded to groups of 8, ``ngb`` row groups a warp's
+      batch (1, 2 or 4: the fewest groups on the busiest of the 16 warps,
+      then the largest batch; smaller where D's tiles would not fit);
+    - byte offsets in shared memory: D's spike bits of two steps
+      (``o_bits``; E has none), the per-unit vectors, the warps' partial
+      sums and D's pre-activation tiles (``o_pre``, a warp's 8 ngb rows),
+      then, while they fit the 232,448 bytes, D's packed gate weights
+      (``o_wg``) and membrane c, or E's dh weights (``o_wd``) and its dh and
+      dc (``o_state``, ``ldJ`` floats a row); a region that does not fit is
+      -1 and stays in device memory (E's gate weights always do: its gates
+      come from a kernel of their own). ``smem`` is the total; ``fits`` says
+      whether the bits and vectors fit at all (the launcher refuses the plan
+      otherwise)."""
+    if kernel not in ("fwd", "bwd"):
+        raise ValueError(f"kernel {kernel!r}: expected 'fwd' or 'bwd'")
+    G = H if shared else 2 * H
+    nterm = 1 if io == torch.bfloat16 else 3
+    J = _r16(-(-H // TRAIN_MAX_CLUSTER))
+    nblk = -(-H // J)
+    JT = J // 16
+    KT, KTg = -(-H // 16), -(-G // 16)
+    MT = JT if shared else 2 * JT
+    Rp = -(-R // 8) * 8
+    NG = Rp // 8
+    ngb = min((4, 2, 1), key=lambda b: (-(-(-(-NG // b)) // TRAIN_WARPS) * b, -b))
+    ldJ = J + 4  # rows of the state 4 floats apart: a warp's 32 elements on distinct banks
+    tile = 512 * nterm  # bytes of one 16 x 16 weight tile's fragments
+    # kernel D's float32 weights: floats for CUDA-core FMAs in k order
+    gtile = 1024 if (kernel == "fwd" and nterm == 3) else tile
+    # D: two steps' bits, [2][nblk][Rp][2 JT], and each warp's tile of
+    # pre-activations ([8 ngb rows][PRE_LD]); E reads its gates from device memory
+    bits = 2 * nblk * Rp * 2 * JT if kernel == "fwd" else 0
+    fixed = bits + 8 * J * 4 + 2 * TRAIN_WARPS * J * 4
+    pre = lambda b: TRAIN_WARPS * 8 * b * TRAIN_PRE_LD * 4 if kernel == "fwd" else 0  # noqa: E731
+    while ngb > 1 and fixed + pre(ngb) > BLOCK_SMEM:  # fewer rows a batch to fit
+        ngb //= 2
+    plan = dict(R=R, H=H, G=G, shared=int(shared), nblk=nblk, J=J, JT=JT, KT=KT, KTg=KTg,
+                MT=MT, MTd=JT, Rp=Rp, ldJ=ldJ, ngb=ngb, nterm=nterm, o_bits=0)
+    off = bits
+    plan["o_vec"] = off
+    off += 8 * J * 4
+    plan["o_part"] = off
+    off += 2 * TRAIN_WARPS * J * 4
+    plan["o_pre"] = off if kernel == "fwd" else -1
+    off += pre(ngb)
+    plan["fits"] = off <= BLOCK_SMEM
+    if kernel == "fwd":
+        regions = [("o_wg", MT * KT * gtile), ("state0", Rp * ldJ * 4)]
+    else:  # E: dh's weights, then dh and dc
+        regions = [("o_wd", JT * KTg * tile), ("state0", Rp * ldJ * 4), ("state1", Rp * ldJ * 4)]
+    plan["o_wg"] = plan["o_wd"] = -1
+    plan["o_state"] = [-1] * 2
+    for name, size in regions:
+        at = off if off + size <= BLOCK_SMEM else -1
+        off += size if at >= 0 else 0
+        if name.startswith("state"):
+            plan["o_state"][int(name[5:])] = at
+        else:
+            plan[name] = at
+    plan["smem"] = off
+    return plan
+
+
+class _TrainPlanC(ctypes.Structure):
+    """``TrainPlan`` of ``csrc/gsu_train_mma.cuh`` (same field order)."""
+    _fields_ = ([(n, ctypes.c_int) for n in (
+        "T", "R", "H", "G", "shared", "mode", "nblk", "J", "JT", "KT", "KTg", "MT", "MTd", "Rp",
+        "ldJ", "ngb", "nterm", "smem", "o_bits", "o_vec", "o_part", "o_wg", "o_wd", "o_pre")]
+        + [("o_state", ctypes.c_int * 2)])
+
+
+def _plan_c(plan: Dict[str, Any], T: int, mode: str) -> _TrainPlanC:
+    c = _TrainPlanC(T=T, mode=TRAIN_MODES[mode],
+                    **{k: int(v) for k, v in plan.items()
+                       if k not in ("o_state", "fits") and k in dict(_TrainPlanC._fields_)})
+    for k in range(2):
+        c.o_state[k] = plan["o_state"][k]
+    if not plan["fits"]:
+        c.smem = BLOCK_SMEM + 1  # the launcher refuses it
+    return c
+
+
+def _bf16_terms(a: torch.Tensor, nterm: int) -> List[torch.Tensor]:
+    """A float32 matrix as ``nterm`` bf16 terms that add up to it (three:
+    hi, mid, lo, each the rounding of what the terms before it leave, exact
+    above about 2^-110); one term is the value rounded."""
+    if nterm == 1:
+        return [a.to(torch.bfloat16)]
+    hi = a.to(torch.bfloat16)
+    r1 = a.float() - hi.float()
+    mid = r1.to(torch.bfloat16)
+    return [hi, mid, (r1 - mid.float()).to(torch.bfloat16)]
+
+
+def _frag_terms(a: torch.Tensor, nterm: int) -> torch.Tensor:
+    """A [Mp, Kp] -> [Mp/16, Kp/16, nterm, 32, 8] bf16 mma A fragments of each term."""
+    return torch.stack([mma_a_fragments(t) for t in _bf16_terms(a, nterm)], dim=2)
+
+
+@functools.lru_cache(maxsize=64)
+def _gate_cols(H: int, shared: bool, J: int, nblk: int, MT: int) -> Tuple[int, ...]:
+    """The gate column of each row of the blocks' A (G = a zero pad)."""
+    G = H if shared else 2 * H
+    cols = []
+    for b in range(nblk):
+        for m in range(MT * 16):
+            if shared:
+                u = b * J + m
+                cols.append(u if u < H else G)
+            else:
+                u = b * J + 8 * (m // 16) + m % 8
+                cols.append(G if u >= H else (u if m % 16 < 8 else H + u))
+    return tuple(cols)
+
+
+def train_pack(whh: torch.Tensor, plan: Dict[str, Any], kernel: str = "fwd"
+               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """W_hh [H, G] (stream type) as the A fragments kernels D and E multiply
+    (``plan`` from ``train_plan``), flat bf16 tensors:
+
+    - the gate product's, ``[nblk][MT][KT][nterm][32 lanes][8]``: block b's
+      A = W_hh[:, its gate columns]^T, its gate columns in the accumulators'
+      order (shared: units bJ + 16 mt + 0..15 in m-tile mt; unshared: rows
+      0-7 the f columns of units bJ + 8 mt + 0..7, rows 8-15 their c
+      columns H + j), zero past H; for kernel D with float32 weights the
+      same A as floats, ``[nblk][MT][KT 16][16]`` (A[16 mt + m][k] at [mt][k]
+      [m]), which it multiplies on the CUDA cores in k order;
+    - with ``kernel="bwd"`` also dh's, ``[nblk][MTd][KTg][nterm][32][8]``:
+      block b's A = W_hh[bJ .. bJ + J, :] (its units' rows over the G gate
+      columns), zero past H and G, each k-tile's columns in ``DH_K_ORDER``.
+
+    Fragments of float32 weights are three exact bf16 terms (hi, mid, lo),
+    of bf16 weights one."""
+    H, G = whh.shape
+    J, nblk, KT, KTg, nterm = plan["J"], plan["nblk"], plan["KT"], plan["KTg"], plan["nterm"]
+    shared = bool(plan["shared"])
+    dev = whh.device
+    w = whh.float()
+    # columns in block order; index G is a zero column
+    wz = torch.cat([w, w.new_zeros(H, 1)], dim=1)
+    cols = _gate_cols(H, shared, J, nblk, plan["MT"])
+    a = wz[:, torch.tensor(cols, device=dev)].T  # [nblk MT 16, H]
+    a = torch.cat([a, a.new_zeros(a.shape[0], KT * 16 - H)], dim=1)
+    if kernel == "fwd" and nterm == 3:
+        wg = a.reshape(-1, 16, KT * 16).permute(0, 2, 1).contiguous().reshape(-1)
+    else:
+        wg = _frag_terms(a, nterm).reshape(-1)
+    if kernel != "bwd":
+        return wg, None
+    d = w.new_zeros(nblk * J, KTg * 16)
+    d[:H, :G] = w
+    d = d[:, torch.tensor(DH_K_ORDER * KTg, device=dev) + torch.arange(KTg, device=dev
+                                                                     ).repeat_interleave(16) * 16]
+    return wg, _frag_terms(d, nterm).reshape(-1)
+
+
+# The gate column of each k slot of a 16-column tile of dh's weights: lane t
+# of the mma takes slots 2t, 2t + 1, 2t + 8, 2t + 9, which are columns 4t ..
+# 4t + 3, so that it loads its four drg values of a row at once.
+DH_K_ORDER = [4 * (s % 8 // 2) + s % 2 + 2 * (s // 8) for s in range(16)]
 
 
 def _gates(xg_t, h, w, b_f, b_c, H: int, shared: bool):
@@ -503,19 +686,30 @@ def gsu_layer_train_fwd(xg: torch.Tensor, whh: torch.Tensor, b2: torch.Tensor,
     var) ``[T, 2, H]`` in the accumulation type, zero outside mode "bn")."""
     if not xg.is_cuda:
         return layer_train_fwd_plain(xg, whh, b2, bnp, hidden, shared, mode)
+    out = _train_fwd_launch(xg, whh, b2, bnp, hidden, shared, mode)
+    gsu_layer_train_fwd.launches += 1
+    return out
+
+
+def _train_fwd_launch(xg, whh, b2, bnp, hidden, shared, mode, prof=None):
     H = hidden
     T, R, _ = _check_train_layer(xg, whh, b2, bnp, H, shared, mode)
     dev = xg.device
+    plan = train_plan(R, H, shared, xg.dtype, "fwd")
+    wg, _ = train_pack(whh, plan)
     spikes = torch.empty(T, R, H, dtype=xg.dtype, device=dev)
     y = torch.empty(T, R, H, dtype=torch.float32, device=dev)
     stats = torch.zeros(T, 2, H, dtype=torch.float32, device=dev)
+    gstate = torch.empty(plan["nblk"] if plan["o_state"][0] < 0 else 0, plan["Rp"],
+                         plan["ldJ"], dtype=torch.float32, device=dev)
+    pc = _plan_c(plan, T, mode)
     lib = _lib("train_fwd")
     with torch.cuda.device(dev):
-        rc = lib.gsu_train_fwd_launch(TRAIN_IO[xg.dtype], _ptr(xg), _ptr(whh), _ptr(b2),
-                                      _ptr(bnp), _ptr(spikes), _ptr(y), _ptr(stats), T, R, H,
-                                      int(shared), TRAIN_MODES[mode], _stream())
+        rc = lib.gsu_train_fwd_launch(TRAIN_IO[xg.dtype], _ptr(xg), _ptr(wg), _ptr(b2),
+                                      _ptr(bnp), _ptr(spikes), _ptr(y), _ptr(stats),
+                                      _ptr(gstate), None if prof is None else _ptr(prof),
+                                      ctypes.byref(pc), _stream())
     _check_rc(lib, rc, f"gsu_layer_train_fwd (H={H}, R={R})", TRAIN_LIMITS)
-    gsu_layer_train_fwd.launches += 1
     return spikes, y, stats
 
 
@@ -657,6 +851,12 @@ def gsu_layer_train_bwd(xg: torch.Tensor, y: torch.Tensor, gout: torch.Tensor,
     BatchNorm)."""
     if not xg.is_cuda:
         return layer_train_bwd_plain(xg, y, gout, stats, whh, b2, bnp, hidden, shared, mode)
+    dxg, db, dbn = _train_bwd_launch(xg, y, gout, stats, whh, b2, bnp, hidden, shared, mode)
+    gsu_layer_train_bwd.launches += 1
+    return dxg, gsu_train_dw(y, dxg), db, dbn
+
+
+def _train_bwd_launch(xg, y, gout, stats, whh, b2, bnp, hidden, shared, mode, prof=None):
     if mode == "affine":
         raise ValueError("kernel E takes mode 'bn' or 'none' (the affine mode is eval only)")
     H = hidden
@@ -665,20 +865,57 @@ def gsu_layer_train_bwd(xg: torch.Tensor, y: torch.Tensor, gout: torch.Tensor,
     _check_cuda("y", y, torch.float32, dev, (T, R, H))
     _check_cuda("gout", gout, io, dev, (T, R, H))
     _check_cuda("stats", stats, torch.float32, dev, (T, 2, H))
+    plan = train_plan(R, H, shared, io, "bwd")
+    wg, wd = train_pack(whh, plan, "bwd")
     dxg = torch.empty(T, R, G, dtype=io, device=dev)
     db = torch.empty(2, H, dtype=torch.float32, device=dev)
     dbn = torch.empty(2, H, dtype=torch.float32, device=dev)
-    scratch = torch.zeros(4, R, H, dtype=torch.float32, device=dev)  # dh, dc, f, g
-    whh_t = whh.t().contiguous()
+    step_bytes = plan["nblk"] * plan["Rp"] * plan["J"] // 8
+    hbits = torch.empty(max(T - 1, 1) * step_bytes, dtype=torch.uint8, device=dev)
+    in_dev = min(plan["o_state"]) < 0
+    gstate = torch.empty(plan["nblk"] * 2 if in_dev else 0, plan["Rp"], plan["ldJ"],
+                         dtype=torch.float32, device=dev)
+    fg = torch.empty(2, T, R, H, dtype=torch.float32, device=dev)  # the gates f and g
+    pc = _plan_c(plan, T, mode)
     lib = _lib("train_bwd")
     with torch.cuda.device(dev):
         rc = lib.gsu_train_bwd_launch(
-            TRAIN_IO[io], _ptr(xg), _ptr(y), _ptr(gout), _ptr(stats), _ptr(whh), _ptr(whh_t),
-            _ptr(b2), _ptr(bnp), _ptr(dxg), _ptr(db), _ptr(dbn), _ptr(scratch), T, R, H,
-            int(shared), TRAIN_MODES[mode], _stream())
+            TRAIN_IO[io], _ptr(xg), _ptr(y), _ptr(gout), _ptr(stats), _ptr(wg), _ptr(wd),
+            _ptr(hbits), _ptr(b2), _ptr(bnp), _ptr(dxg), _ptr(db), _ptr(dbn), _ptr(gstate),
+            _ptr(fg), None if prof is None else _ptr(prof), ctypes.byref(pc), _stream())
     _check_rc(lib, rc, f"gsu_layer_train_bwd (H={H}, R={R})", TRAIN_LIMITS)
-    gsu_layer_train_bwd.launches += 1
-    return dxg, gsu_train_dw(y, dxg), db, dbn
+    return dxg, db, dbn
+
+
+TRAIN_PHASES = {"fwd": ("products and cell", "statistics", "y and spikes",
+                        "exchange and barrier"),
+                "bwd": ("dy", "BN sums", "cell backward and dxg", "barrier", "dh product",
+                        "block barrier")}
+
+
+def train_profile(kernel: str, args: Sequence[Any]) -> Dict[str, Any]:
+    """One launch of kernel D (``kernel="fwd"``, ``args`` as
+    ``gsu_layer_train_fwd``'s) or E (``"bwd"``, as ``gsu_layer_train_bwd``'s;
+    without dW) with its phase counters on: for each phase of
+    ``TRAIN_PHASES``, the SM cycles a step, averaged over the steps and the
+    cluster's blocks, beside the plan's geometry and what it keeps in
+    shared memory. Counts as a launch of its wrapper."""
+    T = args[0].shape[0]
+    plan = train_plan(args[0].shape[1], args[-3], args[-2], args[0].dtype, kernel)
+    prof = torch.zeros(plan["nblk"], 6, dtype=torch.int64, device=args[0].device)
+    if kernel == "fwd":
+        _train_fwd_launch(*args, prof=prof)
+        gsu_layer_train_fwd.launches += 1
+    else:
+        _train_bwd_launch(*args, prof=prof)
+        gsu_layer_train_bwd.launches += 1
+    cyc = prof.double().cpu() / max(T, 1)
+    names = TRAIN_PHASES[kernel]
+    return {"cycles_per_step": {n: cyc[:, j].mean().item() for j, n in enumerate(names)},
+            "blocks": plan["nblk"], "units_per_block": plan["J"], "row_groups_per_batch":
+            plan["ngb"], "smem": plan["smem"],
+            "in_shared_memory": [k for k in ("o_wg", "o_wd") if plan[k] >= 0]
+            + [f"state{k}" for k, o in enumerate(plan["o_state"]) if o >= 0]}
 
 
 gsu_layer_train_bwd.launches = 0

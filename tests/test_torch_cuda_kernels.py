@@ -26,8 +26,11 @@ time: every step recomputed in float64 from the kernel's own previous
 membranes, the kernel within 3x (+1e-4) of the plain version's own error.
 E's bf16 rounding points are also held directly, at 3 or 4 steps, against
 a float64 run that rounds drg where the TPU kernel does: the kernel within
-a quarter of the distance of a version that leaves the rounding out. The
-recipe's loss gives the same gradient on every backward.
+a quarter of the distance of a version that leaves the rounding out. D and
+E at the edges of their unit split (a unit slice that does not divide H, R
+not a multiple of 16, the most rows the plan takes at H 256 and H 320) are
+held as at baseline L's rows, and two launches of each are bitwise equal.
+The recipe's loss gives the same gradient on every backward.
 """
 
 from __future__ import annotations
@@ -555,7 +558,8 @@ def test_train_wrappers_reject_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="mode"):
         gk.gsu_layer_train_fwd(xg, whh, b2, bnp, 16, True, "batch")
     with pytest.raises(ValueError, match="shared memory"):
-        big = _train_layer(1024, 512, 2, True, "bn", dev, seed=1)
+        # two steps' spike bits of 2048 rows x 512 units: 256 KB a block
+        big = _train_layer(2048, 512, 2, True, "bn", dev, seed=1)
         gk.gsu_layer_train_fwd(*big, 512, True, "bn")
     _, y, stats = gk.gsu_layer_train_fwd(xg, whh, b2, bnp, 16, True, "bn")
     with pytest.raises(ValueError, match="affine"):
@@ -669,6 +673,58 @@ def test_train_kernels_take_baseline_l_section_rows(dev, io, R):
         return
     for name, a, b in zip(("dxg", "dW", "db", "dbn"), got, want):
         assert _rel(a, b) <= 1e-5, (name, _rel(a, b))
+
+
+# the unit split's edges (train_plan): a unit slice that does not divide H
+# (H 40: blocks of 16, 16 and 8 units; H 200: six of 32 and one of 8), R not
+# a multiple of 16, one row group, unshared weights, and the most rows the
+# plan takes at H 256 and H 320 (kernel D's spike bits of two steps and its
+# tiles fill 227 KB)
+EDGE_SHAPES = [(37, 40, 9, True), (100, 200, 9, False), (13, 24, 5, False), (8, 48, 6, True),
+               (3304, 256, 3, True), (2608, 320, 3, True), (1792, 256, 3, False)]
+
+
+@pytest.mark.parametrize("io", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("R,H,T,shared", EDGE_SHAPES)
+def test_train_kernels_at_the_unit_split_edges(dev, io, R, H, T, shared):
+    xg, whh, b2, bnp = _train_layer(R, H, T, shared, "bn", dev, seed=7 * R + H + T)
+    xg, whh = xg.to(io), whh.to(io)
+    args = (xg, whh, b2, bnp, H, shared, "bn")
+    spikes, y, stats = gk.gsu_layer_train_fwd(*args)
+    ref = gk.layer_train_fwd_plain(*args)
+    torch.cuda.synchronize()
+    assert spikes.shape == (T, R, H) and torch.equal(spikes, (y >= 0).to(io))
+    assert (spikes != ref[0]).float().mean().item() < 1e-3
+    k_y, k_s = _step_errors(args, y, stats)
+    p_y, p_s = _step_errors(args, ref[1], ref[2])
+    assert k_y <= 3 * p_y + 1e-4 and k_s <= 3 * p_s + 1e-4, (k_y, p_y, k_s, p_s)
+    gout = torch.randn(T, R, H, generator=torch.Generator().manual_seed(R + H)).to(dev, io)
+    e_args = (xg, ref[1], gout, ref[2], whh, b2, bnp, H, shared, "bn")
+    got, want = gk.gsu_layer_train_bwd(*e_args), gk.layer_train_bwd_plain(*e_args)
+    torch.cuda.synchronize()
+    if io == torch.bfloat16:
+        _assert_bf16_e_close(e_args, got, want)
+        return
+    for name, a, b in zip(("dxg", "dW", "db", "dbn"), got, want):
+        assert _rel(a, b) <= 1e-5, (name, _rel(a, b))
+
+
+@pytest.mark.parametrize("io", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("R,H,T,shared", [(512, 224, 40, True), (1536, 256, 12, True),
+                                          (64, 320, 40, False)])
+def test_train_kernels_are_bitwise_deterministic(dev, io, R, H, T, shared):
+    """Two launches of D, and of E, on the same inputs give the same bits:
+    every sum runs in a fixed order, with no atomics."""
+    xg, whh, b2, bnp = _train_layer(R, H, T, shared, "bn", dev, seed=R + T)
+    xg, whh = xg.to(io), whh.to(io)
+    args = (xg, whh, b2, bnp, H, shared, "bn")
+    d1, d2 = gk.gsu_layer_train_fwd(*args), gk.gsu_layer_train_fwd(*args)
+    gout = torch.randn(T, R, H, generator=torch.Generator().manual_seed(R)).to(dev, io)
+    e_args = (xg, d1[1], gout, d1[2], whh, b2, bnp, H, shared, "bn")
+    e1, e2 = gk.gsu_layer_train_bwd(*e_args), gk.gsu_layer_train_bwd(*e_args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(d1, d2))
+    assert all(torch.equal(a, b) for a, b in zip(e1, e2))
 
 
 def test_train_wrappers_reject_mixed_stream_types(dev):

@@ -18,7 +18,14 @@ its weights from monolith_pack (mma fragments). None of this needs a GPU:
   unit in one block, blocks by section, tiles covering the batch, each
   block's regions inside its 232,448 bytes;
 - the packed weights decode, lane by lane through mma.sync's fragment
-  layout, to the matrices the kernel's accumulators expect.
+  layout, to the matrices the kernel's accumulators expect;
+- kernels D and E (csrc/gsu_train_fwd.cu, gsu_train_bwd.cu) split the
+  units over a cluster as ops/gsu_kernels.train_plan lays out: every unit in
+  one block, every shared-memory region inside 232,448 bytes, at every
+  training shape and up to the rows the plan states, and a refusal beyond;
+  train_pack's fragments, read through the accumulators' element mapping,
+  give each unit's recurrent gates (D, E) and each unit's row of W_hh (E's
+  dh), float32 weights as three bf16 terms that add up exactly.
 """
 
 from __future__ import annotations
@@ -338,3 +345,192 @@ def test_monolith_pack_lays_every_matrix_once():
     for i, s in enumerate(mono["secs"]):
         offs = [table[f"s{i}_win{jj}"][0] for jj in range(int(s["wa"].shape[0]))]
         assert len(set(np.diff(offs))) <= 1
+
+
+# ------------------------------------------------------------------ D and E: the unit split
+
+# (R, H) of every GSU layer that trains at batch 64 x 6 s (PERF.md section 4):
+# flagship M and zoo M (fullband, sections 0-2), cIRM-GSN, baseline L's sections
+TRAIN_MAIN = {"fullband": (64, 320), "section 0": (512, 224), "section 1": (192, 224),
+              "section 2": (128, 224), "cIRM-GSN": (64, 256), "baseline L section 0": (1024, 256),
+              "baseline L section 1": (1536, 256)}
+# the most rows the plan takes (D's spike bits of two steps and its tiles fill
+# the block), the former kernels' limits, and shapes it must refuse
+TRAIN_MOST = {256: 3304, 320: 2608, 224: 3776}
+TRAIN_FORMER = [(1792, 256), (1408, 320)]
+TRAIN_REFUSED = [(3305, 256), (2609, 320), (2048, 512)]
+
+
+def _regions(plan, kernel):
+    """(name, start, size) of every shared-memory region the plan places."""
+    nb, J, Rp, JT, nterm = plan["nblk"], plan["J"], plan["Rp"], plan["JT"], plan["nterm"]
+    gtile = 1024 if (kernel == "fwd" and nterm == 3) else 512 * nterm
+    bits = 2 * nb * Rp * 2 * JT if kernel == "fwd" else 0
+    out = [("bits", plan["o_bits"], bits), ("vec", plan["o_vec"], 8 * J * 4),
+           ("part", plan["o_part"], 2 * gk.TRAIN_WARPS * J * 4)]
+    if kernel == "fwd":
+        out.append(("pre", plan["o_pre"], gk.TRAIN_WARPS * 8 * plan["ngb"] * gk.TRAIN_PRE_LD * 4))
+    else:
+        assert plan["o_pre"] == -1
+    if plan["o_wg"] >= 0:
+        out.append(("wg", plan["o_wg"], plan["MT"] * plan["KT"] * gtile))
+    if plan["o_wd"] >= 0:
+        out.append(("wd", plan["o_wd"], plan["MTd"] * plan["KTg"] * 512 * nterm))
+    out += [(f"state{k}", o, Rp * plan["ldJ"] * 4) for k, o in enumerate(plan["o_state"]) if o >= 0]
+    return out
+
+
+def _check_plan(plan, R, H, shared, kernel):
+    J, nb = plan["J"], plan["nblk"]
+    assert plan["fits"]
+    assert J % 16 == 0 and J <= 32 and 1 <= nb <= gk.TRAIN_MAX_CLUSTER  # the row layout's 32 lanes
+    assert (nb - 1) * J < H <= nb * J  # every unit in one block, no empty block
+    assert plan["MT"] == (J // 16 if shared else J // 8) and plan["MTd"] == J // 16
+    assert plan["KT"] * 16 >= H > plan["KT"] * 16 - 16
+    assert plan["Rp"] % 8 == 0 and R <= plan["Rp"] < R + 8 and plan["ngb"] in (1, 2, 4)
+    assert plan["ldJ"] >= J
+    regs = sorted(_regions(plan, kernel), key=lambda r: r[1])
+    assert all(start % 16 == 0 for _, start, _ in regs)
+    assert all(a[1] + a[2] <= b[1] for a, b in zip(regs, regs[1:]))  # no overlap
+    assert regs[-1][1] + regs[-1][2] == plan["smem"] <= BLOCK_SMEM
+
+
+@pytest.mark.parametrize("kernel", ["fwd", "bwd"])
+@pytest.mark.parametrize("io", [BF16, F32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("shape", list(TRAIN_MAIN.values()), ids=list(TRAIN_MAIN))
+def test_train_plan_splits_every_training_shape(shape, io, kernel):
+    """At every main-path shape (shared weights, as every training config):
+    the plan fits, every unit lies in one block, and the packed gate weights
+    stay in shared memory for the whole sequence (D's gate columns, E's dh
+    rows); D's membranes too up to section 0's 512 rows, and E's dh and dc
+    at flagship M's and zoo M's sections with bf16 streams."""
+    R, H = shape
+    plan = gk.train_plan(R, H, True, io, kernel)
+    _check_plan(plan, R, H, True, kernel)
+    assert plan["o_wg" if kernel == "fwd" else "o_wd"] >= 0
+    if kernel == "fwd" and R <= 512:
+        assert plan["o_state"][0] >= 0
+    if kernel == "bwd" and io == BF16 and (R, H) in ((512, 224), (192, 224), (128, 224)):
+        assert min(plan["o_state"]) >= 0
+    # the busiest warp's row groups: the fewest a batch size allows (every
+    # training shape has room for D's tiles at that batch)
+    NG = plan["Rp"] // 8
+    busiest = -(-(-(-NG // plan["ngb"])) // gk.TRAIN_WARPS) * plan["ngb"]
+    assert busiest == min(-(-(-(-NG // b)) // gk.TRAIN_WARPS) * b for b in (1, 2, 4))
+
+
+@pytest.mark.parametrize("kernel", ["fwd", "bwd"])
+@pytest.mark.parametrize("io", [BF16, F32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("shared", [True, False])
+def test_train_plan_takes_its_stated_rows_and_refuses_beyond(shared, io, kernel):
+    """The rows the plan takes at H 224, 256 and 320 (TRAIN_LIMITS), the
+    former kernels' limits (1792 rows at H 256, 1408 at H 320) and odd
+    widths; the plan refuses one row group more, and H 512 at 2048 rows."""
+    for H, R in TRAIN_MOST.items():
+        _check_plan(gk.train_plan(R, H, shared, io, kernel), R, H, shared, kernel)
+    for R, H in TRAIN_FORMER + [(37, 40), (100, 200), (13, 24), (1, 24), (5, 512)]:
+        _check_plan(gk.train_plan(R, H, shared, io, kernel), R, H, shared, kernel)
+    for R, H in TRAIN_REFUSED:  # D's spike bits; E keeps no bits in shared memory
+        plan = gk.train_plan(R, H, shared, io, kernel)
+        if kernel == "fwd":
+            assert not plan["fits"] and gk._plan_c(plan, 5, "bn").smem > BLOCK_SMEM
+        else:
+            _check_plan(plan, R, H, shared, kernel)
+
+
+def _acc_gates(mats, plan, h):
+    """What the kernel's accumulators hold for the rows ``h [N, H]``: for
+    each block and gate m-tile mt, A_mt h^T, read through the element
+    mapping of csrc/gsu_train_mma.cuh (gate row gid + 8 (e / 2); shared:
+    unit 16 mt + gid + 8 (e / 2); unshared: unit 8 mt + gid, its f gate at
+    rows 0-7 and c at rows 8-15). Returns (pre_f, pre_c) [N, nblk J]."""
+    nb, MT, KT, J = plan["nblk"], plan["MT"], plan["KT"], plan["J"]
+    hp = torch.cat([h, h.new_zeros(h.shape[0], KT * 16 - h.shape[1])], dim=1)
+    N = h.shape[0]
+    pre_f = torch.zeros(N, nb * J, dtype=torch.float64)
+    pre_c = torch.zeros(N, nb * J, dtype=torch.float64)
+    for b in range(nb):
+        for mt in range(MT):
+            a = mats(b, mt)  # [16, KT 16]
+            acc = hp @ a.T  # [N, 16]: the accumulators' gate rows as columns
+            for gid in range(8):
+                for half in range(2):
+                    if plan["shared"]:
+                        u = 16 * mt + gid + 8 * half
+                        pre_f[:, b * J + u] = acc[:, gid + 8 * half]
+                        pre_c[:, b * J + u] = acc[:, gid + 8 * half]
+                    elif half == 0:
+                        u = 8 * mt + gid
+                        pre_f[:, b * J + u] = acc[:, gid]
+                        pre_c[:, b * J + u] = acc[:, gid + 8]
+    return pre_f, pre_c
+
+
+@pytest.mark.parametrize("kernel", ["fwd", "bwd"])
+@pytest.mark.parametrize("io", [BF16, F32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("shared", [True, False])
+@pytest.mark.parametrize("H", [24, 40, 200])
+def test_train_pack_gates_reach_each_unit_through_the_accumulators(H, shared, io, kernel):
+    """D's and E's gate weights: a spike row h through the accumulators
+    gives h @ W_hh at unit j's f and c columns (j and H + j unshared), zero
+    past H. bf16 fragments (and E's float32 ones as hi + mid + lo, adding
+    up to W_hh exactly), and D's float32 weights as floats [MT][KT 16][16]."""
+    G = H if shared else 2 * H
+    g = torch.Generator().manual_seed(H + shared)
+    whh = torch.randn(H, G, generator=g).to(io)
+    plan = gk.train_plan(5, H, shared, io, kernel)
+    wg, _ = gk.train_pack(whh, plan, kernel)
+    nt, K16 = plan["nterm"], plan["KT"] * 16
+    if kernel == "fwd" and io == F32:
+        assert wg.dtype == F32
+        floats = wg.view(plan["nblk"], plan["MT"], K16, 16)
+        terms = [lambda b, mt: floats[b, mt].T.double()]
+    else:
+        assert wg.dtype == BF16
+        frags = wg.view(plan["nblk"], plan["MT"], plan["KT"], nt, 32, 8)
+        terms = [lambda b, mt, t=t: _a_from_fragments(frags[b, mt, :, t].unsqueeze(0)).double()
+                 for t in range(nt)]
+    h = (torch.rand(6, H, generator=g) < 0.5).double()
+    ref = h @ whh.double()
+    total_f = total_c = 0
+    for mats in terms:
+        f, c = _acc_gates(mats, plan, h)
+        total_f, total_c = total_f + f, total_c + c
+    assert torch.equal(total_f[:, :H], ref[:, :H])
+    assert torch.equal(total_c[:, :H], ref[:, :H] if shared else ref[:, H:])
+    assert not total_f[:, H:].any() and not total_c[:, H:].any()
+
+
+@pytest.mark.parametrize("io", [BF16, F32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("shared", [True, False])
+@pytest.mark.parametrize("H", [24, 40, 200])
+def test_train_pack_dh_rows_give_each_units_gradient(H, shared, io):
+    """E's dh fragments: block b's m-tile mt, gate row gid + 8 (e / 2) is
+    unit bJ + 16 mt + gid + 8 (e / 2); a drg row through them, its columns
+    in the kernel's load order (lane t's k slots 2t, 2t + 1, 2t + 8, 2t + 9
+    are columns 4t .. 4t + 3 of the tile), gives drg @ W_hh^T at that unit,
+    zero past H (and for the padded gate columns)."""
+    assert sorted(gk.DH_K_ORDER) == list(range(16))
+    for t in range(4):
+        assert [gk.DH_K_ORDER[s] for s in (2 * t, 2 * t + 1, 2 * t + 8, 2 * t + 9)] == \
+            [4 * t, 4 * t + 1, 4 * t + 2, 4 * t + 3]
+    G = H if shared else 2 * H
+    g = torch.Generator().manual_seed(3 * H + shared)
+    whh = torch.randn(H, G, generator=g).to(io)
+    plan = gk.train_plan(5, H, shared, io, "bwd")
+    _, wd = gk.train_pack(whh, plan, "bwd")
+    nt, KTg, J = plan["nterm"], plan["KTg"], plan["J"]
+    frags = wd.view(plan["nblk"], plan["MTd"], KTg, nt, 32, 8)
+    drg = torch.randn(6, G, generator=g).to(io).double()
+    dp = torch.cat([drg, drg.new_zeros(6, KTg * 16 - G)], dim=1)
+    # the mma's k slot s of tile kt holds drg's column 16 kt + DH_K_ORDER[s]
+    order = torch.tensor([16 * kt + c for kt in range(KTg) for c in gk.DH_K_ORDER])
+    dp = dp[:, order]
+    got = torch.zeros(6, plan["nblk"] * J, dtype=torch.float64)
+    for b in range(plan["nblk"]):
+        for mt in range(plan["MTd"]):
+            a = sum(_a_from_fragments(frags[b, mt, :, t].unsqueeze(0)).double() for t in range(nt))
+            got[:, b * J + 16 * mt:b * J + 16 * mt + 16] = dp @ a.T
+    ref = drg @ whh.double().T
+    torch.testing.assert_close(got[:, :H], ref, rtol=1e-12, atol=1e-12)
+    assert not got[:, H:].any()
