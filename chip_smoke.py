@@ -64,6 +64,14 @@ is non-zero:
             bitwise equal, one profiled launch's SM cycles a step in each
             stage (io, fullband and unit blocks), and the time of packing
             its weights (monolith_pack, done once a spec, outside its time).
+            Kernels B (zoo M's sections) and F (each of its five launches)
+            besides: their plans (sections_plan: rows a tile, unit groups,
+            blocks; stack_x_plan: rows a block, blocks a cluster), one
+            profiled launch's SM cycles a step in each phase (products,
+            cell, exchange and barrier, the step's outputs), the time of
+            packing their weights (sections_pack, stack_x_pack: done at
+            every launch, inside its time), and two launches on the bench's
+            inputs bitwise equal.
 6. training the layered training step (recipes/denoise.train_step: the
             denoise loss, backward, clipping by global norm 10, AdamW) of
             zoo M (separator_config's default, from baseline_m.npz) and of
@@ -567,6 +575,29 @@ def bound_c(args, spikes):
     return nbytes, mm + f32, mm / PEAK_OPS[chunks.dtype] + f32 / PEAK_OPS[torch.float32]
 
 
+def b_extras(gk, args):
+    """Kernel B beside its time on ``args``: its plan and SM cycles a step
+    in each phase (one profiled launch, gk.sections_profile), the time of
+    packing its weights (gk.sections_pack, done at every launch and inside
+    its time), and two launches bitwise equal."""
+    secs, H, shared = args[0], args[6], args[7]
+    prof = gk.sections_profile(*args)
+    pack_ms = cuda_ms(lambda: gk.sections_pack(secs, H, shared), iters=2)
+    first, again = gk.gsu_sections_eval(*args), gk.gsu_sections_eval(*args)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(first, again))
+    del first, again
+    p = prof["plan"]
+    log(f"[timing] gsu_sections_eval {tuple(args[1].shape)} plan: {p['cols']} columns a block, "
+        f"rows a tile {p['rows_per_tile']} by section, unit groups (section, first unit, units, "
+        f"first block) {p['groups']}, {p['blocks']} blocks, {p['smem']} bytes of shared memory; "
+        f"SM cycles a step: " + ", ".join(f"{k} {v:.0f}" for k, v in prof["cycles_per_step"].items())
+        + f"; weight packing (sections_pack) {pack_ms:.3f} ms; two launches bitwise equal: {same}")
+    require(same, "kernel B: two launches on the same inputs differ")
+    return {"plan": p, "cycles_per_step": prof["cycles_per_step"], "pack_ms": pack_ms,
+            "bitwise_twice": same}
+
+
 def kernel_f_entry(gk, f_args, f_plain_ms, f_spikes, launches, checks, forwards):
     """Kernel F's line: each launch of ``STACKS_F`` (bench-shape arguments
     captured from the main paths, spikes counted by the plain version) timed
@@ -580,16 +611,33 @@ def kernel_f_entry(gk, f_args, f_plain_ms, f_spikes, launches, checks, forwards)
                     "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3, "ops_ms": ops_s * 1e3,
                     "bytes": nbytes, "ops": ops, "spikes": counts})
         per[-1]["bound_ms"] = max(per[-1]["bytes_ms"], per[-1]["ops_ms"])
+        # its plan and phase profile (one profiled launch), the weight packing
+        # (stack_x_pack, at every launch and inside its time), two launches
+        prof = gk.stack_x_profile(*args)
+        pack_ms = cuda_ms(lambda: gk.stack_x_pack(*args[1:4], *args[5:]), iters=2)
+        first, again = gk.gsu_stack_eval_x(*args), gk.gsu_stack_eval_x(*args)
+        torch.cuda.synchronize()
+        same = torch.equal(first, again)
+        del first, again
+        per[-1].update(plan=prof["plan"], cycles_per_step=prof["cycles_per_step"],
+                       pack_ms=pack_ms, bitwise_twice=same)
         log(f"[timing] gsu_stack_eval_x {name} {tuple(args[0].shape)}: {ms:.3f} ms, plain "
             f"{ms_plain:.1f} ms, bound {per[-1]['bound_ms']:.4f} ms "
-            f"(bytes {per[-1]['bytes_ms']:.4f} ms, operations {per[-1]['ops_ms']:.4f} ms)")
+            f"(bytes {per[-1]['bytes_ms']:.4f} ms, operations {per[-1]['ops_ms']:.4f} ms); plan "
+            f"{prof['plan']}; SM cycles a step: "
+            + ", ".join(f"{k} {v:.0f}" for k, v in prof["cycles_per_step"].items())
+            + f"; weight packing (stack_x_pack) {pack_ms:.3f} ms; two launches bitwise equal: "
+            f"{same}")
+        require(same, f"kernel F {name}: two launches on the same inputs differ")
     zoo, cirm = per[:4], per[4]
     b_bytes = sum(p["bytes_ms"] for p in zoo)
     b_ops = sum(p["ops_ms"] for p in zoo)
     ms = sum(p["ms"] for p in zoo)
     glue = forwards["zoo M layered"]["ms"] - ms
+    pack = sum(p["pack_ms"] for p in zoo)
     log(f"[timing] gsu_stack_eval_x, the four launches of a zoo-M layered forward: {ms:.3f} ms "
-        f"(forward {forwards['zoo M layered']['ms']:.3f} ms, glue {glue:.3f} ms by subtraction)")
+        f"(forward {forwards['zoo M layered']['ms']:.3f} ms, glue {glue:.3f} ms by subtraction; "
+        f"their weight packing {pack:.3f} ms)")
     return {
         "name": "gsu_stack_eval_x", "route": "cuda",
         "source": "spiking_fullsubnet_torch/csrc/gsu_stack_eval_x.cu",
@@ -597,7 +645,7 @@ def kernel_f_entry(gk, f_args, f_plain_ms, f_spikes, launches, checks, forwards)
         "max_abs_err": checks["bfloat16"]["max_abs_err"], "ms": ms,
         "plain_ms": sum(p["plain_ms"] for p in zoo), "bound_ms": max(b_bytes, b_ops),
         "bound_by": "bytes" if b_bytes >= b_ops else "operations", "library_ms": None,
-        "per_launch": zoo, "glue_ms": glue, "checks": checks,
+        "per_launch": zoo, "glue_ms": glue, "pack_ms": pack, "checks": checks,
         "cirm_gsn": dict(cirm, launches=launches["F cIRM-GSN"]),
     }
 
@@ -1776,6 +1824,8 @@ def main() -> int:
         log(f"[timing] {name}: {ms:.3f} ms, plain {plain_ms[key]:.1f} ms, bound "
             f"{max(b_bytes, b_ops):.4f} ms ({kernels[-1]['bound_by']}; bytes {b_bytes:.4f} ms, "
             f"operations {b_ops:.4f} ms)")
+        if key == "B":
+            kernels[-1].update(b_extras(gk, args))
         if key == "C":
             # the plan: rows per tile, blocks per cluster, the clusters the
             # card holds at once and the waves; half the batch is half the

@@ -1,8 +1,9 @@
-// Shared device code of the GSU eval kernels (gsu_stack_eval.cu,
-// gsu_sections_eval.cu): typed loads and stores, the per-thread row-tile dot
-// product, and the GSU cell step.
+// Shared device code of the GSU kernels: typed loads and stores (every
+// kernel; D and E through gsu_train_mma.cuh), the GSU cell step (A, C, and
+// B and F through gsu_eval_mma.cuh), and kernel A's (gsu_stack_eval.cu)
+// per-thread row-tile dot product and stack step.
 //
-// Layout convention: a block owns RB rows (batch rows or sub-band unit rows)
+// Kernel A's layout: a block owns RB rows (batch rows or sub-band unit rows)
 // and one thread per hidden unit j. Row-tile activations live in shared
 // memory input-major, x[i * RB + r], so one thread reads the RB values of
 // input i with two 16-byte loads (all threads of a warp read the same

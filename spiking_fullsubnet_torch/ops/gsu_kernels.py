@@ -135,11 +135,10 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
         lib.gsu_stack_eval_launch.argtypes = [I, P, P, P, P, P, I, I, I, I, I, I, I, P]
         lib.gsu_stack_eval_launch.restype = I
     elif name == "stack_x":
-        lib.gsu_stack_eval_x_launch.argtypes = [I, P, P, P, P, P, P, I, I, I, I, I, I, P]
+        lib.gsu_stack_eval_x_launch.argtypes = [I, ctypes.POINTER(_StackXArgs), P]
         lib.gsu_stack_eval_x_launch.restype = I
     elif name == "sections":
-        lib.gsu_sections_eval_launch.argtypes = (
-            [I, I, P, I, I] + [P] * 17 + [I] * 10 + [P])
+        lib.gsu_sections_eval_launch.argtypes = [I, ctypes.POINTER(_SectionsArgs), P]
         lib.gsu_sections_eval_launch.restype = I
     elif name == "train_fwd":
         lib.gsu_train_fwd_launch.argtypes = [I] + [P] * 9 + [ctypes.POINTER(_TrainPlanC), P]
@@ -375,7 +374,9 @@ def gsu_stack_eval_x(x: torch.Tensor, wih0: torch.Tensor, wihr: torch.Tensor,
 
     x ``[T, R, F]`` (f32/bf16 on the card; also f64 on the CPU); weights from
     ``pack_stack_x``. Returns every layer's spikes ``[L, T, R, H]`` in x's
-    type."""
+    type. On the card the weights are packed for the kernel
+    (``stack_x_pack``) and the launch laid out by ``stack_x_plan`` at every
+    call."""
     if not x.is_cuda:
         return stack_eval_x_plain(x, wih0, wihr, whh, coef, hidden, shared)
     H, L = hidden, whh.shape[0]
@@ -387,22 +388,14 @@ def gsu_stack_eval_x(x: torch.Tensor, wih0: torch.Tensor, wihr: torch.Tensor,
     if not 1 <= L <= MAX_LAYERS or not 1 <= H <= 512:
         raise ValueError(f"L={L}, H={H}: the kernel takes 1..{MAX_LAYERS} layers, H <= 512")
     T, R, Fin = x.shape
-    if R < 1 or Fin < 1 or (L * H + Fin) * 8 * 4 > 232448:
-        raise ValueError(f"R={R}, F={Fin}: the kernel takes R, F >= 1 and (L H + F) 32 bytes "
-                         "of shared memory within 227 KB")
     dev, io = x.device, x.dtype
     _check_cuda("x", x, io, dev)
     _check_cuda("wih0", wih0, io, dev, (Fin, G))
     _check_cuda("wihr", wihr, io, dev, (max(L - 1, 1), H, G))
     _check_cuda("whh", whh, io, dev, (L, H, G))
     _check_cuda("coef", coef, torch.float32, dev, (L, 4, H))
-    out = torch.empty((L, T, R, H), dtype=io, device=dev)
-    lib = _lib("stack_x")
-    with torch.cuda.device(dev):
-        rc = lib.gsu_stack_eval_x_launch(
-            int(io == torch.bfloat16), _ptr(x), _ptr(wih0), _ptr(wihr), _ptr(whh), _ptr(coef),
-            _ptr(out), T, R, Fin, H, L, int(shared), _stream())
-    _check_rc(lib, rc, "gsu_stack_eval_x")
+    plan = stack_x_plan(R, Fin, H, L, shared, io, sms=_sm_count(dev.index or 0))
+    out = _stack_x_launch(x, wih0, wihr, whh, coef, hidden, shared, plan)
     gsu_stack_eval_x.launches += 1
     return out
 
@@ -1044,7 +1037,9 @@ def gsu_sections_eval(secs: List[Dict[str, Any]], xa: torch.Tensor, xb: torch.Te
     B, Fs]`` the noisy spectrum (f32). Returns the enhanced (re, im) ``[T, B,
     W]``, W = sum of n ctr over the sections, in the spectrum's type; with
     the spectrum None (no deep filter) each section's projection ``[n, T,
-    B, P]`` in the io type, a list."""
+    B, P]`` in the io type, a list. On the card the weights are packed for
+    the kernel (``sections_pack``) and the launch laid out by
+    ``sections_plan`` at every call."""
     if not xa.is_cuda:
         return sections_eval_plain(secs, xa, xb, alpha, spec_re, spec_im, hidden, shared, beta)
     H = hidden
@@ -1068,12 +1063,10 @@ def gsu_sections_eval(secs: List[Dict[str, Any]], xa: torch.Tensor, xb: torch.Te
     _check_section_modes(secs, alpha, beta, T, B, U)
     _check_cuda("xa", xa, io, dev)
     _check_cuda("xb", xb, io, dev, (T, B, Fb))
-    dummy = torch.zeros(1, dtype=f32, device=dev)
     if alpha is not None:
         _check_cuda("alpha", alpha, f32, dev)
     if beta is not None:
         _check_cuda("beta", beta, f32, dev)
-    Fs = 0
     if df_mode:
         Fs = spec_re.shape[-1]
         _check_cuda("spec_re", spec_re, f32, dev, (T, B, Fs))
@@ -1081,11 +1074,6 @@ def gsu_sections_eval(secs: List[Dict[str, Any]], xa: torch.Tensor, xb: torch.Te
         if W > Fs:
             raise ValueError(f"sections cover {W} bins, the spectrum has {Fs}")
 
-    kinds = ("wa", "wb", "wihr", "whh", "coef", "wproj", "bproj", "uv")
-    flat: Dict[str, List[torch.Tensor]] = {k: [] for k in kinds}
-    offs = {k: 0 for k in kinds}
-    table = []
-    u0 = f0 = o_proj = 0
     for i, s in enumerate(secs):
         n, aw = int(s["wa"].shape[0]), int(s["wa"].shape[1])
         P = int(s["wproj"].shape[1])
@@ -1095,21 +1083,57 @@ def gsu_sections_eval(secs: List[Dict[str, Any]], xa: torch.Tensor, xb: torch.Te
                   "whh": (L, H, G), "coef": (L, 4, H), "wproj": (H, P), "bproj": (P,)}
         if "uv" in s:
             shapes["uv"] = (2, G)
-        row = [n, s["a0"], aw, s["ctr"], s["df"], P, u0, f0, int("uv" in s)]
-        for k in kinds:
-            row.append(offs[k])
-            if k not in shapes:
-                continue
+        for k, shp in shapes.items():
             dt = f32 if k in ("coef", "bproj", "uv") else io
-            _check_cuda(f"section {i} {k}", s[k], dt, dev, shapes[k])
-            flat[k].append(s[k].reshape(-1))
-            offs[k] += s[k].numel()
-        table.append(row + [o_proj])
+            _check_cuda(f"section {i} {k}", s[k], dt, dev, shp)
+    plan = sections_plan(_sec_dims(secs, Fb, H, shared), B, io, df_mode,
+                         sms=_sm_count(dev.index or 0))
+    out = _sections_launch(secs, xa, xb, alpha, spec_re, spec_im, hidden, shared, beta, plan)
+    gsu_sections_eval.launches += 1
+    return out
+
+
+def _sections_launch(secs, xa, xb, alpha, spec_re, spec_im, hidden, shared, beta, plan,
+                     prof=False):
+    """Kernel B's launch on ``plan`` (the wrapper's checks done): its
+    result, or with ``prof`` the phase counters [blocks, 8]."""
+    T, B, Fa = xa.shape
+    Fb = xb.shape[-1]
+    H, L = hidden, int(secs[0]["whh"].shape[0])
+    G = H if shared else 2 * H
+    io, dev, f32 = xa.dtype, xa.device, torch.float32
+    U = sum(int(s["wa"].shape[0]) for s in secs)
+    W = sum(int(s["wa"].shape[0]) * s["ctr"] for s in secs)
+    df_mode = spec_re is not None
+    flat, table = sections_pack(secs, H, shared)
+    args = _SectionsArgs()
+    f_arr: Dict[str, List[torch.Tensor]] = {k: [] for k in ("coef", "bproj", "uv")}
+    f_off = {k: 0 for k in f_arr}
+    u0 = f0 = o_proj = 0
+    for i, (s, sp) in enumerate(zip(secs, plan["secs"])):
+        c = args.sec[i]
+        n, aw, P = int(s["wa"].shape[0]), int(s["wa"].shape[1]), int(s["wproj"].shape[1])
+        for k, v in dict(n=n, a0=s["a0"], aw=aw, ctr=s["ctr"], df=s["df"], P=P, u0=u0, f0=f0,
+                         ln=int("uv" in s), oproj=o_proj,
+                         **{k: sp[k] for k in ("awp", "ld_in", "dr", "nbm", "rt", "tiles", "o_sc",
+                                               "o_sp", "o_spk", "o_mem", "o_ys")}).items():
+            setattr(c, k, v)
+        for k in range(L):
+            _set_mat(c.rec[k], table[f"s{i}_rec{k}"])
+        _set_mat(c.proj, table[f"s{i}_proj"])
+        _set_mat(c.win, table[f"s{i}_win0"])
+        c.win_size = table[f"s{i}_win1"][0] - table[f"s{i}_win0"][0] if n > 1 else 0
+        for k in f_arr:
+            t = s.get(k, torch.zeros(2, G, dtype=f32, device=dev)) if k == "uv" else s[k]
+            setattr(c, k, f_off[k])
+            f_arr[k].append(t.reshape(-1))
+            f_off[k] += t.numel()
         u0 += n
         f0 += n * s["ctr"]
         o_proj += n * T * B * P
-    cat = {k: torch.cat(v) if v else dummy for k, v in flat.items()}
-    tab = (ctypes.c_longlong * (18 * len(table)))(*[int(v) for r in table for v in r])
+    for g, grp in enumerate(plan["groups"]):
+        for q, v in enumerate(grp):
+            args.grp[g][q] = v
     if df_mode:
         out_re = torch.empty(T, B, W, dtype=f32, device=dev)
         out_im = torch.empty_like(out_re)
@@ -1117,26 +1141,48 @@ def gsu_sections_eval(secs: List[Dict[str, Any]], xa: torch.Tensor, xb: torch.Te
     else:
         out_re = out_im = None
         out_proj = torch.empty(o_proj, dtype=io, device=dev)
-    opt = lambda t: ctypes.c_void_p(None) if t is None else _ptr(t)  # noqa: E731
+    counters = torch.zeros(plan["blocks"], 8, dtype=torch.int64, device=dev) if prof else None
+    ptrs = dict(xa=xa, xb=xb, alpha=alpha, beta=beta, spec_re=spec_re, spec_im=spec_im, w=flat,
+                out_re=out_re, out_im=out_im, out_proj=out_proj, prof=counters,
+                **{k: torch.cat(v) for k, v in f_arr.items()})
+    for k in _SECTIONS_PTRS:
+        setattr(args, k, None if ptrs[k] is None else ptrs[k].data_ptr())
+    for k, v in dict(T=T, B=B, Fa=Fa, Fb=Fb, Fs=spec_re.shape[-1] if df_mode else 0, U=U, W=W,
+                     H=H, L=L, shared=int(shared),
+                     alpha_mode=ALPHA_MODES[None if alpha is None else alpha.ndim],
+                     df_mode=int(df_mode), blocks=plan["blocks"], Hp=plan["Hp"],
+                     n_sec=len(secs), n_groups=len(plan["groups"]), smem=plan["smem"]).items():
+        setattr(args, k, v)
     lib = _lib("sections")
     with torch.cuda.device(dev):
-        rc = lib.gsu_sections_eval_launch(
-            int(io == torch.bfloat16), len(secs), ctypes.cast(tab, ctypes.c_void_p),
-            ALPHA_MODES[None if alpha is None else alpha.ndim], int(df_mode),
-            _ptr(xa), _ptr(xb), opt(alpha), opt(beta), opt(spec_re), opt(spec_im),
-            _ptr(cat["wa"]), _ptr(cat["wb"]), _ptr(cat["uv"]), _ptr(cat["wihr"]),
-            _ptr(cat["whh"]), _ptr(cat["coef"]), _ptr(cat["wproj"]), _ptr(cat["bproj"]),
-            opt(out_re), opt(out_im), opt(out_proj), T, B, Fa, Fb, Fs, U, W, H, L, int(shared),
-            _stream())
-    _check_rc(lib, rc, "gsu_sections_eval")
-    gsu_sections_eval.launches += 1
+        rc = lib.gsu_sections_eval_launch(int(io == torch.bfloat16), ctypes.byref(args), _stream())
+    _check_rc(lib, rc, "gsu_sections_eval", SECTIONS_LIMITS)
+    if prof:
+        return counters
     if df_mode:
         return out_re, out_im
-    projs = []
-    for row in table:
-        n, P, o = row[0], row[5], row[-1]
+    projs, o = [], 0
+    for s in secs:
+        n, P = int(s["wa"].shape[0]), int(s["wproj"].shape[1])
         projs.append(out_proj[o:o + n * T * B * P].view(n, T, B, P))
+        o += n * T * B * P
     return projs
+
+
+def sections_profile(*args) -> Dict[str, Any]:
+    """One launch of kernel B (``args`` as ``gsu_sections_eval``'s) with its
+    phase counters on: the SM cycles a step in each phase of
+    ``EVAL_PHASES["B"]``, averaged over the steps and the blocks, beside
+    the plan. Counts as a launch."""
+    secs, xa, xb, alpha, spec_re, spec_im, hidden, shared, *beta = args
+    plan = sections_plan(_sec_dims(secs, xb.shape[-1], hidden, shared), xa.shape[1], xa.dtype,
+                         spec_re is not None, sms=_sm_count(xa.device.index or 0))
+    counters = _sections_launch(secs, xa, xb, alpha, spec_re, spec_im, hidden, shared,
+                                beta[0] if beta else None, plan, prof=True)
+    gsu_sections_eval.launches += 1
+    return {"cycles_per_step": _profile_of(counters, xa.shape[0], EVAL_PHASES["B"]),
+            "plan": {"cols": plan["cols"], "rows_per_tile": [p["rt"] for p in plan["secs"]],
+                     "groups": plan["groups"], "blocks": plan["blocks"], "smem": plan["smem"]}}
 
 
 gsu_sections_eval.launches = 0
@@ -1456,43 +1502,80 @@ def _gate_perm(H: int, shared: bool) -> List[int]:
     return perm
 
 
-def mma_a_fragments(a: torch.Tensor) -> torch.Tensor:
-    """A [Mp, Kp] (multiples of 16) -> [Mp/16, Kp/16, 32, 8]: each 16 x 16
-    tile as the 32 lanes' A fragments of mma.sync m16n8k16 (row-major A):
-    lane (g, t) = (lane / 4, lane % 4) holds A[g][2t..2t+1], A[g+8][2t..],
-    A[g][2t+8..], A[g+8][2t+8..] (registers a0-a3, low half first)."""
-    Mp, Kp = a.shape
-    a4 = a.reshape(Mp // 16, 16, Kp // 16, 16).permute(0, 2, 1, 3)
+@functools.lru_cache(maxsize=16)
+def _frag_index(device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(row, column) within a 16 x 16 tile of each lane's 8 A-fragment
+    values of mma.sync m16n8k16 (``mma_a_fragments``), [32, 8] each."""
     lane = torch.arange(32)
     e = torch.arange(8)
     reg, half = e // 2, e % 2
     mi = (lane // 4)[:, None] + 8 * (reg % 2)[None, :]
     ki = (2 * (lane % 4))[:, None] + half[None, :] + 8 * (reg // 2)[None, :]
-    return a4[:, :, mi.to(a.device), ki.to(a.device)]
+    return mi.to(device), ki.to(device)
+
+
+def mma_a_fragments(a: torch.Tensor) -> torch.Tensor:
+    """A [..., Mp, Kp] (multiples of 16) -> [..., Mp/16, Kp/16, 32, 8]: each
+    16 x 16 tile as the 32 lanes' A fragments of mma.sync m16n8k16 (row-major
+    A): lane (g, t) = (lane / 4, lane % 4) holds A[g][2t..2t+1], A[g+8][2t..],
+    A[g][2t+8..], A[g+8][2t+8..] (registers a0-a3, low half first)."""
+    *lead, Mp, Kp = a.shape
+    a4 = a.reshape(*lead, Mp // 16, 16, Kp // 16, 16).transpose(-3, -2)
+    mi, ki = _frag_index(a.device)
+    return a4[..., mi, ki]
+
+
+@functools.lru_cache(maxsize=64)
+def _col_index(M: int, gate: Optional[Tuple[int, bool]], device: torch.device) -> torch.Tensor:
+    """The source column of each packed column (M: a zero pad column)."""
+    perm = _gate_perm(*gate) if gate else list(range(M)) + [-1] * (_r16(M) - M)
+    return torch.tensor([p if p >= 0 else M for p in perm], device=device)
 
 
 def _pack_mat(w: torch.Tensor, kparts: Sequence[int], gate: Optional[Tuple[int, bool]],
               io: torch.dtype) -> Tuple[torch.Tensor, int, int]:
-    """W [K, M] (K the concatenation of ``kparts``) as kernel C's left
+    """W [..., K, M] (K the concatenation of ``kparts``) as kernel C's left
     operand W^T: each part's rows padded to whole k-tiles, the columns in
     the gate order (``gate`` = (H, shared)) or padded to 16. bf16: mma A
-    fragments; float32: [m-tiles][Kp][16]. Returns (flat, k-tiles, m-tiles)."""
-    K, M = w.shape
+    fragments; float32: [m-tiles][Kp][16]. Returns (flat, k-tiles, m-tiles);
+    with leading dimensions, flat is [..., one matrix's elements]."""
+    *lead, K, M = w.shape
     rows, o = [], 0
     for k in kparts:
-        part = w[o:o + k]
-        rows.append(torch.cat([part, part.new_zeros(_r16(k) - k, M)]))
+        part = w[..., o:o + k, :]
+        rows.append(torch.cat([part, part.new_zeros(*lead, _r16(k) - k, M)], dim=-2))
         o += k
-    wp = torch.cat(rows)
-    perm = _gate_perm(*gate) if gate else list(range(M)) + [-1] * (_r16(M) - M)
-    idx = torch.tensor([p if p >= 0 else M for p in perm], device=w.device)
-    a = torch.cat([wp, wp.new_zeros(wp.shape[0], 1)], dim=1)[:, idx].T.contiguous()  # [Mp, Kp]
-    Mp, Kp = a.shape
+    wp = torch.cat(rows, dim=-2)
+    idx = _col_index(M, gate, w.device)
+    a = torch.cat([wp, wp.new_zeros(*lead, wp.shape[-2], 1)], dim=-1)[..., idx].transpose(-1, -2)
+    Mp, Kp = a.shape[-2:]
     if io == torch.bfloat16:
         flat = mma_a_fragments(a.to(io))
     else:
-        flat = a.reshape(Mp // 16, 16, Kp).permute(0, 2, 1)
-    return flat.reshape(-1), Kp // 16, Mp // 16
+        flat = a.reshape(*lead, Mp // 16, 16, Kp).transpose(-1, -2)
+    return flat.reshape(*lead, -1), Kp // 16, Mp // 16
+
+
+def _stack_mats(prefix: str, wihr: torch.Tensor, whh: torch.Tensor, H: int, shared: bool):
+    """(name, W [K, G], k parts, gate) of a stack's recurrent products:
+    layer 0's W_hh, and each later layer's [W_ih; W_hh] over [h_{k-1}(t);
+    h_k(t-1)]."""
+    out = [(f"{prefix}rec0", whh[0], [H], (H, shared))]
+    for k in range(1, whh.shape[0]):
+        out.append((f"{prefix}rec{k}", torch.cat([wihr[k - 1], whh[k]]), [H, H], (H, shared)))
+    return out
+
+
+def _pack_all(mats, io: torch.dtype) -> Tuple[torch.Tensor, Dict[str, Tuple[int, int, int]]]:
+    """Every matrix of ``mats`` (``_pack_mat``'s arguments with a name)
+    packed into one flat tensor: (flat, {name: (offset, k-tiles, m-tiles)})."""
+    flats, table, off = [], {}, 0
+    for name, w, kparts, gate in mats:
+        flat, kt, mt = _pack_mat(w, kparts, gate, io)
+        table[name] = (off, kt, mt)
+        flats.append(flat)
+        off += flat.numel()
+    return torch.cat(flats), table
 
 
 def monolith_pack(mono: Dict[str, Any], io: torch.dtype):
@@ -1506,29 +1589,16 @@ def monolith_pack(mono: Dict[str, Any], io: torch.dtype):
     Fin, Pfb = int(fb["wa"].shape[0]), int(fb["wproj"].shape[1])
     mats = [("dft", mono["wdft"], [n_fft], None), ("idft", mono["widft"], [2 * F1], None),
             ("fb_in", fb["wa"], [Fin], (Hf, shared))]
-
-    def stack(prefix, wihr, whh, h):
-        out = [(f"{prefix}rec0", whh[0], [h], (h, shared))]
-        for k in range(1, whh.shape[0]):
-            out.append((f"{prefix}rec{k}", torch.cat([wihr[k - 1], whh[k]]), [h, h], (h, shared)))
-        return out
-
-    mats += stack("fb_", fb["wihr"], fb["whh"], Hf)
+    mats += _stack_mats("fb_", fb["wihr"], fb["whh"], Hf, shared)
     mats.append(("fb_proj", fb["wproj"], [Hf], None))
     for i, s in enumerate(secs):
-        mats += stack(f"s{i}_", s["wihr"], s["whh"], H)
+        mats += _stack_mats(f"s{i}_", s["wihr"], s["whh"], H, shared)
         mats.append((f"s{i}_proj", s["wproj"], [H], None))
         aw = int(s["wa"].shape[1])
         for jj in range(int(s["wa"].shape[0])):
             mats.append((f"s{i}_win{jj}", torch.cat([s["wa"][jj], s["wb"][jj]]), [aw, Pfb],
                          (H, shared)))
-    flats, table, off = [], {}, 0
-    for name, w, kparts, gate in mats:
-        flat, kt, mt = _pack_mat(w, kparts, gate, io)
-        table[name] = (off, kt, mt)
-        flats.append(flat)
-        off += flat.numel()
-    return torch.cat(flats), table
+    return _pack_all(mats, io)
 
 
 class _MonoMatC(ctypes.Structure):
@@ -1756,3 +1826,310 @@ def sfsb_monolith_serve(mono: Dict[str, Any], chunks: torch.Tensor) -> torch.Ten
 
 
 sfsb_monolith_serve.launches = 0
+
+
+# ------------------------------------------------------------------ kernels B and F: plans
+#
+# Kernels B and F share one engine (csrc/gsu_eval_mma.cuh): a block of 16
+# warps owns a tile of N columns (a column is one (row, unit) pair) and runs
+# a whole GSU stack over T, its weights packed in mma fragment order
+# (``_pack_mat``) and streamed from L2. The plans below set every tile,
+# cluster, grid and shared-memory offset; the launchers take them as they
+# are, so that the CPU tests hold what the card runs.
+
+EVAL_WARPS = 16  # warps a block (NWARPS in csrc/gsu_eval_mma.cuh)
+EVAL_MAX_N = 64  # columns a block
+SM_COUNT = 132  # the H100's SMs: the plans fill them in one wave where they can
+STACK_X_COLS = (8, 16, 32, 64)
+STACK_X_CLUSTERS = (1, 2, 4)
+STACK_X_MAX_F = 1024
+STACK_X_LIMITS = (f"it takes H 1..512, L 1..{MAX_LAYERS} layers, F 1..{STACK_X_MAX_F} features "
+                  "and R >= 1 rows (stack_x_plan: 8-64 rows a block, a cluster of 1, 2 or 4 "
+                  "blocks, within 232,448 bytes of shared memory a block)")
+SECTIONS_ROWS = (32, 16, 8)
+SECTIONS_MAX_GROUPS = 128  # unit groups of a launch (MAX_GROUPS in csrc/gsu_sections_eval.cu)
+# A block's time grows faster than its columns (tools/eval_plan_sweep.py at
+# zoo M's 256 rows, one block an SM: 16 columns in two waves 182.3 ms, 32 in
+# one wave 259.1; PERF.md section 6), so kernel B's plan takes up to two waves
+SECTIONS_WAVES = 2
+SECTIONS_LIMITS = (f"it takes 1..{MAX_SEC} sections, H 1..512, L 1..{MAX_LAYERS} layers and B >= 1 "
+                   "rows (sections_plan: a block one section's units x 8, 16 or 32 rows, at most "
+                   f"64 columns, {SECTIONS_MAX_GROUPS} unit groups, 232,448 bytes of shared memory)")
+
+
+def _layout(sizes: Sequence[Tuple[str, int]]) -> Tuple[Dict[str, int], int]:
+    """Byte offsets of consecutive regions, each 16-byte aligned, and the total."""
+    offs, o = {}, 0
+    for name, n in sizes:
+        offs[name] = o
+        o += _r16(n)
+    return offs, o
+
+
+def _gate_mtiles(H: int, shared: bool) -> int:
+    return -(-H // 16) if shared else -(-H // 8)
+
+
+def stack_x_plan(R: int, F: int, H: int, L: int, shared: bool, io: torch.dtype,
+                 sms: int = SM_COUNT, cols: Optional[int] = None,
+                 cluster: Optional[int] = None) -> Dict[str, Any]:
+    """Kernel F's layout for R rows of F features into an L-layer stack of H
+    units (``csrc/gsu_stack_eval_x.cu``), which the launcher follows:
+
+    - ``N`` rows a block (8, 16, 32 or 64): the fewest whose row tiles fit
+      ``sms`` SMs in one wave (the tiles alone otherwise the largest that
+      fits); ``tiles`` = ceil(R / N);
+    - ``cs`` blocks a cluster split the gate m-tiles (``mts``, ``mpb`` a
+      block) where a block's 16 warps would have more than one m-tile each
+      and the card has room for the tiles' clusters; the blocks push their
+      spikes into each other's shared memory;
+    - ``blocks`` = tiles x cs; byte offsets in shared memory: the x tiles of
+      two steps at 0 (io, ``ld_x`` elements a row), every layer's spikes of
+      two steps (bf16 rows of Hp + 8, ``o_spk``), the membranes (f32 rows of
+      Hp + 4, ``o_mem``); ``smem`` the total.
+
+    ``cols`` and ``cluster`` force N and cs. Raises ValueError for what the
+    kernel does not take (``STACK_X_LIMITS``)."""
+    if not (1 <= H <= 512 and 1 <= L <= MAX_LAYERS and 1 <= F <= STACK_X_MAX_F and R >= 1):
+        raise ValueError(f"R={R}, F={F}, H={H}, L={L}: kernel F {STACK_X_LIMITS}")
+    es = 2 if io == torch.bfloat16 else 4
+    Hp, ld_x = _r16(H), _ld(F)
+    mts = _gate_mtiles(H, shared)
+
+    def regions(N):
+        return _layout([("x", 2 * N * ld_x * es), ("spk", 2 * L * N * (Hp + 8) * 2),
+                        ("mem", L * N * (Hp + 4) * 4)])
+
+    fits = [N for N in STACK_X_COLS if regions(N)[1] <= BLOCK_SMEM]
+    if cols is not None:
+        fits = [N for N in fits if N == cols]
+    if not fits:
+        raise ValueError(f"R={R}, F={F}, H={H}, L={L}: kernel F {STACK_X_LIMITS}")
+    N = next((N for N in fits if -(-R // N) <= sms), fits[-1])
+    tiles = -(-R // N)
+    if cluster is None:
+        cs = 1
+        while (cs * 2 in STACK_X_CLUSTERS and -(-mts // cs) > EVAL_WARPS
+               and tiles * cs * 2 <= sms):
+            cs *= 2
+    else:
+        cs = cluster
+    if cs not in STACK_X_CLUSTERS or (cs - 1) * -(-mts // cs) >= mts:  # no block without m-tiles
+        raise ValueError(f"cluster {cs}: kernel F takes {STACK_X_CLUSTERS}, at most the "
+                         f"{mts} gate m-tiles")
+    offs, smem = regions(N)
+    return dict(R=R, F=F, H=H, L=L, shared=int(shared), N=N, tiles=tiles, cs=cs,
+                blocks=tiles * cs, mts=mts, mpb=-(-mts // cs), Hp=Hp, ld_x=ld_x,
+                o_x=offs["x"], o_spk=offs["spk"], o_mem=offs["mem"], smem=smem)
+
+
+def stack_x_pack(wih0: torch.Tensor, wihr: torch.Tensor, whh: torch.Tensor, hidden: int,
+                 shared: bool):
+    """Kernel F's weights (``pack_stack_x``'s) in mma fragment order (bf16)
+    or [m-tile][k][16] (float32): (flat, {"in", "rec0", ...: (offset,
+    k-tiles, m-tiles)})."""
+    mats = [("in", wih0, [wih0.shape[0]], (hidden, shared))]
+    mats += _stack_mats("", wihr, whh, hidden, shared)
+    return _pack_all(mats, wih0.dtype)
+
+
+class _StackXArgs(ctypes.Structure):
+    """Mirror of ``StackXArgs`` in ``csrc/gsu_stack_eval_x.cu``."""
+    _fields_ = ([(k, ctypes.c_void_p) for k in ("x", "w", "coef", "out", "prof")]
+                + [(k, ctypes.c_int) for k in ("T", "R", "F", "H", "L", "shared", "N", "cs", "mpb",
+                                                "Hp", "ld_x", "o_spk", "o_mem", "smem")]
+                + [("w_in", _MonoMatC), ("rec", _MonoMatC * MAX_LAYERS)])
+
+
+@functools.lru_cache(maxsize=8)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _stack_x_launch(x, wih0, wihr, whh, coef, hidden, shared, plan, prof=False):
+    """Kernel F's launch on ``plan`` (the wrapper's checks done): the
+    output, or with ``prof`` the phase counters [blocks, 8]."""
+    T, R, Fin = x.shape
+    H, L = hidden, whh.shape[0]
+    dev, io = x.device, x.dtype
+    flat, table = stack_x_pack(wih0, wihr, whh, H, shared)
+    out = torch.empty((L, T, R, H), dtype=io, device=dev)
+    counters = (torch.zeros(plan["blocks"], 8, dtype=torch.int64, device=dev) if prof
+                else None)
+    args = _StackXArgs(T=T, R=R, F=Fin, H=H, L=L, shared=int(shared),
+                       **{k: plan[k] for k in ("N", "cs", "mpb", "Hp", "ld_x", "o_spk", "o_mem",
+                                               "smem")})
+    for k, t in dict(x=x, w=flat, coef=coef, out=out, prof=counters).items():
+        setattr(args, k, None if t is None else t.data_ptr())
+    _set_mat(args.w_in, table["in"])
+    for k in range(L):
+        _set_mat(args.rec[k], table[f"rec{k}"])
+    lib = _lib("stack_x")
+    with torch.cuda.device(dev):
+        rc = lib.gsu_stack_eval_x_launch(int(io == torch.bfloat16), ctypes.byref(args), _stream())
+    _check_rc(lib, rc, "gsu_stack_eval_x", STACK_X_LIMITS)
+    return counters if prof else out
+
+
+# the phases of kernels B's and F's profiles (thread 0's clock: its warp's
+# products and cell updates, then the exchange of step inputs and the
+# barriers, then the step's outputs)
+EVAL_PHASES = {"F": ("products", "cell", "exchange and barrier", "spike write-out"),
+               "B": ("products", "cell", "exchange and barrier", "deep filter or projection out")}
+
+
+def _profile_of(counters: torch.Tensor, T: int, names: Sequence[str]) -> Dict[str, float]:
+    cyc = counters.double().cpu() / max(T, 1)
+    return {n: cyc[:, j].mean().item() for j, n in enumerate(names)}
+
+
+def stack_x_profile(*args) -> Dict[str, Any]:
+    """One launch of kernel F (``args`` as ``gsu_stack_eval_x``'s) with its
+    phase counters on: the SM cycles a step in each phase of
+    ``EVAL_PHASES["F"]``, averaged over the steps and the blocks, beside
+    the plan. Counts as a launch."""
+    x, wih0, wihr, whh, coef, hidden, shared = args
+    plan = stack_x_plan(x.shape[1], x.shape[2], hidden, whh.shape[0], shared, x.dtype,
+                        sms=_sm_count(x.device.index or 0))
+    counters = _stack_x_launch(*args, plan, prof=True)
+    gsu_stack_eval_x.launches += 1
+    return {"cycles_per_step": _profile_of(counters, x.shape[0], EVAL_PHASES["F"]),
+            "plan": {k: plan[k] for k in ("N", "tiles", "cs", "blocks", "mpb", "smem")}}
+
+
+def _sec_dims(secs: List[Dict[str, Any]], Fb: int, hidden: int, shared: bool) -> Dict[str, Any]:
+    return dict(H=hidden, shared=bool(shared), Fb=Fb, L=int(secs[0]["whh"].shape[0]),
+                secs=[dict(n=int(s["wa"].shape[0]), aw=int(s["wa"].shape[1]), ctr=s["ctr"],
+                           df=s["df"], P=int(s["wproj"].shape[1])) for s in secs])
+
+
+def _sec_regions(d: Dict[str, Any], s: Dict[str, Any], rt: int, nbm: int, es: int,
+                 df_mode: bool) -> Tuple[Dict[str, int], int]:
+    """A block's shared memory for ``nbm`` units of section ``s`` x rt rows
+    (the regions csrc/gsu_sections_eval.cu's SecArgs names)."""
+    N, Hp, L = nbm * rt, _r16(d["H"]), d["L"]
+    ld_in = _r16(s["aw"]) + _r16(d["Fb"]) + 8
+    return _layout([("x", 2 * rt * ld_in * es), ("sc", 2 * 2 * N * 4),
+                    ("sp", (s["df"] + 2) * 2 * rt * nbm * s["ctr"] * 4 if df_mode else 0),
+                    ("spk", 2 * L * N * (Hp + 8) * 2), ("mem", L * N * (Hp + 4) * 4),
+                    ("ys", N * s["P"] * 4)])
+
+
+def sections_plan(d: Dict[str, Any], B: int, io: torch.dtype, df_mode: bool = True,
+                  sms: int = SM_COUNT, cols: Optional[int] = None) -> Dict[str, Any]:
+    """Kernel B's layout (``csrc/gsu_sections_eval.cu``) for the sections
+    ``d`` (``_sec_dims``) at batch B, which the launcher follows. A block
+    owns nb units of one section times a tile of rt rows (8, 16 or 32), and
+    its time grows with its columns nb rt, so every block gets about as
+    many:
+
+    - ``cols``: the fewest columns a block (a multiple of 8, at most 64)
+      whose blocks fill at most ``SECTIONS_WAVES`` waves of ``sms`` blocks
+      (64 columns where none does); each section takes the (rt, nb) with
+      nb rt <= cols and the fewest blocks, then the most rows (each unit's
+      layer-0 product is one more chain of weight loads), nb shrunk while
+      the block's shared memory would not fit;
+    - per section (``secs``): ``rt``, ``tiles`` = ceil(B / rt), its
+      largest group ``nbm`` and the byte offsets of ``_sec_regions``;
+    - ``groups``: (section, first unit, units, first block) of each unit
+      group, the units of a section split evenly; a group's tiles are
+      consecutive blocks, ``blocks`` in all; ``smem`` the largest block.
+
+    ``cols`` forces the columns a block. Raises ValueError for what the
+    kernel does not take (``SECTIONS_LIMITS``)."""
+    H, L, secs = d["H"], d["L"], d["secs"]
+    if not (1 <= len(secs) <= MAX_SEC and 1 <= H <= 512 and 1 <= L <= MAX_LAYERS and B >= 1):
+        raise ValueError(f"{len(secs)} sections, H={H}, L={L}, B={B}: kernel B {SECTIONS_LIMITS}")
+    es = 2 if io == torch.bfloat16 else 4
+
+    def choose(s, cols):
+        """(blocks, -rt, rt, nb) of the section's best tiling within cols, or None."""
+        best = None
+        for rt in SECTIONS_ROWS:
+            nb = min(cols // rt, s["n"])
+            while nb >= 1:
+                groups = -(-s["n"] // nb)
+                if _sec_regions(d, s, rt, -(-s["n"] // groups), es, df_mode)[1] <= BLOCK_SMEM:
+                    break
+                nb -= 1
+            if nb < 1:
+                continue
+            key = (-(-s["n"] // nb) * -(-B // rt), -rt, rt, nb)
+            best = key if best is None or key < best else best
+        return best
+
+    plan = None
+    for c in range(8, EVAL_MAX_N + 1, 8) if cols is None else (cols,):
+        picks = [choose(s, c) for s in secs]
+        if not all(picks):
+            continue
+        n_groups = sum(-(-s["n"] // p[3]) for s, p in zip(secs, picks))
+        if n_groups > SECTIONS_MAX_GROUPS:
+            continue
+        plan = (c, picks)
+        if sum(p[0] for p in picks) <= SECTIONS_WAVES * sms:
+            break
+    if plan is None:
+        raise ValueError(f"{len(secs)} sections, H={H}, L={L}, B={B}: kernel B {SECTIONS_LIMITS}")
+    cols, picks = plan
+    groups, sec_plans, start = [], [], 0
+    for si, (s, (_, _, rt, nb)) in enumerate(zip(secs, picks)):
+        ng, tiles = -(-s["n"] // nb), -(-B // rt)
+        sizes = [s["n"] // ng + (1 if q < s["n"] % ng else 0) for q in range(ng)]
+        jj = 0
+        for size in sizes:
+            groups.append((si, jj, size, start))
+            jj += size
+            start += tiles
+        offs, total = _sec_regions(d, s, rt, max(sizes), es, df_mode)
+        sec_plans.append(dict(rt=rt, tiles=tiles, nbm=max(sizes), awp=_r16(s["aw"]),
+                              ld_in=_r16(s["aw"]) + _r16(d["Fb"]) + 8, dr=s["df"] + 2,
+                              smem=total, **{f"o_{k}": v for k, v in offs.items()}))
+    return dict(cols=cols, groups=groups, blocks=start, secs=sec_plans,
+                smem=max(p["smem"] for p in sec_plans), Hp=_r16(H))
+
+
+def sections_pack(secs: List[Dict[str, Any]], hidden: int, shared: bool):
+    """Kernel B's weights in mma fragment order (bf16) or [m-tile][k][16]
+    (float32): (flat, {name: (offset, k-tiles, m-tiles)}), names s{i}_rec{k},
+    s{i}_proj and s{i}_win{jj} (unit jj's [wa; wb], equally sized and
+    consecutive within a section, packed together)."""
+    mats = []
+    for i, s in enumerate(secs):
+        mats += _stack_mats(f"s{i}_", s["wihr"], s["whh"], hidden, shared)
+        mats.append((f"s{i}_proj", s["wproj"], [hidden], None))
+    flat, table = _pack_all(mats, secs[0]["wa"].dtype)
+    flats, off = [flat], flat.numel()
+    for i, s in enumerate(secs):
+        aw, Fb = int(s["wa"].shape[1]), int(s["wb"].shape[1])
+        wins, kt, mt = _pack_mat(torch.cat([s["wa"], s["wb"]], dim=1), [aw, Fb],
+                                 (hidden, shared), s["wa"].dtype)
+        for jj in range(wins.shape[0]):
+            table[f"s{i}_win{jj}"] = (off + jj * wins.shape[1], kt, mt)
+        flats.append(wins.reshape(-1))
+        off += wins.numel()
+    return torch.cat(flats), table
+
+
+class _SecArgsC(ctypes.Structure):
+    """Mirror of ``SecArgs`` in ``csrc/gsu_sections_eval.cu``."""
+    _fields_ = ([(k, ctypes.c_int) for k in ("n", "a0", "aw", "ctr", "df", "P", "u0", "f0", "ln",
+                                              "awp", "ld_in", "dr", "nbm", "rt", "tiles", "o_sc",
+                                              "o_sp",
+                                              "o_spk", "o_mem", "o_ys")]
+                + [("rec", _MonoMatC * MAX_LAYERS), ("proj", _MonoMatC), ("win", _MonoMatC)]
+                + [(k, ctypes.c_longlong) for k in ("win_size", "coef", "bproj", "uv", "oproj")])
+
+
+_SECTIONS_PTRS = ("xa", "xb", "alpha", "beta", "spec_re", "spec_im", "w", "coef", "bproj", "uv",
+                  "out_re", "out_im", "out_proj", "prof")
+_SECTIONS_INTS = ("T", "B", "Fa", "Fb", "Fs", "U", "W", "H", "L", "shared", "alpha_mode",
+                  "df_mode", "blocks", "Hp", "n_sec", "n_groups", "smem")
+
+
+class _SectionsArgs(ctypes.Structure):
+    """Mirror of ``SectionsArgs`` in ``csrc/gsu_sections_eval.cu``."""
+    _fields_ = ([(k, ctypes.c_void_p) for k in _SECTIONS_PTRS]
+                + [(k, ctypes.c_int) for k in _SECTIONS_INTS]
+                + [("sec", _SecArgsC * MAX_SEC),
+                   ("grp", (ctypes.c_int * 4) * SECTIONS_MAX_GROUPS)])

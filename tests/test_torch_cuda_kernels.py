@@ -30,7 +30,10 @@ a quarter of the distance of a version that leaves the rounding out. D and
 E at the edges of their unit split (a unit slice that does not divide H, R
 not a multiple of 16, the most rows the plan takes at H 256 and H 320) are
 held as at baseline L's rows, and two launches of each are bitwise equal.
-The recipe's loss gives the same gradient on every backward.
+B and F at the edges of their plans (ragged row tiles, unit groups of
+unequal size, H 40 and 48 unshared, F 3 and 257, H 512 with L 4, clusters
+of 2 and 4) are held to the bounds above, and two launches of each are
+bitwise equal. The recipe's loss gives the same gradient on every backward.
 """
 
 from __future__ import annotations
@@ -161,10 +164,10 @@ def test_stack_x_wrapper_rejects_what_the_kernel_does_not_take(dev):
         gk.gsu_stack_eval_x(x.to(torch.bfloat16), *w, 16, True)  # f32 weights
 
 
-def _sections(shared, io, dev, g, H=48):
+def _sections(shared, io, dev, g, H=48, n0=3):
     G = H if shared else 2 * H
     secs = []
-    for n, ctr, df, a0, aw in [(3, 4, 3, 0, 22), (2, 8, 1, 14, 26), (2, 16, 2, 30, 33)]:
+    for n, ctr, df, a0, aw in [(n0, 4, 3, 0, 22), (2, 8, 1, 14, 26), (2, 16, 2, 30, 33)]:
         wihr, whh, coef = _stack(H, shared, 2, io, dev, g)
         P = 2 * df * ctr
         secs.append({
@@ -231,6 +234,105 @@ def test_sections_kernel_matches_plain(dev, io, shared, mode, df_mode):
         assert a.shape == b.shape == (s["wa"].shape[0], T, B, s["wproj"].shape[1])
         assert a.dtype == b.dtype == io
         assert _rel_l2(a, b) < B_PROJ_TOL[io]
+
+
+# kernel F at the edges of its plan (stack_x_plan): rows that do not fill a
+# tile (R 1, 5, 13), H not a multiple of 16 with unshared weights, F 3 and
+# 257, H 512 with L 4, the gate m-tiles split over a cluster of 2 (256 rows
+# x 320, as the fullband) or 4 (21 rows x 320 unshared)
+F_EDGES = {"R 1": (2, 9, 1, 38, 224, True), "R 5, H 40 unshared": (2, 12, 5, 37, 40, False),
+           "R 13, H 48 unshared": (3, 10, 13, 20, 48, False), "F 3": (2, 12, 19, 3, 64, True),
+           "F 257": (2, 8, 37, 257, 256, True), "H 512, L 4": (4, 6, 11, 38, 512, False),
+           "cluster 2": (2, 10, 256, 64, 320, True), "cluster 4": (2, 10, 21, 64, 320, False)}
+
+
+@pytest.mark.parametrize("io", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(F_EDGES))
+def test_stack_x_kernel_at_the_plan_edges(dev, case, io):
+    L, T, R, Fin, H, shared = F_EDGES[case]
+    g = torch.Generator().manual_seed(R * 7 + Fin)
+    layers, states = _layers(H, shared, L, g, fin=Fin)
+    w = [t.to(dev) for t in gk.pack_stack_x(layers, states, H, io)]
+    x = torch.rand(T, R, Fin, generator=g).to(io).to(dev)
+    plan = gk.stack_x_plan(R, Fin, H, L, shared, io)
+    if case.startswith("cluster"):
+        assert plan["cs"] == int(case[-1])
+    got = gk.gsu_stack_eval_x(x, *w, H, shared)
+    ref = gk.stack_eval_x_plain(x, *w, H, shared)
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape == (L, T, R, H) and got.dtype == io
+    assert (got != ref).float().mean().item() < 1e-3
+
+
+@pytest.mark.parametrize("io", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["R 13, H 48 unshared", "cluster 2"])
+def test_stack_x_kernel_is_bitwise_deterministic(dev, case, io):
+    """Two launches on the same inputs give the same spikes bit for bit."""
+    L, T, R, Fin, H, shared = F_EDGES[case]
+    g = torch.Generator().manual_seed(11)
+    layers, states = _layers(H, shared, L, g, fin=Fin)
+    w = [t.to(dev) for t in gk.pack_stack_x(layers, states, H, io)]
+    x = torch.rand(4 * T, R, Fin, generator=g).to(io).to(dev)
+    first, again = gk.gsu_stack_eval_x(x, *w, H, shared), gk.gsu_stack_eval_x(x, *w, H, shared)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+
+
+# kernel B at the edges of its plan (sections_plan): batches of 1 (a tile of
+# 8 rows), 9 and 257 (ragged row tiles), H 40 unshared, a section of five
+# units at 513 rows (its units go in groups of 3 and 2, the other sections'
+# two units in one group: several units a block)
+B_EDGES = {"B 1": (1, 48, True, 3), "B 9": (9, 48, True, 3), "B 257": (257, 48, True, 3),
+           "H 40 unshared": (11, 40, False, 3), "five units": (513, 40, True, 5)}
+
+
+def _b_edge_args(case, mode, df_mode, io, dev, T=12):
+    B, H, shared, n0 = B_EDGES[case]
+    g = torch.Generator().manual_seed(B + H + n0)
+    G = H if shared else 2 * H
+    secs = _sections(shared, io, dev, g, H, n0)
+    U = sum(s["wa"].shape[0] for s in secs)
+    W = sum(s["wa"].shape[0] * s["ctr"] for s in secs)
+    alpha, beta = _section_scales(mode, secs, T, B, U, G, dev, g)
+    xa = torch.rand(T, B, 64, generator=g).to(io).to(dev)
+    xb = torch.randn(T, B, 16, generator=g).to(io).to(dev)
+    spec = ((torch.randn(T, B, W + 1, generator=g).to(dev),
+             torch.randn(T, B, W + 1, generator=g).to(dev)) if df_mode else (None, None))
+    return (secs, xa, xb, alpha, *spec, H, shared, beta)
+
+
+@pytest.mark.parametrize("io", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["off", "ln"])
+@pytest.mark.parametrize("case", list(B_EDGES))
+def test_sections_kernel_at_the_plan_edges(dev, case, mode, io):
+    """The deep filter's enhanced spectrum within the bound of
+    test_sections_kernel_matches_plain, and the projection mode's within
+    B_PROJ_TOL, on the same inputs."""
+    args = _b_edge_args(case, mode, True, io, dev)
+    if case == "five units":
+        plan = gk.sections_plan(gk._sec_dims(args[0], 16, args[6], args[7]), 513, io)
+        assert sorted(nb for si, _, nb, _ in plan["groups"] if si == 0) == [2, 3]
+    got, ref = gk.gsu_sections_eval(*args), gk.sections_eval_plain(*args)
+    torch.cuda.synchronize()
+    num = sum((a - b).square().sum() for a, b in zip(got, ref))
+    den = sum(b.square().sum() for b in ref)
+    assert (num / den).sqrt().item() < 1e-4
+    secs, xa, xb, alpha, _, _, H, shared, beta = args
+    pargs = (secs, xa, xb, alpha, None, None, H, shared, beta)
+    for s, a, b in zip(secs, gk.gsu_sections_eval(*pargs), gk.sections_eval_plain(*pargs)):
+        assert a.shape == b.shape == (s["wa"].shape[0], xa.shape[0], xa.shape[1],
+                                      s["wproj"].shape[1])
+        assert _rel_l2(a, b) < B_PROJ_TOL[io]
+
+
+@pytest.mark.parametrize("io", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["B 9", "five units"])
+def test_sections_kernel_is_bitwise_deterministic(dev, case, io):
+    """Two launches on the same inputs give the same spectrum bit for bit."""
+    args = _b_edge_args(case, "ln", True, io, dev, T=40)
+    first, again = gk.gsu_sections_eval(*args), gk.gsu_sections_eval(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
 
 
 def test_sections_wrapper_rejects_what_the_kernel_does_not_take(dev):

@@ -534,3 +534,270 @@ def test_train_pack_dh_rows_give_each_units_gradient(H, shared, io):
     ref = drg @ whh.double().T
     torch.testing.assert_close(got[:, :H], ref, rtol=1e-12, atol=1e-12)
     assert not got[:, H:].any()
+
+
+# ------------------------------------------------------------------ B and F: the eval engine
+
+# (R, F, H, L, shared) of every kernel-F launch of PERF.md section 4 (zoo M
+# layered's four stacks, cIRM-GSN's one) and of the card tests
+STACK_X_MAIN = {"zoo M fullband": (256, 64, 320, 2, True),
+                "zoo M section 0": (2048, 38, 224, 2, True),
+                "zoo M section 1": (768, 94, 224, 2, True),
+                "zoo M section 2": (512, 158, 224, 2, True),
+                "cIRM-GSN": (256, 257, 256, 2, True)}
+STACK_X_CARD = [(13, 37, 40, 1), (21, 64, 320, 2), (17, 158, 224, 2), (9, 257, 256, 3),
+                (8, 3, 512, 4), (37, 38, 224, 2), (11, 38, 224, 2), (5, 3, 40, 2),
+                (1, 257, 48, 2), (257, 64, 320, 2), (64, 1024, 512, 4)]
+STACK_X_REFUSED = [(8, 3, 513, 2), (8, 3, 40, 5), (8, 1025, 40, 2), (0, 3, 40, 2),
+                   (8, 0, 40, 2)]
+
+
+def _check_stack_x_plan(plan, R, F, H, L, shared):
+    N, cs, mts = plan["N"], plan["cs"], plan["mts"]
+    assert N in gk.STACK_X_COLS and cs in gk.STACK_X_CLUSTERS
+    assert (plan["tiles"] - 1) * N < R <= plan["tiles"] * N  # every row in one tile
+    assert plan["blocks"] == plan["tiles"] * cs
+    assert mts == (-(-H // 16) if shared else -(-H // 8))
+    assert (cs - 1) * plan["mpb"] < mts <= cs * plan["mpb"]  # every m-tile in one block
+    es = 2 if plan["io"] == BF16 else 4
+    Hp = plan["Hp"]
+    assert Hp % 16 == 0 and H <= Hp < H + 16 and plan["ld_x"] >= F
+    regs = [(plan["o_x"], 2 * N * plan["ld_x"] * es), (plan["o_spk"], 2 * L * N * (Hp + 8) * 2),
+            (plan["o_mem"], L * N * (Hp + 4) * 4)]
+    assert all(o % 16 == 0 for o, _ in regs)
+    assert all(a[0] + a[1] <= b[0] for a, b in zip(regs, regs[1:]))
+    assert regs[-1][0] + regs[-1][1] == plan["smem"] <= BLOCK_SMEM
+
+
+@pytest.mark.parametrize("io", [BF16, F32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("shape", list(STACK_X_MAIN.values()), ids=list(STACK_X_MAIN))
+def test_stack_x_plan_at_the_main_paths_is_one_wave(shape, io):
+    """Kernel F at each bench stack: every row and gate m-tile in one block,
+    the regions inside 232,448 bytes, the blocks within the H100's 132 SMs
+    (one wave), and a cluster only where a block's 16 warps would have more
+    than one m-tile each (the fullband's 320 units)."""
+    R, F, H, L, shared = shape
+    plan = gk.stack_x_plan(R, F, H, L, shared, io)
+    _check_stack_x_plan(dict(plan, io=io), R, F, H, L, shared)
+    assert plan["blocks"] <= gk.SM_COUNT
+    assert (plan["cs"] > 1) == (H == 320)
+    assert -(-plan["mts"] // plan["cs"]) <= gk.EVAL_WARPS
+
+
+@pytest.mark.parametrize("io", [BF16, F32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("shared", [True, False])
+@pytest.mark.parametrize("shape", STACK_X_CARD, ids=[str(s) for s in STACK_X_CARD])
+def test_stack_x_plan_at_the_card_tests_shapes(shape, shared, io):
+    """The card tests' shapes (ragged row tiles, F 3-1024, H up to 512 with
+    L 4, unshared weights): a plan that covers them, and one for every
+    forced tile and cluster that fits."""
+    R, F, H, L = shape
+    _check_stack_x_plan(dict(gk.stack_x_plan(R, F, H, L, shared, io), io=io), R, F, H, L, shared)
+    for N in gk.STACK_X_COLS:
+        for cs in gk.STACK_X_CLUSTERS:
+            try:
+                plan = gk.stack_x_plan(R, F, H, L, shared, io, cols=N, cluster=cs)
+            except ValueError:
+                continue
+            _check_stack_x_plan(dict(plan, io=io), R, F, H, L, shared)
+            assert (plan["N"], plan["cs"]) == (N, cs)
+
+
+@pytest.mark.parametrize("shape", STACK_X_REFUSED, ids=[str(s) for s in STACK_X_REFUSED])
+def test_stack_x_plan_refuses_what_the_kernel_does_not_take(shape):
+    R, F, H, L = shape
+    with pytest.raises(ValueError, match="H 1..512"):
+        gk.stack_x_plan(R, F, H, L, True, BF16)
+
+
+@pytest.mark.parametrize("io", [BF16, F32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("shared", [True, False])
+@pytest.mark.parametrize("L", [1, 2, 4])
+def test_stack_x_pack_decodes_to_the_stack(L, shared, io):
+    """Kernel F's packed weights, decoded through the fragment layout (bf16)
+    or [m-tile][k][16] (float32) and read through the accumulators' gate
+    columns: layer 0's W_ih0 over x, each layer's recurrent product over
+    [h_{k-1}(t); h_k(t-1)], every pad row zero."""
+    H, F = 24, 19
+    G = H if shared else 2 * H
+    g = torch.Generator().manual_seed(L + 10 * shared)
+    wih0 = torch.randn(F, G, generator=g).to(io)
+    wihr = torch.randn(max(L - 1, 1), H, G, generator=g).to(io)
+    whh = torch.randn(L, H, G, generator=g).to(io)
+    flat, table = gk.stack_x_pack(wih0, wihr, whh, H, shared)
+    spans = sorted((off, off + kt * mt * 256) for off, kt, mt in table.values())
+    assert spans[0][0] == 0 and spans[-1][1] == flat.numel()
+    assert all(a[1] == b[0] for a, b in zip(spans, spans[1:]))
+    wants = {"in": (wih0, [F])}
+    wants["rec0"] = (whh[0], [H])
+    for k in range(1, L):
+        wants[f"rec{k}"] = (torch.cat([wihr[k - 1], whh[k]]), [H, H])
+    assert set(table) == set(wants)
+    for name, (w, kparts) in wants.items():
+        off, kt, mt = table[name]
+        assert mt == (-(-H // 16) if shared else -(-H // 8))
+        part = flat[off:off + kt * mt * 256]
+        if io == BF16:
+            a = _a_from_fragments(part.view(mt, kt, 32, 8))
+        else:
+            a = part.view(mt, kt * 16, 16).permute(0, 2, 1).reshape(mt * 16, kt * 16)
+        x = torch.randn(3, sum(kparts), generator=g).to(io)
+        xp = torch.cat([torch.cat([p, p.new_zeros(3, -(-k // 16) * 16 - k)], dim=1)
+                        for p, k in zip(x.split(kparts, dim=1), kparts)], dim=1)
+        got, ref = xp.double() @ a.double().T, x.double() @ w.double()
+        for q in range(mt):
+            for r, col in enumerate(_gate_columns(q, H, shared)):
+                if col < 0:
+                    assert not got[:, 16 * q + r].any()
+                else:  # the same products, summed in another order
+                    torch.testing.assert_close(got[:, 16 * q + r], ref[:, col], rtol=1e-12,
+                                               atol=1e-12)
+
+
+def _card_sections(n0=3, H=48, shared=True):
+    """tests/test_torch_cuda_kernels.py's _sections geometry (xb of 16)."""
+    G = H if shared else 2 * H
+    g = torch.Generator().manual_seed(n0)
+    secs = []
+    for n, ctr, df, aw in [(n0, 4, 3, 22), (2, 8, 1, 26), (2, 16, 2, 33)]:
+        P = 2 * df * ctr
+        secs.append({"wa": torch.randn(n, aw, G, generator=g), "wb": torch.randn(n, 16, G, generator=g),
+                     "wihr": torch.randn(1, H, G, generator=g), "whh": torch.randn(2, H, G, generator=g),
+                     "wproj": torch.randn(H, P, generator=g), "ctr": ctr, "df": df, "a0": 0})
+    return secs
+
+
+def _zoo_sections():
+    mono = _spec("zoo M cumulative norm")
+    return gk._sec_dims(mono["secs"], int(mono["fb"]["wproj"].shape[1]), mono["hidden"],
+                        mono["shared"])
+
+
+def _check_sections_plan(plan, d, B, io, df_mode):
+    es = 2 if io == BF16 else 4
+    assert plan["cols"] % 8 == 0 and plan["cols"] <= gk.EVAL_MAX_N
+    assert len(plan["groups"]) <= gk.SECTIONS_MAX_GROUPS
+    start = 0
+    for si, _, _, first in plan["groups"]:  # a group's tiles are consecutive blocks
+        assert first == start
+        start += plan["secs"][si]["tiles"]
+    assert plan["blocks"] == start
+    for si, s in enumerate(d["secs"]):
+        sp = plan["secs"][si]
+        rt = sp["rt"]
+        assert rt in gk.SECTIONS_ROWS and (sp["tiles"] - 1) * rt < B <= sp["tiles"] * rt
+        mine = [g for g in plan["groups"] if g[0] == si]
+        units = [jj for _, jj0, nb, _ in mine for jj in range(jj0, jj0 + nb)]
+        assert units == list(range(s["n"]))  # every unit in one group, in order
+        sizes = [nb for _, _, nb, _ in mine]
+        assert max(sizes) - min(sizes) <= 1 and max(sizes) * rt <= plan["cols"]
+        assert sp["nbm"] == max(sizes) and sp["dr"] == s["df"] + 2
+        assert sp["ld_in"] == sp["awp"] + -(-d["Fb"] // 16) * 16 + 8 and sp["awp"] >= s["aw"]
+        offs, total = gk._sec_regions(d, s, rt, sp["nbm"], es, df_mode)
+        assert all(sp[f"o_{k}"] == v for k, v in offs.items()) and sp["smem"] == total
+        assert total <= plan["smem"] <= BLOCK_SMEM
+        N, Hp = sp["nbm"] * rt, plan["Hp"]
+        sizes = {"x": 2 * rt * sp["ld_in"] * es, "sc": 4 * N * 4,
+                 "sp": sp["dr"] * 2 * N * s["ctr"] * 4 if df_mode else 0,
+                 "spk": 2 * d["L"] * N * (Hp + 8) * 2, "mem": d["L"] * N * (Hp + 4) * 4,
+                 "ys": N * s["P"] * 4}
+        regs = sorted((offs[k], n) for k, n in sizes.items())
+        assert all(o % 16 == 0 for o, _ in regs)
+        assert all(a[0] + a[1] <= b[0] for a, b in zip(regs, regs[1:]))
+        assert regs[-1][0] + regs[-1][1] <= total
+
+
+@pytest.mark.parametrize("io", [BF16, F32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("B", [1, 9, 256, 257])
+def test_sections_plan_at_zoo_m(B, io):
+    """Kernel B at zoo M's 13 units of 2 x 224 (the served path, 1 x 2 s up
+    to the bench's 256 rows and a ragged 257): every unit in one group,
+    groups even within a section, the regions inside 232,448 bytes, the
+    blocks within two waves of the H100's 132 SMs; at 256 rows every block
+    one unit x 16 rows (208 blocks)."""
+    d = _zoo_sections()
+    assert [s["n"] for s in d["secs"]] == [8, 3, 2]
+    for df_mode in (True, False):
+        plan = gk.sections_plan(d, B, io, df_mode)
+        _check_sections_plan(plan, d, B, io, df_mode)
+        assert plan["blocks"] <= gk.SECTIONS_WAVES * gk.SM_COUNT
+    plan = gk.sections_plan(d, 256, io)
+    assert plan["cols"] == 16 and plan["blocks"] == 208
+    assert all((p["rt"], p["nbm"]) == (16, 1) for p in plan["secs"])
+
+
+@pytest.mark.parametrize("io", [BF16, F32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("shared", [True, False])
+@pytest.mark.parametrize("case", ["card", "five units", "flagship M", "H 512 L 4"])
+def test_sections_plan_at_the_card_tests_shapes(case, shared, io):
+    """The card tests' sections (B 1, 9, 11, 257, 513; a section of five
+    units, whose groups at 513 rows cannot be even; H 40 and 48 unshared),
+    flagship M's sections and H 512 with L 4."""
+    if case == "flagship M":
+        mono = _spec("flagship M")
+        d = gk._sec_dims(mono["secs"], int(mono["fb"]["wproj"].shape[1]), mono["hidden"], shared)
+    elif case == "H 512 L 4":
+        d = dict(gk._sec_dims(_card_sections(H=512, shared=shared), 16, 512, shared), L=4)
+    else:
+        secs = _card_sections(5 if case == "five units" else 3, 40, shared)
+        d = gk._sec_dims(secs, 16, 40, shared)
+    for B in (1, 9, 11, 257, 513):
+        for df_mode in (True, False):
+            _check_sections_plan(gk.sections_plan(d, B, io, df_mode), d, B, io, df_mode)
+    if case == "five units":
+        plan = gk.sections_plan(d, 513, io)
+        assert sorted(nb for si, _, nb, _ in plan["groups"] if si == 0) == [2, 3]
+
+
+def test_sections_plan_refuses_what_the_kernel_does_not_take():
+    d = gk._sec_dims(_card_sections(), 16, 48, True)
+    for bad in (dict(d, H=513), dict(d, L=5), dict(d, secs=d["secs"] * 3), dict(d, secs=[])):
+        with pytest.raises(ValueError, match="H 1..512"):
+            gk.sections_plan(bad, 4, BF16)
+    with pytest.raises(ValueError, match="B >= 1"):
+        gk.sections_plan(d, 0, BF16)
+
+
+@pytest.mark.parametrize("io", [BF16, F32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("shared", [True, False])
+def test_sections_pack_decodes_to_each_units_matrices(shared, io):
+    """Kernel B's packed weights: a unit's layer-0 matrix [wa; wb] read
+    through the gate columns; a section's units' matrices equally sized and
+    consecutive (the kernel steps between them); the projection keeps its
+    columns; every matrix once, one after the other."""
+    H = 40
+    secs = [{k: v.to(io) if isinstance(v, torch.Tensor) else v for k, v in s.items()}
+            for s in _card_sections(3, H, shared)]
+    flat, table = gk.sections_pack(secs, H, shared)
+    spans = sorted((off, off + kt * mt * 256) for off, kt, mt in table.values())
+    assert spans[0][0] == 0 and spans[-1][1] == flat.numel()
+    assert all(a[1] == b[0] for a, b in zip(spans, spans[1:]))
+
+    def dense(name):
+        off, kt, mt = table[name]
+        part = flat[off:off + kt * mt * 256]
+        if io == BF16:
+            return _a_from_fragments(part.view(mt, kt, 32, 8)).double(), mt
+        return part.view(mt, kt * 16, 16).permute(0, 2, 1).reshape(mt * 16, kt * 16).double(), mt
+
+    g = torch.Generator().manual_seed(5)
+    for i, s in enumerate(secs):
+        n, aw = s["wa"].shape[:2]
+        offs = [table[f"s{i}_win{jj}"][0] for jj in range(n)]
+        assert len(set(np.diff(offs))) <= 1
+        for jj in range(n):
+            a, mt = dense(f"s{i}_win{jj}")
+            x = torch.randn(2, aw + 16, generator=g).to(io).double()
+            xp = torch.cat([x[:, :aw], x.new_zeros(2, -(-aw // 16) * 16 - aw), x[:, aw:]], dim=1)
+            got = xp @ a.T
+            ref = x @ torch.cat([s["wa"][jj], s["wb"][jj]]).double()
+            for q in range(mt):
+                for r, col in enumerate(_gate_columns(q, H, shared)):
+                    if col < 0:
+                        assert not got[:, 16 * q + r].any()
+                    else:
+                        torch.testing.assert_close(got[:, 16 * q + r], ref[:, col], rtol=1e-12,
+                                                   atol=1e-12)
+        a, _ = dense(f"s{i}_proj")
+        P = s["wproj"].shape[1]
+        assert torch.equal(a[:P, :H], s["wproj"].double().T) and not a[P:].any()
