@@ -194,7 +194,7 @@ is non-zero:
               four launches and B alone in each mode (and the projection
               mode on "ln"'s inputs), their plain versions and bounds.
 
-About 8 to 11 minutes on one H100, the build included.
+About 7 to 11 minutes on one H100, the build included.
 
 The last line is {"ok": true, "device": {...}}. Without a CUDA device, or
 without the rest of the repository beside it, it prints no result and
