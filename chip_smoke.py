@@ -64,14 +64,15 @@ is non-zero:
             bitwise equal, one profiled launch's SM cycles a step in each
             stage (io, fullband and unit blocks), and the time of packing
             its weights (monolith_pack, done once a spec, outside its time).
-            Kernels B (zoo M's sections) and F (each of its five launches)
-            besides: their plans (sections_plan: rows a tile, unit groups,
-            blocks; stack_x_plan: rows a block, blocks a cluster), one
+            Kernels A (zoo M's served fullband), B (zoo M's sections) and F
+            (each of its five launches) besides: their plans (sections_plan:
+            rows a tile, unit groups, blocks; stack_x_plan: columns a block,
+            blocks a cluster, for A over its (unit, row) columns), one
             profiled launch's SM cycles a step in each phase (products,
             cell, exchange and barrier, the step's outputs), the time of
-            packing their weights (sections_pack, stack_x_pack: done at
-            every launch, inside its time), and two launches on the bench's
-            inputs bitwise equal.
+            packing their weights (stack_pack, sections_pack, stack_x_pack:
+            done at every launch, inside its time), and two launches on the
+            bench's inputs bitwise equal.
 6. training the layered training step (recipes/denoise.train_step: the
             denoise loss, backward, clipping by global norm 10, AdamW) of
             zoo M (separator_config's default, from baseline_m.npz) and of
@@ -191,8 +192,10 @@ is non-zero:
               (the preset's default) and of the three mode configurations,
               each counted in a warm-up that also records the kernels'
               inputs, with own peak memory; A alone at the collect path's
-              four launches and B alone in each mode (and the projection
-              mode on "ln"'s inputs), their plain versions and bounds.
+              four launches (each with A's plan, phase profile, packing
+              time and two launches bitwise equal, as in phase 5) and B
+              alone in each mode (and the projection mode on "ln"'s
+              inputs), their plain versions and bounds.
 
 About 7 to 11 minutes on one H100, the build included.
 
@@ -573,6 +576,27 @@ def bound_c(args, spikes):
         mm += 2.0 * G * (sum(n_sp) + sum(n_sp[:-1])) + 2.0 * P * n_sp[-1]
         f32 += float(S) * B * n * (CELL_OPS * L * H + G * (1 + n_stats) + 8 * s["df"] * s["ctr"])
     return nbytes, mm + f32, mm / PEAK_OPS[chunks.dtype] + f32 / PEAK_OPS[torch.float32]
+
+
+def a_extras(gk, args, kw):
+    """Kernel A beside its time on ``args``: its plan and SM cycles a step
+    in each phase (one profiled launch, gk.stack_profile), the time of
+    packing its weights (gk.stack_pack, done at every launch and inside its
+    time), and two launches bitwise equal."""
+    xg0, wihr, whh, coef, H, shared = args
+    prof = gk.stack_profile(*args, **kw)
+    pack_ms = cuda_ms(lambda: gk.stack_pack(wihr, whh, H, shared), iters=2)
+    first, again = gk.gsu_stack_eval(*args, **kw), gk.gsu_stack_eval(*args, **kw)
+    torch.cuda.synchronize()
+    same = torch.equal(first, again)
+    del first, again
+    what = f"gsu_stack_eval {tuple(xg0.shape)}{' collect_all' if kw.get('collect_all') else ''}"
+    log(f"[timing] {what} plan {prof['plan']}; SM cycles a step: "
+        + ", ".join(f"{k} {v:.0f}" for k, v in prof["cycles_per_step"].items())
+        + f"; weight packing (stack_pack) {pack_ms:.3f} ms; two launches bitwise equal: {same}")
+    require(same, f"kernel A {what}: two launches on the same inputs differ")
+    return {"plan": prof["plan"], "cycles_per_step": prof["cycles_per_step"], "pack_ms": pack_ms,
+            "bitwise_twice": same}
 
 
 def b_extras(gk, args):
@@ -1462,6 +1486,7 @@ def modes_phase(gk, sf, model, flag, flag_base, base, quality_x, clean, noisy, d
         per.append(row)
         log(f"[timing] gsu_stack_eval collect_all {row['stack']} {tuple(args[0].shape)}: "
             f"{ms:.3f} ms, plain {ms_p:.1f} ms, bound {row['bound_ms']:.4f} ms")
+        row.update(a_extras(gk, args, kw))
     del a_args
     t = sums_of(per)
     out["kernels"].append({
@@ -1824,6 +1849,8 @@ def main() -> int:
         log(f"[timing] {name}: {ms:.3f} ms, plain {plain_ms[key]:.1f} ms, bound "
             f"{max(b_bytes, b_ops):.4f} ms ({kernels[-1]['bound_by']}; bytes {b_bytes:.4f} ms, "
             f"operations {b_ops:.4f} ms)")
+        if key == "A":
+            kernels[-1].update(a_extras(gk, args, kw))
         if key == "B":
             kernels[-1].update(b_extras(gk, args))
         if key == "C":

@@ -1,7 +1,7 @@
-// The eval engine of kernels B (gsu_sections_eval.cu) and F
-// (gsu_stack_eval_x.cu): a block owns a tile of N columns, a column being
-// one (row, unit) pair, and runs a whole L-layer GSU stack over T steps
-// inside the block.
+// The eval engine of kernels B (gsu_sections_eval.cu), and A and F
+// (gsu_stack_eval.cu, gsu_stack_eval_x.cu, one kernel in gsu_eval_stack.cuh):
+// a block owns a tile of N columns, a column being one (row, unit) pair, and
+// runs a whole L-layer GSU stack over T steps inside the block.
 //
 // - Products on the tensor cores: every product is W^T X with the weights
 //   as the left operand, on mma.sync m16n8k16 bf16 -> f32. The host packs
@@ -371,18 +371,19 @@ struct FastDiv {
   }
 };
 
-// Staged inputs: a step's n items (values that the next step reads from
-// shared memory), item i of thread tid at i = tid + q NTHREADS. The first
-// PFI of a thread's items are loaded into registers ahead (load), before
-// the step's products, and stored (store) after them, so that their device
-// round trips overlap the products; any further item is loaded and stored
-// at once. get(i) reads item i, set(i, v) writes it.
-struct Staged {
-  float v[PFI];
+// Staged inputs: a step's n items (values, or chunks of them, that the
+// next step reads from shared memory), item i of thread tid at i = tid + q
+// NTHREADS. The first P of a thread's items are loaded into registers ahead
+// (load), before the step's products, and stored (store) after them, so
+// that their device round trips overlap the products; any further item is
+// loaded and stored at once. get(i) reads item i, set(i, v) writes it.
+template <typename V, int P>
+struct StagedT {
+  V v[P];
   template <typename Get>
   __device__ __forceinline__ void load(int n, Get get) {
 #pragma unroll
-    for (int q = 0; q < PFI; ++q) {
+    for (int q = 0; q < P; ++q) {
       const int i = threadIdx.x + q * NTHREADS;
       if (i < n) v[q] = get(i);
     }
@@ -390,12 +391,13 @@ struct Staged {
   template <typename Get, typename Set>
   __device__ __forceinline__ void store(int n, Get get, Set set) const {
 #pragma unroll
-    for (int q = 0; q < PFI; ++q) {
+    for (int q = 0; q < P; ++q) {
       const int i = threadIdx.x + q * NTHREADS;
       if (i < n) set(i, v[q]);
     }
-    for (int i = threadIdx.x + PFI * NTHREADS; i < n; i += NTHREADS) set(i, get(i));
+    for (int i = threadIdx.x + P * NTHREADS; i < n; i += NTHREADS) set(i, get(i));
   }
 };
+using Staged = StagedT<float, PFI>;
 
 }  // namespace gev

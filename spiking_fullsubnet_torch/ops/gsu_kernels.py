@@ -5,7 +5,9 @@ Six kernels, each a hand-written CUDA C++ source under ``../csrc``:
 
 - ``gsu_stack_eval`` (kernel A, ``csrc/gsu_stack_eval.cu``) replaces
   ``_stack_eval_xg_kernel`` / ``gsu_stack_eval_pallas_xg``: an L-layer GSU
-  stack in eval mode with the layer-0 gates given.
+  stack in eval mode with the layer-0 gates given, in the 3-D or the units
+  form; kernel F's kernel (``csrc/gsu_eval_stack.cuh``) with the gates
+  staged in place of the features, laid out by the same plan.
 - ``gsu_sections_eval`` (kernel B, ``csrc/gsu_sections_eval.cu``) replaces
   ``_sections_kernel`` / ``gsu_sections_eval_pallas`` in each of its modes:
   all sub-band sections with their layer-0 gates scaled per utterance, per
@@ -131,12 +133,9 @@ def build_kernels() -> float:
 
 def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
     P, I = ctypes.c_void_p, ctypes.c_int
-    if name == "stack":
-        lib.gsu_stack_eval_launch.argtypes = [I, P, P, P, P, P, I, I, I, I, I, I, I, P]
-        lib.gsu_stack_eval_launch.restype = I
-    elif name == "stack_x":
-        lib.gsu_stack_eval_x_launch.argtypes = [I, ctypes.POINTER(_StackXArgs), P]
-        lib.gsu_stack_eval_x_launch.restype = I
+    if name in ("stack", "stack_x"):
+        lib.gsu_stack_launch.argtypes = [I, ctypes.POINTER(_StackArgs), P]
+        lib.gsu_stack_launch.restype = I
     elif name == "sections":
         lib.gsu_sections_eval_launch.argtypes = [I, ctypes.POINTER(_SectionsArgs), P]
         lib.gsu_sections_eval_launch.restype = I
@@ -311,7 +310,10 @@ def gsu_stack_eval(xg0: torch.Tensor, wihr: torch.Tensor, whh: torch.Tensor,
     xg0 ``[T, R, G]`` or ``[U, T, R, G]`` (f32/bf16 on the card; also f64 on
     the CPU), G = H (shared) or 2H (f half first); weights from
     ``pack_stack``. Returns the last layer's spikes ``[..., H]`` in xg0's
-    type, or every layer's stacked on a leading axis with ``collect_all``."""
+    type, or every layer's stacked on a leading axis with ``collect_all``.
+    On the card the weights are packed for the kernel (``stack_pack``) and
+    the launch laid out by ``stack_x_plan`` over the U R (unit, row)
+    columns at every call."""
     if not xg0.is_cuda:
         return stack_eval_plain(xg0, wihr, whh, coef, hidden, shared, collect_all)
     H, L = hidden, whh.shape[0]
@@ -327,15 +329,8 @@ def gsu_stack_eval(xg0: torch.Tensor, wihr: torch.Tensor, whh: torch.Tensor,
     _check_cuda("wihr", wihr, io, dev, (max(L - 1, 1), H, G))
     _check_cuda("whh", whh, io, dev, (L, H, G))
     _check_cuda("coef", coef, torch.float32, dev, (L, 4, H))
-    U, T, R = (xg0.shape[:3] if xg0.ndim == 4 else (1,) + tuple(xg0.shape[:2]))
-    out_shape = ((L,) if collect_all else ()) + tuple(xg0.shape[:-1]) + (H,)
-    out = torch.empty(out_shape, dtype=io, device=dev)
-    lib = _lib("stack")
-    with torch.cuda.device(dev):
-        rc = lib.gsu_stack_eval_launch(
-            int(io == torch.bfloat16), _ptr(xg0), _ptr(wihr), _ptr(whh), _ptr(coef), _ptr(out),
-            U, T, R, H, L, int(shared), int(collect_all), _stream())
-    _check_rc(lib, rc, "gsu_stack_eval")
+    out = _stack_a_launch(xg0, wihr, whh, coef, H, shared, collect_all,
+                          _stack_a_plan(xg0, H, L, shared))
     gsu_stack_eval.launches += 1
     return out
 
@@ -1828,12 +1823,13 @@ def sfsb_monolith_serve(mono: Dict[str, Any], chunks: torch.Tensor) -> torch.Ten
 sfsb_monolith_serve.launches = 0
 
 
-# ------------------------------------------------------------------ kernels B and F: plans
+# ------------------------------------------------------------------ kernels A, B and F: plans
 #
-# Kernels B and F share one engine (csrc/gsu_eval_mma.cuh): a block of 16
-# warps owns a tile of N columns (a column is one (row, unit) pair) and runs
-# a whole GSU stack over T, its weights packed in mma fragment order
-# (``_pack_mat``) and streamed from L2. The plans below set every tile,
+# Kernels A, B and F share one engine (csrc/gsu_eval_mma.cuh; A and F one
+# kernel, csrc/gsu_eval_stack.cuh): a block of 16 warps owns a tile of N
+# columns (a column is one (row, unit) pair) and runs a whole GSU stack over
+# T, its weights packed in mma fragment order (``_pack_mat``) and streamed
+# from L2. The plans below set every tile,
 # cluster, grid and shared-memory offset; the launchers take them as they
 # are, so that the CPU tests hold what the card runs.
 
@@ -1842,10 +1838,11 @@ EVAL_MAX_N = 64  # columns a block
 SM_COUNT = 132  # the H100's SMs: the plans fill them in one wave where they can
 STACK_X_COLS = (8, 16, 32, 64)
 STACK_X_CLUSTERS = (1, 2, 4)
-STACK_X_MAX_F = 1024
-STACK_X_LIMITS = (f"it takes H 1..512, L 1..{MAX_LAYERS} layers, F 1..{STACK_X_MAX_F} features "
-                  "and R >= 1 rows (stack_x_plan: 8-64 rows a block, a cluster of 1, 2 or 4 "
-                  "blocks, within 232,448 bytes of shared memory a block)")
+STACK_MAX_W = 1024  # staged values a column: F's features, A's gates G
+STACK_LIMITS = (f"kernels A and F take H 1..512, L 1..{MAX_LAYERS} layers, 1..{STACK_MAX_W} "
+                "staged values a column (F's features, A's gates G = H or 2H) and R >= 1 "
+                "columns (stack_x_plan: 8-64 columns a block, a cluster of 1, 2 or 4 blocks, "
+                "within 232,448 bytes of shared memory a block)")
 SECTIONS_ROWS = (32, 16, 8)
 SECTIONS_MAX_GROUPS = 128  # unit groups of a launch (MAX_GROUPS in csrc/gsu_sections_eval.cu)
 # A block's time grows faster than its columns (tools/eval_plan_sweep.py at
@@ -1873,10 +1870,12 @@ def _gate_mtiles(H: int, shared: bool) -> int:
 def stack_x_plan(R: int, F: int, H: int, L: int, shared: bool, io: torch.dtype,
                  sms: int = SM_COUNT, cols: Optional[int] = None,
                  cluster: Optional[int] = None) -> Dict[str, Any]:
-    """Kernel F's layout for R rows of F features into an L-layer stack of H
-    units (``csrc/gsu_stack_eval_x.cu``), which the launcher follows:
+    """The layout of kernels A and F (``csrc/gsu_eval_stack.cuh``), which
+    their launchers follow, for R columns of F staged values each into an
+    L-layer stack of H units: F's rows of F features, or A's U R (unit, row)
+    columns of G gates (``_stack_a_plan``):
 
-    - ``N`` rows a block (8, 16, 32 or 64): the fewest whose row tiles fit
+    - ``N`` columns a block (8, 16, 32 or 64): the fewest whose tiles fit
       ``sms`` SMs in one wave (the tiles alone otherwise the largest that
       fits); ``tiles`` = ceil(R / N);
     - ``cs`` blocks a cluster split the gate m-tiles (``mts``, ``mpb`` a
@@ -1889,9 +1888,9 @@ def stack_x_plan(R: int, F: int, H: int, L: int, shared: bool, io: torch.dtype,
       Hp + 4, ``o_mem``); ``smem`` the total.
 
     ``cols`` and ``cluster`` force N and cs. Raises ValueError for what the
-    kernel does not take (``STACK_X_LIMITS``)."""
-    if not (1 <= H <= 512 and 1 <= L <= MAX_LAYERS and 1 <= F <= STACK_X_MAX_F and R >= 1):
-        raise ValueError(f"R={R}, F={F}, H={H}, L={L}: kernel F {STACK_X_LIMITS}")
+    kernels do not take (``STACK_LIMITS``)."""
+    if not (1 <= H <= 512 and 1 <= L <= MAX_LAYERS and 1 <= F <= STACK_MAX_W and R >= 1):
+        raise ValueError(f"R={R}, F={F}, H={H}, L={L}: {STACK_LIMITS}")
     es = 2 if io == torch.bfloat16 else 4
     Hp, ld_x = _r16(H), _ld(F)
     mts = _gate_mtiles(H, shared)
@@ -1904,7 +1903,7 @@ def stack_x_plan(R: int, F: int, H: int, L: int, shared: bool, io: torch.dtype,
     if cols is not None:
         fits = [N for N in fits if N == cols]
     if not fits:
-        raise ValueError(f"R={R}, F={F}, H={H}, L={L}: kernel F {STACK_X_LIMITS}")
+        raise ValueError(f"R={R}, F={F}, H={H}, L={L}: {STACK_LIMITS}")
     N = next((N for N in fits if -(-R // N) <= sms), fits[-1])
     tiles = -(-R // N)
     if cluster is None:
@@ -1915,7 +1914,7 @@ def stack_x_plan(R: int, F: int, H: int, L: int, shared: bool, io: torch.dtype,
     else:
         cs = cluster
     if cs not in STACK_X_CLUSTERS or (cs - 1) * -(-mts // cs) >= mts:  # no block without m-tiles
-        raise ValueError(f"cluster {cs}: kernel F takes {STACK_X_CLUSTERS}, at most the "
+        raise ValueError(f"cluster {cs}: kernels A and F take {STACK_X_CLUSTERS}, at most the "
                          f"{mts} gate m-tiles")
     offs, smem = regions(N)
     return dict(R=R, F=F, H=H, L=L, shared=int(shared), N=N, tiles=tiles, cs=cs,
@@ -1923,22 +1922,43 @@ def stack_x_plan(R: int, F: int, H: int, L: int, shared: bool, io: torch.dtype,
                 o_x=offs["x"], o_spk=offs["spk"], o_mem=offs["mem"], smem=smem)
 
 
+def _stack_a_plan(xg0: torch.Tensor, hidden: int, L: int, shared: bool,
+                  **kw) -> Dict[str, Any]:
+    """``stack_x_plan`` for kernel A's gates ``[(U,) T, R, G]``: U R columns
+    of G values (``kw``: ``stack_x_plan``'s ``cols`` and ``cluster``)."""
+    U = xg0.shape[0] if xg0.ndim == 4 else 1
+    sms = _sm_count(xg0.device.index or 0) if xg0.is_cuda else SM_COUNT
+    return stack_x_plan(U * xg0.shape[-2], xg0.shape[-1], hidden, L, shared, xg0.dtype, sms=sms,
+                        **kw)
+
+
+def stack_pack(wihr: torch.Tensor, whh: torch.Tensor, hidden: int, shared: bool):
+    """Kernel A's weights (``pack_stack``'s) in mma fragment order (bf16) or
+    [m-tile][k][16] (float32): (flat, {"rec0", ...: (offset, k-tiles,
+    m-tiles)})."""
+    return _pack_all(_stack_mats("", wihr, whh, hidden, shared), whh.dtype)
+
+
 def stack_x_pack(wih0: torch.Tensor, wihr: torch.Tensor, whh: torch.Tensor, hidden: int,
                  shared: bool):
-    """Kernel F's weights (``pack_stack_x``'s) in mma fragment order (bf16)
-    or [m-tile][k][16] (float32): (flat, {"in", "rec0", ...: (offset,
-    k-tiles, m-tiles)})."""
+    """Kernel F's weights (``pack_stack_x``'s): ``stack_pack``'s with layer
+    0's input matrix first, as "in"."""
     mats = [("in", wih0, [wih0.shape[0]], (hidden, shared))]
     mats += _stack_mats("", wihr, whh, hidden, shared)
     return _pack_all(mats, wih0.dtype)
 
 
-class _StackXArgs(ctypes.Structure):
-    """Mirror of ``StackXArgs`` in ``csrc/gsu_stack_eval_x.cu``."""
+class _StackArgs(ctypes.Structure):
+    """Mirror of ``StackArgs`` in ``csrc/gsu_eval_stack.cuh``."""
     _fields_ = ([(k, ctypes.c_void_p) for k in ("x", "w", "coef", "out", "prof")]
-                + [(k, ctypes.c_int) for k in ("T", "R", "F", "H", "L", "shared", "N", "cs", "mpb",
-                                                "Hp", "ld_x", "o_spk", "o_mem", "smem")]
+                + [(k, ctypes.c_int) for k in ("T", "R", "U", "W", "H", "L", "shared", "collect_all",
+                                                "N", "cs", "mpb", "Hp", "ld_x", "o_spk", "o_mem",
+                                                "smem")]
                 + [("w_in", _MonoMatC), ("rec", _MonoMatC * MAX_LAYERS)])
+
+
+# kernel -> (its library, its wrapper)
+_STACK_LIBS = {"A": ("stack", "gsu_stack_eval"), "F": ("stack_x", "gsu_stack_eval_x")}
 
 
 @functools.lru_cache(maxsize=8)
@@ -1946,41 +1966,73 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _stack_x_launch(x, wih0, wihr, whh, coef, hidden, shared, plan, prof=False):
-    """Kernel F's launch on ``plan`` (the wrapper's checks done): the
-    output, or with ``prof`` the phase counters [blocks, 8]."""
-    T, R, Fin = x.shape
-    H, L = hidden, whh.shape[0]
+def _stack_launch(kernel: str, x, flat, table, coef, hidden, shared, plan, collect_all=True,
+                  prof=False):
+    """Kernel A's or F's launch on ``plan`` (the wrapper's checks done): x
+    the staged input, A's gates ``[(U,) T, R, G]`` or F's features ``[T, R,
+    F]``; (flat, table) the packed weights. Returns every layer's spikes
+    ``[L, (U,) T, R, H]`` (``collect_all``, always for F) or the last one's,
+    or with ``prof`` the phase counters [blocks, 8]."""
+    *lead, T, R, W = x.shape
+    L = coef.shape[0]
     dev, io = x.device, x.dtype
-    flat, table = stack_x_pack(wih0, wihr, whh, H, shared)
-    out = torch.empty((L, T, R, H), dtype=io, device=dev)
+    out = torch.empty(((L,) if collect_all else ()) + tuple(x.shape[:-1]) + (hidden,), dtype=io,
+                      device=dev)
     counters = (torch.zeros(plan["blocks"], 8, dtype=torch.int64, device=dev) if prof
                 else None)
-    args = _StackXArgs(T=T, R=R, F=Fin, H=H, L=L, shared=int(shared),
-                       **{k: plan[k] for k in ("N", "cs", "mpb", "Hp", "ld_x", "o_spk", "o_mem",
-                                               "smem")})
+    args = _StackArgs(T=T, R=R, U=lead[0] if lead else 1, W=W, H=hidden, L=L, shared=int(shared),
+                      collect_all=int(collect_all),
+                      **{k: plan[k] for k in ("N", "cs", "mpb", "Hp", "ld_x", "o_spk", "o_mem",
+                                              "smem")})
     for k, t in dict(x=x, w=flat, coef=coef, out=out, prof=counters).items():
         setattr(args, k, None if t is None else t.data_ptr())
-    _set_mat(args.w_in, table["in"])
+    if "in" in table:
+        _set_mat(args.w_in, table["in"])
     for k in range(L):
         _set_mat(args.rec[k], table[f"rec{k}"])
-    lib = _lib("stack_x")
+    name, what = _STACK_LIBS[kernel]
+    lib = _lib(name)
     with torch.cuda.device(dev):
-        rc = lib.gsu_stack_eval_x_launch(int(io == torch.bfloat16), ctypes.byref(args), _stream())
-    _check_rc(lib, rc, "gsu_stack_eval_x", STACK_X_LIMITS)
+        rc = lib.gsu_stack_launch(int(io == torch.bfloat16), ctypes.byref(args), _stream())
+    _check_rc(lib, rc, what, STACK_LIMITS)
     return counters if prof else out
 
 
-# the phases of kernels B's and F's profiles (thread 0's clock: its warp's
-# products and cell updates, then the exchange of step inputs and the
+def _stack_a_launch(xg0, wihr, whh, coef, hidden, shared, collect_all, plan, prof=False):
+    return _stack_launch("A", xg0, *stack_pack(wihr, whh, hidden, shared), coef, hidden, shared,
+                         plan, collect_all, prof)
+
+
+def _stack_x_launch(x, wih0, wihr, whh, coef, hidden, shared, plan, prof=False):
+    return _stack_launch("F", x, *stack_x_pack(wih0, wihr, whh, hidden, shared), coef, hidden,
+                         shared, plan, prof=prof)
+
+
+# the phases of kernels A's, B's and F's profiles (thread 0's clock: its
+# warp's products and cell updates, then the exchange of step inputs and the
 # barriers, then the step's outputs)
-EVAL_PHASES = {"F": ("products", "cell", "exchange and barrier", "spike write-out"),
+EVAL_PHASES = {"A": ("products", "cell", "exchange and barrier", "spike write-out"),
+               "F": ("products", "cell", "exchange and barrier", "spike write-out"),
                "B": ("products", "cell", "exchange and barrier", "deep filter or projection out")}
+PLAN_KEYS = ("N", "tiles", "cs", "blocks", "mpb", "smem")
 
 
 def _profile_of(counters: torch.Tensor, T: int, names: Sequence[str]) -> Dict[str, float]:
     cyc = counters.double().cpu() / max(T, 1)
     return {n: cyc[:, j].mean().item() for j, n in enumerate(names)}
+
+
+def stack_profile(xg0: torch.Tensor, wihr: torch.Tensor, whh: torch.Tensor, coef: torch.Tensor,
+                  hidden: int, shared: bool, collect_all: bool = False) -> Dict[str, Any]:
+    """One launch of kernel A (``gsu_stack_eval``'s arguments) with its
+    phase counters on: the SM cycles a step in each phase of
+    ``EVAL_PHASES["A"]``, averaged over the steps and the blocks, beside
+    the plan. Counts as a launch."""
+    plan = _stack_a_plan(xg0, hidden, whh.shape[0], shared)
+    counters = _stack_a_launch(xg0, wihr, whh, coef, hidden, shared, collect_all, plan, prof=True)
+    gsu_stack_eval.launches += 1
+    return {"cycles_per_step": _profile_of(counters, xg0.shape[-3], EVAL_PHASES["A"]),
+            "plan": {k: plan[k] for k in PLAN_KEYS}}
 
 
 def stack_x_profile(*args) -> Dict[str, Any]:
@@ -1994,7 +2046,7 @@ def stack_x_profile(*args) -> Dict[str, Any]:
     counters = _stack_x_launch(*args, plan, prof=True)
     gsu_stack_eval_x.launches += 1
     return {"cycles_per_step": _profile_of(counters, x.shape[0], EVAL_PHASES["F"]),
-            "plan": {k: plan[k] for k in ("N", "tiles", "cs", "blocks", "mpb", "smem")}}
+            "plan": {k: plan[k] for k in PLAN_KEYS}}
 
 
 def _sec_dims(secs: List[Dict[str, Any]], Fb: int, hidden: int, shared: bool) -> Dict[str, Any]:

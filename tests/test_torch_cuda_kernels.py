@@ -30,10 +30,12 @@ a quarter of the distance of a version that leaves the rounding out. D and
 E at the edges of their unit split (a unit slice that does not divide H, R
 not a multiple of 16, the most rows the plan takes at H 256 and H 320) are
 held as at baseline L's rows, and two launches of each are bitwise equal.
-B and F at the edges of their plans (ragged row tiles, unit groups of
-unequal size, H 40 and 48 unshared, F 3 and 257, H 512 with L 4, clusters
-of 2 and 4) are held to the bounds above, and two launches of each are
-bitwise equal. The recipe's loss gives the same gradient on every backward.
+A, B and F at the edges of their plans (ragged row tiles, A's tiles
+across unit boundaries, unit groups of unequal size, H 40 and 48
+unshared, F 3 and 257, H 512 with L 4, clusters of 2 and 4, A at T 1 and
+5 and H 13) are held to the bounds above, and two launches of each are
+bitwise equal; A's units form equals its 3-D form, and gates staged from
+a misaligned address equal aligned ones, bit for bit. The recipe's loss gives the same gradient on every backward.
 """
 
 from __future__ import annotations
@@ -276,6 +278,107 @@ def test_stack_x_kernel_is_bitwise_deterministic(dev, case, io):
     first, again = gk.gsu_stack_eval_x(x, *w, H, shared), gk.gsu_stack_eval_x(x, *w, H, shared)
     torch.cuda.synchronize()
     assert torch.equal(first, again)
+
+
+# kernel A at the edges of its plan (stack_x_plan over the U R (unit, row)
+# columns), (U, T, R, H, L, shared): one row; tiles that cross unit
+# boundaries with U R no multiple of the tile (3 x 13, 5 x 7, 8 x 33);
+# unshared G = 2H; H 512 with L 4; the gate m-tiles split over a cluster of
+# 2 (the served fullband's 256 rows x 320, and 8 units x 33 rows x 320) or
+# 4 (21 rows x 320 unshared); T = 1 and T < 8; H 13, whose rows of 13
+# gates stage one value a chunk
+A_EDGES = {"R 1": (1, 9, 1, 224, 2, True),
+           "U 3 x R 13, H 48 unshared": (3, 12, 13, 48, 2, False),
+           "U 5 x R 7, H 40 unshared": (5, 10, 7, 40, 2, False),
+           "H 512, L 4": (1, 6, 11, 512, 4, False),
+           "cluster 2": (1, 10, 256, 320, 2, True),
+           "U 8 x R 33, cluster 2": (8, 6, 33, 320, 2, True),
+           "cluster 4": (1, 10, 21, 320, 2, False),
+           "T 1": (2, 1, 13, 40, 2, True),
+           "T 5": (3, 5, 9, 64, 3, True),
+           "H 13": (2, 7, 9, 13, 2, True)}
+
+
+def _a_edge_args(case, io, dev, T=None):
+    U, T0, R, H, L, shared = A_EDGES[case]
+    g = torch.Generator().manual_seed(U * 1000 + R + H)
+    w = _stack(H, shared, L, io, dev, g)
+    G = H if shared else 2 * H
+    T = T or T0
+    x = torch.randn((U, T, R, G) if U > 1 else (T, R, G), generator=g).to(io).to(dev)
+    return (x, *w, H, shared)
+
+
+@pytest.mark.parametrize("io", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(A_EDGES))
+def test_stack_kernel_at_the_plan_edges(dev, case, io):
+    """Kernel A's last layer and every layer (collect_all) against its plain
+    version; the cluster cases run on the cluster they name."""
+    args = _a_edge_args(case, io, dev)
+    x, _, whh, _, H, shared = args
+    if "cluster" in case:
+        assert gk._stack_a_plan(x, H, whh.shape[0], shared)["cs"] == int(case[-1])
+    for collect in (False, True):
+        before = gk.gsu_stack_eval.launches
+        got = gk.gsu_stack_eval(*args, collect_all=collect)
+        ref = gk.stack_eval_plain(*args, collect_all=collect)
+        torch.cuda.synchronize()
+        assert gk.gsu_stack_eval.launches == before + 1
+        assert got.shape == ref.shape and got.dtype == io
+        assert (got != ref).float().mean().item() < 1e-3
+
+
+@pytest.mark.parametrize("io", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["U 3 x R 13, H 48 unshared", "U 8 x R 33, cluster 2"])
+def test_stack_kernel_units_form_equals_the_3d_form(dev, case, io):
+    """A column's spikes do not depend on its tile, its unit or its
+    cluster: the units form [U, T, R, G] equals the 3-D form [T, U R, G] and
+    one unit launched alone bit for bit, and collect_all's last layer
+    equals the last layer alone."""
+    x4, *w = _a_edge_args(case, io, dev)
+    U, T, R, G = x4.shape
+    got4 = gk.gsu_stack_eval(x4, *w)
+    got3 = gk.gsu_stack_eval(x4.transpose(0, 1).reshape(T, U * R, G).contiguous(), *w)
+    one = gk.gsu_stack_eval(x4[1:2].contiguous(), *w)
+    all4 = gk.gsu_stack_eval(x4, *w, collect_all=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got4.transpose(0, 1).reshape(T, U * R, -1), got3)
+    assert torch.equal(one, got4[1:2])
+    assert torch.equal(all4[-1], got4)
+
+
+@pytest.mark.parametrize("io", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["U 3 x R 13, H 48 unshared", "cluster 2"])
+def test_stack_kernel_is_bitwise_deterministic(dev, case, io):
+    """Two launches on the same inputs give the same spikes bit for bit."""
+    args = _a_edge_args(case, io, dev, T=40)
+    for collect in (False, True):
+        first = gk.gsu_stack_eval(*args, collect_all=collect)
+        again = gk.gsu_stack_eval(*args, collect_all=collect)
+        torch.cuda.synchronize()
+        assert torch.equal(first, again)
+
+
+@pytest.mark.parametrize("io", [torch.float32, torch.bfloat16])
+def test_stack_kernel_stages_misaligned_gates_in_narrower_chunks(dev, io):
+    """Gates one element into their storage (not 16-byte aligned) are
+    staged in narrower chunks, and give the same spikes bit for bit."""
+    x, *w = _a_edge_args("U 3 x R 13, H 48 unshared", io, dev)
+    shifted = torch.empty(x.numel() + 1, dtype=io, device=dev)[1:].view(x.shape)
+    shifted.copy_(x)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 != 0
+    got, ref = gk.gsu_stack_eval(shifted, *w), gk.gsu_stack_eval(x, *w)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+
+
+def test_stack_wrapper_raises_beyond_the_plan(dev):
+    """On the card nothing falls back to the plain version: H 513 or L 5
+    raise."""
+    for H, L in ((513, 2), (40, 5)):
+        w = _stack(H, True, L, torch.float32, dev, torch.Generator().manual_seed(H + L))
+        with pytest.raises(ValueError, match="H <= 512"):
+            gk.gsu_stack_eval(torch.zeros(4, 8, H, device=dev), *w, H, True)
 
 
 # kernel B at the edges of its plan (sections_plan): batches of 1 (a tile of

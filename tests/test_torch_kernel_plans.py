@@ -25,7 +25,15 @@ its weights from monolith_pack (mma fragments). None of this needs a GPU:
   training shape and up to the rows the plan states, and a refusal beyond;
   train_pack's fragments, read through the accumulators' element mapping,
   give each unit's recurrent gates (D, E) and each unit's row of W_hh (E's
-  dh), float32 weights as three bf16 terms that add up exactly.
+  dh), float32 weights as three bf16 terms that add up exactly;
+- kernels A, B and F (csrc/gsu_eval_mma.cuh; A and F one kernel,
+  csrc/gsu_eval_stack.cuh) at every bench and card-test shape: stack_x_plan
+  (F's rows, A's (unit, row) columns) and sections_plan cover every column
+  once, in one wave at the bench where the plan says so, and refuse what
+  the kernels do not take; A's tiles that cross a unit boundary find each
+  column through the kernel's own index arithmetic; stack_pack,
+  stack_x_pack and sections_pack decode through the fragment layout, and
+  A's layer-0 gates seed the accumulator rows those weights feed.
 """
 
 from __future__ import annotations
@@ -610,29 +618,27 @@ def test_stack_x_plan_refuses_what_the_kernel_does_not_take(shape):
         gk.stack_x_plan(R, F, H, L, True, BF16)
 
 
-@pytest.mark.parametrize("io", [BF16, F32], ids=["bf16", "f32"])
-@pytest.mark.parametrize("shared", [True, False])
-@pytest.mark.parametrize("L", [1, 2, 4])
-def test_stack_x_pack_decodes_to_the_stack(L, shared, io):
-    """Kernel F's packed weights, decoded through the fragment layout (bf16)
-    or [m-tile][k][16] (float32) and read through the accumulators' gate
-    columns: layer 0's W_ih0 over x, each layer's recurrent product over
-    [h_{k-1}(t); h_k(t-1)], every pad row zero."""
-    H, F = 24, 19
+def _stack_weights(L, H, shared, io, F=None):
+    """Random (wih0 [F, G] when F, wihr, whh) of an L-layer stack."""
     G = H if shared else 2 * H
     g = torch.Generator().manual_seed(L + 10 * shared)
-    wih0 = torch.randn(F, G, generator=g).to(io)
+    wih0 = torch.randn(F, G, generator=g).to(io) if F else None
     wihr = torch.randn(max(L - 1, 1), H, G, generator=g).to(io)
     whh = torch.randn(L, H, G, generator=g).to(io)
-    flat, table = gk.stack_x_pack(wih0, wihr, whh, H, shared)
+    return wih0, wihr, whh
+
+
+def _check_stack_pack(flat, table, wants, H, shared, io):
+    """Every matrix of ``wants`` ({name: (W [K, G], k parts)}) at its own
+    offset of ``flat``, one after the other; decoded through the fragment
+    layout (bf16) or [m-tile][k][16] (float32) and read through the
+    accumulators' gate columns it multiplies a padded input as W does,
+    every pad row zero."""
     spans = sorted((off, off + kt * mt * 256) for off, kt, mt in table.values())
     assert spans[0][0] == 0 and spans[-1][1] == flat.numel()
     assert all(a[1] == b[0] for a, b in zip(spans, spans[1:]))
-    wants = {"in": (wih0, [F])}
-    wants["rec0"] = (whh[0], [H])
-    for k in range(1, L):
-        wants[f"rec{k}"] = (torch.cat([wihr[k - 1], whh[k]]), [H, H])
     assert set(table) == set(wants)
+    g = torch.Generator().manual_seed(H)
     for name, (w, kparts) in wants.items():
         off, kt, mt = table[name]
         assert mt == (-(-H // 16) if shared else -(-H // 8))
@@ -652,6 +658,171 @@ def test_stack_x_pack_decodes_to_the_stack(L, shared, io):
                 else:  # the same products, summed in another order
                     torch.testing.assert_close(got[:, 16 * q + r], ref[:, col], rtol=1e-12,
                                                atol=1e-12)
+
+
+def _recurrent_wants(wihr, whh, H):
+    """Layer 0's W_hh over h_0(t-1), each later layer's [W_ih; W_hh] over
+    [h_{k-1}(t); h_k(t-1)]."""
+    wants = {"rec0": (whh[0], [H])}
+    for k in range(1, whh.shape[0]):
+        wants[f"rec{k}"] = (torch.cat([wihr[k - 1], whh[k]]), [H, H])
+    return wants
+
+
+@pytest.mark.parametrize("io", [BF16, F32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("shared", [True, False])
+@pytest.mark.parametrize("L", [1, 2, 4])
+def test_stack_x_pack_decodes_to_the_stack(L, shared, io):
+    """Kernel F's packed weights, decoded through the fragment layout (bf16)
+    or [m-tile][k][16] (float32) and read through the accumulators' gate
+    columns: layer 0's W_ih0 over x, each layer's recurrent product over
+    [h_{k-1}(t); h_k(t-1)], every pad row zero."""
+    H, F = 24, 19
+    wih0, wihr, whh = _stack_weights(L, H, shared, io, F)
+    flat, table = gk.stack_x_pack(wih0, wihr, whh, H, shared)
+    _check_stack_pack(flat, table, {"in": (wih0, [F]), **_recurrent_wants(wihr, whh, H)}, H,
+                      shared, io)
+
+
+# ------------------------------------------------------------------ A: F's plan over (unit, row) columns
+
+# (U, R, H, L, shared) of every kernel-A launch of PERF.md section 4: zoo M
+# served's fullband (3-D, the last layer out) and the collect path's four
+# (flagship M: the fullband, then each section's units form, every layer)
+STACK_A_MAIN = {"zoo M served fullband": (1, 256, 320, 2, True),
+                "flagship M collect section 0": (8, 256, 224, 2, True),
+                "flagship M collect section 1": (3, 256, 224, 2, True),
+                "flagship M collect section 2": (2, 256, 224, 2, True)}
+# the card tests' shapes (tests/test_torch_cuda_kernels.py's A_EDGES), and
+# units forms whose row count is no multiple of any tile
+STACK_A_CARD = [(1, 1, 224, 2, True), (3, 13, 48, 2, False), (5, 7, 40, 2, False),
+                (1, 11, 512, 4, False), (1, 256, 320, 2, True), (1, 21, 320, 2, False),
+                (8, 33, 320, 2, True), (2, 13, 40, 2, True), (3, 9, 64, 3, True),
+                (37, 1, 24, 1, True), (6, 50, 16, 2, False), (2, 9, 13, 2, True)]
+
+
+def _a_gates(U, R, H, shared, T=2):
+    G = H if shared else 2 * H
+    return torch.empty((U, T, R, G) if U > 1 else (T, R, G))
+
+
+def _fastdiv(d, n):
+    """csrc/gsu_eval_mma.cuh's FastDiv: n / d by a 32-bit multiply-high and a
+    shift, on numpy's uint64 (n < 2^31)."""
+    s = 0
+    while (1 << s) < d:
+        s += 1
+    m = ((1 << 32) * ((1 << s) - d)) // d + 1
+    n = np.asarray(n, dtype=np.uint64)
+    return ((((n * np.uint64(m)) >> np.uint64(32)) + n) >> np.uint64(s)).astype(np.int64)
+
+
+@pytest.mark.parametrize("io", [BF16, F32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("shape", list(STACK_A_MAIN.values()), ids=list(STACK_A_MAIN))
+def test_stack_plan_of_kernel_a_is_one_wave(shape, io):
+    """Kernel A at each bench launch: the U R (unit, row) columns in one
+    wave of blocks, every gate m-tile in one block, the regions inside
+    232,448 bytes; zoo M's served fullband (256 rows x 320 units, 20
+    m-tiles) in 8 columns a block and clusters of 2."""
+    U, R, H, L, shared = shape
+    G = H if shared else 2 * H
+    plan = gk._stack_a_plan(_a_gates(U, R, H, shared), H, L, shared)
+    _check_stack_x_plan(dict(plan, io=io), U * R, G, H, L, shared)
+    assert plan["blocks"] <= gk.SM_COUNT
+    assert -(-plan["mts"] // plan["cs"]) <= gk.EVAL_WARPS
+    if H == 320:
+        assert (plan["N"], plan["cs"], plan["blocks"]) == (8, 2, 64)
+    else:
+        assert plan["cs"] == 1 and plan["N"] == (16 if U * R > 8 * gk.SM_COUNT else 8)
+
+
+@pytest.mark.parametrize("shape", STACK_A_CARD + list(STACK_A_MAIN.values()),
+                         ids=[str(s) for s in STACK_A_CARD] + list(STACK_A_MAIN))
+def test_stack_plan_of_kernel_a_covers_every_column_once(shape):
+    """Under every plan the kernel can take, its tiles cover each (unit,
+    row) pair once, tiles crossing unit boundaries included, and the
+    kernel's index arithmetic (FastDiv by R, G, the tile's output items and
+    H's 8-unit groups) finds each column's gates and spikes at ((u T + t) R
+    + r) of xg0 [U, T, R, G] and out [(L,) U, T, R, H]."""
+    U, R, H, L, shared = shape
+    G, T = (H if shared else 2 * H), 3
+    hb = -(-H // 8)
+    for N in gk.STACK_X_COLS:
+        for cs in gk.STACK_X_CLUSTERS:
+            try:
+                plan = gk._stack_a_plan(_a_gates(U, R, H, shared, T), H, L, shared, cols=N,
+                                        cluster=cs)
+            except ValueError:
+                continue
+            seen = np.zeros(U * R, dtype=np.int64)
+            for tile in range(plan["blocks"] // cs):
+                col0 = tile * N
+                cols = min(N, U * R - col0)
+                assert cols >= 1
+                c = col0 + np.arange(cols)
+                seen[c] += 1
+                u = _fastdiv(R, c)
+                assert (u == c // R).all()
+                # the staged items n G + k, and the output items q per + n hb + c8
+                i = np.arange(cols * G)
+                assert (_fastdiv(G, i) == i // G).all()
+                per = cols * hb
+                i = np.arange(L * per)
+                assert (_fastdiv(per, i) == i // per).all()
+                assert (_fastdiv(hb, i % per) == (i % per) // hb).all()
+                for t in range(T):
+                    rows = (u * T + t) * R + (c - u * R)
+                    want = np.array([np.ravel_multi_index((cc // R, t, cc % R), (U, T, R))
+                                     for cc in c])
+                    assert (rows == want).all()
+            assert (seen == 1).all(), (N, cs)
+
+
+@pytest.mark.parametrize("case", ["H 513", "L 5", "shared memory"])
+def test_stack_plan_of_kernel_a_refuses_what_the_kernel_does_not_take(case):
+    """Beyond H 512 or L 4, or a forced tile whose regions pass 232,448
+    bytes (64 columns at H 512 and L 4, unshared), the plan raises."""
+    if case == "shared memory":
+        with pytest.raises(ValueError, match="232,448 bytes"):
+            gk._stack_a_plan(_a_gates(1, 64, 512, False), 512, 4, False, cols=64)
+        return
+    H, L = (513, 2) if case == "H 513" else (40, 5)
+    with pytest.raises(ValueError, match="H 1..512"):
+        gk._stack_a_plan(_a_gates(3, 8, H, True), H, L, True)
+
+
+@pytest.mark.parametrize("io", [BF16, F32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("shared", [True, False])
+@pytest.mark.parametrize("L", [1, 2, 4])
+def test_stack_pack_decodes_to_the_stack(L, shared, io):
+    """Kernel A's packed weights: the recurrent and inter-layer matrices of
+    kernel F's pack, without its layer-0 input matrix."""
+    H = 40
+    _, wihr, whh = _stack_weights(L, H, shared, io)
+    flat, table = gk.stack_pack(wihr, whh, H, shared)
+    _check_stack_pack(flat, table, _recurrent_wants(wihr, whh, H), H, shared, io)
+
+
+@pytest.mark.parametrize("shared", [True, False])
+@pytest.mark.parametrize("H", [24, 40, 224, 320])
+def test_kernel_a_seeds_each_accumulator_with_its_gate(H, shared):
+    """csrc/gsu_eval_stack.cuh's seed_gates reads accumulator element (i,
+    e) of m-tile mt from xg0's column (shared or e < 2 ? j : H + j), j =
+    gate_unit(mt, gid, e): for every real accumulator row that is the gate
+    column the packed weights give that row, so layer 0's pre-activation
+    is xg0 plus the recurrent product, as in the plain version."""
+    mts = -(-H // 16) if shared else -(-H // 8)
+    for mt in range(mts):
+        want = _gate_columns(mt, H, shared)
+        for gid in range(8):
+            for e in range(4):
+                j = mt * 16 + gid + 8 * (e >> 1) if shared else mt * 8 + gid
+                col = j if shared or e < 2 else H + j
+                row = gid + 8 * (e >> 1)
+                if want[row] >= 0:
+                    assert col == want[row]
+                else:  # a pad unit: the cell never reads it; the read stays in the tile's row
+                    assert j >= H and col < -(-(H if shared else 2 * H) // 16) * 16 + 8
 
 
 def _card_sections(n0=3, H=48, shared=True):

@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
-"""Times kernels B and F (spiking_fullsubnet_torch/csrc/gsu_sections_eval.cu,
-gsu_stack_eval_x.cu) on one GPU under each plan they can take, at the bench
-shapes of PERF.md section 4 (batch 256 x 30 s, T = 3751, bf16) with random
-weights from a seed:
+"""Times kernels A, B and F (spiking_fullsubnet_torch/csrc/gsu_stack_eval.cu,
+gsu_sections_eval.cu, gsu_stack_eval_x.cu) on one GPU under each plan they
+can take, at the bench shapes of PERF.md section 4 (batch 256 x 30 s,
+T = 3751, bf16) with random weights and inputs from a seed:
 
     python3 tools/eval_plan_sweep.py [T]
 
-F at zoo M layered's four stacks and cIRM-GSN's stack, for every forced
-(rows a block, blocks a cluster) of ops/gsu_kernels.stack_x_plan that puts
-at most two blocks on each of the card's SMs; B at zoo M's three sections
+A at zoo M served's fullband (256 rows x 320 units, the last layer out) and
+at the collect path's four launches (flagship M: the fullband, then its
+sections' units forms of 8, 3 and 2 units x 256 rows x 224, every layer
+out), and F at zoo M layered's four stacks and cIRM-GSN's stack, for every
+forced (columns a block, blocks a cluster) of ops/gsu_kernels.stack_x_plan
+that puts at most two blocks on each of the card's SMs; B at zoo M's three sections
 (8, 3 and 2 units of 2 x 224, per-utterance unit scales, the deep filter)
 for every forced number of columns a block of sections_plan. Each line is
 one JSON object: the shape, the plan and its milliseconds (CUDA events,
@@ -19,10 +22,12 @@ from __future__ import annotations
 
 import json
 import sys
+from pathlib import Path
 
 import torch
 
-from spiking_fullsubnet_torch.ops import gsu_kernels as gk
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))  # the port, beside tools/
+from spiking_fullsubnet_torch.ops import gsu_kernels as gk  # noqa: E402
 
 
 def ms(fn, iters=2):
@@ -47,6 +52,24 @@ def layers(g, H, L, fin):
     return out, [{} for _ in out]
 
 
+def sweep_stack(kernel, name, shape, launch, plan_of):
+    """One line a plan: ``plan_of(**kw)`` forced to every (N, cs) that
+    fits, ``launch(plan)`` timed."""
+    default = plan_of()
+    for N in gk.STACK_X_COLS:
+        for cs in gk.STACK_X_CLUSTERS:
+            try:
+                plan = plan_of(cols=N, cluster=cs)
+            except ValueError:
+                continue
+            if plan["blocks"] > 2 * gk._sm_count(0):
+                continue
+            print(json.dumps({"kernel": kernel, "stack": name, "shape": shape, "N": N, "cs": cs,
+                              "blocks": plan["blocks"],
+                              "default": (N, cs) == (default["N"], default["cs"]),
+                              "ms": ms(lambda: launch(plan))}), flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("eval_plan_sweep: no CUDA device", file=sys.stderr)
@@ -55,6 +78,19 @@ def main() -> int:
     dev, io = torch.device("cuda"), torch.bfloat16
     g = torch.Generator().manual_seed(0)
     sms = gk._sm_count(0)
+    for name, U, R, H, collect in [("zoo M served fullband", 1, 256, 320, False),
+                                   ("collect fullband", 1, 256, 320, True),
+                                   ("collect section 0", 8, 256, 224, True),
+                                   ("collect section 1", 3, 256, 224, True),
+                                   ("collect section 2", 2, 256, 224, True)]:
+        lay, st = layers(g, H, 2, H)
+        wihr, whh, coef = (t.to(dev) for t in gk.pack_stack(lay, st, H, io))
+        shape = (U, T, R, H) if U > 1 else (T, R, H)
+        xg0 = (torch.randn(shape, generator=g) * 0.5).to(io).to(dev)
+        sweep_stack("A", name, list(shape), lambda plan: gk._stack_a_launch(
+            xg0, wihr, whh, coef, H, True, collect, plan),
+            lambda **kw: gk._stack_a_plan(xg0, H, 2, True, **kw))
+        del xg0
     for name, R, F, H in [("zoo M fullband", 256, 64, 320), ("zoo M section 0", 2048, 38, 224),
                           ("zoo M section 1", 768, 94, 224), ("zoo M section 2", 512, 158, 224),
                           ("cIRM-GSN", 256, 257, 256)]:
@@ -62,19 +98,8 @@ def main() -> int:
         w = [t.to(dev) for t in gk.pack_stack_x(lay, st, H, io)]
         x = torch.rand(T, R, F, generator=g).to(io).to(dev)
         args = (x, *w, H, True)
-        default = gk.stack_x_plan(R, F, H, 2, True, io, sms=sms)
-        for N in gk.STACK_X_COLS:
-            for cs in gk.STACK_X_CLUSTERS:
-                try:
-                    plan = gk.stack_x_plan(R, F, H, 2, True, io, sms=sms, cols=N, cluster=cs)
-                except ValueError:
-                    continue
-                if plan["blocks"] > 2 * sms:
-                    continue
-                print(json.dumps({"kernel": "F", "stack": name, "shape": [T, R, F, H], "N": N,
-                                  "cs": cs, "blocks": plan["blocks"],
-                                  "default": (N, cs) == (default["N"], default["cs"]),
-                                  "ms": ms(lambda: gk._stack_x_launch(*args, plan))}), flush=True)
+        sweep_stack("F", name, [T, R, F, H], lambda plan: gk._stack_x_launch(*args, plan),
+                    lambda **kw: gk.stack_x_plan(R, F, H, 2, True, io, sms=sms, **kw))
         del x
     B, H = 256, 224
     secs = []
