@@ -196,8 +196,31 @@ is non-zero:
               time and two launches bitwise equal, as in phase 5) and B
               alone in each mode (and the projection mode on "ln"'s
               inputs), their plain versions and bounds.
+9. trainer  the recipe trainer through its CLI (runtime.cli.main on the
+            card): recipes/intel_ndns/spiking_fullsubnet_freeze_phase/
+            baseline_m.toml read with the port's toml_load ([meta],
+            [trainer.args] with max_epochs = 2, [optimizer], [acoustics],
+            [model]: build_separator at zoo M width, layered, f32, random
+            weights from the recipe's seed) on SyntheticNoisyDataset
+            (DNS data is not in the repository): train 128 x 6 s at batch 64
+            (two updates an epoch), validate 16 x 6 s at batch 16, test
+            2 x 6 s at batch 1. It runs train, then train -R with
+            max_epochs = 3, then test and validate on --ckpt_path best, the
+            counts set to 0 before the first and read after the last, and
+            checks: every loss and gradient norm finite; each update
+            launching D, E and dW 8 times and nothing else, each validation
+            or test batch F 4 times and nothing else; epoch_0001,
+            epoch_0002 and best written, the epoch directories rotated at
+            max_num_checkpoints; the resume running epoch 3 alone to
+            epochs_trained 3; the re-validation of best equal to its
+            recorded score bit for bit; the test metrics CSV with si_sdr,
+            synops and neuron_ops. It prints the ms per update inside the
+            trainer (CUDA events from the end of one update to the end of
+            the next within an epoch), the same step bare (train_step on the
+            first training batch, timed as phase 6), the ms per validation
+            batch and the trainer's own peak memory.
 
-About 7 to 11 minutes on one H100, the build included.
+About 8 to 12 minutes on one H100, the build included.
 
 The last line is {"ok": true, "device": {...}}. Without a CUDA device, or
 without the rest of the repository beside it, it prints no result and
@@ -1514,6 +1537,194 @@ def modes_phase(gk, sf, model, flag, flag_base, base, quality_x, clean, noisy, d
     return out
 
 
+FREEZE_RECIPE = ROOT / "recipes" / "intel_ndns" / "spiking_fullsubnet_freeze_phase"
+# the trainer phase's synthetic datasets: (items, seconds, seed)
+TRAINER_DATA = {"train_dataset": (128, 6.0, 0), "validate_dataset": (16, 6.0, 77),
+                "test_dataset": (2, 6.0, 99)}
+
+
+def trainer_config(save_dir, max_epochs):
+    """baseline_m.toml's [meta], [trainer], [optimizer], [acoustics] and
+    [model] with max_epochs changed, on SyntheticNoisyDataset at the
+    recipe's batch sizes."""
+    from spiking_fullsubnet_torch.runtime.config import toml_load
+    base = toml_load(FREEZE_RECIPE / "baseline_m.toml")
+    cfg = {k: base[k] for k in ("meta", "trainer", "optimizer", "acoustics", "model")}
+    cfg["meta"]["save_dir"] = str(save_dir)
+    cfg["trainer"]["args"]["max_epochs"] = max_epochs
+    for name, (n, secs, seed) in TRAINER_DATA.items():
+        cfg[name] = {"path": "spiking_fullsubnet_tpu.data.SyntheticNoisyDataset",
+                     "args": {"num_samples": n, "duration": secs, "seed": seed,
+                              "train": name == "train_dataset"},
+                     "dataloader": base[name]["dataloader"]}
+    return cfg
+
+
+class TrainerProbe:
+    """Wraps DenoiseTrainer's steps while the phase runs: each update's
+    kernel launches (the counts' change from the start of its training step
+    to the end of its optimizer update), its CUDA end event, its gradient
+    norm; each validation or test batch's launches and host time; every
+    epoch's losses; every validation score."""
+
+    def __init__(self, cls, gk):
+        self.cls, self.gk = cls, gk
+        self.updates, self.evals, self.losses, self.scores, self.epochs = [], [], [], [], []
+        self.real = {n: getattr(cls, n) for n in (
+            "training_step", "optimizer_update", "validation_step", "training_epoch_end",
+            "validate")}
+
+    def counts(self):
+        return {k: getattr(self.gk, name).launches for k, name in
+                {**COUNTERS, **TRAIN_WRAPPERS}.items()}
+
+    def __enter__(self):
+        probe, real = self, self.real
+
+        def training_step(trainer, *a):
+            probe._before = probe.counts()
+            return real["training_step"](trainer, *a)
+
+        def optimizer_update(trainer, lr):
+            norm = real["optimizer_update"](trainer, lr)
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            after = probe.counts()
+            probe.updates.append({"epoch": trainer.state.epochs_trained + 1, "end": end,
+                                  "norm": float(norm), "lr": lr,
+                                  "launches": {k: after[k] - probe._before[k] for k in after}})
+            return norm
+
+        def validation_step(trainer, *a):
+            before, t0 = probe.counts(), time.perf_counter()
+            out = real["validation_step"](trainer, *a)
+            after = probe.counts()
+            probe.evals.append({"s": time.perf_counter() - t0,
+                                "launches": {k: after[k] - before[k] for k in after}})
+            return out
+
+        def training_epoch_end(trainer, out):
+            probe.losses += [v for row in out for v in row.values()]
+            probe.epochs.append(trainer.state.epochs_trained)
+            return real["training_epoch_end"](trainer, out)
+
+        def validate(trainer, loaders):
+            score = real["validate"](trainer, loaders)
+            probe.scores.append(score)
+            return score
+
+        for name, fn in (("training_step", training_step), ("optimizer_update", optimizer_update),
+                         ("validation_step", validation_step),
+                         ("training_epoch_end", training_epoch_end), ("validate", validate)):
+            setattr(self.cls, name, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.real.items():
+            setattr(self.cls, name, fn)
+
+
+def trainer_phase(dev):
+    """Phase 9 (see the module docstring); returns its numbers."""
+    import shutil
+    import tempfile
+
+    from spiking_fullsubnet_torch.ops import gsu_kernels as gk
+    from spiking_fullsubnet_torch.recipes.denoise import DenoiseTrainer
+    from spiking_fullsubnet_torch.runtime import cli
+    from spiking_fullsubnet_torch.runtime.config import toml_dump
+
+    torch.set_grad_enabled(True)
+    save_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_trainer_"))
+    toml = save_dir / "trainer_smoke.toml"
+
+    def run(*argv):
+        return cli.main(["-C", str(toml), *argv, "--device", dev.type], recipe_dir=FREEZE_RECIPE)
+
+    try:
+        for name in {**COUNTERS, **TRAIN_WRAPPERS}.values():
+            getattr(gk, name).launches = 0
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with TrainerProbe(DenoiseTrainer, gk) as probe:
+            toml_dump(trainer_config(save_dir, 2), toml)
+            first = run("-M", "train")
+            epochs_first = list(probe.epochs)
+            toml_dump(trainer_config(save_dir, 3), toml)
+            resumed = run("-M", "train", "-R")
+            epochs_resumed = probe.epochs[len(epochs_first):]
+            n_scores = len(probe.scores)
+            tested = run("-M", "test", "validate", "--ckpt_path", "best")
+        torch.cuda.synchronize()
+        peak_gb = (torch.cuda.max_memory_allocated() - held) / 1e9
+        launches = probe.counts()
+        exp = save_dir / "trainer_smoke"
+        ckpts = sorted(p.name for p in (exp / "checkpoints").iterdir())
+        test_csv = sorted((exp / "metrics").glob(
+            f"dl_0_epoch_{tested.state.epochs_trained}_*_mean.csv"))
+        header = test_csv[-1].read_text().splitlines()[0].split(",") if test_csv else []
+
+        require(all(np.isfinite(v) for v in probe.losses) and probe.losses,
+                f"trainer losses {probe.losses}")
+        norms = [u["norm"] for u in probe.updates]
+        require(all(np.isfinite(v) for v in norms), f"trainer gradient norms {norms}")
+        want_update, want_eval = train_launches(8), dict(train_launches(0), F=4)
+        require(len(probe.updates) == 6 and all(u["launches"] == want_update
+                                                for u in probe.updates),
+                f"trainer updates {[u['launches'] for u in probe.updates]}, "
+                f"expected 6 of {want_update}")
+        require(all(e["launches"] == want_eval for e in probe.evals),
+                f"trainer eval batches {[e['launches'] for e in probe.evals]}, "
+                f"expected {want_eval}")
+        # validation: one batch an epoch (3), the test's two, the re-validation's one
+        require(len(probe.evals) == 6, f"trainer eval batches {len(probe.evals)}")
+        require(launches == dict(train_launches(6 * 8), F=6 * 4),
+                f"trainer phase launches {launches}")
+        max_ckpts = first.max_num_checkpoints
+        want_ckpts = ["best"] + [f"epoch_{e:04d}" for e in range(max(1, 4 - max_ckpts), 4)]
+        require(ckpts == want_ckpts, f"trainer checkpoints {ckpts}, expected {want_ckpts}")
+        require(epochs_first == [1, 2] and first.state.epochs_trained == 2,
+                f"first run's epochs {epochs_first}")
+        require(epochs_resumed == [3] and resumed.state.epochs_trained == 3,
+                f"resumed run's epochs {epochs_resumed}, epochs_trained "
+                f"{resumed.state.epochs_trained}")
+        revalidated = probe.scores[-1]
+        # best's own trainer_state.json holds the score it was saved for
+        require(len(probe.scores) == n_scores + 1 and revalidated == tested.state.best_score,
+                f"best re-validated {revalidated!r}, recorded {tested.state.best_score!r}")
+        require({"si_sdr", "synops", "neuron_ops"} <= set(header), f"test CSV header {header}")
+
+        # ms per update: end of one update to the end of the next, same epoch
+        gaps = [prev["end"].elapsed_time(cur["end"]) for prev, cur in
+                zip(probe.updates, probe.updates[1:]) if prev["epoch"] == cur["epoch"]]
+        loop_ms = float(np.mean(gaps))
+        val = [e["s"] * 1e3 for e in probe.evals[:3]]
+
+        # the same update bare: train_step on one batch of the same shapes
+        model = first.model
+        batch = next(iter(cli._loaders(trainer_config(save_dir, 2)["train_dataset"])[0]))
+        noisy, clean = (torch.from_numpy(b).to(dev) for b in batch[:2])
+        bare = time_train(model["apply"], model["config"], tested.params, tested.model_state,
+                          noisy, clean, train_launches(8))
+    finally:
+        shutil.rmtree(save_dir, ignore_errors=True)
+    out = {"ms_per_update": loop_ms, "update_gaps_ms": gaps, "bare_step_ms": bare["total_ms"],
+           "host_overhead_ms": loop_ms - bare["total_ms"], "ms_per_validation_batch":
+           float(np.mean(val)), "validation_batch_ms": val, "own_peak_gb": peak_gb,
+           "launches": launches, "losses": probe.losses, "grad_norms": norms,
+           "lrs": [u["lr"] for u in probe.updates], "scores": probe.scores,
+           "best_score": tested.state.best_score, "checkpoints": ckpts, "test_csv": header,
+           "bare": {k: v for k, v in bare.items() if k != "launches"}}
+    log(f"[trainer] zoo M layered f32 via runtime.cli on {card_name()}: "
+        f"{loop_ms:.3f} ms per update inside the trainer (64 x 6 s; gaps {gaps}), bare "
+        f"train_step {bare['total_ms']:.3f} ms, host overhead {loop_ms - bare['total_ms']:.3f} "
+        f"ms; {np.mean(val):.3f} ms per validation batch (16 x 6 s; {val}); own peak memory "
+        f"{peak_gb:.2f} GB; launches {launches}; best {tested.state.best_score!r} "
+        f"re-validated {revalidated!r}; checkpoints {ckpts}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing to run", file=sys.stderr)
@@ -2029,8 +2240,15 @@ def main() -> int:
     modes = modes_phase(gk, sf, model, flag, flag_base, base, quality_x, clean, noisy, dev)
     kernels += modes.pop("kernels")
     forwards.update(modes.pop("forwards"))
+    del model, flag
+    torch.cuda.empty_cache()
+
+    # ---- 9. the recipe trainer through its CLI ----
+    stamp("9. the recipe trainer")
+    trainer = trainer_phase(dev)
     stamp("end")
     print(json.dumps({"kernels": kernels, "forwards": forwards, "training": train_t,
+                      "trainer": trainer,
                       "stream_checks": stream, "mode_checks": modes["checks"],
                       "batch": BENCH_B, "seconds": BENCH_SECONDS,
                       "train_batch": TRAIN_B, "train_seconds": TRAIN_SECONDS}), flush=True)

@@ -19,6 +19,10 @@ Covered so far, with weights from the JAX ``.npz`` files or a seeded init:
   the two-launch path (offline laplace norm, no pre-LayerNorm: the shipped
   zoo checkpoints; kernels A and B) and the whole-model monolith
   (pre-LayerNorm as in the flagship preset, the cumulative laplace norm, no
-  norm; kernel C).
+  norm; kernel C);
+- the recipe trainer: ``python -m spiking_fullsubnet_torch.runtime.cli -C
+  <toml> -M train|validate|test|predict|finetune`` on the repo's recipe
+  TOMLs (``runtime/``, ``data/``, ``metrics/``,
+  ``recipes/denoise.DenoiseTrainer``).
 See ROADMAP.md for the rest.
 """

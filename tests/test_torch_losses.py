@@ -96,3 +96,32 @@ def test_denoise_loss_matches_the_recipe():
     assert sorted(got) == sorted(want)
     for k, v in want.items():
         np.testing.assert_allclose(got[k].item(), float(v), rtol=1e-12)
+
+
+LOSS_CASES = [
+    ("multi_res_spec_loss", dict(n_ffts=(512, 256))),
+    ("multi_res_spec_loss", dict(n_ffts=(256,), gamma=0.3, factor=2.0)),
+    ("multi_res_spec_loss", dict(n_ffts=(512, 128), f_complex=0.5)),
+    ("multi_res_spec_loss", dict(n_ffts=(256,), gamma=0.3, f_complex=0.3)),
+    ("combine_loss", dict(n_ffts=(512, 256), gamma=0.3, f_complex=0.3)),
+    ("combine_loss", dict(n_ffts=(128,))),
+    ("l1_loss", dict()),
+    ("mse_loss", dict()),
+    ("si_snr_loss", dict()),
+]
+
+
+@pytest.mark.parametrize("name,kw", LOSS_CASES, ids=lambda v: str(v))
+def test_toml_losses_and_gradients_match_jax_f64(name, kw):
+    """The losses a [loss_function] path names, in float64: values rtol
+    1e-10, gradients within 1e-10 max|g|."""
+    est, ref = _pair(np.float64, seed=len(name) + len(kw), shape=(2, 4000))
+    val, grad = jax.value_and_grad(lambda e: getattr(JL, name)(e, jnp.asarray(ref), **kw))(
+        jnp.asarray(est))
+    t_est = torch.from_numpy(est).requires_grad_(True)
+    got = getattr(PL, name)(t_est, torch.from_numpy(ref), **kw)
+    got.backward()
+    assert got.dtype == torch.float64
+    np.testing.assert_allclose(got.item(), float(val), rtol=1e-10)
+    g = np.asarray(grad)
+    np.testing.assert_allclose(t_est.grad.numpy(), g, rtol=0, atol=1e-10 * np.abs(g).max())
