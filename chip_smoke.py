@@ -219,6 +219,33 @@ is non-zero:
             the next within an epoch), the same step bare (train_step on the
             first training batch, timed as phase 6), the ms per validation
             batch and the trainer's own peak memory.
+10. flagship the paper's recipes (recipes/intel_ndns/spiking_fullsubnet):
+            (a) the fused forward (scan_mode="fused") at baseline_m.toml's
+            [model.args] (flagship widths, pre-LN, f32, random weights from
+            its seed): on the speech fixture (1 x 2 s) the kernel route (the
+            layered formulation: F in eval, D, E and dW in training)
+            against the fused plain version run on the card (spike mismatch
+            per layer < 1e-3, audio relative L2 < 0.05) and against
+            scan_mode="layered" bit for bit, F 4 launches and nothing else;
+            one eval forward at 16 x 6 s and one train step at 64 x 6 s
+            timed, D, E and dW 8 launches a step and nothing else;
+            (b) baseline_m_GAN.toml through runtime.cli.main on
+            SyntheticNoisyDataset (train 128 x 6 s at batch 64, validate
+            16 x 6 s at 16, test 2 x 6 s at 1): train with max_epochs = 1,
+            train -R with 2, test on --ckpt_path best; every loss and
+            gradient norm finite, each update D, E and dW 8 launches and
+            nothing else, each validation or test batch F 4, the
+            discriminator's weights, u and v moved by its step, epoch 1's
+            checkpoint holding the discriminator and its optimizer state
+            (step 2), the resume running epoch 2 alone; it prints the ms per
+            GAN update inside the trainer split into the generator step
+            (CUDA events), the host targets (host clock) and the
+            discriminator step (CUDA events), the generator step bare, and
+            the phase's own peak memory;
+            (c) the freeze phase's baseline_m_dualGAN.toml (zoo M width,
+            offline norm, two discriminators with ExponentialLR): one epoch
+            of two updates; both discriminators move, each one's rate and
+            the generator's equal to their schedules.
 
 About 8 to 12 minutes on one H100, the build included.
 
@@ -374,6 +401,16 @@ STACKS_F = ("zoo M fullband", "zoo M section 0", "zoo M section 1", "zoo M secti
             "cIRM-GSN")
 # kernel D's and E's launches, in D's order: zoo M's four stacks, then cIRM-GSN's
 LAYERS_DE = tuple(f"{stack} layer {k}" for stack in STACKS_F for k in (0, 1))
+
+
+def launch_counts(gk):
+    """Every kernel's launch count."""
+    return {k: getattr(gk, name).launches for k, name in {**COUNTERS, **TRAIN_WRAPPERS}.items()}
+
+
+def zero_counts(gk):
+    for name in {**COUNTERS, **TRAIN_WRAPPERS}.values():
+        getattr(gk, name).launches = 0
 
 
 def record_calls(module, names, run):
@@ -1550,6 +1587,12 @@ def trainer_config(save_dir, max_epochs):
     from spiking_fullsubnet_torch.runtime.config import toml_load
     base = toml_load(FREEZE_RECIPE / "baseline_m.toml")
     cfg = {k: base[k] for k in ("meta", "trainer", "optimizer", "acoustics", "model")}
+    return synthetic_run(cfg, base, save_dir, max_epochs)
+
+
+def synthetic_run(cfg, base, save_dir, max_epochs):
+    """``cfg`` saving under ``save_dir`` with max_epochs changed and
+    TRAINER_DATA's SyntheticNoisyDataset at ``base``'s batch sizes."""
     cfg["meta"]["save_dir"] = str(save_dir)
     cfg["trainer"]["args"]["max_epochs"] = max_epochs
     for name, (n, secs, seed) in TRAINER_DATA.items():
@@ -1575,8 +1618,7 @@ class TrainerProbe:
             "validate")}
 
     def counts(self):
-        return {k: getattr(self.gk, name).launches for k, name in
-                {**COUNTERS, **TRAIN_WRAPPERS}.items()}
+        return launch_counts(self.gk)
 
     def __enter__(self):
         probe, real = self, self.real
@@ -1642,8 +1684,7 @@ def trainer_phase(dev):
         return cli.main(["-C", str(toml), *argv, "--device", dev.type], recipe_dir=FREEZE_RECIPE)
 
     try:
-        for name in {**COUNTERS, **TRAIN_WRAPPERS}.values():
-            getattr(gk, name).launches = 0
+        zero_counts(gk)
         torch.cuda.synchronize()
         held = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
@@ -1722,6 +1763,334 @@ def trainer_phase(dev):
         f"ms; {np.mean(val):.3f} ms per validation batch (16 x 6 s; {val}); own peak memory "
         f"{peak_gb:.2f} GB; launches {launches}; best {tested.state.best_score!r} "
         f"re-validated {revalidated!r}; checkpoints {ckpts}")
+    return out
+
+
+SFS_RECIPE = ROOT / "recipes" / "intel_ndns" / "spiking_fullsubnet"
+VAL_B, VAL_SECONDS = 16, 6.0  # the recipes' validation batch
+
+
+def fused_forward_checks(gk, dev):
+    """Phase 10 (a): the fused forward at baseline_m.toml's [model.args]
+    (flagship widths, pre-LN, f32, random weights from the recipe's seed).
+    On the speech fixture (1 x 2 s) the kernel route against the fused plain
+    version run on the card, and against scan_mode="layered" bit for bit;
+    launches counted; one eval forward at the recipe's validation batch (16 x
+    6 s) and one train step at 64 x 6 s timed."""
+    from spiking_fullsubnet_torch.models.fused_forward import fused_forward_plain
+    from spiking_fullsubnet_torch.models.spiking_fullsubnet import build, spiking_fullsubnet_apply
+    from spiking_fullsubnet_torch.runtime.config import toml_load
+
+    recipe = toml_load(SFS_RECIPE / "baseline_m.toml")
+    bundle = build(seed=recipe["meta"]["seed"], device=dev, **recipe["model"]["args"])
+    cfg, params, state = bundle["config"], bundle["params"], bundle["state"]
+    require(cfg.scan_mode == "fused" and cfg.compute_dtype is None and cfg.norm_type is None,
+            f"baseline_m.toml's model: {cfg}")
+    clean, noisy = speech_fixture()
+    x = torch.from_numpy(noisy[None]).to(dev)
+    with torch.no_grad():
+        zero_counts(gk)
+        out = spiking_fullsubnet_apply(cfg, params, state, x)
+        torch.cuda.synchronize()
+        counts = launch_counts(gk)
+        plain = fused_forward_plain(cfg, params, state, x)
+        layered = spiking_fullsubnet_apply(replace(cfg, scan_mode="layered"), params, state, x)
+    torch.cuda.synchronize()
+    want_eval = dict(train_launches(0), F=4)
+    require(counts == want_eval, f"fused eval forward launches {counts}, expected {want_eval}")
+    spikes = lambda o: ([o["fb_all_layer_outputs"][k] for k in (1, 2)]  # noqa: E731
+                        + [sec[k] for sec in o["sb_all_layer_outputs"] for k in (1, 2)])
+    mism = [spike_mismatch(a, b) for a, b in zip(spikes(out), spikes(plain))]
+    audio_rel = rel_l2(out["enhanced_y"], plain["enhanced_y"])
+    require(max(mism) < 1e-3 and audio_rel < 0.05,
+            f"fused kernel route against its plain version: spike mismatch per layer {mism}, "
+            f"audio rel L2 {audio_rel}")
+    same = all(torch.equal(a, b) for a, b in zip(
+        tensors_of([out["enhanced_y"], out["enhanced_mag"], out["fb_all_layer_outputs"],
+                    out["sb_all_layer_outputs"]]),
+        tensors_of([layered["enhanced_y"], layered["enhanced_mag"],
+                    layered["fb_all_layer_outputs"], layered["sb_all_layer_outputs"]])))
+    require(same, "fused kernel route differs from scan_mode='layered'")
+    gain = si_sdr_gain(out["enhanced_y"], clean, noisy)  # random weights: finite, not good
+    del out, plain, layered
+
+    # one eval forward at the recipe's validation batch, counted then timed
+    rng = np.random.default_rng(0)
+    xv = torch.from_numpy((rng.standard_normal((VAL_B, int(VAL_SECONDS * SR))) * 0.1).astype(
+        np.float32)).to(dev)
+    with torch.no_grad():
+        zero_counts(gk)
+        spiking_fullsubnet_apply(cfg, params, state, xv)
+        torch.cuda.synchronize()
+        eval_counts = launch_counts(gk)
+        eval_ms = cuda_ms(lambda: spiking_fullsubnet_apply(cfg, params, state, xv), iters=2)
+    require(eval_counts == want_eval, f"fused eval 16 x 6 s launches {eval_counts}")
+    del xv
+    # one train step at 64 x 6 s: forward, loss, backward, clip, AdamW
+    _, _, tb_noisy, tb_clean = training_batches(dev)
+    torch.set_grad_enabled(True)
+    step = time_train(spiking_fullsubnet_apply, cfg, params, state, tb_noisy, tb_clean,
+                      train_launches(8))
+    require(not step["nonfinite_steps"], f"fused train step: {step}")
+    del tb_noisy, tb_clean
+    torch.cuda.empty_cache()
+    out = {"spike_mismatch": mism, "audio_rel_l2": audio_rel, "bitwise_equal_layered": same,
+           "eval_launches": counts, "si_sdr_gain_random_weights": gain,
+           "eval_16x6s_ms": eval_ms, "train_64x6s": {k: v for k, v in step.items()}}
+    log(f"[flagship] fused forward, baseline_m.toml widths f32 on {card_name()}: kernel route "
+        f"against the fused plain version (1 x 2 s): spike mismatch per layer "
+        f"{[f'{v:.2e}' for v in mism]}, audio rel L2 {audio_rel:.3e}; equal to layered bit for "
+        f"bit: {same}; launches {counts}; eval 16 x 6 s {eval_ms:.3f} ms; train step 64 x 6 s "
+        f"{step['total_ms']:.3f} ms (forward {step['forward_ms']:.3f}, backward "
+        f"{step['backward_ms']:.3f}, clip and AdamW {step['step_ms']:.3f}), launches "
+        f"{step['launches']}, own peak {step['own_peak_gb']:.2f} GB")
+    return out
+
+
+def gan_config(toml, save_dir, max_epochs):
+    """A GAN recipe's TOML with max_epochs changed, on SyntheticNoisyDataset
+    at the recipe's batch sizes."""
+    from spiking_fullsubnet_torch.runtime.config import toml_load
+    cfg = toml_load(toml)
+    return synthetic_run(cfg, dict(cfg), save_dir, max_epochs)
+
+
+class GanProbe:
+    """Wraps GanDenoiseTrainer's steps while phase 10 runs: each update's
+    launches (from the start of its generator step to the end of its last
+    discriminator step), CUDA events around the generator and the
+    discriminator steps, the host clock around the targets, the gradient
+    norm, every discriminator's rate and, for each discriminator's first
+    step, its tensors before and after; each validation or test batch's
+    launches; every epoch's losses."""
+
+    def __init__(self, cls, gk):
+        self.cls, self.gk = cls, gk
+        self.updates, self.evals, self.losses, self.epochs, self.disc_lrs = [], [], [], [], {}
+        self.first_disc = {}
+        self.real = {n: getattr(cls, n) for n in (
+            "generator_step", "batch_mos", "discriminator_step", "validation_step",
+            "training_epoch_end", "_log_step")}
+
+    def __enter__(self):
+        probe, real = self, self.real
+
+        def ev():
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            return e
+
+        def generator_step(trainer, *a):
+            u = {"epoch": trainer.state.epochs_trained + 1, "before": launch_counts(probe.gk),
+                 "g0": ev()}
+            out = real["generator_step"](trainer, *a)
+            u["g1"] = ev()
+            probe.updates.append(u)
+            return out
+
+        def batch_mos(trainer, *a):
+            t0 = time.perf_counter()
+            out = real["batch_mos"](trainer, *a)
+            probe.updates[-1]["targets_ms"] = (time.perf_counter() - t0) * 1e3
+            return out
+
+        def discriminator_step(trainer, name, clean_mag, enh_mag, target, lr):
+            u = probe.updates[-1]
+            u.setdefault("d0", ev())
+            probe.disc_lrs.setdefault(name, []).append(lr)
+            params = trainer.disc_params[name]
+            snap = lambda: [t.detach().clone() for t in tensors_of(params)]  # noqa: E731
+            before = snap() if name not in probe.first_disc else None
+            out = real["discriminator_step"](trainer, name, clean_mag, enh_mag, target, lr)
+            if before is not None:
+                probe.first_disc[name] = (before, snap())
+            u["d1"] = ev()
+            u["after"] = launch_counts(probe.gk)
+            return out
+
+        def validation_step(trainer, *a):
+            before = launch_counts(probe.gk)
+            out = real["validation_step"](trainer, *a)
+            after = launch_counts(probe.gk)
+            probe.evals.append({k: after[k] - before[k] for k in after})
+            return out
+
+        def training_epoch_end(trainer, out):
+            probe.losses += [v for row in out for v in row.values()]
+            probe.epochs.append(trainer.state.epochs_trained)
+            return real["training_epoch_end"](trainer, out)
+
+        def _log_step(trainer, grad_norm, lr):
+            probe.updates[-1].update(norm=float(grad_norm), lr=lr)
+            return real["_log_step"](trainer, grad_norm, lr)
+
+        for name, fn in (("generator_step", generator_step), ("batch_mos", batch_mos),
+                         ("discriminator_step", discriminator_step),
+                         ("validation_step", validation_step),
+                         ("training_epoch_end", training_epoch_end), ("_log_step", _log_step)):
+            setattr(self.cls, name, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.real.items():
+            setattr(self.cls, name, fn)
+
+    def update_launches(self):
+        return [{k: u["after"][k] - u["before"][k] for k in u["after"]} for u in self.updates]
+
+
+def gan_phase(gk, dev):
+    """Phase 10 (b) and (c): baseline_m_GAN.toml through runtime.cli.main
+    (train, train -R, test on best) and baseline_m_dualGAN.toml (one epoch of
+    two updates), on SyntheticNoisyDataset."""
+    import shutil
+    import tempfile
+
+    from spiking_fullsubnet_torch.models.discriminator import discriminator_weights, spectral_layers
+    from spiking_fullsubnet_torch.recipes.gan import GanDenoiseTrainer
+    from spiking_fullsubnet_torch.runtime import cli
+    from spiking_fullsubnet_torch.runtime.checkpoint import CheckpointManager
+    from spiking_fullsubnet_torch.runtime.config import toml_dump, toml_load
+    from spiking_fullsubnet_torch.runtime.optimization import get_exponential_schedule
+
+    save_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_gan_"))
+
+    def run(toml, recipe_dir, *argv):
+        return cli.main(["-C", str(toml), *argv, "--device", dev.type], recipe_dir=recipe_dir)
+
+    def uv_moved(probe, t):
+        """Per discriminator of trainer t: whether every weight and every u
+        and v moved over its first step, but fc2's u (one element, always 1
+        after the power iteration's normalisation), known by its identity in
+        the tree."""
+        out = {}
+        for name, (before, after) in probe.first_disc.items():
+            params = t.disc_params[name]
+            n = {id(w) for w in discriminator_weights(params)}
+            fc2_u = id(spectral_layers(params)[-1]["u"])
+            kinds = ["w" if id(x) in n else "fc2_u" if id(x) == fc2_u else "uv"
+                     for x in tensors_of(params)]
+            moved = [not torch.equal(a, b) for a, b in zip(before, after)]
+            out[name] = {k: all(m for m, kk in zip(moved, kinds) if kk == k) for k in ("w", "uv")}
+        return out
+
+    try:
+        torch.set_grad_enabled(True)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        toml = save_dir / "gan_smoke.toml"
+        zero_counts(gk)
+        with GanProbe(GanDenoiseTrainer, gk) as probe:
+            toml_dump(gan_config(SFS_RECIPE / "baseline_m_GAN.toml", save_dir, 1), toml)
+            first = run(toml, SFS_RECIPE, "-M", "train")
+            moved = uv_moved(probe, first)
+            epochs_first = list(probe.epochs)
+            saved = CheckpointManager(save_dir / "gan_smoke" / "checkpoints").load(
+                "latest", map_location="cpu")
+            toml_dump(gan_config(SFS_RECIPE / "baseline_m_GAN.toml", save_dir, 2), toml)
+            resumed = run(toml, SFS_RECIPE, "-M", "train", "-R")
+            epochs_resumed = probe.epochs[len(epochs_first):]
+            tested = run(toml, SFS_RECIPE, "-M", "test", "--ckpt_path", "best")
+        torch.cuda.synchronize()
+        peak_gb = (torch.cuda.max_memory_allocated() - held) / 1e9
+        launches = launch_counts(gk)
+        exp = save_dir / "gan_smoke"
+        test_csv = sorted((exp / "metrics").glob(
+            f"dl_0_epoch_{tested.state.epochs_trained}_*_mean.csv"))
+        header = test_csv[-1].read_text().splitlines()[0].split(",") if test_csv else []
+
+        require(probe.losses and all(np.isfinite(v) for v in probe.losses),
+                f"GAN losses {probe.losses}")
+        norms = [u["norm"] for u in probe.updates]
+        require(all(np.isfinite(v) for v in norms), f"GAN gradient norms {norms}")
+        want_update, want_eval = train_launches(8), dict(train_launches(0), F=4)
+        per_update = probe.update_launches()
+        require(len(per_update) == 4 and all(c == want_update for c in per_update),
+                f"GAN updates {per_update}, expected 4 of {want_update}")
+        # validation: one batch in each of the two epochs; the test's two
+        require(len(probe.evals) == 4 and all(e == want_eval for e in probe.evals),
+                f"GAN eval batches {probe.evals}, expected 4 of {want_eval}")
+        require(launches == dict(train_launches(4 * 8), F=4 * 4), f"GAN phase launches {launches}")
+        require(moved == {"d": {"w": True, "uv": True}},
+                f"the discriminator's weights, u and v over its first step: {moved}")
+        require(sorted(saved) == ["disc_opt_states", "disc_params", "model_state", "opt_state",
+                                  "params"] and list(saved["disc_params"]) == ["d"]
+                and all(int(s["step"]) == 2 for s in
+                        saved["disc_opt_states"]["d"]["state"].values())
+                and len(saved["disc_opt_states"]["d"]["state"]) == len(
+                    discriminator_weights(first.disc_params["d"])),
+                f"epoch 1's checkpoint: {sorted(saved)}")
+        require(epochs_first == [1] and epochs_resumed == [2]
+                and resumed.state.epochs_trained == 2 and resumed.state.steps_trained == 4,
+                f"GAN epochs {epochs_first} then {epochs_resumed}")
+        require({"si_sdr", "synops", "neuron_ops"} <= set(header), f"GAN test CSV {header}")
+
+        # ms per GAN update: end of one update to the end of the next, same
+        # epoch; its split over the same updates (a run's first update also
+        # pays the library's first calls)
+        ups = probe.updates
+        pairs = [(a, b) for a, b in zip(ups, ups[1:]) if a["epoch"] == b["epoch"]]
+        gaps = [a["d1"].elapsed_time(b["d1"]) for a, b in pairs]
+        split = {"generator_ms": [u["g0"].elapsed_time(u["g1"]) for u in ups],
+                 "targets_ms": [u["targets_ms"] for u in ups],
+                 "discriminator_ms": [u["d0"].elapsed_time(u["d1"]) for u in ups]}
+        steady = [ups.index(b) for _, b in pairs]
+        # the same generator step bare: on one training batch, outside the loop
+        batch = next(iter(cli._loaders(gan_config(SFS_RECIPE / "baseline_m_GAN.toml", save_dir,
+                                                  1)["train_dataset"])[0]))
+        noisy, clean = (torch.from_numpy(b).to(dev) for b in batch[:2])
+        lr = ups[0]["lr"]
+        bare_ms = cuda_ms(lambda: tested.generator_step(noisy, clean, lr), iters=2)
+        del noisy, clean
+
+        # (c) the freeze phase's dual GAN: one epoch of two updates
+        dual_toml = save_dir / "dual_smoke.toml"
+        zero_counts(gk)
+        with GanProbe(GanDenoiseTrainer, gk) as dprobe:
+            toml_dump(gan_config(FREEZE_RECIPE / "baseline_m_dualGAN.toml", save_dir, 1),
+                      dual_toml)
+            dual = run(dual_toml, FREEZE_RECIPE, "-M", "train")
+            dual_moved = uv_moved(dprobe, dual)
+        dual_updates = dprobe.update_launches()
+        require(len(dual_updates) == 2 and all(c == train_launches(8) for c in dual_updates),
+                f"dual GAN updates {dual_updates}")
+        require(dual_moved == {n: {"w": True, "uv": True} for n in ("d_sig", "d_bak")},
+                f"dual GAN discriminators over their first step: {dual_moved}")
+        # the rates the TOML asks for: ExponentialLR a step an epoch, the
+        # epoch being the run's two updates
+        dcfg = toml_load(dual_toml)
+        sched = lambda name, opt: get_exponential_schedule(  # noqa: E731
+            float(dcfg[opt]["args"]["lr"]),
+            float(dcfg[f"lr_scheduler_{name}"]["args"]["gamma"]), 2)
+        want_lrs = {n: [sched(n, f"optimizer_{n}")(k) for k in range(2)]
+                    for n in ("d_sig", "d_bak")}
+        require(dprobe.disc_lrs == want_lrs and all(v > 0 for lrs in want_lrs.values()
+                                                    for v in lrs),
+                f"dual GAN discriminator rates {dprobe.disc_lrs}, schedules {want_lrs}")
+        g_lrs = [u["lr"] for u in dprobe.updates]
+        want_g = [sched("g", "optimizer")(k) for k in range(2)]
+        require(g_lrs == want_g, f"dual GAN generator rates {g_lrs}, schedule {want_g}")
+        require(all(np.isfinite(v) for v in dprobe.losses) and dprobe.losses,
+                f"dual GAN losses {dprobe.losses}")
+    finally:
+        shutil.rmtree(save_dir, ignore_errors=True)
+    loop_ms = float(np.mean(gaps))
+    mean = {k: float(np.mean([v[i] for i in steady])) for k, v in split.items()}
+    out = {"ms_per_gan_update": loop_ms, "update_gaps_ms": gaps, "split_ms": split,
+           "split_mean_ms": mean, "bare_generator_step_ms": bare_ms, "own_peak_gb": peak_gb,
+           "launches": launches, "per_update_launches": per_update, "eval_launches": probe.evals,
+           "losses": probe.losses, "grad_norms": norms, "lrs": [u["lr"] for u in ups],
+           "disc_lrs": probe.disc_lrs, "best_score": tested.state.best_score,
+           "test_csv": header, "dual": {"launches": dual_updates, "disc_lrs": dprobe.disc_lrs,
+                                        "generator_lrs": g_lrs, "losses": dprobe.losses}}
+    log(f"[flagship] baseline_m_GAN.toml via runtime.cli on {card_name()}: {loop_ms:.3f} ms per "
+        f"GAN update inside the trainer (64 x 6 s; gaps {gaps}), of which (the same "
+        f"updates) generator step {mean['generator_ms']:.3f} ms, host targets "
+        f"{mean['targets_ms']:.3f} ms, discriminator step {mean['discriminator_ms']:.3f} ms "
+        f"(every update: {split}); the generator step bare "
+        f"{bare_ms:.3f} ms; own peak memory {peak_gb:.2f} GB; launches {launches}; best "
+        f"{tested.state.best_score!r}; dual GAN rates {dprobe.disc_lrs}, generator {g_lrs}")
     return out
 
 
@@ -2246,9 +2615,13 @@ def main() -> int:
     # ---- 9. the recipe trainer through its CLI ----
     stamp("9. the recipe trainer")
     trainer = trainer_phase(dev)
+
+    # ---- 10. the flagship recipes: the fused forward and the GAN trainers ----
+    stamp("10. the flagship recipes")
+    flagship = {"fused": fused_forward_checks(gk, dev), "gan": gan_phase(gk, dev)}
     stamp("end")
     print(json.dumps({"kernels": kernels, "forwards": forwards, "training": train_t,
-                      "trainer": trainer,
+                      "trainer": trainer, "flagship": flagship,
                       "stream_checks": stream, "mode_checks": modes["checks"],
                       "batch": BENCH_B, "seconds": BENCH_SECONDS,
                       "train_batch": TRAIN_B, "train_seconds": TRAIN_SECONDS}), flush=True)

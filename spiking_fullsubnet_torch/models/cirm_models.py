@@ -14,10 +14,10 @@ import torch
 import torch.nn.functional as F
 
 from ..dsp.spectral import istft_complex, stft_complex
+from ..nn.core import tree_map
 from ..ops.deep_filter import deep_filter
 from ..runtime.device import resolve_device
 from .sequence_model import SequenceModelConfig, sequence_model_apply, sequence_model_init
-from .spiking_fullsubnet import _tree_map
 
 
 @dataclass(frozen=True)
@@ -62,7 +62,7 @@ def cirm_model_init(seed: int, cfg: CirmModelConfig, device=None):
     dev = resolve_device(device)
     params, state = sequence_model_init(torch.Generator().manual_seed(int(seed)),
                                         cfg.fb_config())
-    to_dev = lambda t: _tree_map(lambda x: x.to(dev), t)  # noqa: E731
+    to_dev = lambda t: tree_map(lambda x: x.to(dev), t)  # noqa: E731
     return to_dev({"fb": params}), to_dev({"fb": state})
 
 

@@ -22,7 +22,11 @@ The port covers:
 - training through the stream path (``scan_mode="stream"``, and
   ``"auto"`` on a CUDA tensor, as the JAX package on its chip): every GSU
   layer on kernels D and E with streams in the compute type (bfloat16
-  under the bf16 policy), the glue in autograd.
+  under the bf16 policy), the glue in autograd;
+- ``scan_mode="fused"`` (the flagship recipes' setting) and what
+  ``"auto"`` sends there in eval (``models/fused_forward.py``): the single
+  scan over frames on a CPU tensor, the layered formulation's kernels on a
+  CUDA tensor.
 Weights come from a JAX-package ``.npz`` (``SpikingFullSubNet.from_npz``)
 or from a seeded init (``SpikingFullSubNet.from_init``, ``build``).
 Anything else raises ``NotImplementedError`` naming, by title, the ROADMAP
@@ -39,6 +43,7 @@ from torch import nn
 
 from ..dsp.feature_norm import norm_wrapper
 from ..dsp.spectral import istft_complex, stft_complex
+from ..nn.core import tree_map
 from ..ops.deep_filter import deep_filter
 from ..ops.freq_unfold import freq_unfold
 from ..runtime.convert import load_npz
@@ -202,17 +207,9 @@ def spiking_fullsubnet_init(seed: int, cfg: SpikingFullSubNetConfig, device=None
         p, s = sequence_model_init(gen, cfg.sb_config(i))
         sb_params.append(p)
         sb_states.append(s)
-    to_dev = lambda t: _tree_map(lambda x: x.to(dev), t)  # noqa: E731
+    to_dev = lambda t: tree_map(lambda x: x.to(dev), t)  # noqa: E731
     return (to_dev({"fb": fb_params, "sb": sb_params}),
             to_dev({"fb": fb_state, "sb": sb_states}))
-
-
-def _tree_map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_tree_map(fn, v) for v in tree]
-    return fn(tree)
 
 
 def spiking_fullsubnet_apply(cfg: SpikingFullSubNetConfig, params, state,
@@ -244,17 +241,19 @@ def spiking_fullsubnet_apply(cfg: SpikingFullSubNetConfig, params, state,
             scan_mode = "layered"
     if scan_mode == "stream":
         return spiking_fullsubnet_stream_forward(cfg, params, state, noisy_y, train)
-    if scan_mode != "layered":
-        raise NotImplementedError(
-            f"scan_mode={scan_mode!r} is not ported yet (ROADMAP queue 1: the fused forward)")
+    if scan_mode == "fused":
+        from .fused_forward import spiking_fullsubnet_fused_forward
+        return spiking_fullsubnet_fused_forward(cfg, params, state, noisy_y, train)
     return _layered_forward(cfg, params, state, noisy_y, train)
 
 
 def _subband_forward(cfg: SpikingFullSubNetConfig, params, state, noisy_mag: torch.Tensor,
-                     fb_output: torch.Tensor, train: bool = False):
+                     fb_output: torch.Tensor, train: bool = False, fused: bool = False):
     """Every section: unfold of the noisy magnitude and of the fullband
     output, the norm, the section's sequence model
-    (``spiking_fullsubnet.py:188-230``). Returns (df coefficient tensors
+    (``spiking_fullsubnet.py:188-230``). ``fused`` unfolds the fullband
+    output as the fused forward gathers it (edges of the ``num_freqs``-bin
+    spectrum, indices clamped to the tile). Returns (df coefficient tensors
     ``[B, df, S, N fc, T, 2]``, per-section layer outputs, states)."""
     norm = norm_wrapper(cfg.norm_type) if cfg.norm_type else None
     df_coefs, all_layer_outputs, new_states = [], [], []
@@ -262,7 +261,8 @@ def _subband_forward(cfg: SpikingFullSubNetConfig, params, state, noisy_mag: tor
         lo, hi = cfg.freq_cutoffs[idx], cfg.freq_cutoffs[idx + 1]
         noisy_sub = freq_unfold(noisy_mag, lo, hi, cfg.center_freq_sizes[idx],
                                 cfg.neighbor_freq_sizes[idx])
-        fb_sub = freq_unfold(fb_output, lo, hi, cfg.fb_ctrs[idx], cfg.fb_nbrs[idx])
+        fb_sub = freq_unfold(fb_output, lo, hi, cfg.fb_ctrs[idx], cfg.fb_nbrs[idx],
+                             cfg.num_freqs if fused else 0)
         sb_input = torch.cat([noisy_sub, fb_sub], dim=-2)  # [B, N, 1, w_tot, T]
         if norm is not None:
             sb_input = norm(sb_input)
@@ -276,14 +276,18 @@ def _subband_forward(cfg: SpikingFullSubNetConfig, params, state, noisy_mag: tor
 
 
 def _layered_forward(cfg: SpikingFullSubNetConfig, params, state,
-                     noisy_y: torch.Tensor, train: bool = False) -> Dict[str, Any]:
+                     noisy_y: torch.Tensor, train: bool = False,
+                     fused: bool = False) -> Dict[str, Any]:
     """The layered forward (``spiking_fullsubnet.py:287-361``): STFT,
     ``|X|^fdrc`` without the Nyquist bin, the fullband sequence model, its
     output tiled over the bins, the sections, the deep filter per section,
     the Nyquist passthrough and the iSTFT. In eval every GSU stack runs on
     kernel F (four launches for three sections); in training every layer on
     kernels D and E (eight of each for two-layer stacks). Every layer's
-    spikes are returned."""
+    spikes are returned. ``fused`` gives the fused forward's answer: the
+    tile cut to ``num_freqs`` bins and gathered as the fused forward does
+    (``fused_forward.py:313-324``), which differs from the layered forward's
+    where the tile is not ``num_freqs`` bins wide (``fb_proj_size=0``)."""
     if cfg.sb_shared_bottleneck:
         raise NotImplementedError(
             "sb_shared_bottleneck (models/shared_subband.py) is not ported yet "
@@ -307,9 +311,11 @@ def _layered_forward(cfg: SpikingFullSubNetConfig, params, state,
         train)
     num_repeats = (cfg.n_fft // 2 + 1) // cfg.fb_input_size
     fb_output = fb_output.to(noisy_mag.dtype)[:, None].repeat(1, 1, num_repeats, 1)
+    if fused:
+        fb_output = fb_output[:, :, :cfg.num_freqs]
 
     df_coefs, sb_all_layer_outputs, new_sb_states = _subband_forward(
-        cfg, params, state, noisy_mag, fb_output, train)
+        cfg, params, state, noisy_mag, fb_output, train, fused)
 
     enh_list, f0 = [], 0
     for df_coef, df_order in zip(df_coefs, cfg.df_orders):

@@ -46,6 +46,15 @@ def layer_norm_apply(params: Dict[str, torch.Tensor], x: torch.Tensor,
     return xhat * params["weight"] + params["bias"]
 
 
+def tree_map(fn, tree):
+    """``fn`` over every leaf of a nested dict/list tree, the nesting kept."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
 def cast_floating(tree, dtype: torch.dtype):
     """Cast every real floating tensor of a dict/list tree to ``dtype``
     (the mixed-precision policy: float32 parameters, compute in bf16).

@@ -22,12 +22,15 @@ def reflect_unfold_indices(lo: int, hi: int, ctr: int, nbr: int, num_freqs: int)
 
 
 def freq_unfold(x: torch.Tensor, lower_cutoff_freq: int, upper_cutoff_freq: int,
-                ctr_freq: int, nbr_freq: int) -> torch.Tensor:
+                ctr_freq: int, nbr_freq: int, num_freqs: int = 0) -> torch.Tensor:
     """``[B, C, F, T] -> [B, N, C, ctr + 2 nbr, T]``, N = section width /
     ctr: unit n reads the bins ``lo - nbr + n ctr ...`` of the section,
     reflect-padded at the spectrum's edges (``freq_unfold.py:15``), as one
-    gather."""
-    c, num_freqs = x.shape[1], x.shape[2]
+    gather. With ``num_freqs`` the edges are those of a ``num_freqs``-bin
+    spectrum whatever F is, and an index past a narrower ``x`` reads its last
+    bin: the fused forward's gather of the tiled fullband output, which JAX
+    clamps (``fused_forward.py:255-266, 313-324``)."""
+    c, width = x.shape[1], x.shape[2]
     if c != 1:
         raise ValueError("Only mono audio is supported.")
     if (upper_cutoff_freq - lower_cutoff_freq) % ctr_freq != 0:
@@ -35,6 +38,8 @@ def freq_unfold(x: torch.Tensor, lower_cutoff_freq: int, upper_cutoff_freq: int,
             f"Section width must be divisible by ctr_freq: {ctr_freq=}, "
             f"{upper_cutoff_freq=}, {lower_cutoff_freq=}")
     idx = reflect_unfold_indices(lower_cutoff_freq, upper_cutoff_freq, ctr_freq, nbr_freq,
-                                 num_freqs)
+                                 num_freqs or width)
+    if num_freqs:
+        idx = np.minimum(idx, width - 1)
     out = x[:, :, torch.as_tensor(idx, device=x.device), :]  # [B, C, N, width, T]
     return out.transpose(1, 2)

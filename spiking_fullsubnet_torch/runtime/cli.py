@@ -9,8 +9,9 @@ the port, ``registry.resolve``). Each recipe directory names its trainer in
 a ``trainer.py`` that imports the JAX package, so the port never imports
 it: ``RECIPE_TRAINERS`` maps the recipe directory (the TOML's own, unless
 ``main`` is given another) and the module its ``[trainer] path`` names to
-the port's trainer. The weights live on ``--device``, ``cuda`` unless
-``cpu`` is asked for.
+the port's trainer. A GAN trainer also gets the discriminators of the
+TOML's ``[model_d*]`` sections. The weights live on ``--device``, ``cuda``
+unless ``cpu`` is asked for.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import functools
 from pathlib import Path
 
 from ..data import DataLoader
+from ..recipes.gan import GanDenoiseTrainer, build_discriminator_bundles
 from .config import toml_load
 from .logging_ import init_logging_logger
 from .registry import build_optimizer_factory, instantiate
@@ -27,12 +29,17 @@ from .registry import build_optimizer_factory, instantiate
 # (recipes/<group>/<recipe>, the recipe module its [trainer] path names)
 # -> the port's trainer class, by import path
 DENOISE = "spiking_fullsubnet_torch.recipes.denoise.DenoiseTrainer"
+GAN = "spiking_fullsubnet_torch.recipes.gan."
+FREEZE = ("intel_ndns", "spiking_fullsubnet_freeze_phase")
 RECIPE_TRAINERS = {
     ("intel_ndns", "spiking_fullsubnet", "trainer"): DENOISE,
+    ("intel_ndns", "spiking_fullsubnet", "trainer_GAN"): GAN + "GanDenoiseTrainer",
     ("intel_ndns", "cirm_gsn", "trainer"): DENOISE,
     # the freeze phase's GanDenoiseTrainer runs the plain denoise loop when
     # the TOML configures no discriminator (recipes/gan.py:235-236)
-    ("intel_ndns", "spiking_fullsubnet_freeze_phase", "trainer"): DENOISE,
+    (*FREEZE, "trainer"): GAN + "GanDenoiseTrainer",
+    (*FREEZE, "trainer_dualGAN"): GAN + "DualGanDenoiseTrainer",
+    (*FREEZE, "trainer_onlyGen"): GAN + "OnlyGenTrainer",
 }
 NOT_PORTED = "ROADMAP queue 1: remaining models and recipes"
 
@@ -43,9 +50,6 @@ def trainer_class(recipe_dir, config):
     if key not in RECIPE_TRAINERS:
         raise NotImplementedError(f"the recipe {'/'.join(key[:2])!r} with its {key[2]!r} "
                                   f"trainer is not ported yet ({NOT_PORTED})")
-    if any(section.startswith("model_d") for section in config):
-        raise NotImplementedError(f"the GAN trainer ([model_d*] sections) is not ported yet "
-                                  f"({NOT_PORTED})")
     return instantiate(RECIPE_TRAINERS[key], initialize=False)
 
 
@@ -84,9 +88,14 @@ def run(config, resume, modes, ckpt_path=None, recipe_dir=None, device=None):
     if "test" in modes or "predict" in modes:
         test_dataloaders = _loaders(config["test_dataset"])
 
+    extra = {}
+    if issubclass(trainer_cls, GanDenoiseTrainer):
+        # the discriminators of [model_d*], as run_GAN.py and run_dualGAN.py
+        # pass them through extra_trainer_kwargs
+        extra = build_discriminator_bundles(config, seed, device)
     trainer = trainer_cls(config=config, resume=resume, model=model,
                           optimizer_factory=optimizer_factory, base_lr=base_lr,
-                          loss_function=loss_function, device=device)
+                          loss_function=loss_function, device=device, **extra)
     ckpt_path = ckpt_path or config["meta"].get("ckpt_path", "best")
     try:
         for flag in modes:

@@ -30,7 +30,6 @@ ROADMAP_ITEMS: Dict[str, str] = {
     "recipes.separation": "the separation data and recipe",
     "metrics.dnsmos": "DNSMOS",
     "metrics.DNSMOS": "DNSMOS",
-    "models.fused_forward": "the fused forward",
     "streaming": "streaming",
     "parallel": "distributed training",
     "runtime.convert.import_spiking_fullsubnet": "the torch-checkpoint import",

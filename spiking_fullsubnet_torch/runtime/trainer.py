@@ -210,10 +210,13 @@ class Trainer:
 
     # ------------------------------------------------------------------ checkpointing
 
-    def _save_checkpoint(self, epoch: int, is_best_epoch: bool):
-        tree = {"params": self.params, "model_state": self.model_state,
+    def _train_tree(self) -> Dict[str, Any]:
+        """What a checkpoint holds: weights, model state, optimizer state."""
+        return {"params": self.params, "model_state": self.model_state,
                 "opt_state": self.optimizer.state_dict()}
-        self.ckpt_manager.save(epoch, tree, self.state, is_best_epoch)
+
+    def _save_checkpoint(self, epoch: int, is_best_epoch: bool):
+        self.ckpt_manager.save(epoch, self._train_tree(), self.state, is_best_epoch)
 
     def _set_weights(self, tree):
         """Copy saved weights into the live ones (the optimizer holds them)
@@ -226,10 +229,13 @@ class Trainer:
                 w.copy_(s)
         self.model_state = tree["model_state"]
 
-    def _load_checkpoint(self, ckpt_path: str):
-        tree = self.ckpt_manager.load(ckpt_path, self.state, map_location=self.device)
+    def _restore(self, tree: Dict[str, Any]):
+        """Take a loaded ``_train_tree``."""
         self._set_weights(tree)
         self.optimizer.load_state_dict(tree["opt_state"])
+
+    def _load_checkpoint(self, ckpt_path: str):
+        self._restore(self.ckpt_manager.load(ckpt_path, self.state, map_location=self.device))
         logger.info(f"Checkpoint on epoch {self.state.epochs_trained} is loaded.")
 
     def _load_eval_weights(self, ckpt_path: str):
@@ -279,9 +285,7 @@ class Trainer:
             f"max_steps={max_steps}, max_epochs={max_epochs}"
         )
 
-        num_warmup = get_warmup_steps(self.warmup_steps, max_steps, self.warmup_ratio)
-        self.lr_schedule = create_warmup_schedule(self.scheduler_name, self.base_lr, max_steps,
-                                                  num_warmup)
+        self._build_schedules(max_steps, update_steps_per_epoch)
         if self.resume:
             self._load_checkpoint("latest")
 
@@ -292,21 +296,16 @@ class Trainer:
             logger.info(f"{'=' * 9} Epoch {epoch} out of {max_epochs} {'=' * 9}")
             epoch_t0 = time.time()
             training_epoch_output = []
-            micro = 0  # as the JAX trainer: a partial sum carries into the next epoch
+            self._micro = 0  # as the JAX trainer: a partial sum carries into the next epoch
             for batch in train_dataloader:
-                loss_dict, state = self.training_step(self.to_device(batch[0]),
-                                                      self.to_device(batch[1]))
-                self.model_state = state
-                micro += 1
-                if micro == accum:
-                    lr = self.lr_schedule(updates_done)
-                    grad_norm = self.optimizer_update(lr)
-                    micro = 0
+                loss_dict, update = self._train_batch(batch, updates_done)
+                if update is not None:
                     updates_done += 1
-                    self._log_step(grad_norm, lr)
+                    self._log_step(*update)
                 training_epoch_output.append({k: float(v) for k, v in loss_dict.items()})
                 self.state.steps_trained += 1
-                if self.max_steps > 0 and updates_done >= self.max_steps:
+                if (self.max_steps > 0 and updates_done >= self.max_steps
+                        and not self.whole_epochs):
                     steps_exhausted = True
                     logger.info(f"Reached max_steps={self.max_steps}, stopping training.")
                     break
@@ -334,6 +333,31 @@ class Trainer:
                 break
             if steps_exhausted:
                 break
+
+    #: ``max_steps`` rounds up to whole epochs instead of stopping mid-epoch
+    whole_epochs = False
+
+    def _train_batch(self, batch, n: int):
+        """One batch at update count ``n``: ``training_step`` adds its
+        gradients, and the batch that completes ``gradient_accumulation_steps``
+        makes the update at the schedule's rate for ``n``. Returns (loss
+        dict, (global norm before clipping, rate) or None without an
+        update)."""
+        loss_dict, state = self.training_step(self.to_device(batch[0]), self.to_device(batch[1]))
+        self.model_state = state
+        self._micro += 1
+        if self._micro < self.gradient_accumulation_steps:
+            return loss_dict, None
+        self._micro = 0
+        lr = self.lr_schedule(n)
+        return loss_dict, (self.optimizer_update(lr), lr)
+
+    def _build_schedules(self, max_steps: int, steps_per_epoch: int):
+        """``self.lr_schedule``, the learning rate of each update: the
+        warm-up schedule."""
+        num_warmup = get_warmup_steps(self.warmup_steps, max_steps, self.warmup_ratio)
+        self.lr_schedule = create_warmup_schedule(self.scheduler_name, self.base_lr, max_steps,
+                                                  num_warmup)
 
     def optimizer_update(self, lr: float) -> torch.Tensor:
         """One optimizer update at learning rate ``lr`` from the summed

@@ -334,7 +334,7 @@ def test_zoo_m_layered_si_sdr_gain(compute_dtype):
 
 
 @pytest.mark.parametrize("change,match", [
-    ({"scan_mode": "fused"}, "the fused forward"),
+    ({"scan_mode": "fused", "norm_type": None, "band_axis": "band"}, "distributed training"),
     ({"sb_shared_bottleneck": 8}, "remaining models and recipes"),
     ({"norm_type": "forgetting_norm"}, "the rest of dsp/feature_norm.py"),
     ({"sequence_model": "LSTM"}, "remaining models and recipes"),

@@ -133,13 +133,21 @@ def test_registry_maps_jax_paths_and_names_what_is_not_ported():
     assert registry.resolve("spiking_fullsubnet_tpu.models.cirm_models.build") is cirm_models.build
     from spiking_fullsubnet_torch.losses import mse_loss
     assert registry.instantiate("torch.nn.MSELoss", initialize=False) is mse_loss
+    # the discriminator, the GAN trainers and the fused forward resolve in the port
+    from spiking_fullsubnet_torch.models import discriminator, fused_forward
+    from spiking_fullsubnet_torch.recipes import gan
+    assert registry.resolve("spiking_fullsubnet_tpu.models.discriminator.build") \
+        is discriminator.build
+    for name in ("GanDenoiseTrainer", "DualGanDenoiseTrainer", "OnlyGenTrainer",
+                 "build_discriminator_bundles"):
+        assert registry.resolve(f"spiking_fullsubnet_tpu.recipes.gan.{name}") is getattr(gan, name)
+    assert registry.resolve("spiking_fullsubnet_tpu.models.fused_forward."
+                            "spiking_fullsubnet_fused_forward") \
+        is fused_forward.spiking_fullsubnet_fused_forward
     for path, item in [
         ("spiking_fullsubnet_tpu.models.conv_tasnet.build", "remaining models and recipes"),
-        ("spiking_fullsubnet_tpu.models.discriminator.build", "remaining models and recipes"),
-        ("spiking_fullsubnet_tpu.recipes.gan.GanDenoiseTrainer", "remaining models and recipes"),
         ("spiking_fullsubnet_tpu.data.wsj0_mix.WSJ0MixDataset", "the separation data and recipe"),
         ("spiking_fullsubnet_tpu.data.ScpDataset", "the separation data and recipe"),
-        ("spiking_fullsubnet_tpu.models.fused_forward.fused_apply", "the fused forward"),
         ("spiking_fullsubnet_tpu.metrics.dnsmos.DNSMOS", "DNSMOS"),
         ("spiking_fullsubnet_tpu.metrics.DNSMOS", "DNSMOS"),
         ("spiking_fullsubnet_tpu.parallel.dist.scale_lr", "distributed training"),

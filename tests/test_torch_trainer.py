@@ -11,8 +11,8 @@
   gradient norm within rtol 1e-5 in float32, every update's learning rate
   equal, the later losses and the validation SI-SDR within rtol 1e-3.
 - ``max_steps`` stopping at exactly that many updates, and the refusals:
-  the default device without a GPU, a fused recipe, a GAN recipe and an
-  unported recipe.
+  the default device without a GPU and the unported recipes; the fused
+  flagship recipe validating on the CPU, and the GAN recipes' trainers.
 """
 
 from __future__ import annotations
@@ -201,20 +201,29 @@ def test_cli_refusals(tmp_path, monkeypatch):
         with pytest.raises(RuntimeError, match="CUDA"):
             cli.main(["-C", "tiny_synthetic.toml", "-M", "train"], recipe_dir=SFS)
 
-    # the fused recipes keep the forward's own refusal, on synthetic data
+    # the fused flagship recipe validates on the CPU (the single scan written
+    # out, at the recipe's full width) on synthetic data
     tiny = toml_load(SFS / "tiny_synthetic.toml")
     fused = toml_load(SFS / "baseline_m.toml")
     assert fused["model"]["args"]["scan_mode"] == "fused"
     for k in ("train_dataset", "validate_dataset", "test_dataset"):
         fused[k] = tiny[k]
+    fused["validate_dataset"]["args"]["num_samples"] = 1
     toml_dump(fused, tmp_path / "baseline_m.toml")
-    with pytest.raises(NotImplementedError, match="the fused forward"):
-        cli.main(["-C", "baseline_m.toml", "--device", "cpu"], recipe_dir=SFS)
+    t = cli.main(["-C", "baseline_m.toml", "-M", "validate", "--device", "cpu"], recipe_dir=SFS)
+    assert t.model_config.scan_mode == "fused" and t.model_config.fb_hidden_size == 320
+    header = _mean_csv_header(tmp_path / "exp" / "baseline_m", 0)
+    assert header[:2] == ["si_sdr", "stoi"] and "synops" in header
+
+    # the GAN recipes take the GAN trainers
+    freeze = RECIPES / "intel_ndns" / "spiking_fullsubnet_freeze_phase"
+    from spiking_fullsubnet_torch.recipes.gan import DualGanDenoiseTrainer, GanDenoiseTrainer
+    assert cli.trainer_class(SFS, toml_load(SFS / "tiny_synthetic_GAN.toml")) \
+        is GanDenoiseTrainer
+    assert cli.trainer_class(freeze, toml_load(freeze / "baseline_m_dualGAN.toml")) \
+        is DualGanDenoiseTrainer
 
     for toml, match in [
-        (SFS / "tiny_synthetic_GAN.toml", "remaining models and recipes"),
-        (RECIPES / "intel_ndns" / "spiking_fullsubnet_freeze_phase" / "baseline_m_dualGAN.toml",
-         "remaining models and recipes"),
         (RECIPES / "wsj0-mix" / "conv_tasnet" / "tiny_synthetic.toml",
          "remaining models and recipes"),
         (RECIPES / "intel_ndns" / "sdnn_delays" / "tiny_synthetic.toml",
@@ -229,6 +238,7 @@ def test_cli_refusals(tmp_path, monkeypatch):
     t = cli.main(["-C", "tiny_synthetic.toml", "--device", "cpu"], recipe_dir=SFS)
     x, y = torch.zeros(3), torch.tensor([1.0, -2.0, 3.0])
     assert t.loss_function(x, y).item() == 2.0 and t.state.epochs_trained == 0
-    # a freeze-phase TOML without a discriminator runs the plain denoise trainer
-    freeze = RECIPES / "intel_ndns" / "spiking_fullsubnet_freeze_phase"
-    assert cli.trainer_class(freeze, toml_load(freeze / "baseline_m.toml")) is DenoiseTrainer
+    # the freeze phase's trainer is the GAN trainer (as in the JAX package),
+    # which without a discriminator runs the plain denoise loop
+    assert cli.trainer_class(freeze, toml_load(freeze / "baseline_m.toml")) is GanDenoiseTrainer
+    assert issubclass(GanDenoiseTrainer, DenoiseTrainer)
