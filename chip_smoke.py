@@ -245,7 +245,35 @@ is non-zero:
             (c) the freeze phase's baseline_m_dualGAN.toml (zoo M width,
             offline norm, two discriminators with ExponentialLR): one epoch
             of two updates; both discriminators move, each one's rate and
-            the generator's equal to their schedules.
+            the generator's equal to their schedules;
+11. serving the hop-synchronous stream, the serving export and the
+            reference-checkpoint import: (a) flagship M (random weights from
+            seed 0, f32) streamed at batch 1, one hop a step, over 10 s of
+            Gaussian audio (0.1 rms, seed 0), primed: the interior against
+            the offline forward (kernel C) within 2e-4 (the bound of
+            tests/test_streaming.py for the same two formulations) while
+            every spike equals the layered forward's, else, where spikes
+            flip (printed per layer), within a relative L2 of 0.05 (the JAX
+            tests' allowance for sparse flips, tests/test_tpu_kernels.py:
+            240-242); no kernel launched; the CUDA graph's output and final state
+            equal the eager step's bit for bit over the whole stream; ms per
+            hop (CUDA events, the mean of 512 hops after a warm-up) of the
+            graph and the eager step at chunk_frames 1 and 4 beside the 8 ms
+            budget; (b) zoo M with the cumulative norm streamed over the
+            speech fixture: SI-SDR gain > 8 dB, the interior against the
+            served forward as in (a); (c) flagship M exported
+            (tools/export_serving) offline at 1 x 30 s on scan_mode "auto"
+            (kernel C) and "fused" (kernel F) and as the streaming step
+            (batch 1, one hop), each saved, loaded and run equal to the live
+            graph at atol 0, the loaded offline programs launching C once and
+            F four times, the streaming one nothing; torch.library.opcheck on
+            the operators of A, B, C and F at narrow models' shapes; (d) zoo
+            M's weights saved as a frozen-generation reference checkpoint
+            (the reference's key names, DDP's "module." prefix), then
+            runtime.cli -M test --torch_ckpt on freeze_phase/baseline_m.toml
+            with phase 9's synthetic test set: the trainer's weights equal
+            SpikingFullSubNet.from_npz's bit for bit, F four launches a
+            test batch.
 
 About 8 to 12 minutes on one H100, the build included.
 
@@ -2094,6 +2122,351 @@ def gan_phase(gk, dev):
     return out
 
 
+# ------------------------------------------------------------------ phase 11: serving
+
+STREAM_SECONDS = 10.0  # the flagship stream of phase 11 (a)
+HOPS_TIMED = 512  # hops each ms-per-hop reading averages
+EXPORT_SECONDS = 30.0  # the offline artifacts' input length
+# the interior of a primed stream against the offline forward: the bound of
+# tests/test_streaming.py:55-56 for the same two formulations while every
+# spike agrees; where spikes flip (the per-hop products and the offline
+# kernels sum in other orders, and over thousands of frames a membrane near
+# 0 rounds the other way, the flip then moving its row), the JAX tests'
+# allowance for sparse spike flips in the pre-LN flagship, a relative L2 of
+# the audio under 0.05 (tests/test_tpu_kernels.py:240-242)
+STREAM_ATOL = 2e-4
+FLIP_REL_L2 = 0.05
+
+
+def stream_run(step, state, audio, chunk, keep_h=False):
+    """``audio [B, T]`` (T a multiple of ``chunk``) through ``step(state,
+    chunk)``: (the enhanced samples, the final state, each step's spikes of
+    every layer when ``keep_h``: fullband layers, then each section's)."""
+    outs, spikes = [], []
+    for i in range(0, audio.shape[-1], chunk):
+        state, y = step(state, audio[:, i:i + chunk])
+        outs.append(y)
+        if keep_h:
+            spikes.append([h for h, _ in state["fb"]]
+                          + [h for sec in state["sb"] for h, _ in sec])
+    return torch.cat(outs, dim=-1), state, spikes
+
+
+def primed_stream(enh, x):
+    """A primed stream of ``x [1, T]`` (``tests/test_streaming.py:43-56``):
+    the state primed with ``x[:, :prime_len]``, the rest streamed hop by hop
+    with zeros after it to flush the tail. Emission i estimates sample i -
+    n_fft / 2. Returns (the estimate of x's samples ``[1, T]``, the
+    stream's output, each step's spikes)."""
+    cfg = enh.cfg
+    pad, hop, T = cfg.n_fft // 2, cfg.hop_length, x.shape[-1]
+    rest = x[:, enh.prime_len:]
+    n = -(-(T + pad) // hop) * hop
+    feed = torch.nn.functional.pad(rest, (0, n - rest.shape[-1]))
+    out, _, spikes = stream_run(enh.step, enh.init_state(prime_samples=x[:, :enh.prime_len]),
+                                feed, hop, keep_h=True)
+    return out[:, pad:pad + T], out, spikes
+
+
+def interior(stream_out, offline, cfg):
+    """(the stream's interior, the offline forward's), aligned as
+    tests/test_streaming.py does: emission m is OLA[m hop:(m + 1) hop], the
+    offline output OLA[pad:]; one extra hop skipped at the start and two at
+    the tail."""
+    hop, pad = cfg.hop_length, cfg.n_fft // 2
+    k0 = pad // hop + 1
+    aligned = stream_out[:, k0 * hop:]
+    n = min(aligned.shape[-1], offline.shape[-1] - hop) - 2 * hop
+    return aligned[:, :n], offline[:, hop:hop + n]
+
+
+def interior_check(what, stream_out, spikes, offline, layered, cfg):
+    """The primed stream's interior against the offline forward: within
+    STREAM_ATOL where every layer's spikes equal the layered forward's, else
+    within FLIP_REL_L2; the flips per layer printed. Returns the numbers."""
+    got, want = interior(stream_out, offline, cfg)
+    err, rel = max_abs(got, want), rel_l2(got, want)
+    flips = spike_flips(spikes, layered, cfg.fb_num_layers)
+    bound = f"rel L2 < {FLIP_REL_L2} (spikes flipped)" if any(flips) else f"atol {STREAM_ATOL}"
+    log(f"[serving] {what}: interior max abs err {err:.3e}, rel L2 {rel:.3e} (bound {bound}); "
+        f"spike flips per layer against the layered forward {flips}")
+    require(rel < FLIP_REL_L2 if any(flips) else err < STREAM_ATOL,
+            f"{what}: interior max abs err {err}, rel L2 {rel}, flips {flips}")
+    return {"interior_max_abs_err": err, "interior_rel_l2": rel, "spike_flips_per_layer": flips,
+            "bound": bound}
+
+
+def spike_flips(spikes, layered, n_fb):
+    """Per layer, the share of spikes that differ between the stream (step t)
+    and the offline layered forward (frame t): fullband layers, then each
+    section's."""
+    offline = layered["fb_all_layer_outputs"][1:1 + n_fb]
+    for sec in layered["sb_all_layer_outputs"]:
+        offline += sec[1:-1]
+    T = min(len(spikes), offline[0].shape[0])
+    return [(torch.stack([s[k] for s in spikes[:T]]) != offline[k][:T]).float().mean().item()
+            for k in range(len(offline))]
+
+
+def ms_per_hop(step, state, chunk_audio, hops):
+    """Mean ms a hop of ``step`` over ``hops`` hops (CUDA events), after a
+    warm-up of eight steps; the state threads through."""
+    st = state
+    for _ in range(8):
+        st, _ = step(st, chunk_audio)
+    steps = max(1, hops * 128 // chunk_audio.shape[-1])
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(steps):
+        st, _ = step(st, chunk_audio)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (steps * chunk_audio.shape[-1] // 128)
+
+
+class OpCalls:
+    """Records every call of a ``sfs_torch`` operator (a kernel launch) while
+    active: (the operator, its arguments), for ``torch.library.opcheck``."""
+
+    def __init__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        calls = self.calls = []
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                if func.namespace == "sfs_torch":  # eval operators: no autograd formula
+                    calls.append((func, tuple(a.detach() if isinstance(a, torch.Tensor) else a
+                                              for a in args)))
+                return func(*args, **(kwargs or {}))
+
+        self.mode = Mode()
+
+    def __enter__(self):
+        self.mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.mode.__exit__(*exc)
+
+
+def reference_state_dict(params, state, generation="frozen", prefix="module."):
+    """A reference checkpoint of the weights under the reference's key
+    names (``runtime/convert.py``'s map read backwards): the frozen
+    generation's ``fc_output_layer`` and no pre-LayerNorm, or the latest's
+    ``proj`` and ``pre_layer_norm``; with DDP's ``module.`` prefix."""
+    sd = {}
+
+    def seq(p, st, name):
+        if "pre_ln" in p:
+            for k in ("weight", "bias"):
+                sd[f"{name}.pre_layer_norm.{k}"] = p["pre_ln"][k]
+        for i, (lp, ls) in enumerate(zip(p["stack"]["layers"], st["stack"]["layers"])):
+            cp = f"{name}.sequence_model.layers.{i}.cell"
+            for k in ("weight_ih", "weight_hh", "bias_ih"):
+                sd[f"{cp}.{k}"] = lp[k]
+            if "bn" in lp:
+                for k in ("weight", "bias"):
+                    sd[f"{cp}.batchnorm.{k}"] = lp["bn"][k]
+                for k in ("running_mean", "running_var"):
+                    sd[f"{cp}.batchnorm.{k}"] = ls["bn"][k]
+        proj = "fc_output_layer" if generation == "frozen" else "proj"
+        for k in ("weight", "bias"):
+            sd[f"{name}.{proj}.{k}"] = p["proj"][k]
+
+    seq(params["fb"], state["fb"], "fb_model")
+    for i, (p, st) in enumerate(zip(params["sb"], state["sb"])):
+        seq(p, st, f"sb_model.sb_models.{i}")
+    return {prefix + k: v.detach().cpu().clone() for k, v in sd.items()}
+
+
+def serving_phase(gk, dev):
+    """Phase 11 (see the module docstring); returns its numbers."""
+    import shutil
+    import tempfile
+
+    from spiking_fullsubnet_torch.models.presets import flagship_m
+    from spiking_fullsubnet_torch.models.spiking_fullsubnet import (
+        SpikingFullSubNet, separator_config, spiking_fullsubnet_apply)
+    from spiking_fullsubnet_torch.runtime import cli
+    from spiking_fullsubnet_torch.runtime.config import toml_dump
+    from spiking_fullsubnet_torch.runtime.convert import flat_paths, load_npz
+    from spiking_fullsubnet_torch.streaming import StreamingEnhancer, state_leaves
+    from spiking_fullsubnet_torch.tools import export_serving as es
+
+    torch.set_grad_enabled(False)
+    smi = card_name()
+    out = {}
+    rng = np.random.default_rng(0)
+
+    # (a) flagship M streaming, batch 1
+    flag = flagship_m(seed=0, device=dev, scan_mode="auto", collect_layer_outputs=False)
+    cfg, hop = flag["config"], flag["config"].hop_length
+    x = torch.from_numpy((rng.standard_normal((1, int(STREAM_SECONDS * SR))) * 0.1).astype(
+        np.float32)).to(dev)
+    enh = StreamingEnhancer(cfg, flag["params"], flag["state"], batch_size=1, chunk_frames=1,
+                            device=dev)
+    zero_counts(gk)
+    _, stream_out, spikes = primed_stream(enh, x)
+    torch.cuda.synchronize()
+    stream_launches = launch_counts(gk)
+    require(not any(stream_launches.values()),
+            f"the streaming step launched kernels {stream_launches}")
+    offline = spiking_fullsubnet_apply(cfg, flag["params"], flag["state"], x)["enhanced_y"]
+    layered = spiking_fullsubnet_apply(replace(cfg, scan_mode="layered"), flag["params"],
+                                       flag["state"], x)
+    agree = interior_check(f"flagship M stream 1 x {STREAM_SECONDS:.0f} s primed against the "
+                           "offline forward (kernel C)", stream_out, spikes, offline, layered, cfg)
+    del layered
+
+    # the graph against the eager step over the whole stream, bit for bit
+    feed = x[:, :x.shape[-1] // hop * hop]
+    g_out, g_state, _ = stream_run(enh.step, enh.init_state(), feed, hop)
+    e_out, e_state, _ = stream_run(enh.eager_step, enh.init_state(), feed, hop)
+    torch.cuda.synchronize()
+    same = torch.equal(g_out, e_out) and all(
+        torch.equal(a, b) for a, b in zip(state_leaves(g_state), state_leaves(e_state)))
+    log(f"[serving] flagship M graph against eager over {feed.shape[-1] // hop} hops: output and "
+        f"final state equal bit for bit: {same}")
+    require(same, "the graph step differs from the eager step")
+
+    timing = {}
+    for cf in (1, 4):
+        e_cf = StreamingEnhancer(cfg, flag["params"], flag["state"], batch_size=1,
+                                 chunk_frames=cf, device=dev)
+        chunk = x[:, :cf * hop].contiguous()
+        for name, step in (("graph", e_cf.step), ("eager", e_cf.eager_step)):
+            ms = ms_per_hop(step, e_cf.init_state(), chunk, HOPS_TIMED)
+            budget = hop / SR * 1e3
+            timing[f"{name}_cf{cf}"] = {"streaming_ms_per_hop_b1": ms,
+                                        "streaming_hop_budget_ms": budget,
+                                        "streaming_realtime_ok": bool(ms < budget)}
+            log(f"[serving] flagship M {name} chunk_frames {cf}: {ms:.4f} ms per hop "
+                f"(mean of {HOPS_TIMED} hops, CUDA events) against the {budget} ms budget, "
+                f"real time {ms < budget}; {smi}")
+    out["flagship_stream"] = dict(agree, graph_equals_eager=same, launches=stream_launches,
+                                  timing=timing)
+
+    # (b) zoo M with the cumulative norm, streamed over the quality fixture
+    zcfg = replace(separator_config(norm_type="cumulative_laplace_norm", shared_weights=True,
+                                    bn=True), scan_mode="auto", collect_layer_outputs=False)
+    zoo = SpikingFullSubNet.from_npz(str(ZOO_M), zcfg, device=dev)
+    clean, noisy = speech_fixture()
+    xq = torch.from_numpy(noisy[None]).to(dev)
+    zenh = StreamingEnhancer(zcfg, zoo.param_tree(), zoo.state_tree(), device=dev)
+    aligned, zout, zspikes = primed_stream(zenh, xq)
+    gain = si_sdr_gain(aligned, clean, noisy)
+    log(f"[serving] zoo M cumulative norm streamed over the speech fixture: SI-SDR gain "
+        f"{gain:.3f} dB (bound > 8)")
+    require(gain > 8.0, f"zoo M streamed gain {gain}")
+    zlayered = spiking_fullsubnet_apply(replace(zcfg, scan_mode="layered"), zoo.param_tree(),
+                                        zoo.state_tree(), xq)
+    zagree = interior_check("zoo M cumulative stream against the served forward (kernel C)",
+                            zout, zspikes, zoo(xq)["enhanced_y"], zlayered, zcfg)
+    out["zoo_m_cum_stream"] = dict(zagree, gain_db=gain)
+
+    # (c) the serving export of flagship M, batch 1
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_export_"))
+    try:
+        xe = torch.from_numpy((rng.standard_normal((1, int(EXPORT_SECONDS * SR))) * 0.1).astype(
+            np.float32)).to(dev)
+        exports = {}
+        for mode, want in (("auto", {"C": 1}), ("fused", {"F": 4})):
+            bundle = es.build_bundle(None, device=dev, scan_mode=mode,
+                                     collect_layer_outputs=False)
+            t0 = time.perf_counter()
+            ep, _ = es.export_offline(bundle, 1, EXPORT_SECONDS, SR)
+            path = tmp / f"offline_{mode}.pt2"
+            torch.export.save(ep, str(path))
+            secs = time.perf_counter() - t0
+            live = es._Enhance(bundle)(xe)
+            zero_counts(gk)
+            loaded = es.roundtrip_check(path, (xe,), live)
+            torch.cuda.synchronize()
+            got = {k: v for k, v in launch_counts(gk).items() if v}
+            log(f"[serving] export flagship M offline scan_mode={mode} 1 x {EXPORT_SECONDS:.0f} s:"
+                f" exported and saved in {secs:.1f} s ({path.stat().st_size} bytes); loaded and "
+                f"run: equal to the live graph at atol 0; its launches {got}")
+            require(got == want, f"the {mode} artifact launched {got}, expected {want}")
+            exports[mode] = {"export_s": secs, "bytes": path.stat().st_size, "launches": got}
+            del loaded
+        ep, senh, sstate, schunk = es.export_streaming(flag, 1, 1)
+        spath = tmp / "streaming_step_b1_cf1.pt2"
+        torch.export.save(ep, str(spath))
+        restored = torch.export.load(str(spath)).module()
+        st_live = st_art = sstate
+        zero_counts(gk)
+        for i in range(8):  # the state threads through the artifact
+            c = x[:, i * hop:(i + 1) * hop].contiguous()
+            st_live, y_live = senh.eager_step(st_live, c)
+            st_art, y_art = restored(st_art, c)
+            require(torch.equal(y_art, y_live) and all(
+                torch.equal(a, b) for a, b in zip(state_leaves(st_art), state_leaves(st_live))),
+                f"the streaming artifact differs from the live step at step {i}")
+        torch.cuda.synchronize()
+        s_launch = {k: v for k, v in launch_counts(gk).items() if v}
+        require(not s_launch, f"the streaming artifact launched {s_launch}")
+        log(f"[serving] export flagship M streaming step b1 cf1 ({spath.stat().st_size} bytes): "
+            f"8 steps through the loaded artifact equal the live step at atol 0, no kernel "
+            f"launched")
+        exports["streaming"] = {"bytes": spath.stat().st_size}
+
+        # opcheck on each operator at small shapes: the launches of narrow
+        # models' forwards (A and B: the two-launch path; C: the monolith;
+        # F: the layered forward)
+        narrow = dict(fb_hidden_size=24, sb_hidden_size=16, collect_layer_outputs=False)
+        two_launch = replace(separator_config(norm_type="offline_laplace_norm", bn=True,
+                                              shared_weights=True), scan_mode="auto", **narrow)
+        pre_ln = flagship_m(device="cpu", scan_mode="auto", **narrow)["config"]
+        xs = x[:, :4000].contiguous()
+        with OpCalls() as rec:
+            for tcfg in (two_launch, pre_ln, replace(pre_ln, scan_mode="layered")):
+                SpikingFullSubNet.from_init(tcfg, seed=1, device=dev)(xs)
+        checked = {}
+        for func, args in rec.calls:
+            name = func.name().split("::")[1].split(".")[0]
+            if name not in checked:
+                torch.library.opcheck(func, args)
+                checked[name] = [tuple(a.shape) for a in args if isinstance(a, torch.Tensor)]
+        log(f"[serving] torch.library.opcheck passed on {sorted(checked)} at {checked}")
+        require(sorted(checked) == ["gsu_sections_eval", "gsu_stack_eval", "gsu_stack_eval_x",
+                                    "sfsb_monolith_serve"], f"opcheck covered {sorted(checked)}")
+        exports["opcheck"] = sorted(checked)
+        out["export"] = exports
+
+        # (d) the reference-checkpoint import through the CLI
+        tree = load_npz(str(ZOO_M), device="cpu")
+        ckpt = tmp / "pytorch_model.bin"
+        torch.save(reference_state_dict(tree["params"], tree["state"]), ckpt)
+        toml = tmp / "import_smoke.toml"
+        toml_dump(trainer_config(tmp, 1), toml)
+        zero_counts(gk)
+        t0 = time.perf_counter()
+        tested = cli.main(["-C", str(toml), "-M", "test", "--torch_ckpt", str(ckpt),
+                           "--device", dev.type], recipe_dir=FREEZE_RECIPE)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = {k: v for k, v in launch_counts(gk).items() if v}
+        ref = SpikingFullSubNet.from_npz(str(ZOO_M), tested.model_config, device=dev)
+        got_p, want_p = flat_paths(tested.params), flat_paths(ref.param_tree())
+        got_s, want_s = flat_paths(tested.model_state), flat_paths(ref.state_tree())
+        equal = (got_p.keys() == want_p.keys() and got_s.keys() == want_s.keys()
+                 and all(torch.equal(got_p[k], want_p[k]) for k in want_p)
+                 and all(torch.equal(got_s[k], want_s[k]) for k in want_s))
+        n_batches = TRAINER_DATA["test_dataset"][0]
+        log(f"[serving] runtime.cli -M test --torch_ckpt (frozen generation, module. prefix) on "
+            f"freeze_phase/baseline_m.toml, {n_batches} test batches in {secs:.1f} s: the "
+            f"trainer's weights equal SpikingFullSubNet.from_npz's bit for bit: {equal}; "
+            f"launches {launches}")
+        require(equal, "the imported weights differ from from_npz's")
+        require(launches == {"F": 4 * n_batches}, f"the import test run launched {launches}")
+        out["import"] = {"weights_equal": equal, "launches": launches, "seconds": secs}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing to run", file=sys.stderr)
@@ -2619,9 +2992,13 @@ def main() -> int:
     # ---- 10. the flagship recipes: the fused forward and the GAN trainers ----
     stamp("10. the flagship recipes")
     flagship = {"fused": fused_forward_checks(gk, dev), "gan": gan_phase(gk, dev)}
+
+    # ---- 11. serving: streaming, export, checkpoint import ----
+    stamp("11. serving: streaming, export, checkpoint import")
+    serving = serving_phase(gk, dev)
     stamp("end")
     print(json.dumps({"kernels": kernels, "forwards": forwards, "training": train_t,
-                      "trainer": trainer, "flagship": flagship,
+                      "trainer": trainer, "flagship": flagship, "serving": serving,
                       "stream_checks": stream, "mode_checks": modes["checks"],
                       "batch": BENCH_B, "seconds": BENCH_SECONDS,
                       "train_batch": TRAIN_B, "train_seconds": TRAIN_SECONDS}), flush=True)

@@ -23,6 +23,15 @@ Covered so far, with weights from the JAX ``.npz`` files or a seeded init:
 - the recipe trainer: ``python -m spiking_fullsubnet_torch.runtime.cli -C
   <toml> -M train|validate|test|predict|finetune`` on the repo's recipe
   TOMLs (``runtime/``, ``data/``, ``metrics/``,
-  ``recipes/denoise.DenoiseTrainer``).
+  ``recipes/denoise.DenoiseTrainer``), and the MetricGAN trainers
+  (``recipes/gan.py``);
+- serving: hop-synchronous streaming (``streaming.StreamingEnhancer``, a
+  CUDA graph of the chunk step on the card), the serving export
+  (``python -m spiking_fullsubnet_torch.tools.export_serving``: the
+  offline forward and the streaming step as ``torch.export`` artifacts,
+  kernels A, B, C and F as the operators ``sfs_torch::*``) and the
+  reference's torch checkpoints (``runtime/convert.py``, the CLI's
+  ``--torch_ckpt``, ``python -m spiking_fullsubnet_torch.tools.
+  convert_checkpoint``).
 See ROADMAP.md for the rest.
 """

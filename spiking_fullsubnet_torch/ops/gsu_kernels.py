@@ -329,10 +329,8 @@ def gsu_stack_eval(xg0: torch.Tensor, wihr: torch.Tensor, whh: torch.Tensor,
     _check_cuda("wihr", wihr, io, dev, (max(L - 1, 1), H, G))
     _check_cuda("whh", whh, io, dev, (L, H, G))
     _check_cuda("coef", coef, torch.float32, dev, (L, 4, H))
-    out = _stack_a_launch(xg0, wihr, whh, coef, H, shared, collect_all,
-                          _stack_a_plan(xg0, H, L, shared))
-    gsu_stack_eval.launches += 1
-    return out
+    return _stack_a_launch(xg0, wihr, whh, coef, H, shared, collect_all,
+                           _stack_a_plan(xg0, H, L, shared))
 
 
 gsu_stack_eval.launches = 0
@@ -390,9 +388,7 @@ def gsu_stack_eval_x(x: torch.Tensor, wih0: torch.Tensor, wihr: torch.Tensor,
     _check_cuda("whh", whh, io, dev, (L, H, G))
     _check_cuda("coef", coef, torch.float32, dev, (L, 4, H))
     plan = stack_x_plan(R, Fin, H, L, shared, io, sms=_sm_count(dev.index or 0))
-    out = _stack_x_launch(x, wih0, wihr, whh, coef, hidden, shared, plan)
-    gsu_stack_eval_x.launches += 1
-    return out
+    return _stack_x_launch(x, wih0, wihr, whh, coef, hidden, shared, plan)
 
 
 gsu_stack_eval_x.launches = 0
@@ -1083,20 +1079,19 @@ def gsu_sections_eval(secs: List[Dict[str, Any]], xa: torch.Tensor, xb: torch.Te
             _check_cuda(f"section {i} {k}", s[k], dt, dev, shp)
     plan = sections_plan(_sec_dims(secs, Fb, H, shared), B, io, df_mode,
                          sms=_sm_count(dev.index or 0))
-    out = _sections_launch(secs, xa, xb, alpha, spec_re, spec_im, hidden, shared, beta, plan)
-    gsu_sections_eval.launches += 1
-    return out
+    return _sections_launch(secs, xa, xb, alpha, spec_re, spec_im, hidden, shared, beta, plan)
 
 
 def _sections_launch(secs, xa, xb, alpha, spec_re, spec_im, hidden, shared, beta, plan,
                      prof=False):
     """Kernel B's launch on ``plan`` (the wrapper's checks done): its
-    result, or with ``prof`` the phase counters [blocks, 8]."""
+    result through the kernel's operator, or with ``prof`` the phase
+    counters [blocks, 8] of a direct launch."""
     T, B, Fa = xa.shape
     Fb = xb.shape[-1]
     H, L = hidden, int(secs[0]["whh"].shape[0])
     G = H if shared else 2 * H
-    io, dev, f32 = xa.dtype, xa.device, torch.float32
+    dev, f32 = xa.device, torch.float32
     U = sum(int(s["wa"].shape[0]) for s in secs)
     W = sum(int(s["wa"].shape[0]) * s["ctr"] for s in secs)
     df_mode = spec_re is not None
@@ -1129,39 +1124,60 @@ def _sections_launch(secs, xa, xb, alpha, spec_re, spec_im, hidden, shared, beta
     for g, grp in enumerate(plan["groups"]):
         for q, v in enumerate(grp):
             args.grp[g][q] = v
-    if df_mode:
-        out_re = torch.empty(T, B, W, dtype=f32, device=dev)
-        out_im = torch.empty_like(out_re)
-        out_proj = None
-    else:
-        out_re = out_im = None
-        out_proj = torch.empty(o_proj, dtype=io, device=dev)
-    counters = torch.zeros(plan["blocks"], 8, dtype=torch.int64, device=dev) if prof else None
-    ptrs = dict(xa=xa, xb=xb, alpha=alpha, beta=beta, spec_re=spec_re, spec_im=spec_im, w=flat,
-                out_re=out_re, out_im=out_im, out_proj=out_proj, prof=counters,
-                **{k: torch.cat(v) for k, v in f_arr.items()})
-    for k in _SECTIONS_PTRS:
-        setattr(args, k, None if ptrs[k] is None else ptrs[k].data_ptr())
     for k, v in dict(T=T, B=B, Fa=Fa, Fb=Fb, Fs=spec_re.shape[-1] if df_mode else 0, U=U, W=W,
                      H=H, L=L, shared=int(shared),
                      alpha_mode=ALPHA_MODES[None if alpha is None else alpha.ndim],
                      df_mode=int(df_mode), blocks=plan["blocks"], Hp=plan["Hp"],
                      n_sec=len(secs), n_groups=len(plan["groups"]), smem=plan["smem"]).items():
         setattr(args, k, v)
-    lib = _lib("sections")
-    with torch.cuda.device(dev):
-        rc = lib.gsu_sections_eval_launch(int(io == torch.bfloat16), ctypes.byref(args), _stream())
-    _check_rc(lib, rc, "gsu_sections_eval", SECTIONS_LIMITS)
+    inputs = (xa, xb, alpha, beta, spec_re, spec_im, flat,
+              *(torch.cat(f_arr[k]) for k in ("coef", "bproj", "uv")))
     if prof:
+        counters = torch.zeros(plan["blocks"], 8, dtype=torch.int64, device=dev)
+        _sections_run(args, *inputs, prof=counters)
         return counters
+    outs = torch.ops.sfs_torch.gsu_sections_eval(*inputs, struct_words(args))
     if df_mode:
-        return out_re, out_im
-    projs, o = [], 0
+        return tuple(outs)
+    out_proj, projs, o = outs[0], [], 0
     for s in secs:
         n, P = int(s["wa"].shape[0]), int(s["wproj"].shape[1])
         projs.append(out_proj[o:o + n * T * B * P].view(n, T, B, P))
         o += n * T * B * P
     return projs
+
+
+# kernel B's operator inputs, in order (the pointer fields of SectionsArgs)
+_SECTIONS_IN = ("xa", "xb", "alpha", "beta", "spec_re", "spec_im", "w", "coef", "bproj", "uv")
+
+
+def _sections_out(args: "_SectionsArgs", xa: torch.Tensor) -> Dict[str, Tuple[Tuple[int, ...],
+                                                                              torch.dtype]]:
+    """Kernel B's outputs (name -> shape, dtype): the enhanced (re, im) in
+    the deep-filter mode, else every section's projection, flat."""
+    if args.df_mode:
+        return {k: ((args.T, args.B, args.W), torch.float32) for k in ("out_re", "out_im")}
+    n = sum(args.sec[i].n * args.sec[i].P for i in range(args.n_sec)) * args.T * args.B
+    return {"out_proj": ((n,), xa.dtype)}
+
+
+def _sections_run(args: "_SectionsArgs", *inputs, prof=None) -> List[torch.Tensor]:
+    """Launch kernel B on ``args`` (its sizes and plan set) over ``inputs``
+    (``_SECTIONS_IN``): allocates the outputs, points the arguments at the
+    tensors and checks the launch."""
+    xa = inputs[0]
+    outs = {k: torch.empty(shape, dtype=dt, device=xa.device)
+            for k, (shape, dt) in _sections_out(args, xa).items()}
+    ptrs = dict(zip(_SECTIONS_IN, inputs), prof=prof, **outs)
+    for k in _SECTIONS_PTRS:
+        t = ptrs.get(k)
+        setattr(args, k, None if t is None else t.data_ptr())
+    lib = _lib("sections")
+    with torch.cuda.device(xa.device):
+        rc = lib.gsu_sections_eval_launch(int(xa.dtype == torch.bfloat16), ctypes.byref(args),
+                                          _stream())
+    _check_rc(lib, rc, "gsu_sections_eval", SECTIONS_LIMITS)
+    return list(outs.values())
 
 
 def sections_profile(*args) -> Dict[str, Any]:
@@ -1497,16 +1513,22 @@ def _gate_perm(H: int, shared: bool) -> List[int]:
     return perm
 
 
-@functools.lru_cache(maxsize=16)
-def _frag_index(device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(row, column) within a 16 x 16 tile of each lane's 8 A-fragment
-    values of mma.sync m16n8k16 (``mma_a_fragments``), [32, 8] each."""
-    lane = torch.arange(32)
-    e = torch.arange(8)
+# The packing's index tables are cached as numpy arrays and made tensors at
+# each use: a tensor cached while torch.export traces would be a fake one.
+@functools.lru_cache(maxsize=1)
+def _frag_index_np() -> Tuple[np.ndarray, np.ndarray]:
+    lane = np.arange(32)
+    e = np.arange(8)
     reg, half = e // 2, e % 2
     mi = (lane // 4)[:, None] + 8 * (reg % 2)[None, :]
     ki = (2 * (lane % 4))[:, None] + half[None, :] + 8 * (reg // 2)[None, :]
-    return mi.to(device), ki.to(device)
+    return mi, ki
+
+
+def _frag_index(device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(row, column) within a 16 x 16 tile of each lane's 8 A-fragment
+    values of mma.sync m16n8k16 (``mma_a_fragments``), [32, 8] each."""
+    return tuple(torch.as_tensor(a, device=device) for a in _frag_index_np())
 
 
 def mma_a_fragments(a: torch.Tensor) -> torch.Tensor:
@@ -1521,10 +1543,14 @@ def mma_a_fragments(a: torch.Tensor) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=64)
+def _col_index_np(M: int, gate: Optional[Tuple[int, bool]]) -> np.ndarray:
+    perm = _gate_perm(*gate) if gate else list(range(M)) + [-1] * (_r16(M) - M)
+    return np.array([p if p >= 0 else M for p in perm])
+
+
 def _col_index(M: int, gate: Optional[Tuple[int, bool]], device: torch.device) -> torch.Tensor:
     """The source column of each packed column (M: a zero pad column)."""
-    perm = _gate_perm(*gate) if gate else list(range(M)) + [-1] * (_r16(M) - M)
-    return torch.tensor([p if p >= 0 else M for p in perm], device=device)
+    return torch.as_tensor(_col_index_np(M, gate), device=device)
 
 
 def _pack_mat(w: torch.Tensor, kparts: Sequence[int], gate: Optional[Tuple[int, bool]],
@@ -1636,7 +1662,8 @@ def _set_mat(dst: _MonoMatC, entry: Tuple[int, int, int]) -> None:
 
 def _mono_launch_args(mono: Dict[str, Any], chunks: torch.Tensor):
     """Checks a spec and its chunks for the kernel and builds its launch
-    arguments: (args, the tensors they point into, the plan, the library)."""
+    arguments: (args with its sizes and plan set, the input tensors by
+    pointer field, the plan)."""
     io, dev = chunks.dtype, chunks.device
     if io not in (torch.float32, torch.bfloat16):
         raise ValueError(f"chunks dtype {io}: the kernel takes float32 or bfloat16")
@@ -1728,12 +1755,9 @@ def _mono_launch_args(mono: Dict[str, Any], chunks: torch.Tensor):
         dst.sec, dst.jj0, dst.nb, dst.smem = blk["sec"], blk["jj0"], blk["nb"], blk["smem"]
         for q, o in enumerate(blk["o"]):
             dst.o[q] = o
-    out = torch.empty(S, B, hop, dtype=f32, device=dev)
-    ptrs = {"chunks": chunks, "out": out, "w": packed, "sel_mag": sel_mag, "sel_fb": sel_fb,
-            "fb_uv": fb["uv"] if norm == "ln" else dummy, "fb_coef": fb["coef"],
-            "fb_bproj": fb["bproj"], "prof": None, **cat}
-    for k in _MONO_PTRS:
-        setattr(args, k, None if ptrs[k] is None else ptrs[k].data_ptr())
+    inputs = {"chunks": chunks, "w": packed, "sel_mag": sel_mag, "sel_fb": sel_fb,
+              "fb_uv": fb["uv"] if norm == "ln" else dummy, "fb_coef": fb["coef"],
+              "fb_bproj": fb["bproj"], **cat}
     for k, v in dict(S=S, B=B, hop=hop, n_fft=n_fft, Fin=Fin, Pfb=Pfb, U=U, W=W, H=H, L=L,
                      Hf=Hf, Lf=Lf, shared=int(shared), norm=NORMS[norm],
                      t_real=int(mono["t_real"]), n_sec=len(secs)).items():
@@ -1741,15 +1765,48 @@ def _mono_launch_args(mono: Dict[str, Any], chunks: torch.Tensor):
     args.eps = float(mono["eps"])
     for k in _MONO_PLAN:
         setattr(args, k, plan[k])
-    lib = _lib(f"monolith_{'bf16' if io == torch.bfloat16 else 'f32'}")
-    return args, (out, ptrs), plan, lib
+    return args, inputs, plan
+
+
+# kernel C's operator inputs, in order (pointer fields of MonoArgs)
+_MONO_IN = ("chunks", "w", "sel_mag", "sel_fb", "fb_uv", "fb_coef", "fb_bproj", "uv", "coef",
+            "bproj")
+
+
+def _mono_lib(io: torch.dtype) -> ctypes.CDLL:
+    return _lib(f"monolith_{'bf16' if io == torch.bfloat16 else 'f32'}")
+
+
+def _mono_point(args: "_MonoArgs", inputs: Dict[str, torch.Tensor], prof=None) -> torch.Tensor:
+    """Allocates kernel C's output ``[S, B, hop]`` (float32) and points the
+    arguments at it, at ``inputs`` (by field) and at ``prof``."""
+    chunks = inputs["chunks"]
+    out = torch.empty(args.S, args.B, args.hop, dtype=torch.float32, device=chunks.device)
+    for k, t in dict(inputs, out=out, prof=prof).items():
+        setattr(args, k, None if t is None else t.data_ptr())
+    return out
+
+
+def _mono_run(args: "_MonoArgs", inputs: Dict[str, torch.Tensor], what: str,
+              prof=None) -> torch.Tensor:
+    """Launch kernel C on ``args`` (its sizes and plan set) over ``inputs``."""
+    out = _mono_point(args, inputs, prof)
+    chunks = inputs["chunks"]
+    lib = _mono_lib(chunks.dtype)
+    with torch.cuda.device(chunks.device):
+        rc = lib.sfsb_monolith_launch(int(chunks.dtype == torch.bfloat16), ctypes.byref(args),
+                                      _stream())
+    _check_rc(lib, rc, what)
+    return out
 
 
 def monolith_occupancy(mono: Dict[str, Any], chunks: torch.Tensor) -> Dict[str, Any]:
     """Kernel C's plan for these chunks on this card: rows per tile, blocks
     per cluster, the clusters (row tiles) the batch needs, the clusters the
     card holds at once (cudaOccupancyMaxActiveClusters) and the waves."""
-    args, _, plan, lib = _mono_launch_args(mono, chunks)
+    args, inputs, plan = _mono_launch_args(mono, chunks)
+    _keep = _mono_point(args, inputs)  # the arguments point into it
+    lib = _mono_lib(chunks.dtype)
     n = ctypes.c_int(0)
     with torch.cuda.device(chunks.device):
         rc = lib.sfsb_monolith_max_clusters(int(chunks.dtype == torch.bfloat16),
@@ -1776,13 +1833,9 @@ def monolith_profile(mono: Dict[str, Any], chunks: torch.Tensor) -> Dict[str, An
     the SM cycles a step spends in each phase (``MONO_PHASES``) and waiting
     at the cluster barrier, averaged over the steps and the row tiles (unit
     blocks: the slowest one of each tile). Counts as a launch."""
-    args, (out, _keep), plan, lib = _mono_launch_args(mono, chunks)
+    args, inputs, plan = _mono_launch_args(mono, chunks)
     prof = torch.zeros(plan["tiles"] * plan["nblk"], 8, dtype=torch.int64, device=chunks.device)
-    args.prof = prof.data_ptr()
-    with torch.cuda.device(chunks.device):
-        rc = lib.sfsb_monolith_launch(int(chunks.dtype == torch.bfloat16), ctypes.byref(args),
-                                      _stream())
-    _check_rc(lib, rc, "sfsb_monolith_serve (profiled)")
+    _mono_run(args, inputs, "sfsb_monolith_serve (profiled)", prof)
     sfsb_monolith_serve.launches += 1
     cyc = prof.view(plan["tiles"], plan["nblk"], 8).double().cpu() / (chunks.shape[0])
     res = {}
@@ -1811,13 +1864,9 @@ def sfsb_monolith_serve(mono: Dict[str, Any], chunks: torch.Tensor) -> torch.Ten
     for the batch at every call."""
     if not chunks.is_cuda:
         return monolith_serve_plain(mono, chunks)
-    args, (out, _keep), _, lib = _mono_launch_args(mono, chunks)
-    with torch.cuda.device(chunks.device):
-        rc = lib.sfsb_monolith_launch(int(chunks.dtype == torch.bfloat16), ctypes.byref(args),
-                                      _stream())
-    _check_rc(lib, rc, "sfsb_monolith_serve")
-    sfsb_monolith_serve.launches += 1
-    return out
+    args, inputs, _ = _mono_launch_args(mono, chunks)
+    return torch.ops.sfs_torch.sfsb_monolith_serve(*(inputs[k] for k in _MONO_IN),
+                                                   struct_words(args))
 
 
 sfsb_monolith_serve.launches = 0
@@ -1972,30 +2021,42 @@ def _stack_launch(kernel: str, x, flat, table, coef, hidden, shared, plan, colle
     the staged input, A's gates ``[(U,) T, R, G]`` or F's features ``[T, R,
     F]``; (flat, table) the packed weights. Returns every layer's spikes
     ``[L, (U,) T, R, H]`` (``collect_all``, always for F) or the last one's,
-    or with ``prof`` the phase counters [blocks, 8]."""
+    through the kernel's operator; or with ``prof`` the phase counters
+    [blocks, 8] of a direct launch."""
     *lead, T, R, W = x.shape
     L = coef.shape[0]
-    dev, io = x.device, x.dtype
-    out = torch.empty(((L,) if collect_all else ()) + tuple(x.shape[:-1]) + (hidden,), dtype=io,
-                      device=dev)
-    counters = (torch.zeros(plan["blocks"], 8, dtype=torch.int64, device=dev) if prof
-                else None)
     args = _StackArgs(T=T, R=R, U=lead[0] if lead else 1, W=W, H=hidden, L=L, shared=int(shared),
                       collect_all=int(collect_all),
                       **{k: plan[k] for k in ("N", "cs", "mpb", "Hp", "ld_x", "o_spk", "o_mem",
                                               "smem")})
-    for k, t in dict(x=x, w=flat, coef=coef, out=out, prof=counters).items():
-        setattr(args, k, None if t is None else t.data_ptr())
     if "in" in table:
         _set_mat(args.w_in, table["in"])
     for k in range(L):
         _set_mat(args.rec[k], table[f"rec{k}"])
+    if prof:
+        counters = torch.zeros(plan["blocks"], 8, dtype=torch.int64, device=x.device)
+        _stack_run(kernel, args, x, flat, coef, counters)
+        return counters
+    op = getattr(torch.ops.sfs_torch, _STACK_LIBS[kernel][1])
+    return op(x, flat, coef, struct_words(args))
+
+
+def _stack_out_shape(args: "_StackArgs", x: torch.Tensor) -> Tuple[int, ...]:
+    return ((args.L,) if args.collect_all else ()) + tuple(x.shape[:-1]) + (args.H,)
+
+
+def _stack_run(kernel: str, args: "_StackArgs", x, flat, coef, prof=None) -> torch.Tensor:
+    """Launch kernel A or F on ``args`` (its sizes and plan set): allocates
+    the spikes, points the arguments at the tensors and checks the launch."""
+    out = torch.empty(_stack_out_shape(args, x), dtype=x.dtype, device=x.device)
+    for k, t in dict(x=x, w=flat, coef=coef, out=out, prof=prof).items():
+        setattr(args, k, None if t is None else t.data_ptr())
     name, what = _STACK_LIBS[kernel]
     lib = _lib(name)
-    with torch.cuda.device(dev):
-        rc = lib.gsu_stack_launch(int(io == torch.bfloat16), ctypes.byref(args), _stream())
+    with torch.cuda.device(x.device):
+        rc = lib.gsu_stack_launch(int(x.dtype == torch.bfloat16), ctypes.byref(args), _stream())
     _check_rc(lib, rc, what, STACK_LIMITS)
-    return counters if prof else out
+    return out
 
 
 def _stack_a_launch(xg0, wihr, whh, coef, hidden, shared, collect_all, plan, prof=False):
@@ -2185,3 +2246,86 @@ class _SectionsArgs(ctypes.Structure):
                 + [(k, ctypes.c_int) for k in _SECTIONS_INTS]
                 + [("sec", _SecArgsC * MAX_SEC),
                    ("grp", (ctypes.c_int * 4) * SECTIONS_MAX_GROUPS)])
+
+
+# ------------------------------------------------------------------ the eval kernels as operators
+#
+# Kernels A, B, C and F launch through PyTorch operators of the namespace
+# ``sfs_torch`` (``torch.library.custom_op``, CUDA only), so that
+# ``torch.export`` records each launch as one node of the graph and an
+# exported program launches the kernel itself. An operator takes the
+# tensors its kernel reads and its launch arguments' sizes, plan and packed-
+# weight offsets as plain integers: the bytes of the ctypes struct the
+# wrapper filled (``struct_words``), its pointer fields left null; the
+# operator points them at its tensors and at the output it allocates, and
+# adds one to its wrapper's ``launches``. Each has a fake version that gives
+# the output's shape and type from the same integers. Loading an exported
+# program that holds them needs this module imported first.
+
+
+def struct_words(args: ctypes.Structure) -> List[int]:
+    """A launch-argument struct's bytes as int64 words (its size is a
+    multiple of 8: every struct holds pointers)."""
+    return np.frombuffer(bytes(args), dtype=np.int64).tolist()
+
+
+def _struct_from(cls, words: Sequence[int]):
+    return cls.from_buffer_copy(np.asarray(words, dtype=np.int64).tobytes())
+
+
+def _op_stack(kernel: str):
+    def impl(x: torch.Tensor, w: torch.Tensor, coef: torch.Tensor,
+             meta: List[int]) -> torch.Tensor:
+        out = _stack_run(kernel, _struct_from(_StackArgs, meta), x, w, coef)
+        wrapper = gsu_stack_eval if kernel == "A" else gsu_stack_eval_x
+        wrapper.launches += 1
+        return out
+
+    def fake(x, w, coef, meta):
+        return x.new_empty(_stack_out_shape(_struct_from(_StackArgs, meta), x))
+
+    return impl, fake
+
+
+def _op_sections(xa, xb, alpha, beta, spec_re, spec_im, w, coef, bproj, uv, meta):
+    outs = _sections_run(_struct_from(_SectionsArgs, meta), xa, xb, alpha, beta, spec_re,
+                         spec_im, w, coef, bproj, uv)
+    gsu_sections_eval.launches += 1
+    return outs
+
+
+def _op_sections_fake(xa, xb, alpha, beta, spec_re, spec_im, w, coef, bproj, uv, meta):
+    return [xa.new_empty(shape, dtype=dt)
+            for shape, dt in _sections_out(_struct_from(_SectionsArgs, meta), xa).values()]
+
+
+def _op_monolith(chunks, w, sel_mag, sel_fb, fb_uv, fb_coef, fb_bproj, uv, coef, bproj, meta):
+    inputs = dict(zip(_MONO_IN, (chunks, w, sel_mag, sel_fb, fb_uv, fb_coef, fb_bproj, uv, coef,
+                                 bproj)))
+    out = _mono_run(_struct_from(_MonoArgs, meta), inputs, "sfsb_monolith_serve")
+    sfsb_monolith_serve.launches += 1
+    return out
+
+
+def _op_monolith_fake(chunks, w, sel_mag, sel_fb, fb_uv, fb_coef, fb_bproj, uv, coef, bproj,
+                      meta):
+    a = _struct_from(_MonoArgs, meta)
+    return chunks.new_empty((a.S, a.B, a.hop), dtype=torch.float32)
+
+
+_STACK_SCHEMA = "(Tensor x, Tensor w, Tensor coef, int[] meta) -> Tensor"
+OPERATORS = {
+    "gsu_stack_eval": (*_op_stack("A"), _STACK_SCHEMA),
+    "gsu_stack_eval_x": (*_op_stack("F"), _STACK_SCHEMA),
+    "gsu_sections_eval": (_op_sections, _op_sections_fake,
+                          "(Tensor xa, Tensor xb, Tensor? alpha, Tensor? beta, Tensor? spec_re, "
+                          "Tensor? spec_im, Tensor w, Tensor coef, Tensor bproj, Tensor uv, "
+                          "int[] meta) -> Tensor[]"),
+    "sfsb_monolith_serve": (_op_monolith, _op_monolith_fake,
+                            "(Tensor chunks, Tensor w, Tensor sel_mag, Tensor sel_fb, "
+                            "Tensor fb_uv, Tensor fb_coef, Tensor fb_bproj, Tensor uv, "
+                            "Tensor coef, Tensor bproj, int[] meta) -> Tensor"),
+}
+for _name, (_impl, _fake, _schema) in OPERATORS.items():
+    torch.library.custom_op(f"sfs_torch::{_name}", _impl, mutates_args=(), device_types="cuda",
+                            schema=_schema).register_fake(_fake)

@@ -2,7 +2,7 @@
 
     python -m spiking_fullsubnet_torch.runtime.cli -C <recipe toml> \\
         -M train|validate|test|predict|finetune [-R] [--ckpt_path best|latest|init|<path>] \\
-        [--device cuda|cpu]
+        [--torch_ckpt <reference pytorch_model.bin>] [--device cuda|cpu]
 
 The repo's recipe TOMLs load unchanged (their JAX-package paths resolve in
 the port, ``registry.resolve``). Each recipe directory names its trainer in
@@ -11,7 +11,10 @@ it: ``RECIPE_TRAINERS`` maps the recipe directory (the TOML's own, unless
 ``main`` is given another) and the module its ``[trainer] path`` names to
 the port's trainer. A GAN trainer also gets the discriminators of the
 TOML's ``[model_d*]`` sections. The weights live on ``--device``, ``cuda``
-unless ``cpu`` is asked for.
+unless ``cpu`` is asked for. ``--torch_ckpt`` (or ``[meta] torch_ckpt``)
+imports a reference checkpoint (``runtime/convert.py``) into the model
+before any mode runs; test, predict and finetune then use it where no
+checkpoint of the experiment exists.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from pathlib import Path
 from ..data import DataLoader
 from ..recipes.gan import GanDenoiseTrainer, build_discriminator_bundles
 from .config import toml_load
+from .convert import import_spiking_fullsubnet, load_torch_state_dict
 from .logging_ import init_logging_logger
 from .registry import build_optimizer_factory, instantiate
 
@@ -96,6 +100,10 @@ def run(config, resume, modes, ckpt_path=None, recipe_dir=None, device=None):
     trainer = trainer_cls(config=config, resume=resume, model=model,
                           optimizer_factory=optimizer_factory, base_lr=base_lr,
                           loss_function=loss_function, device=device, **extra)
+    torch_ckpt = config["meta"].get("torch_ckpt")
+    if torch_ckpt:
+        sd = load_torch_state_dict(torch_ckpt, device)
+        trainer.preload_weights(*import_spiking_fullsubnet(sd, trainer.model_config))
     ckpt_path = ckpt_path or config["meta"].get("ckpt_path", "best")
     try:
         for flag in modes:
@@ -130,6 +138,9 @@ def main(argv=None, recipe_dir=None):
     parser.add_argument("--ckpt_path", type=str, default=None,
                         help="Checkpoint for test/predict/finetune: 'best', 'latest', 'init' or a "
                              "path.")
+    parser.add_argument("--torch_ckpt", type=str, default=None,
+                        help="Import a reference torch checkpoint (pytorch_model.bin) before "
+                             "running.")
     parser.add_argument("--device", type=str, default="cuda",
                         help="Device of the weights and batches: cuda (default) or cpu.")
     args = parser.parse_args(argv)
@@ -138,11 +149,13 @@ def main(argv=None, recipe_dir=None):
     config = toml_load(config_path)
     config["meta"]["exp_id"] = config_path.stem
     config["meta"]["config_path"] = config_path.as_posix()
-    if "test" in args.mode and args.ckpt_path is None:
+    if "test" in args.mode and args.ckpt_path is None and args.torch_ckpt is None:
         raise ValueError("checkpoint path is required for test. Use '--ckpt_path' "
                          "(best | latest | init | a path).")
     if args.ckpt_path:
         config["meta"]["ckpt_path"] = args.ckpt_path
+    if args.torch_ckpt:
+        config["meta"]["torch_ckpt"] = args.torch_ckpt
     return run(config, args.resume, args.mode, args.ckpt_path,
                recipe_dir=recipe_dir or config_path.parent, device=args.device)
 

@@ -30,12 +30,10 @@ ROADMAP_ITEMS: Dict[str, str] = {
     "recipes.separation": "the separation data and recipe",
     "metrics.dnsmos": "DNSMOS",
     "metrics.DNSMOS": "DNSMOS",
-    "streaming": "streaming",
     "parallel": "distributed training",
-    "runtime.convert.import_spiking_fullsubnet": "the torch-checkpoint import",
-    "runtime.timing": "the torch-checkpoint import",
-    "runtime.roofline": "the torch-checkpoint import",
-    "runtime.cache": "the torch-checkpoint import",
+    "runtime.timing": "bench on the GPU",
+    "runtime.roofline": "bench on the GPU",
+    "runtime.cache": "bench on the GPU",
 }
 _DEFAULT_ITEM = "remaining models and recipes"
 

@@ -36,6 +36,7 @@ import torch
 
 from .checkpoint import CheckpointManager
 from .config import toml_dump
+from .convert import flat_paths
 from .debug import detect_overflow, enable_debug_nans
 from .device import resolve_device
 from .logging_ import TensorboardLogger
@@ -114,6 +115,7 @@ class Trainer:
         self.base_lr = base_lr
         self.loss_function = loss_function
         self.weights = [p.requires_grad_(True) for p in tensors_of(self.params)]
+        self._ckpt_preloaded = False  # weights imported by preload_weights
 
         acoustics = config.get("acoustics", {})
         self.sr = acoustics.get("sr", 16000)
@@ -229,6 +231,23 @@ class Trainer:
                 w.copy_(s)
         self.model_state = tree["model_state"]
 
+    def preload_weights(self, params, model_state):
+        """Take imported weights (``--torch_ckpt``): copied into the live
+        weights by path, the model state taken. Test, predict and finetune
+        then evaluate them where the experiment has no checkpoint."""
+        live, new = flat_paths(self.params), flat_paths(params)
+        if live.keys() != new.keys():
+            raise ValueError(f"imported weights: keys {sorted(new.keys() ^ live.keys())} are "
+                             "not in both the import and the model")
+        with torch.no_grad():
+            for k, w in live.items():
+                if w.shape != new[k].shape:
+                    raise ValueError(f"imported weights at {k}: {tuple(new[k].shape)}, the "
+                                     f"model's {tuple(w.shape)}")
+                w.copy_(new[k])
+        self.model_state = model_state
+        self._ckpt_preloaded = True
+
     def _restore(self, tree: Dict[str, Any]):
         """Take a loaded ``_train_tree``."""
         self._set_weights(tree)
@@ -244,6 +263,12 @@ class Trainer:
         if ckpt_path == "init":
             logger.warning("ckpt_path='init': evaluating UNTRAINED weights.")
             return
+        if self._ckpt_preloaded:
+            try:
+                self.ckpt_manager.resolve(ckpt_path)
+            except FileNotFoundError:
+                logger.info("Using pre-imported torch checkpoint weights for evaluation.")
+                return
         self._load_checkpoint(ckpt_path)
 
     def _check_improvement(self, score, save_max_score=True):
@@ -373,8 +398,14 @@ class Trainer:
         finetune``, run.py:121). Finetune checkpoints go to
         ``checkpoints_finetune/``, so the warm-start checkpoint and the base
         run's ``best`` are never overwritten."""
-        self._set_weights(self.ckpt_manager.load_weights(ckpt_path, map_location=self.device))
-        logger.info(f"Finetune: warm-started weights from '{ckpt_path}'.")
+        try:
+            self._set_weights(self.ckpt_manager.load_weights(ckpt_path,
+                                                             map_location=self.device))
+            logger.info(f"Finetune: warm-started weights from '{ckpt_path}'.")
+        except FileNotFoundError:
+            if not self._ckpt_preloaded:
+                raise
+            logger.info("Finetune: using pre-imported torch checkpoint weights.")
         self.state = TrainerState(save_max_score=self.save_max_score)
         self.optimizer = self.optimizer_factory(self.weights)
         self.resume = False

@@ -141,6 +141,13 @@ def test_registry_maps_jax_paths_and_names_what_is_not_ported():
     for name in ("GanDenoiseTrainer", "DualGanDenoiseTrainer", "OnlyGenTrainer",
                  "build_discriminator_bundles"):
         assert registry.resolve(f"spiking_fullsubnet_tpu.recipes.gan.{name}") is getattr(gan, name)
+    # the serving modules (streaming, the checkpoint import) resolve in the port
+    from spiking_fullsubnet_torch import streaming
+    from spiking_fullsubnet_torch.runtime import convert
+    assert registry.resolve("spiking_fullsubnet_tpu.runtime.convert.import_spiking_fullsubnet") \
+        is convert.import_spiking_fullsubnet
+    assert registry.resolve("spiking_fullsubnet_tpu.streaming.StreamingEnhancer") \
+        is streaming.StreamingEnhancer
     assert registry.resolve("spiking_fullsubnet_tpu.models.fused_forward."
                             "spiking_fullsubnet_fused_forward") \
         is fused_forward.spiking_fullsubnet_fused_forward
@@ -151,8 +158,9 @@ def test_registry_maps_jax_paths_and_names_what_is_not_ported():
         ("spiking_fullsubnet_tpu.metrics.dnsmos.DNSMOS", "DNSMOS"),
         ("spiking_fullsubnet_tpu.metrics.DNSMOS", "DNSMOS"),
         ("spiking_fullsubnet_tpu.parallel.dist.scale_lr", "distributed training"),
-        ("spiking_fullsubnet_tpu.runtime.convert.import_spiking_fullsubnet",
-         "the torch-checkpoint import"),
+        ("spiking_fullsubnet_tpu.runtime.timing.time_fn_per_iter", "bench on the GPU"),
+        ("spiking_fullsubnet_tpu.runtime.roofline.roofline_report", "bench on the GPU"),
+        ("spiking_fullsubnet_tpu.runtime.cache.enable_compilation_cache", "bench on the GPU"),
     ]:
         with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1: {item}"):
             registry.resolve(path)
