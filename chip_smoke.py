@@ -273,7 +273,43 @@ is non-zero:
             runtime.cli -M test --torch_ckpt on freeze_phase/baseline_m.toml
             with phase 9's synthetic test set: the trainer's weights equal
             SpikingFullSubNet.from_npz's bit for bit, F four launches a
-            test batch.
+            test batch;
+12. separation and dereverberation: the recipes of recipes/wsj0-mix and
+            recipes/reverb through runtime.cli at their default.toml
+            widths (random weights from each recipe's seed), each with
+            validation and a checkpoint every epoch:
+            (a) wsj0-mix/spiking_fullsubnet (two speakers, 8 kHz, n_fft 256,
+            fb 320, sb 224, f32): its eval route (the layered forward) on a
+            1 x 4 s SyntheticMixDataset mixture against the fused plain
+            version run on the card (spike mismatch per layer < 1e-3, audio
+            relative L2 < 0.05, F 4 launches and nothing else); then on
+            SyntheticMixDataset (wsj0-mix is not in the repository) train
+            64 x 4 s at batch 32, validate 8 x 4 s and test 2 x 4 s at batch
+            1: train with max_epochs = 1, train -R with 2, test on
+            --ckpt_path best; every loss and gradient norm finite, each
+            update D, E and dW 8 launches and nothing else, each eval batch
+            F 4, the resume running epoch 2 alone, the test CSV with si_sdr;
+            it prints the ms per update inside the trainer, the same PIT
+            step bare (timed as phase 6), the ms per validation batch and the
+            phase's own peak memory; then D, E and dW against their plain
+            versions on the arguments of one PIT training step of the
+            trained weights on a training batch, at phase 6's limits (D
+            whole sequences by check_d, E within relative L2 1e-3 on its
+            first 16 frames and on whole sequences, dW within 1e-5);
+            (b) wsj0-mix/conv_tasnet (base = true) and wsj0-mix/cirm_lstm:
+            one epoch of two updates at the recipe's batch (16 and 32) x
+            4 s, then test; finite losses, no launch of A-F or dW (the JAX
+            package has no Pallas kernel on these models), the ms per update
+            and the peak memory;
+            (c) reverb/spiking_fullsubnet (zoo M widths, pre-LN, 16 kHz) on
+            scp data the phase writes (64 + 6 Gaussian utterances of 4.5 s,
+            each with a decaying echo tail), its config dict through
+            runtime.cli.run: train two updates of 32 x 4 s, then predict on
+            the best checkpoint over the simulated and real evaluation
+            lists; D, E and dW 8 launches an update, F 4 an eval or predict
+            batch, the predicted wavs mirroring the far_test tree under each
+            dataloader's directory; then D, E and dW against their plain
+            versions at (a)'s limits on one step of a REVERB training batch.
 
 About 8 to 12 minutes on one H100, the build included.
 
@@ -780,14 +816,15 @@ def fresh(tree):
     return tree_map(lambda t: t.detach().clone().requires_grad_(True), tree)
 
 
-def fwd_bwd(apply, cfg, params, state, noisy, clean):
-    """``apply(train=True)``, the recipe's loss and its backward, no
-    optimizer step: (loss, new state); the gradients are in ``.grad``."""
+def fwd_bwd(apply, cfg, params, state, noisy, clean, loss_fn=None):
+    """``apply(train=True)``, the recipe's loss (``loss_fn(est, ref)``, the
+    denoise loss unless given) and its backward, no optimizer step: (loss,
+    new state); the gradients are in ``.grad``."""
     from spiking_fullsubnet_torch.recipes.denoise import denoise_loss
     for t in tensors_of(params):
         t.grad = None
     out = apply(cfg, params, state, noisy, train=True)
-    loss = denoise_loss(out["enhanced_y"], clean)["loss"]
+    loss = (loss_fn or (lambda est, ref: denoise_loss(est, ref)["loss"]))(out["enhanced_y"], clean)
     loss.backward()
     return loss.detach(), out["state"]
 
@@ -978,38 +1015,32 @@ def train_launches(n_de):
     return {"A": 0, "B": 0, "C": 0, "F": 0, "D": n_de, "E": n_de, "dW": n_de}
 
 
-def time_train(apply, cfg, params, state, noisy, clean, want, iters=2):
-    """One counted warm-up ``train_step`` (every kernel's count set to 0
-    just before it, read just after, required to be ``want``), then
-    ``iters`` more steps, each from the weights, optimizer state and BN
-    state the step before left, with the forward (to the loss), the
-    backward and the clip-and-AdamW step timed by CUDA events, the step's
-    own peak memory beside them. Every timed step's loss must be finite;
-    every step's loss and gradient norm come back, and ``nonfinite_steps``
-    lists the steps (0 the warm-up) where either is not finite."""
+def time_train(apply, cfg, params, state, noisy, clean, want, iters=2, loss_fn=None, sr=SR):
+    """One counted warm-up step (every kernel's count set to 0 just before
+    it, read just after, required to be ``want``), then ``iters`` more
+    steps, each from the weights, optimizer state and BN state the step
+    before left, with the forward (to the loss), the backward and the
+    clip-and-AdamW step timed by CUDA events, the step's own peak memory
+    beside them. A step is ``recipes/denoise.train_step``'s: the forward,
+    ``loss_fn(enhanced_y, clean)`` (the denoise loss unless given), its
+    backward, clipping by global norm 10 and AdamW. Every timed step's loss
+    must be finite; every step's loss and gradient norm come back, and
+    ``nonfinite_steps`` lists the steps (0 the warm-up) where either is not
+    finite; ``audio_s_per_s`` counts ``noisy``'s samples at rate ``sr``."""
     from spiking_fullsubnet_torch.ops import gsu_kernels as gk
-    from spiking_fullsubnet_torch.recipes.denoise import adamw, denoise_loss, train_step
+    from spiking_fullsubnet_torch.recipes.denoise import adamw, denoise_loss
+    if loss_fn is None:
+        loss_fn = lambda est, ref: denoise_loss(est, ref)["loss"]  # noqa: E731
     params = fresh(params)
     leaves = tensors_of(params)
     opt = adamw(leaves)
-    counters = {**COUNTERS, **TRAIN_WRAPPERS}
-    for name in counters.values():
-        getattr(gk, name).launches = 0
-    ld, state, norm = train_step(apply, cfg, params, state, noisy, clean, opt)
-    torch.cuda.synchronize()
-    counts = {k: getattr(gk, name).launches for k, name in counters.items()}
-    require(counts == want, f"train step {cfg.compute_dtype} {tuple(noisy.shape)}: "
-                            f"launches {counts}, expected {want}")
-    losses, norms = [ld["loss"].item()], [norm.item()]
-    held_gb = torch.cuda.memory_allocated() / 1e9
-    torch.cuda.reset_peak_memory_stats()
-    ms = {"forward_ms": 0.0, "backward_ms": 0.0, "step_ms": 0.0}
-    for _ in range(iters):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    box = [state]
+
+    def step(ev):
         ev[0].record()
         opt.zero_grad(set_to_none=True)
-        out = apply(cfg, params, state, noisy, train=True)
-        loss = denoise_loss(out["enhanced_y"], clean)["loss"]
+        out = apply(cfg, params, box[0], noisy, train=True)
+        loss = loss_fn(out["enhanced_y"], clean)
         ev[1].record()
         loss.backward()
         ev[2].record()
@@ -1017,17 +1048,36 @@ def time_train(apply, cfg, params, state, noisy, clean, want, iters=2):
         opt.step()
         ev[3].record()
         torch.cuda.synchronize()
-        state = out["state"]
+        box[0] = out["state"]
+        return loss.item(), norm.item()
+
+    events = lambda: [torch.cuda.Event(enable_timing=True) for _ in range(4)]  # noqa: E731
+    counters = {**COUNTERS, **TRAIN_WRAPPERS}
+    for name in counters.values():
+        getattr(gk, name).launches = 0
+    loss, norm = step(events())
+    counts = {k: getattr(gk, name).launches for k, name in counters.items()}
+    require(counts == want, f"train step {cfg.compute_dtype} {tuple(noisy.shape)}: "
+                            f"launches {counts}, expected {want}")
+    losses, norms = [loss], [norm]
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    ms = {"forward_ms": 0.0, "backward_ms": 0.0, "step_ms": 0.0}
+    each = []
+    for _ in range(iters):
+        ev = events()
+        loss, norm = step(ev)
         for i, k in enumerate(ms):
             ms[k] += ev[i].elapsed_time(ev[i + 1]) / iters
-        losses.append(loss.item())
-        norms.append(norm.item())
-        require(bool(torch.isfinite(loss)), f"non-finite training loss {losses}")
+        each.append(ev[0].elapsed_time(ev[3]))
+        losses.append(loss)
+        norms.append(norm)
+        require(np.isfinite(loss), f"non-finite training loss {losses}")
     total = sum(ms.values())
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     bad = [i for i, (a, b) in enumerate(zip(losses, norms))
            if not (np.isfinite(a) and np.isfinite(b))]
-    return dict(ms, total_ms=total, audio_s_per_s=TRAIN_B * TRAIN_SECONDS / total * 1e3,
+    return dict(ms, total_ms=total, each_ms=each, audio_s_per_s=noisy.numel() / sr / total * 1e3,
                 peak_gb=peak_gb, held_gb=held_gb, own_peak_gb=peak_gb - held_gb,
                 launches=counts, losses=losses, grad_norms=norms, nonfinite_steps=bad)
 
@@ -1132,6 +1182,32 @@ def check_d(tag, rec, names):
                 and rec["step_flip_max_abs_y"][i] < 1e-3, f"kernel D {layer} {tag}: {rec}")
     require(np.mean(rec["drift_f64"]) <= 3 * np.mean(rec["plain_drift_f64"]) + 1e-3,
             f"kernel D {tag}: drift {rec}")
+
+
+def recipe_de_checks(gk, tag, run):
+    """Phase 6's checks of kernels D, E and dW on the arguments of one
+    training step of a recipe (``run()``: its forward, loss and backward,
+    eight GSU layers): D whole sequences (``check_d``); E within relative
+    L2 1e-3 on the first WINDOW frames (phase 6's limit on a training
+    batch) and on whole sequences (its limit on the fixture); dW whole
+    sequences within DW_F32_REL. Returns the records."""
+    d, e = capture_de_args(gk, run)
+    require(len(d) == len(e) == 8, f"{tag}: {len(d)} launches of D and {len(e)} of E")
+    names = tuple(f"{tag} {stack} layer {k}" for stack in
+                  ("fullband", "section 0", "section 1", "section 2") for k in (0, 1))
+    rec = {"shapes": [list(a[0].shape) for a in d], "D": d_checks(gk, d),
+           "E": e_checks(gk, e), "E_head": e_checks(gk, e, WINDOW)}
+    log_d(tag, rec["shapes"], rec["D"])
+    fmt = lambda v: "[" + ", ".join(f"{x:.3e}" for x in v) + "]"  # noqa: E731
+    log(f"[separation] E {tag}: first {WINDOW} frames rel L2 {fmt(rec['E_head']['rel_l2'])}; "
+        f"whole sequences {fmt(rec['E']['rel_l2'])}, max abs err "
+        f"{rec['E']['max_abs_err']:.3e}; dW rel L2 {fmt(rec['E']['dw_rel_l2'])}")
+    check_d(tag, rec["D"], names)
+    for layer, head, whole, w in zip(names, rec["E_head"]["rel_l2"], rec["E"]["rel_l2"],
+                                     rec["E"]["dw_rel_l2"]):
+        require(head < 1e-3 and whole < 1e-3, f"kernel E {layer}: {rec['E_head']}, {rec['E']}")
+        require(w < DW_F32_REL, f"dW kernel {layer}: {rec['E']}")
+    return rec
 
 
 def log_d(tag, shape, rec):
@@ -1694,6 +1770,14 @@ class TrainerProbe:
             setattr(self.cls, name, fn)
 
 
+def update_ms(probe):
+    """(ms per update, each gap): a TrainerProbe's updates, from the end of
+    one update to the end of the next within an epoch."""
+    gaps = [a["end"].elapsed_time(b["end"]) for a, b in zip(probe.updates, probe.updates[1:])
+            if a["epoch"] == b["epoch"]]
+    return float(np.mean(gaps)), gaps
+
+
 def trainer_phase(dev):
     """Phase 9 (see the module docstring); returns its numbers."""
     import shutil
@@ -1764,10 +1848,7 @@ def trainer_phase(dev):
                 f"best re-validated {revalidated!r}, recorded {tested.state.best_score!r}")
         require({"si_sdr", "synops", "neuron_ops"} <= set(header), f"test CSV header {header}")
 
-        # ms per update: end of one update to the end of the next, same epoch
-        gaps = [prev["end"].elapsed_time(cur["end"]) for prev, cur in
-                zip(probe.updates, probe.updates[1:]) if prev["epoch"] == cur["epoch"]]
-        loop_ms = float(np.mean(gaps))
+        loop_ms, gaps = update_ms(probe)
         val = [e["s"] * 1e3 for e in probe.evals[:3]]
 
         # the same update bare: train_step on one batch of the same shapes
@@ -2467,6 +2548,342 @@ def serving_phase(gk, dev):
     return out
 
 
+# ------------------------------------------------------------------ phase 12: separation
+
+WSJ0_RECIPES = ROOT / "recipes" / "wsj0-mix"
+REVERB_RECIPE = ROOT / "recipes" / "reverb" / "spiking_fullsubnet"
+SEP_SR, SEP_SECONDS = 8000, 4.0  # wsj0-mix: 8 kHz, WSJ0MixDataset's default crop
+# the separation runs' SyntheticMixDataset sets: (items, seed)
+SEP_DATA = {"train_dataset": (64, 0), "validate_dataset": (8, 77), "test_dataset": (2, 99)}
+BASELINE_UPDATES = 2  # Conv-TasNet's and cIRM-LSTM's updates (one epoch)
+REVERB_SR, REVERB_SECONDS = 16000, 4.5  # the scp utterances phase 12 (c) writes
+# the REVERB run's utterances: train (two updates of 32), dev, evaluation
+REVERB_DATA = {"tr": 64, "et_simu": 4, "et_real": 2}
+
+
+def separation_config(recipe, save_dir, max_epochs, sizes=None):
+    """``recipes/wsj0-mix/<recipe>/default.toml`` with max_epochs changed,
+    validation and checkpoints every epoch, on SyntheticMixDataset (wsj0-mix
+    is not in the repository) at the recipe's batch sizes: ``sizes`` items
+    (SEP_DATA's by default) of SEP_SECONDS each."""
+    from spiking_fullsubnet_torch.runtime.config import toml_load
+    cfg = toml_load(WSJ0_RECIPES / recipe / "default.toml")
+    cfg["meta"]["save_dir"] = str(save_dir)
+    cfg["trainer"]["args"].update(max_epochs=max_epochs, validation_interval=1,
+                                  save_ckpt_interval=1)
+    for name, (n, seed) in (sizes or SEP_DATA).items():
+        cfg[name] = {"path": "spiking_fullsubnet_tpu.data.wsj0_mix.SyntheticMixDataset",
+                     "args": {"num_samples": n, "duration": SEP_SECONDS, "sr": SEP_SR,
+                              "seed": seed, "is_train": name == "train_dataset"},
+                     "dataloader": cfg[name]["dataloader"]}
+    return cfg
+
+
+def write_reverb_data(root):
+    """REVERB-like scp data under ``root`` in tests/test_recipes_e2e.py:43-62's
+    layout (wav/far_test/*_ch1.wav, wav/cln_test/*.wav, data/*.scp, Kaldi's
+    "utt_id path" lines): Gaussian utterances of REVERB_SECONDS (0.1 rms,
+    seed 12), each made reverberant by an exponentially decaying noise tail
+    (0.4 s, T60 about 0.3 s). Returns the scp paths by set."""
+    from scipy.signal import fftconvolve
+
+    from spiking_fullsubnet_torch.dsp.io import save_wav
+    rng = np.random.default_rng(12)
+    far, cln, data = root / "wav" / "far_test", root / "wav" / "cln_test", root / "data"
+    for d in (far, cln, data):
+        d.mkdir(parents=True)
+    n, n_ir = int(REVERB_SECONDS * REVERB_SR), int(0.4 * REVERB_SR)
+    tail = np.exp(-6.9 * np.arange(n_ir) / (0.3 * REVERB_SR))
+    scps, k = {}, 0
+    for name, count in REVERB_DATA.items():
+        rvb, dry = [], []
+        for _ in range(count):
+            y = (0.1 * rng.standard_normal(n)).astype(np.float32)
+            h = 0.2 * rng.standard_normal(n_ir) * tail
+            h[0] = 1.0
+            wet = fftconvolve(y, h)[:n]
+            save_wav(wet / np.abs(wet).max() * 0.5, far / f"utt{k}_ch1.wav", REVERB_SR)
+            save_wav(y / np.abs(wet).max() * 0.5, cln / f"utt{k}.wav", REVERB_SR)
+            rvb.append(f"utt{k} {far / f'utt{k}_ch1.wav'}")
+            dry.append(f"utt{k} {cln / f'utt{k}.wav'}")
+            k += 1
+        scps[name] = data / f"{name}_1ch.scp"
+        scps[name].write_text("\n".join(rvb) + "\n")
+        scps[name + "_cln"] = data / f"{name}_cln.scp"
+        scps[name + "_cln"].write_text("\n".join(dry) + "\n")
+    return scps
+
+
+def reverb_config(save_dir, scps):
+    """``recipes/reverb/spiking_fullsubnet/default.toml`` with one epoch and
+    its scp paths pointed at ``write_reverb_data``'s, ``[predict] mix_root``
+    the wav root (as tiny_synthetic.toml sets it). The dict goes to
+    ``runtime.cli.run`` as ``cli.main`` would pass it: ``toml_dump`` writes
+    its two ``[[test_dataset]]`` so that they do not load back (ROADMAP §3)."""
+    from spiking_fullsubnet_torch.runtime.config import toml_load
+    cfg = toml_load(REVERB_RECIPE / "default.toml")
+    cfg["meta"].update(save_dir=str(save_dir), exp_id="reverb_smoke")
+    cfg["trainer"]["args"]["max_epochs"] = 1
+    cfg["train_dataset"]["args"].update(rvb_scp_fpath=str(scps["tr"]),
+                                        dry_scp_fpath=str(scps["tr_cln"]))
+    cfg["validate_dataset"]["args"].update(rvb_scp_fpath=str(scps["et_simu"]),
+                                           dry_scp_fpath=str(scps["et_simu_cln"]))
+    sim, real = cfg["test_dataset"]
+    sim["args"]["scp_fpath"] = str(scps["et_simu"])
+    real["args"]["scp_fpath"] = str(scps["et_real"])
+    cfg["predict"] = {"mix_root": str(Path(scps["tr"]).parent.parent / "wav")}
+    return cfg
+
+
+def probed_runs(probe, argvs, toml, recipe_dir, dev):
+    """``runtime.cli.main`` on ``toml`` once for each argv in ``argvs`` (or,
+    where ``toml`` is a config dict, ``runtime.cli.run`` on it with each
+    argv's (resume, modes, ckpt_path)), the epochs each run trained (from
+    ``probe``) beside its trainer."""
+    from spiking_fullsubnet_torch.runtime import cli
+    out = []
+    for argv in argvs:
+        seen = len(probe.epochs)
+        if isinstance(toml, dict):
+            t = cli.run(toml, *argv, recipe_dir=recipe_dir, device=dev.type)
+        else:
+            t = cli.main(["-C", str(toml), *argv, "--device", dev.type], recipe_dir=recipe_dir)
+        out.append((t, probe.epochs[seen:]))
+    return out
+
+
+def separation_phase(gk, dev):
+    """Phase 12 (see the module docstring); returns its numbers."""
+    import shutil
+    import tempfile
+
+    from spiking_fullsubnet_torch.data.wsj0_mix import SyntheticMixDataset
+    from spiking_fullsubnet_torch.models.fused_forward import fused_forward_plain
+    from spiking_fullsubnet_torch.models.spiking_fullsubnet import spiking_fullsubnet_apply
+    from spiking_fullsubnet_torch.recipes.dereverb import DereverbTrainer, dereverb_loss
+    from spiking_fullsubnet_torch.recipes.separation import SeparationTrainer, separation_loss
+    from spiking_fullsubnet_torch.runtime import cli
+    from spiking_fullsubnet_torch.runtime.config import toml_dump
+    from spiking_fullsubnet_torch.runtime.registry import instantiate
+
+    fmt = lambda v: "[" + ", ".join(f"{x:.4g}" for x in v) + "]"  # noqa: E731
+    t_phase = time.perf_counter()
+    smi = card_name()
+    want_update, want_eval = train_launches(8), dict(train_launches(0), F=4)
+    out = {}
+    save_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_separation_"))
+    try:
+        # (a) the two-speaker Spiking-FullSubNet: its eval route against the
+        # fused plain version, then the recipe through the CLI
+        torch.set_grad_enabled(False)
+        base = separation_config("spiking_fullsubnet", save_dir, 1)
+        bundle = instantiate(base["model"]["path"], args={"seed": base["meta"]["seed"],
+                                                          "device": dev} | base["model"]["args"])
+        cfg, params, state = bundle["config"], bundle["params"], bundle["state"]
+        require(cfg.num_spks == 2 and cfg.n_fft == 256 and cfg.fb_hidden_size == 320
+                and cfg.sb_hidden_size == 224 and cfg.scan_mode == "layered",
+                f"wsj0-mix/spiking_fullsubnet/default.toml's model: {cfg}")
+        mix = torch.from_numpy(SyntheticMixDataset(1, SEP_SECONDS, SEP_SR, seed=5)[0][0][None]).to(
+            dev)
+        zero_counts(gk)
+        got = spiking_fullsubnet_apply(cfg, params, state, mix)
+        torch.cuda.synchronize()
+        counts = launch_counts(gk)
+        plain = fused_forward_plain(replace(cfg, scan_mode="fused"), params, state, mix)
+        spikes = lambda o: ([o["fb_all_layer_outputs"][k] for k in (1, 2)]  # noqa: E731
+                            + [sec[k] for sec in o["sb_all_layer_outputs"] for k in (1, 2)])
+        mism = [spike_mismatch(a, b) for a, b in zip(spikes(got), spikes(plain))]
+        audio_rel = rel_l2(got["enhanced_y"], plain["enhanced_y"])
+        log(f"[separation] wsj0-mix/spiking_fullsubnet default.toml widths f32 on {smi}: eval "
+            f"route 1 x {SEP_SECONDS:g} s against the fused plain version: spike mismatch per "
+            f"layer {[f'{v:.2e}' for v in mism]}, audio rel L2 {audio_rel:.3e}, launches {counts}")
+        require(counts == want_eval, f"two-speaker eval launches {counts}, expected {want_eval}")
+        require(tuple(got["enhanced_y"].shape) == (1, 2, int(SEP_SECONDS * SEP_SR))
+                and bool(torch.isfinite(got["enhanced_y"]).all()), "two-speaker eval audio")
+        require(len(mism) == 8 and max(mism) < 1e-3 and audio_rel < 0.05,
+                f"two-speaker eval route: spike mismatch {mism}, audio rel L2 {audio_rel}")
+        # the eval forward timed whole, and kernel F's four launches alone
+        forward = lambda x: spiking_fullsubnet_apply(cfg, params, state, x)  # noqa: E731
+        eval_ms = cuda_ms(lambda: forward(mix), iters=3)
+        f_ms = [cuda_ms(lambda a=a: gk.gsu_stack_eval_x(*a), iters=3)
+                for a in capture_f_args(gk, forward, mix)]
+        log(f"[separation] two-speaker eval forward 1 x {SEP_SECONDS:g} s: {eval_ms:.3f} ms, "
+            f"kernel F's four launches {sum(f_ms):.3f} ms ({fmt(f_ms)}), the rest "
+            f"{eval_ms - sum(f_ms):.3f} ms")
+        out["eval_route"] = {"spike_mismatch": mism, "audio_rel_l2": audio_rel,
+                             "launches": counts, "eval_ms": eval_ms, "f_ms": f_ms}
+        del got, plain, bundle, params, state
+
+        torch.set_grad_enabled(True)
+        toml = save_dir / "wsj0_sfs_smoke.toml"
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts(gk)
+        with TrainerProbe(SeparationTrainer, gk) as probe:
+            toml_dump(base, toml)
+            (first, ep1), = probed_runs(probe, [["-M", "train"]], toml,
+                                        WSJ0_RECIPES / "spiking_fullsubnet", dev)
+            toml_dump(separation_config("spiking_fullsubnet", save_dir, 2), toml)
+            (resumed, ep2), (tested, _) = probed_runs(
+                probe, [["-M", "train", "-R"], ["-M", "test", "--ckpt_path", "best"]], toml,
+                WSJ0_RECIPES / "spiking_fullsubnet", dev)
+        torch.cuda.synchronize()
+        peak_gb = (torch.cuda.max_memory_allocated() - held) / 1e9
+        launches = launch_counts(gk)
+        exp = save_dir / "wsj0_sfs_smoke"
+        test_csv = sorted((exp / "metrics").glob(
+            f"dl_0_epoch_{tested.state.epochs_trained}_*_mean.csv"))
+        header = test_csv[-1].read_text().splitlines()[0].split(",") if test_csv else []
+        norms = [u["norm"] for u in probe.updates]
+        n_val, n_test = SEP_DATA["validate_dataset"][0], SEP_DATA["test_dataset"][0]
+        require(probe.losses and all(np.isfinite(v) for v in probe.losses + norms),
+                f"two-speaker losses {probe.losses}, gradient norms {norms}")
+        require(len(probe.updates) == 4 and all(u["launches"] == want_update
+                                                for u in probe.updates),
+                f"two-speaker updates {[u['launches'] for u in probe.updates]}")
+        require(len(probe.evals) == 2 * n_val + n_test
+                and all(e["launches"] == want_eval for e in probe.evals),
+                f"two-speaker eval batches {[e['launches'] for e in probe.evals]}")
+        require(launches == dict(train_launches(4 * 8), F=4 * (2 * n_val + n_test)),
+                f"two-speaker phase launches {launches}")
+        require(ep1 == [1] and ep2 == [2] and resumed.state.epochs_trained == 2,
+                f"two-speaker epochs {ep1} then {ep2}")
+        require("si_sdr" in header, f"two-speaker test CSV {header}")
+        loop_ms, gaps = update_ms(probe)
+        val = [e["s"] * 1e3 for e in probe.evals[:n_val]]
+        # the same update bare, timed as phase 6, on one training batch
+        batch = next(iter(cli._loaders(base["train_dataset"])[0]))
+        noisy, ref = (torch.from_numpy(b).to(dev) for b in batch[:2])
+        bare = time_train(tested.model_apply, tested.model_config, tested.params,
+                          tested.model_state, noisy, ref, want_update, loss_fn=separation_loss,
+                          sr=SEP_SR)
+        require(not bare["nonfinite_steps"], f"two-speaker bare step {bare}")
+        # D, E and dW against their plain versions at this recipe's shapes
+        de = recipe_de_checks(gk, "two-speaker", lambda: fwd_bwd(
+            tested.model_apply, tested.model_config, fresh(tested.params), tested.model_state,
+            noisy, ref, loss_fn=separation_loss))
+        del noisy, ref, first, resumed, tested
+        out["spiking_fullsubnet"] = {"kernel_checks": de,
+            "ms_per_update": loop_ms, "update_gaps_ms": gaps, "bare_step_ms": bare["total_ms"],
+            "bare": {k: v for k, v in bare.items() if k != "launches"},
+            "ms_per_validation_batch": float(np.mean(val)), "validation_batch_ms": val,
+            "own_peak_gb": peak_gb, "launches": launches, "losses": probe.losses,
+            "grad_norms": norms, "test_csv": header}
+        log(f"[separation] wsj0-mix/spiking_fullsubnet via runtime.cli on {smi}: {loop_ms:.3f} "
+            f"ms per update inside the trainer (32 x {SEP_SECONDS:g} s; gaps {gaps}), bare step "
+            f"{bare['total_ms']:.3f} ms ({fmt(bare['each_ms'])}; forward "
+            f"{bare['forward_ms']:.3f}, backward {bare['backward_ms']:.3f}, clip and AdamW "
+            f"{bare['step_ms']:.3f}); "
+            f"{np.mean(val):.3f} ms per validation batch (1 x {SEP_SECONDS:g} s); own peak "
+            f"memory {peak_gb:.2f} GB; launches {launches}; losses {fmt(probe.losses)}")
+        torch.cuda.empty_cache()
+
+        # (b) the baselines: one epoch of two updates, then test
+        for recipe in ("conv_tasnet", "cirm_lstm"):
+            sizes = dict(SEP_DATA, validate_dataset=(2, 77))
+            bcfg = separation_config(recipe, save_dir, 1, sizes)
+            batch_size = bcfg["train_dataset"]["dataloader"]["batch_size"]
+            sizes["train_dataset"] = (BASELINE_UPDATES * batch_size, 0)
+            bcfg = separation_config(recipe, save_dir, 1, sizes)
+            btoml = save_dir / f"{recipe}_smoke.toml"
+            toml_dump(bcfg, btoml)
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            zero_counts(gk)
+            with TrainerProbe(SeparationTrainer, gk) as bprobe:
+                (bt, bep), _ = probed_runs(bprobe, [["-M", "train"],
+                                                    ["-M", "test", "--ckpt_path", "best"]],
+                                           btoml, WSJ0_RECIPES / recipe, dev)
+            torch.cuda.synchronize()
+            bpeak = (torch.cuda.max_memory_allocated() - held) / 1e9
+            blaunches = launch_counts(gk)
+            bnorms = [u["norm"] for u in bprobe.updates]
+            bms, bgaps = update_ms(bprobe)
+            log(f"[separation] wsj0-mix/{recipe} via runtime.cli on {smi}: {bms:.3f} ms per "
+                f"update inside the trainer ({batch_size} x {SEP_SECONDS:g} s; gaps {bgaps}); "
+                f"own peak memory {bpeak:.2f} GB; launches {blaunches}; losses "
+                f"{fmt(bprobe.losses)}, gradient norms {fmt(bnorms)}")
+            require(bep == [1] and len(bprobe.updates) == BASELINE_UPDATES,
+                    f"{recipe}: epochs {bep}, updates {len(bprobe.updates)}")
+            require(bprobe.losses and all(np.isfinite(v) for v in bprobe.losses + bnorms),
+                    f"{recipe}: losses {bprobe.losses}, gradient norms {bnorms}")
+            require(not any(blaunches.values()), f"{recipe} launched kernels {blaunches}")
+            out[recipe] = {"ms_per_update": bms, "update_gaps_ms": bgaps, "own_peak_gb": bpeak,
+                           "launches": blaunches, "losses": bprobe.losses, "grad_norms": bnorms,
+                           "batch": batch_size, "params": sum(w.numel() for w in bt.weights)}
+            del bt
+            torch.cuda.empty_cache()
+
+        # (c) REVERB: train two updates, then predict on best
+        scps = write_reverb_data(save_dir / "reverb")
+        rcfg = reverb_config(save_dir, scps)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts(gk)
+        with TrainerProbe(DereverbTrainer, gk) as rprobe:
+            (rt, rep), = probed_runs(rprobe, [(False, ["train"])], rcfg, REVERB_RECIPE, dev)
+        torch.cuda.synchronize()
+        rpeak = (torch.cuda.max_memory_allocated() - held) / 1e9
+        train_counts = launch_counts(gk)
+        zero_counts(gk)
+        cli.run(rcfg, False, ["predict"], "best", recipe_dir=REVERB_RECIPE, device=dev.type)
+        torch.cuda.synchronize()
+        predict_counts = launch_counts(gk)
+        # D, E and dW against their plain versions at REVERB's shapes
+        rbatch = next(iter(cli._loaders(rcfg["train_dataset"], REVERB_RECIPE)[0]))
+        rx, rref = (torch.from_numpy(b).to(dev) for b in rbatch[:2])
+        rde = recipe_de_checks(gk, "REVERB", lambda: fwd_bwd(
+            rt.model_apply, rt.model_config, fresh(rt.params), rt.model_state, rx, rref,
+            loss_fn=lambda est, ref: dereverb_loss(est, ref)["loss"]))
+        del rx, rref
+        rnorms = [u["norm"] for u in rprobe.updates]
+        rms, rgaps = update_ms(rprobe)
+        rval = [e["s"] * 1e3 for e in rprobe.evals]
+        enhanced = rt.enhanced_dir
+        wavs = {d.name: sorted(p.relative_to(d).as_posix() for p in d.rglob("*.wav"))
+                for d in sorted(enhanced.iterdir())}
+        want_wavs = {f"dataloader_{i}": [f"far_test/{p.split()[1].rsplit('/', 1)[1]}"
+                                         for p in scps[name].read_text().splitlines()]
+                     for i, name in enumerate(("et_simu", "et_real"))}
+        n_pred = REVERB_DATA["et_simu"] + REVERB_DATA["et_real"]
+        rtrain = rcfg["train_dataset"]
+        log(f"[separation] reverb/spiking_fullsubnet (zoo M widths, pre-LN, 16 kHz) via "
+            f"runtime.cli on {smi}: {rms:.3f} ms per update inside the trainer "
+            f"({rtrain['dataloader']['batch_size']} x {rtrain['args']['duration_in_seconds']:g} "
+            f"s; gaps {rgaps}), {np.mean(rval):.3f} ms per validation batch (1 x "
+            f"{REVERB_SECONDS:g} s); "
+            f"own peak memory {rpeak:.2f} GB; train launches {train_counts}, predict launches "
+            f"{predict_counts}; losses {fmt(rprobe.losses)}; predicted wavs {wavs}")
+        require(rep == [1] and len(rprobe.updates) == 2
+                and all(u["launches"] == want_update for u in rprobe.updates),
+                f"REVERB updates {[u['launches'] for u in rprobe.updates]}, epochs {rep}")
+        require(rprobe.losses and all(np.isfinite(v) for v in rprobe.losses + rnorms),
+                f"REVERB losses {rprobe.losses}, gradient norms {rnorms}")
+        require(len(rprobe.evals) == REVERB_DATA["et_simu"]
+                and all(e["launches"] == want_eval for e in rprobe.evals),
+                f"REVERB eval batches {[e['launches'] for e in rprobe.evals]}")
+        require(train_counts == dict(train_launches(2 * 8), F=4 * REVERB_DATA["et_simu"]),
+                f"REVERB train launches {train_counts}")
+        require(predict_counts == dict(train_launches(0), F=4 * n_pred),
+                f"REVERB predict launches {predict_counts}")
+        require(wavs == want_wavs, f"REVERB predicted wavs {wavs}, expected {want_wavs}")
+        out["reverb"] = {"kernel_checks": rde, "ms_per_update": rms, "update_gaps_ms": rgaps,
+                         "ms_per_validation_batch": float(np.mean(rval)),
+                         "validation_batch_ms": rval, "own_peak_gb": rpeak,
+                         "train_launches": train_counts, "predict_launches": predict_counts,
+                         "losses": rprobe.losses, "grad_norms": rnorms, "predicted": wavs}
+        del rt
+    finally:
+        shutil.rmtree(save_dir, ignore_errors=True)
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[separation] phase 12 took {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing to run", file=sys.stderr)
@@ -2996,9 +3413,14 @@ def main() -> int:
     # ---- 11. serving: streaming, export, checkpoint import ----
     stamp("11. serving: streaming, export, checkpoint import")
     serving = serving_phase(gk, dev)
+
+    # ---- 12. separation and dereverberation ----
+    stamp("12. separation and dereverberation")
+    separation = separation_phase(gk, dev)
     stamp("end")
     print(json.dumps({"kernels": kernels, "forwards": forwards, "training": train_t,
                       "trainer": trainer, "flagship": flagship, "serving": serving,
+                      "separation": separation,
                       "stream_checks": stream, "mode_checks": modes["checks"],
                       "batch": BENCH_B, "seconds": BENCH_SECONDS,
                       "train_batch": TRAIN_B, "train_seconds": TRAIN_SECONDS}), flush=True)

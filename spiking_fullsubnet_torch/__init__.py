@@ -32,6 +32,13 @@ Covered so far, with weights from the JAX ``.npz`` files or a seeded init:
   kernels A, B, C and F as the operators ``sfs_torch::*``) and the
   reference's torch checkpoints (``runtime/convert.py``, the CLI's
   ``--torch_ckpt``, ``python -m spiking_fullsubnet_torch.tools.
-  convert_checkpoint``).
+  convert_checkpoint``);
+- separation and dereverberation: the ``recipes/wsj0-mix`` recipes
+  (``recipes/separation.SeparationTrainer``, the PIT loss of
+  ``losses/pit.py``, ``data/wsj0_mix.py``) with the two-speaker
+  Spiking-FullSubNet on the kernels, Conv-TasNet
+  (``models/conv_tasnet.py``) and cIRM-LSTM (``ops/rnn.py``), and the
+  ``recipes/reverb`` recipe (``recipes/dereverb.DereverbTrainer``, its
+  datasets in ``recipes/reverb_data.py``).
 See ROADMAP.md for the rest.
 """

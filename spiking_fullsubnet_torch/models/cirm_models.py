@@ -1,9 +1,10 @@
-"""Full-band deep-filtering model cIRM-GSN (counterpart of
+"""Full-band deep-filtering models cIRM-GSN and cIRM-LSTM (counterpart of
 ``spiking_fullsubnet_tpu/models/cirm_models.py``): one sequence model over
 every magnitude bin emits the deep-filter coefficients of every bin (proj =
-F x spks x df x 2), its GSU stack on kernel F in eval and on kernels D and
-E in training. The LSTM variant (cIRM-LSTM)
-is not ported yet (ROADMAP queue 1: remaining models and recipes)."""
+F x spks x df x 2). cIRM-GSN's GSU stack runs on kernel F in eval and on
+kernels D and E in training; cIRM-LSTM's recurrence is ``ops/rnn.py``'s,
+plain PyTorch on either device (the JAX package has no Pallas kernel for
+it), and it pads the input to a hop multiple (``pad_to_hop``)."""
 
 from __future__ import annotations
 
@@ -56,9 +57,8 @@ class CirmModelConfig:
 
 
 def cirm_model_init(seed: int, cfg: CirmModelConfig, device=None):
-    """({"fb": params}, {"fb": state}) as the JAX package's tree (GSN only),
-    drawn on the CPU from ``seed`` and moved to ``device`` (default
-    ``cuda``)."""
+    """({"fb": params}, {"fb": state}) as the JAX package's tree, drawn on
+    the CPU from ``seed`` and moved to ``device`` (default ``cuda``)."""
     dev = resolve_device(device)
     params, state = sequence_model_init(torch.Generator().manual_seed(int(seed)),
                                         cfg.fb_config())
@@ -75,7 +75,7 @@ def cirm_model_apply(cfg: CirmModelConfig, params, state, noisy_y: torch.Tensor,
     if noisy_y.ndim != 2:
         raise ValueError(f"Input tensor must be 2D, but got {noisy_y.ndim}D.")
     B, sequence_length = noisy_y.shape
-    if cfg.pad_to_hop:
+    if cfg.pad_to_hop:  # a whole hop more where the length is a hop multiple, as in JAX
         noisy_y = F.pad(noisy_y, (0, cfg.hop_length - sequence_length % cfg.hop_length))
     spec = stft_complex(noisy_y, cfg.n_fft, cfg.hop_length, cfg.win_length)  # [B, F, T]
     fb_output, all_layer_outputs, new_state = sequence_model_apply(
@@ -85,6 +85,7 @@ def cirm_model_apply(cfg: CirmModelConfig, params, state, noisy_y: torch.Tensor,
     df_coef = fb_output.reshape(B, 2, df, S, -1, T).permute(0, 2, 3, 4, 5, 1)
     enh_stft = deep_filter(spec[:, None], df_coef, df, S)  # [B, 1, S, F, T]
     flat = enh_stft.reshape(B * S, *enh_stft.shape[-2:])
+    # padded: the iSTFT's own length, then cut to the input's (``:96-102``)
     enh_y = istft_complex(flat, cfg.n_fft, cfg.hop_length, cfg.win_length,
                           length=None if cfg.pad_to_hop else sequence_length)
     enh_y = enh_y[:, :sequence_length]

@@ -1,9 +1,10 @@
-"""SequenceModel family, GSN backbone (counterpart of
+"""SequenceModel family, GSN and LSTM backbones (counterpart of
 ``spiking_fullsubnet_tpu/models/sequence_model.py``): configuration, init,
 and the forward of the layered path (pre-LN, the GSU stack on kernel F in
-eval and on kernels D and E in training, projection, output activation),
-differentiable end to end. The LSTM, LIF and ALIF backbones are not
-ported yet (ROADMAP queue 1: remaining models and recipes)."""
+eval and on kernels D and E in training, or the LSTM of ``ops/rnn.py``,
+projection, output activation), differentiable end to end. The LIF and
+ALIF backbones are not ported yet (ROADMAP queue 1: remaining models and
+recipes)."""
 
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ import torch
 from ..nn.core import (cast_floating, layer_norm_apply, layer_norm_init, linear_apply, linear_init,
                        output_activation)
 from ..ops.gsu import gsu_stack_apply, gsu_stack_init
+from ..ops.rnn import lstm_apply, lstm_init
 
 
 @dataclass(frozen=True)
@@ -34,23 +36,28 @@ class SequenceModelConfig:
     backend: str = "auto"
 
 
-def _gsn_only(cfg: SequenceModelConfig, what: str) -> None:
-    if cfg.sequence_model != "GSN":
+def _ported_only(cfg: SequenceModelConfig, what: str) -> None:
+    if cfg.sequence_model not in ("GSN", "LSTM"):
         raise NotImplementedError(
-            f"sequence_model={cfg.sequence_model!r}: only the GSN {what} is ported "
+            f"sequence_model={cfg.sequence_model!r}: only the GSN and LSTM {what} are ported "
             "(ROADMAP queue 1: remaining models and recipes)")
 
 
 def sequence_model_init(gen: torch.Generator, cfg: SequenceModelConfig):
     """(params, state) with ``pre_ln`` (when used), ``stack`` and ``proj``
-    (when ``proj_size > 0``), as the JAX package's tree."""
-    _gsn_only(cfg, "init")
+    (when ``proj_size > 0``), as the JAX package's tree; an LSTM stack has
+    no state (``sequence_model.py:70-72``)."""
+    _ported_only(cfg, "init")
     params: Dict[str, Any] = {}
     state: Dict[str, Any] = {}
     if cfg.use_pre_layer_norm:
         params["pre_ln"] = layer_norm_init(cfg.input_size)
-    params["stack"], state["stack"] = gsu_stack_init(
-        gen, cfg.input_size, cfg.hidden_size, cfg.num_layers, cfg.shared_weights, cfg.bn)
+    if cfg.sequence_model == "GSN":
+        params["stack"], state["stack"] = gsu_stack_init(
+            gen, cfg.input_size, cfg.hidden_size, cfg.num_layers, cfg.shared_weights, cfg.bn)
+    else:
+        params["stack"], state["stack"] = lstm_init(gen, cfg.input_size, cfg.hidden_size,
+                                                    cfg.num_layers), {}
     if cfg.proj_size > 0:
         params["proj"] = linear_init(gen, cfg.hidden_size, cfg.proj_size)
     return params, state
@@ -61,14 +68,15 @@ def sequence_model_apply(cfg: SequenceModelConfig, params: Dict[str, Any],
                          ) -> Tuple[torch.Tensor, List[torch.Tensor], Dict[str, Any]]:
     """``x [B, F, T]`` -> (output ``[B, proj|H, T]`` in x's type,
     all_layer_outputs (time-major: the stack input, every layer's spikes,
-    the projection), state) (``sequence_model.py:86-149``); with ``train``
+    the projection; none for the LSTM, ``:136-143``), state)
+    (``sequence_model.py:86-149``); with ``train``
     the state holds the updated BN running statistics. With
     ``compute_dtype`` the input and every floating parameter (the BN affine
     included, not the running statistics) are cast to it first; the casts
     are differentiable, so gradients return in the parameters' own type."""
     if x.ndim != 3:
         raise ValueError(f"Input tensor must be 3D, but got {x.ndim}D.")
-    _gsn_only(cfg, "forward")
+    _ported_only(cfg, "forward")
     xt = x.permute(2, 0, 1)  # [T, B, F]
     out_dtype = xt.dtype
     if cfg.compute_dtype is not None:
@@ -77,12 +85,17 @@ def sequence_model_apply(cfg: SequenceModelConfig, params: Dict[str, Any],
         params = cast_floating(params, cdt)
     if cfg.use_pre_layer_norm:
         xt = layer_norm_apply(params["pre_ln"], xt)
-    out, all_layer_outputs, new_stack = gsu_stack_apply(
-        params["stack"], state["stack"], xt, cfg.hidden_size, cfg.shared_weights, train)
-    new_state = dict(state, stack=new_stack)
+    if cfg.sequence_model == "GSN":
+        out, all_layer_outputs, new_stack = gsu_stack_apply(
+            params["stack"], state["stack"], xt, cfg.hidden_size, cfg.shared_weights, train)
+        new_state = dict(state, stack=new_stack)
+    else:
+        out = lstm_apply(params["stack"], xt, cfg.hidden_size)
+        all_layer_outputs, new_state = [], state
     if cfg.proj_size > 0:
         out = linear_apply(params["proj"], out)
-        all_layer_outputs = all_layer_outputs + [out]
+        if cfg.sequence_model == "GSN":
+            all_layer_outputs = all_layer_outputs + [out]
     out = output_activation(cfg.output_activate_function)(out).permute(1, 2, 0)  # [B, F', T]
     if cfg.compute_dtype is not None:
         out = out.to(out_dtype)

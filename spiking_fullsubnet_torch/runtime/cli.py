@@ -9,8 +9,11 @@ the port, ``registry.resolve``). Each recipe directory names its trainer in
 a ``trainer.py`` that imports the JAX package, so the port never imports
 it: ``RECIPE_TRAINERS`` maps the recipe directory (the TOML's own, unless
 ``main`` is given another) and the module its ``[trainer] path`` names to
-the port's trainer. A GAN trainer also gets the discriminators of the
-TOML's ``[model_d*]`` sections. The weights live on ``--device``, ``cuda``
+the port's trainer. A dataset path relative to the recipe directory
+(``dataloader.SimTrainDataset``) names that directory's own module, which
+imports the JAX package too: ``RECIPE_MODULES`` maps it to the port's copy.
+A GAN trainer also gets the discriminators of the TOML's ``[model_d*]``
+sections. The weights live on ``--device``, ``cuda``
 unless ``cpu`` is asked for. ``--torch_ckpt`` (or ``[meta] torch_ckpt``)
 imports a reference checkpoint (``runtime/convert.py``) into the model
 before any mode runs; test, predict and finetune then use it where no
@@ -34,6 +37,7 @@ from .registry import build_optimizer_factory, instantiate
 # -> the port's trainer class, by import path
 DENOISE = "spiking_fullsubnet_torch.recipes.denoise.DenoiseTrainer"
 GAN = "spiking_fullsubnet_torch.recipes.gan."
+SEPARATION = "spiking_fullsubnet_torch.recipes.separation.SeparationTrainer"
 FREEZE = ("intel_ndns", "spiking_fullsubnet_freeze_phase")
 RECIPE_TRAINERS = {
     ("intel_ndns", "spiking_fullsubnet", "trainer"): DENOISE,
@@ -44,24 +48,52 @@ RECIPE_TRAINERS = {
     (*FREEZE, "trainer"): GAN + "GanDenoiseTrainer",
     (*FREEZE, "trainer_dualGAN"): GAN + "DualGanDenoiseTrainer",
     (*FREEZE, "trainer_onlyGen"): GAN + "OnlyGenTrainer",
+    ("wsj0-mix", "spiking_fullsubnet", "trainer"): SEPARATION,
+    ("wsj0-mix", "conv_tasnet", "trainer"): SEPARATION,
+    ("wsj0-mix", "cirm_lstm", "trainer"): SEPARATION,
+    ("reverb", "spiking_fullsubnet", "trainer"): "spiking_fullsubnet_torch.recipes.dereverb."
+                                                 "DereverbTrainer",
+}
+# (recipes/<group>/<recipe>, a module of that directory a TOML path names)
+# -> the port's copy of the module
+RECIPE_MODULES = {
+    ("reverb", "spiking_fullsubnet", "dataloader"): "spiking_fullsubnet_torch.recipes.reverb_data",
 }
 NOT_PORTED = "ROADMAP queue 1: remaining models and recipes"
 
 
+def _recipe_key(recipe_dir):
+    return tuple(Path(recipe_dir).resolve().parts[-2:])
+
+
 def trainer_class(recipe_dir, config):
     """The port's trainer for a recipe directory and its TOML."""
-    key = (*Path(recipe_dir).resolve().parts[-2:], config["trainer"]["path"].rpartition(".")[0])
+    key = (*_recipe_key(recipe_dir), config["trainer"]["path"].rpartition(".")[0])
     if key not in RECIPE_TRAINERS:
         raise NotImplementedError(f"the recipe {'/'.join(key[:2])!r} with its {key[2]!r} "
                                   f"trainer is not ported yet ({NOT_PORTED})")
     return instantiate(RECIPE_TRAINERS[key], initialize=False)
 
 
-def _loaders(cfgs, **kw):
+def recipe_path(path: str, recipe_dir=None) -> str:
+    """``path`` with a module relative to the recipe directory (no package:
+    ``dataloader.SimTrainDataset``) replaced by the port's copy of that
+    module (``RECIPE_MODULES``); other paths as they are."""
+    module, _, attr = path.rpartition(".")
+    if "." in module or not module:
+        return path
+    key = (*_recipe_key(recipe_dir or "."), module)
+    if key not in RECIPE_MODULES:
+        raise NotImplementedError(f"{path!r} of the recipe {'/'.join(key[:2])!r} is not ported "
+                                  f"yet ({NOT_PORTED})")
+    return f"{RECIPE_MODULES[key]}.{attr}"
+
+
+def _loaders(cfgs, recipe_dir=None, **kw):
     if not isinstance(cfgs, list):
         cfgs = [cfgs]
-    return [DataLoader(dataset=instantiate(c["path"], args=c["args"]), **kw,
-                       **c.get("dataloader", {})) for c in cfgs]
+    return [DataLoader(dataset=instantiate(recipe_path(c["path"], recipe_dir), args=c["args"]),
+                       **kw, **c.get("dataloader", {})) for c in cfgs]
 
 
 def run(config, resume, modes, ckpt_path=None, recipe_dir=None, device=None):
@@ -86,11 +118,12 @@ def run(config, resume, modes, ckpt_path=None, recipe_dir=None, device=None):
 
     train_dataloader = validate_dataloaders = test_dataloaders = None
     if "train" in modes or "finetune" in modes:
-        train_dataloader = _loaders(config["train_dataset"], shuffle=True, seed=seed)[0]
+        train_dataloader = _loaders(config["train_dataset"], recipe_dir, shuffle=True,
+                                    seed=seed)[0]
     if "train" in modes or "finetune" in modes or "validate" in modes:
-        validate_dataloaders = _loaders(config["validate_dataset"])
+        validate_dataloaders = _loaders(config["validate_dataset"], recipe_dir)
     if "test" in modes or "predict" in modes:
-        test_dataloaders = _loaders(config["test_dataset"])
+        test_dataloaders = _loaders(config["test_dataset"], recipe_dir)
 
     extra = {}
     if issubclass(trainer_cls, GanDenoiseTrainer):

@@ -8,7 +8,8 @@ resolves to the same path under ``spiking_fullsubnet_torch.``, so they load
 unchanged. A path with no port yet raises ``NotImplementedError`` naming,
 by title, the ROADMAP item that brings it. Unlike the JAX registry, paths
 do not resolve against the working directory: a recipe directory's own
-modules import the JAX package.
+modules import the JAX package (the CLI maps those it needs to the port's
+copies, ``cli.RECIPE_MODULES``).
 """
 
 from __future__ import annotations
@@ -23,11 +24,6 @@ JAX_PREFIX, PORT_PREFIX = "spiking_fullsubnet_tpu.", "spiking_fullsubnet_torch."
 # modules of the JAX package not ported yet -> the ROADMAP queue 1 item
 # that brings them (every other unported module: "remaining models and recipes")
 ROADMAP_ITEMS: Dict[str, str] = {
-    "data.scp_dataset": "the separation data and recipe",
-    "data.ScpDataset": "the separation data and recipe",
-    "data.wsj0_mix": "the separation data and recipe",
-    "losses.pit": "the separation data and recipe",
-    "recipes.separation": "the separation data and recipe",
     "metrics.dnsmos": "DNSMOS",
     "metrics.DNSMOS": "DNSMOS",
     "parallel": "distributed training",

@@ -1,4 +1,5 @@
-"""The port's cIRM-GSN (models/cirm_models.py) against the JAX package.
+"""The port's cIRM-GSN and cIRM-LSTM (models/cirm_models.py) against the
+JAX package.
 
 - tiny widths in f64, shared and unshared weights, one and two speakers:
   enhanced audio atol 3e-6 (tests/test_stream_forward.py:53), the
@@ -6,7 +7,9 @@
 - the recipe's widths (recipes/intel_ndns/cirm_gsn/default.toml: input
   257, 2 x 256 GSU with pre-LN, BN and shared weights, deep filter of
   order 3) in f64 from JAX weights, 1 x 0.5 s: the same tolerances;
-- the init tree against the JAX package's, and the LSTM variant raising.
+- the init trees against the JAX package's: cIRM-GSN's, and cIRM-LSTM's
+  (recipes/wsj0-mix/cirm_lstm/default.toml; its forward is held to JAX's
+  in tests/test_torch_separation.py).
 Inputs are made with numpy from a seed and handed to both packages.
 """
 
@@ -98,6 +101,8 @@ def test_recipe_widths_cirm_gsn_f64_matches_jax():
 
 
 def test_init_tree_and_lstm_raises():
+    """cIRM-GSN's init tree and, where the LSTM variant raised before it was
+    ported, cIRM-LSTM's: the JAX package's keys and shapes."""
     b = PC.build(seed=4, device="cpu", **RECIPE)
     jb = JC.build(seed=0, **RECIPE)
     assert b["config"].__dict__ == jb["config"].__dict__
@@ -113,5 +118,13 @@ def test_init_tree_and_lstm_raises():
     assert shapes({"p": b["params"], "s": b["state"]}) == shapes({"p": jb["params"],
                                                                    "s": jb["state"]})
     assert b["params"]["fb"]["proj"]["weight"].shape == (257 * 3 * 2, 256)
-    with pytest.raises(NotImplementedError, match="remaining models and recipes"):
-        PC.build(seed=0, device="cpu", **dict(RECIPE, sequence_model="LSTM"))
+    lstm = dict(RECIPE, sequence_model="LSTM", bn=False, shared_weights=False, num_spks=2,
+                pad_to_hop=True, n_fft=256, hop_length=64, win_length=256, input_size=129,
+                proj_size=129)
+    lb, jlb = PC.build(seed=4, device="cpu", **lstm), JC.build(seed=0, **lstm)
+    assert lb["config"].__dict__ == jlb["config"].__dict__
+    assert shapes({"p": lb["params"], "s": lb["state"]}) == shapes({"p": jlb["params"],
+                                                                     "s": jlb["state"]})
+    assert lb["params"]["fb"]["stack"]["layers"][1]["fwd"]["weight_hh"].shape == (4 * 256, 256)
+    assert lb["params"]["fb"]["proj"]["weight"].shape == (129 * 2 * 3 * 2, 256)
+    assert lb["state"] == {"fb": {"stack": {}}}

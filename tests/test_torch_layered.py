@@ -337,7 +337,7 @@ def test_zoo_m_layered_si_sdr_gain(compute_dtype):
     ({"scan_mode": "fused", "norm_type": None, "band_axis": "band"}, "distributed training"),
     ({"sb_shared_bottleneck": 8}, "remaining models and recipes"),
     ({"norm_type": "forgetting_norm"}, "the rest of dsp/feature_norm.py"),
-    ({"sequence_model": "LSTM"}, "remaining models and recipes"),
+    ({"sequence_model": "LIF"}, "remaining models and recipes"),
 ])
 def test_layered_uncovered_configs_raise_naming_the_roadmap_item(change, match):
     _, pcfg, params, state = _tiny(np.float32)

@@ -213,4 +213,4 @@ def test_init_is_seeded_and_separator_tree_matches_jax():
     m = P.SpikingFullSubNet.from_init(b["config"], seed=5, device="cpu")
     assert torch.equal(w(m.param_tree()), w(b["params"]))
     with pytest.raises(NotImplementedError, match="remaining models and recipes"):
-        P.build(seed=0, device="cpu", **dict(TINY_KW, sequence_model="LSTM"))
+        P.build(seed=0, device="cpu", **dict(TINY_KW, sequence_model="LIF"))

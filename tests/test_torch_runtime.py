@@ -151,10 +151,20 @@ def test_registry_maps_jax_paths_and_names_what_is_not_ported():
     assert registry.resolve("spiking_fullsubnet_tpu.models.fused_forward."
                             "spiking_fullsubnet_fused_forward") \
         is fused_forward.spiking_fullsubnet_fused_forward
+    # the separation and dereverberation modules resolve in the port
+    from spiking_fullsubnet_torch.data import ScpDataset, wsj0_mix
+    from spiking_fullsubnet_torch.losses import pit
+    from spiking_fullsubnet_torch.models import conv_tasnet
+    from spiking_fullsubnet_torch.recipes import dereverb, separation
+    for path, obj in [("models.conv_tasnet.build", conv_tasnet.build),
+                      ("data.wsj0_mix.WSJ0MixDataset", wsj0_mix.WSJ0MixDataset),
+                      ("data.ScpDataset", ScpDataset), ("losses.pit.pit_wrapper", pit.pit_wrapper),
+                      ("recipes.separation.SeparationTrainer", separation.SeparationTrainer),
+                      ("recipes.dereverb.DereverbTrainer", dereverb.DereverbTrainer)]:
+        assert registry.resolve("spiking_fullsubnet_tpu." + path) is obj, path
     for path, item in [
-        ("spiking_fullsubnet_tpu.models.conv_tasnet.build", "remaining models and recipes"),
-        ("spiking_fullsubnet_tpu.data.wsj0_mix.WSJ0MixDataset", "the separation data and recipe"),
-        ("spiking_fullsubnet_tpu.data.ScpDataset", "the separation data and recipe"),
+        ("spiking_fullsubnet_tpu.models.sdnn.build", "remaining models and recipes"),
+        ("spiking_fullsubnet_tpu.models.fullsubnet.build", "remaining models and recipes"),
         ("spiking_fullsubnet_tpu.metrics.dnsmos.DNSMOS", "DNSMOS"),
         ("spiking_fullsubnet_tpu.metrics.DNSMOS", "DNSMOS"),
         ("spiking_fullsubnet_tpu.parallel.dist.scale_lr", "distributed training"),

@@ -235,7 +235,7 @@ def test_stream_gate_matches_jax():
 
 @pytest.mark.parametrize("change,match", [
     ({"scan_mode": "fused", "norm_type": None, "data_axis": "data"}, "distributed training"),
-    ({"num_spks": 2, "sequence_model": "LSTM"}, "remaining models and recipes"),
+    ({"num_spks": 2, "sequence_model": "LIF"}, "remaining models and recipes"),
 ])
 def test_uncovered_configs_raise_naming_the_roadmap_item(change, match):
     _, pcfg, params, state = _tiny(np.float32)
