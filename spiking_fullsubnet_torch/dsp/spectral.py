@@ -1,8 +1,10 @@
-"""Time-major STFT / iSTFT (counterpart of ``spiking_fullsubnet_tpu/dsp/spectral.py``).
+"""STFT / iSTFT (counterpart of ``spiking_fullsubnet_tpu/dsp/spectral.py``).
 
-Only the matmul-DFT formulation of the serving path is ported: the STFT is
-one windowed-DFT matrix product over the frames, the iSTFT one inverse-DFT
-product followed by overlap-add. Conventions are torch.stft/istft's
+The serving path's time-major formulation: the STFT is one windowed-DFT
+matrix product over the frames, the iSTFT one inverse-DFT product followed
+by overlap-add. ``stft_complex``/``istft_complex`` are torch.stft's steps
+written out, and ``stft``/``istft``/``make_stft_pair`` the reference's
+``output_type``/``input_type`` surface over them. Conventions are torch.stft/istft's
 (center=True, periodic hann, constant padding, onesided), as in the JAX
 package. ``matmul_dtype`` rounds the matmul inputs to that type and
 accumulates in the signal's own float type (bf16-in, f32-accumulate).
@@ -10,7 +12,8 @@ accumulates in the signal's own float type (bf16-in, f32-accumulate).
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from functools import partial
+from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -224,3 +227,56 @@ def istft_real_imag_tmajor(
             out = F.pad(out, (0, end - t_full))
         return out[:, pad:end]
     return out[:, pad:t_full - pad]
+
+
+def frame_signal(y: torch.Tensor, frame_length: int, hop_length: int) -> torch.Tensor:
+    """Overlapping frames ``[..., T] -> [..., n_frames, frame_length]``
+    (``spectral.py:54``); the samples past the last whole frame are dropped."""
+    return y.unfold(-1, frame_length, hop_length)
+
+
+def mag_phase(complex_spec: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Magnitude and phase of a complex spectrogram (``spectral.py:361``)."""
+    return complex_spec.abs(), complex_spec.angle()
+
+
+def stft(y: torch.Tensor, n_fft: int, hop_length: int, win_length: int,
+         output_type: Optional[str] = None, **kwargs):
+    """The reference's STFT surface (``spectral.py:366``): ``[B, T]`` or
+    ``[B, C, T]`` through ``stft_complex`` (``kwargs`` go there) to
+    ``(mag, phase)`` for ``"mag_phase"``, ``(real, imag)`` for
+    ``"real_imag"``, the complex spectrum for ``"complex"``, and ``(mag,
+    phase, real, imag)`` by default."""
+    if y.ndim not in (2, 3):
+        raise ValueError(f"Only single-/multi-channel signals supported, got ndim={y.ndim}")
+    spec = stft_complex(y, n_fft, hop_length, win_length, **kwargs)
+    if output_type == "mag_phase":
+        return mag_phase(spec)
+    if output_type == "real_imag":
+        return spec.real, spec.imag
+    if output_type == "complex":
+        return spec
+    return (*mag_phase(spec), spec.real, spec.imag)
+
+
+def istft(feature: Union[torch.Tensor, Sequence[torch.Tensor]], n_fft: int, hop_length: int,
+          win_length: int, length: Optional[int] = None, input_type: str = "complex"
+          ) -> torch.Tensor:
+    """The reference's iSTFT surface (``spectral.py:513``): a complex
+    spectrum, ``(real, imag)`` or ``(mag, phase)`` through ``istft_complex``."""
+    if input_type == "real_imag":
+        spec = torch.complex(*feature)
+    elif input_type == "complex":
+        spec = feature
+    elif input_type == "mag_phase":
+        mag, phase = feature
+        spec = torch.complex(mag * torch.cos(phase), mag * torch.sin(phase))
+    else:
+        raise ValueError(f"Unsupported input_type: {input_type}")
+    return istft_complex(spec, n_fft, hop_length, win_length, length=length)
+
+
+def make_stft_pair(n_fft: int, hop_length: int, win_length: int):
+    """``(stft, istft)`` with the frame sizes bound (``spectral.py:535``)."""
+    return (partial(stft, n_fft=n_fft, hop_length=hop_length, win_length=win_length),
+            partial(istft, n_fft=n_fft, hop_length=hop_length, win_length=win_length))

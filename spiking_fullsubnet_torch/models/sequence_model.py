@@ -1,10 +1,9 @@
-"""SequenceModel family, GSN and LSTM backbones (counterpart of
+"""SequenceModel family, GSN, LSTM, LIF and ALIF backbones (counterpart of
 ``spiking_fullsubnet_tpu/models/sequence_model.py``): configuration, init,
 and the forward of the layered path (pre-LN, the GSU stack on kernel F in
-eval and on kernels D and E in training, or the LSTM of ``ops/rnn.py``,
-projection, output activation), differentiable end to end. The LIF and
-ALIF backbones are not ported yet (ROADMAP queue 1: remaining models and
-recipes)."""
+eval and on kernels D and E in training, the LSTM of ``ops/rnn.py`` or the
+dense (A)LIF layers of ``ops/lif.py``, projection, output activation),
+differentiable end to end."""
 
 from __future__ import annotations
 
@@ -16,6 +15,7 @@ import torch
 from ..nn.core import (cast_floating, layer_norm_apply, layer_norm_init, linear_apply, linear_init,
                        output_activation)
 from ..ops.gsu import gsu_stack_apply, gsu_stack_init
+from ..ops.lif import lif_dense_apply, lif_dense_init
 from ..ops.rnn import lstm_apply, lstm_init
 
 
@@ -24,7 +24,7 @@ class SequenceModelConfig:
     input_size: int
     hidden_size: int
     num_layers: int
-    sequence_model: str = "GSN"  # "GSN" (spiking) or "LSTM"
+    sequence_model: str = "GSN"  # "GSN" (spiking), "LSTM", "LIF" or "ALIF"
     proj_size: int = 0
     shared_weights: bool = False
     output_activate_function: Optional[str] = None
@@ -36,18 +36,11 @@ class SequenceModelConfig:
     backend: str = "auto"
 
 
-def _ported_only(cfg: SequenceModelConfig, what: str) -> None:
-    if cfg.sequence_model not in ("GSN", "LSTM"):
-        raise NotImplementedError(
-            f"sequence_model={cfg.sequence_model!r}: only the GSN and LSTM {what} are ported "
-            "(ROADMAP queue 1: remaining models and recipes)")
-
-
 def sequence_model_init(gen: torch.Generator, cfg: SequenceModelConfig):
     """(params, state) with ``pre_ln`` (when used), ``stack`` and ``proj``
-    (when ``proj_size > 0``), as the JAX package's tree; an LSTM stack has
-    no state (``sequence_model.py:70-72``)."""
-    _ported_only(cfg, "init")
+    (when ``proj_size > 0``), as the JAX package's tree; an LSTM or (A)LIF
+    stack has no state (``sequence_model.py:70-77``): the (A)LIF stack is
+    ``num_layers`` dense layers of ``hidden_size`` without bias."""
     params: Dict[str, Any] = {}
     state: Dict[str, Any] = {}
     if cfg.use_pre_layer_norm:
@@ -55,9 +48,14 @@ def sequence_model_init(gen: torch.Generator, cfg: SequenceModelConfig):
     if cfg.sequence_model == "GSN":
         params["stack"], state["stack"] = gsu_stack_init(
             gen, cfg.input_size, cfg.hidden_size, cfg.num_layers, cfg.shared_weights, cfg.bn)
-    else:
+    elif cfg.sequence_model == "LSTM":
         params["stack"], state["stack"] = lstm_init(gen, cfg.input_size, cfg.hidden_size,
                                                     cfg.num_layers), {}
+    elif cfg.sequence_model in ("LIF", "ALIF"):
+        sizes = [cfg.input_size] + [cfg.hidden_size] * cfg.num_layers
+        params["stack"], state["stack"] = lif_dense_init(gen, sizes), {}
+    else:
+        raise NotImplementedError(f"Sequence model {cfg.sequence_model} not implemented.")
     if cfg.proj_size > 0:
         params["proj"] = linear_init(gen, cfg.hidden_size, cfg.proj_size)
     return params, state
@@ -68,7 +66,8 @@ def sequence_model_apply(cfg: SequenceModelConfig, params: Dict[str, Any],
                          ) -> Tuple[torch.Tensor, List[torch.Tensor], Dict[str, Any]]:
     """``x [B, F, T]`` -> (output ``[B, proj|H, T]`` in x's type,
     all_layer_outputs (time-major: the stack input, every layer's spikes,
-    the projection; none for the LSTM, ``:136-143``), state)
+    and for the GSN the projection; none for the LSTM, ``:128-143``),
+    state)
     (``sequence_model.py:86-149``); with ``train``
     the state holds the updated BN running statistics. With
     ``compute_dtype`` the input and every floating parameter (the BN affine
@@ -76,7 +75,6 @@ def sequence_model_apply(cfg: SequenceModelConfig, params: Dict[str, Any],
     are differentiable, so gradients return in the parameters' own type."""
     if x.ndim != 3:
         raise ValueError(f"Input tensor must be 3D, but got {x.ndim}D.")
-    _ported_only(cfg, "forward")
     xt = x.permute(2, 0, 1)  # [T, B, F]
     out_dtype = xt.dtype
     if cfg.compute_dtype is not None:
@@ -89,6 +87,12 @@ def sequence_model_apply(cfg: SequenceModelConfig, params: Dict[str, Any],
         out, all_layer_outputs, new_stack = gsu_stack_apply(
             params["stack"], state["stack"], xt, cfg.hidden_size, cfg.shared_weights, train)
         new_state = dict(state, stack=new_stack)
+    elif cfg.sequence_model in ("LIF", "ALIF"):
+        # the "ALIF" leaderboard row's backbone: dense + (adaptive) LIF per
+        # layer, the last layer's spikes out
+        out, all_layer_outputs = lif_dense_apply(
+            params["stack"], xt, adaptive=cfg.sequence_model == "ALIF", last_layer_spikes=True)
+        new_state = state
     else:
         out = lstm_apply(params["stack"], xt, cfg.hidden_size)
         all_layer_outputs, new_state = [], state

@@ -26,7 +26,12 @@ The port covers:
 - ``scan_mode="fused"`` (the flagship recipes' setting) and what
   ``"auto"`` sends there in eval (``models/fused_forward.py``): the single
   scan over frames on a CPU tensor, the layered formulation's kernels on a
-  CUDA tensor.
+  CUDA tensor;
+- the layered path's other backbones and sub-band forms: the LIF and ALIF
+  sequence models (``ops/lif.py``, plain PyTorch), the shared sub-band
+  ablation (``sb_shared_bottleneck``, ``models/shared_subband.py``: one GSU
+  stack over every section's units, kernel F in eval, D and E in
+  training), and every feature norm of ``dsp/feature_norm.py``.
 Weights come from a JAX-package ``.npz`` (``SpikingFullSubNet.from_npz``)
 or from a seeded init (``SpikingFullSubNet.from_init``, ``build``).
 Anything else raises ``NotImplementedError`` naming, by title, the ROADMAP
@@ -50,6 +55,7 @@ from ..runtime.convert import load_npz
 from ..runtime.device import resolve_device
 from .sequence_model import (SequenceModelConfig, sequence_model_apply, sequence_model_init,
                              subband_sequence_model_apply)
+from .shared_subband import shared_subband_forward, shared_subband_init
 
 
 @dataclass(frozen=True)
@@ -194,19 +200,19 @@ def separator_config(
 def spiking_fullsubnet_init(seed: int, cfg: SpikingFullSubNetConfig, device=None):
     """(params, state) trees of the JAX package's ``spiking_fullsubnet_init``
     (same keys, shapes and float32 distributions; other bits), drawn on the
-    CPU from ``seed`` and moved to ``device`` (default ``cuda``)."""
-    if cfg.sb_shared_bottleneck:
-        raise NotImplementedError(
-            "sb_shared_bottleneck (models/shared_subband.py) is not ported yet "
-            "(ROADMAP queue 1: remaining models and recipes)")
+    CPU from ``seed`` and moved to ``device`` (default ``cuda``); with
+    ``sb_shared_bottleneck`` the sub-band entries are the shared model's."""
     dev = resolve_device(device)
     gen = torch.Generator().manual_seed(int(seed))
     fb_params, fb_state = sequence_model_init(gen, cfg.fb_config())
-    sb_params, sb_states = [], []
-    for i in range(cfg.num_sections):
-        p, s = sequence_model_init(gen, cfg.sb_config(i))
-        sb_params.append(p)
-        sb_states.append(s)
+    if cfg.sb_shared_bottleneck:
+        sb_params, sb_states = shared_subband_init(gen, cfg)
+    else:
+        sb_params, sb_states = [], []
+        for i in range(cfg.num_sections):
+            p, s = sequence_model_init(gen, cfg.sb_config(i))
+            sb_params.append(p)
+            sb_states.append(s)
     to_dev = lambda t: tree_map(lambda x: x.to(dev), t)  # noqa: E731
     return (to_dev({"fb": fb_params, "sb": sb_params}),
             to_dev({"fb": fb_state, "sb": sb_states}))
@@ -254,7 +260,11 @@ def _subband_forward(cfg: SpikingFullSubNetConfig, params, state, noisy_mag: tor
     (``spiking_fullsubnet.py:188-230``). ``fused`` unfolds the fullband
     output as the fused forward gathers it (edges of the ``num_freqs``-bin
     spectrum, indices clamped to the tile). Returns (df coefficient tensors
-    ``[B, df, S, N fc, T, 2]``, per-section layer outputs, states)."""
+    ``[B, df, S, N fc, T, 2]``, per-section layer outputs, states); with
+    ``sb_shared_bottleneck`` the shared model's (``:197-202``)."""
+    if cfg.sb_shared_bottleneck:
+        return shared_subband_forward(cfg, params["sb"], state["sb"], noisy_mag, fb_output,
+                                      train, fused)
     norm = norm_wrapper(cfg.norm_type) if cfg.norm_type else None
     df_coefs, all_layer_outputs, new_states = [], [], []
     for idx in range(cfg.num_sections):
@@ -287,11 +297,9 @@ def _layered_forward(cfg: SpikingFullSubNetConfig, params, state,
     spikes are returned. ``fused`` gives the fused forward's answer: the
     tile cut to ``num_freqs`` bins and gathered as the fused forward does
     (``fused_forward.py:313-324``), which differs from the layered forward's
-    where the tile is not ``num_freqs`` bins wide (``fb_proj_size=0``)."""
-    if cfg.sb_shared_bottleneck:
-        raise NotImplementedError(
-            "sb_shared_bottleneck (models/shared_subband.py) is not ported yet "
-            "(ROADMAP queue 1: remaining models and recipes)")
+    where the tile is not ``num_freqs`` bins wide (``fb_proj_size=0``).
+    With ``sb_shared_bottleneck`` kernel F runs twice in eval (the fullband
+    and the shared stack) and D and E once a layer of each in training."""
     B, sequence_length = noisy_y.shape
     spec = stft_complex(noisy_y, cfg.n_fft, cfg.hop_length, cfg.win_length)  # [B, F+1, T]
     noisy_cmp = spec[:, None]  # [B, 1, F+1, T]

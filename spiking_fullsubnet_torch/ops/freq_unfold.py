@@ -1,5 +1,6 @@
-"""Frequency-axis unfolding into overlapping sub-band units (counterpart of
-``spiking_fullsubnet_tpu/ops/freq_unfold.py``), and the static gather
+"""Frequency-axis unfolding into overlapping sub-band units, per section
+and per bin (counterpart of ``spiking_fullsubnet_tpu/ops/freq_unfold.py``),
+and the static gather
 indices it reduces to (``_reflect_unfold_indices`` of
 ``spiking_fullsubnet_tpu/models/fused_forward.py:55-64``), which the
 serving path folds into its one-hot layer-0 weights."""
@@ -43,3 +44,14 @@ def freq_unfold(x: torch.Tensor, lower_cutoff_freq: int, upper_cutoff_freq: int,
         idx = np.minimum(idx, width - 1)
     out = x[:, :, torch.as_tensor(idx, device=x.device), :]  # [B, C, N, width, T]
     return out.transpose(1, 2)
+
+
+def freq_unfold_per_bin(x: torch.Tensor, num_neighbors: int) -> torch.Tensor:
+    """``[B, C, F, T] -> [B, F, C, 2 n + 1, T]``: every bin a sub-band unit
+    of its ``n`` neighbours on each side, reflect-padded at the spectrum's
+    edges (``freq_unfold.py:61-74``), as one gather."""
+    b, c, f, t = x.shape
+    if num_neighbors <= 0:
+        return x.transpose(1, 2).reshape(b, f, c, 1, t)
+    idx = reflect_unfold_indices(0, f, 1, num_neighbors, f)  # [F, 2 n + 1]
+    return x[:, :, torch.as_tensor(idx, device=x.device), :].transpose(1, 2)

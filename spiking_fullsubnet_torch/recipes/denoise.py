@@ -6,8 +6,9 @@ loss = freq_mae + mag_mae + 0.001 (100 - SI-SNR) against the clean audio
 (``denoise.py:63-79``), its gradient, clipping by global norm and an
 optimizer step. ``train_step`` takes one such step; ``DenoiseTrainer``
 runs the same step inside the epoch loop of ``runtime/trainer.Trainer``,
-and validates with SI-SDR (the north-star metric), STOI and, when the
-forward collects its layers' spikes, the synops and neuron ops.
+and validates with SI-SDR (the north-star metric), STOI, DNSMOS where
+``onnxruntime`` imports and, when the forward collects its layers' spikes,
+the synops and neuron ops.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ import torch
 
 from ..dsp.io import save_wav
 from ..losses.losses import freq_mae, mag_mae, si_snr
-from ..metrics import SISDR, STOI, compute_neuronops, synops_device
+from ..metrics import SISDR, STOI, compute_neuronops, dnsmos_or_none, synops_device
 from ..runtime.trainer import Trainer, optimizer_update
 
 logger = logging.getLogger(__name__)
@@ -94,20 +95,26 @@ def write_metrics(rows, stem: Path) -> Dict[str, float]:
 
 
 class DenoiseTrainer(Trainer):
-    """The denoise recipe's trainer (``denoise.py:28-153``). DNSMOS needs
-    ``onnxruntime`` and is not ported yet: validation runs without it, as
-    the JAX recipe does where ``onnxruntime`` is missing."""
+    """The denoise recipe's trainer (``denoise.py:28-153``). DNSMOS scores
+    each validation utterance where ``onnxruntime`` imports (``dns_mos``);
+    without it validation runs without them, as the JAX recipe does."""
 
     north_star_metric = "si_sdr"
-    # logged once a trainer is built; a recipe that says nothing sets None
-    dnsmos_warning = "DNSMOS is not ported (it needs onnxruntime): validation runs without it."
+    # logged where DNSMOS is missing; a recipe that says nothing sets None
+    dnsmos_warning = "onnxruntime unavailable — DNSMOS disabled for validation."
 
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
         self.si_sdr = SISDR()
         self.stoi = STOI(sr=self.sr)
-        if self.dnsmos_warning:
+        self.dns_mos = dnsmos_or_none(self.sr)
+        if self.dns_mos is None and self.dnsmos_warning:
             logger.warning(self.dnsmos_warning)
+
+    def dnsmos_row(self, est: np.ndarray) -> Dict[str, float]:
+        """DNSMOS's scores of one estimate (P808, OVRL, SIG, BAK), or none
+        without ``onnxruntime``."""
+        return self.dns_mos(est) if self.dns_mos is not None else {}
 
     def training_step(self, noisy: torch.Tensor, clean: torch.Tensor):
         return accumulate_grads(self.model_apply, self.model_config, self.params,
@@ -138,8 +145,8 @@ class DenoiseTrainer(Trainer):
             # per-batch cost proxies, repeated per utterance (reference
             # freeze trainer validation_step:117-137 does the same)
             extra = {"synops": float(synops), "neuron_ops": float(neuronops)}
-        return [self.si_sdr(est[i], ref[i]) | self.stoi(est[i], ref[i]) | extra
-                for i in range(est.shape[0])]
+        return [self.si_sdr(est[i], ref[i]) | self.stoi(est[i], ref[i]) | self.dnsmos_row(est[i])
+                | extra for i in range(est.shape[0])]
 
     def validation_epoch_end(self, outputs, log_to_tensorboard=True):
         """The metrics CSV and its mean (reference recipe trainer.py:68-99):

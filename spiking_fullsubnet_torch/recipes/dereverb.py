@@ -2,8 +2,9 @@
 ``spiking_fullsubnet_tpu/recipes/dereverb.py``).
 
 loss = freq_mae + mag_mae + time-domain L1 (``dereverb.py:45-58``).
-Validation and test score SI-SDR, the north-star metric where DNSMOS is
-absent (``:30-38``; DNSMOS needs ``onnxruntime`` and is not ported).
+Validation and test score SI-SDR and, where ``onnxruntime`` imports,
+DNSMOS, whose OVRL is then the north-star metric; without it SI-SDR is
+(``:30-38``).
 Prediction writes the enhanced wavs under ``enhanced/dataloader_<i>/``,
 mirroring the input tree relative to ``[predict] mix_root`` for
 downstream ASR scoring (``:106-121``).
@@ -33,10 +34,16 @@ def dereverb_loss(enhanced_y: torch.Tensor, ref_y: torch.Tensor) -> Dict[str, to
 
 
 class DereverbTrainer(DenoiseTrainer):
-    """The denoise trainer with the dereverberation loss, SI-SDR alone in
-    validation and test, and prediction that mirrors the input tree."""
+    """The denoise trainer with the dereverberation loss, SI-SDR (and
+    DNSMOS) in validation and test, and prediction that mirrors the input
+    tree."""
 
     dnsmos_warning = "onnxruntime unavailable — falling back to si_sdr north star."
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        if self.dns_mos is not None:
+            self.north_star_metric = "OVRL"
 
     def training_step(self, mix_y: torch.Tensor, ref_y: torch.Tensor):
         out = self.model_apply(self.model_config, self.params, self.model_state, mix_y,
@@ -54,7 +61,8 @@ class DereverbTrainer(DenoiseTrainer):
 
     def validation_step(self, batch, batch_idx, dataloader_idx=0):
         est, ref = self.enhance(batch[0]), np.asarray(batch[1])
-        return [self.si_sdr(est[i], ref[i]) for i in range(est.shape[0])]
+        return [self.si_sdr(est[i], ref[i]) | self.dnsmos_row(est[i])
+                for i in range(est.shape[0])]
 
     def predict_step(self, batch, batch_idx, dataloader_idx=0):
         mix_y = batch[0]

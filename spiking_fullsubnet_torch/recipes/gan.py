@@ -8,9 +8,9 @@ step of each discriminator (``gan.py:234-303``):
   discriminator in eval; gradients reach the generator only, which takes
   the base trainer's update (global norm before the clip, the clip, the
   rate of this update, AdamW);
-- targets: DNSMOS needs ``onnxruntime`` and is not ported, so each
-  utterance's target is the JAX package's fallback, ``clip((SI-SDR + 10) /
-  40, 0, 1)``;
+- targets: each utterance's DNSMOS score of the target key, ``(score -
+  1) / 4``, where ``onnxruntime`` imports; else the JAX package's fallback,
+  ``clip((SI-SDR + 10) / 40, 0, 1)``;
 - discriminator: ``mse(D(clean, clean), 1) + mse(D(clean, enh), target)``
   in training, the second pass from the ``u`` and ``v`` the first left;
   AdamW with optax's defaults (weight decay 1e-4), the rate from its own
@@ -190,10 +190,19 @@ class GanDenoiseTrainer(DenoiseTrainer):
 
     def batch_mos(self, enh: np.ndarray, clean: np.ndarray, targets) -> Dict[str, np.ndarray]:
         """Each target key's column ``[B, 1]`` float32 (``gan.py:216-232``):
-        without DNSMOS, the utterance's SI-SDR clamped into [0, 1]."""
-        col = np.asarray([np.clip((si_sdr_value(e, c) + 10.0) / 40.0, 0.0, 1.0)
-                          for e, c in zip(enh, clean)], np.float32)[:, None]
-        return {t: col.copy() for t in targets}
+        DNSMOS's score (P.835, no P.808) mapped to ``(score - 1) / 4``; without
+        DNSMOS, the utterance's SI-SDR clamped into [0, 1]."""
+        cols = {t: [] for t in targets}
+        for e, c in zip(enh, clean):
+            if self.dns_mos is not None:
+                scores = self.dns_mos(e, return_p808=False)
+                for t in targets:
+                    cols[t].append((scores[t] - 1.0) / 4.0)
+            else:
+                v = float(np.clip((si_sdr_value(e, c) + 10.0) / 40.0, 0.0, 1.0))
+                for t in targets:
+                    cols[t].append(v)
+        return {t: np.asarray(v, np.float32)[:, None] for t, v in cols.items()}
 
     # ---- the update ----
     def _train_batch(self, batch, n: int):

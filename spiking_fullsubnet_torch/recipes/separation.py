@@ -5,9 +5,9 @@ Spiking-FullSubNet, Conv-TasNet and cIRM-LSTM recipes.
 Training minimises the permutation-invariant negative SI-SDR of the
 ``[B, 2, T]`` estimates (``separation.py:39-43``); validation and test
 reorder each estimate by its best permutation and score SI-SDR per item
-over its speakers (``:45-65``), the north-star metric. DNSMOS needs
-``onnxruntime`` and is not ported: the trainer takes the JAX recipe's
-branch for its absence (``:26-31``).
+over its speakers (``:45-65``), the north-star metric, and DNSMOS the
+speakers' estimates end to end where ``onnxruntime`` imports (``:26-31,
+60-61``).
 """
 
 from __future__ import annotations
@@ -29,7 +29,7 @@ class SeparationTrainer(DenoiseTrainer):
     """The denoise trainer with the PIT loss and SI-SDR after the best
     permutation; its CSVs are the denoise recipe's (``:67-86``)."""
 
-    dnsmos_warning = None  # the JAX recipe drops DNSMOS without a word
+    dnsmos_warning = None  # the JAX recipe goes without DNSMOS without a word
 
     def training_step(self, mix_y: torch.Tensor, ref_y: torch.Tensor):
         out = self.model_apply(self.model_config, self.params, self.model_state, mix_y,
@@ -45,7 +45,8 @@ class SeparationTrainer(DenoiseTrainer):
                                self.to_device(batch[0]), train=False)["enhanced_y"]
         _, est = pit_wrapper(pairwise_neg_sisdr, est, ref)
         est, ref_np = est.float().cpu().numpy(), np.asarray(batch[1])
-        return [self.si_sdr(est[i], ref_np[i]) for i in range(est.shape[0])]
+        return [self.si_sdr(est[i], ref_np[i]) | self.dnsmos_row(est[i])
+                for i in range(est.shape[0])]
 
     def test_epoch_end(self, outputs):
         # logged to tensorboard, as the JAX recipe's test does

@@ -53,6 +53,8 @@ RECIPE_TRAINERS = {
     ("wsj0-mix", "cirm_lstm", "trainer"): SEPARATION,
     ("reverb", "spiking_fullsubnet", "trainer"): "spiking_fullsubnet_torch.recipes.dereverb."
                                                  "DereverbTrainer",
+    ("intel_ndns", "sdnn_delays", "trainer"): "spiking_fullsubnet_torch.recipes.sdnn_delays."
+                                              "SdnnDelaysTrainer",
 }
 # (recipes/<group>/<recipe>, a module of that directory a TOML path names)
 # -> the port's copy of the module

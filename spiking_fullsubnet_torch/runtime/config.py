@@ -57,29 +57,35 @@ def _fmt_value(v) -> str:
     raise TypeError(f"Cannot serialize {type(v)} to TOML")
 
 
-def _dump_table(d: Dict[str, Any], prefix: str, lines):
-    scalars = {k: v for k, v in d.items() if not isinstance(v, (dict, list)) or (
-        isinstance(v, list) and not (v and isinstance(v[0], dict)))}
-    tables = {k: v for k, v in d.items() if isinstance(v, dict)}
-    array_tables = {
-        k: v for k, v in d.items() if isinstance(v, list) and v and isinstance(v[0], dict)
-    }
-    if prefix and scalars:
+def _is_table(v) -> bool:
+    return isinstance(v, dict) or (isinstance(v, list) and bool(v) and isinstance(v[0], dict))
+
+
+def _dump_table(d: Dict[str, Any], prefix: str, lines, header: bool = True):
+    """``d`` under ``[prefix]`` (no header line where ``header`` is false: an
+    item of an array of tables, whose ``[[prefix]]`` is already written).
+    Two deviations from the JAX writer, so that every snapshot loads back:
+    an empty table gets its header, and an item's sub-tables are prefixed
+    with the array's name (``[test_dataset.args]``, where JAX writes
+    ``[args]``)."""
+    scalars = {k: v for k, v in d.items() if not _is_table(v)}
+    if header and prefix and (scalars or not d):
         lines.append(f"[{prefix}]")
     for k, v in scalars.items():
         if v is None:
             continue
         lines.append(f"{k} = {_fmt_value(v)}")
-    if scalars:
+    if scalars or (header and prefix and not d):
         lines.append("")
-    for k, v in tables.items():
-        _dump_table(v, f"{prefix}.{k}" if prefix else k, lines)
-    for k, items in array_tables.items():
-        for item in items:
-            lines.append(f"[[{prefix + '.' if prefix else ''}{k}]]")
-            sub = []
-            _dump_table(item, "", sub)
-            lines.extend(sub)
+    for k, v in d.items():
+        if isinstance(v, dict):
+            _dump_table(v, f"{prefix}.{k}" if prefix else k, lines)
+    for k, items in d.items():
+        if isinstance(items, list) and _is_table(items):
+            name = f"{prefix}.{k}" if prefix else k
+            for item in items:
+                lines.append(f"[[{name}]]")
+                _dump_table(item, name, lines, header=False)
 
 
 def toml_dump(config: Dict[str, Any], path: Union[str, Path]) -> None:

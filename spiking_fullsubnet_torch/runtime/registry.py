@@ -24,8 +24,6 @@ JAX_PREFIX, PORT_PREFIX = "spiking_fullsubnet_tpu.", "spiking_fullsubnet_torch."
 # modules of the JAX package not ported yet -> the ROADMAP queue 1 item
 # that brings them (every other unported module: "remaining models and recipes")
 ROADMAP_ITEMS: Dict[str, str] = {
-    "metrics.dnsmos": "DNSMOS",
-    "metrics.DNSMOS": "DNSMOS",
     "parallel": "distributed training",
     "runtime.timing": "bench on the GPU",
     "runtime.roofline": "bench on the GPU",

@@ -119,6 +119,10 @@ class Trainer:
 
         acoustics = config.get("acoustics", {})
         self.sr = acoustics.get("sr", 16000)
+        # the recipes' STFT geometry (trainer.py:148-156)
+        self.n_fft = acoustics.get("n_fft", 512)
+        self.hop_length = acoustics.get("hop_length", 128)
+        self.win_length = acoustics.get("win_length", 512)
 
         # Trainer args (reference trainer.py:60-74)
         trainer_config = config["trainer"]["args"]

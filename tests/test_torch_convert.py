@@ -101,6 +101,15 @@ def test_entry_points_default_to_cuda_and_never_fall_back():
         flagship_m()
     with pytest.raises(RuntimeError, match="CUDA"):
         SpikingFullSubNet.from_init(separator_config(**ZOO_KW), seed=0)
+    # the remaining models' build functions
+    from spiking_fullsubnet_torch.models import fullsubnet, sdnn
+    with pytest.raises(RuntimeError, match="CUDA"):
+        sdnn.build(seed=0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fullsubnet.build(seed=0, num_freqs=9, look_ahead=1, sequence_model="GRU",
+                         fb_num_neighbors=0, sb_num_neighbors=1, fb_output_activate_function=None,
+                         sb_output_activate_function=None, fb_model_hidden_size=4,
+                         sb_model_hidden_size=4)
 
 
 # JAX, the JAX package, pandas (not on the card's machine) and a recipe
@@ -115,7 +124,14 @@ def test_port_and_chip_smoke_import_no_jax():
     rel = {f.relative_to(ROOT).as_posix() for f in files}
     assert {"spiking_fullsubnet_torch/runtime/cli.py", "spiking_fullsubnet_torch/runtime/trainer.py",
             "spiking_fullsubnet_torch/data/loader.py", "spiking_fullsubnet_torch/metrics/metrics.py",
-            "spiking_fullsubnet_torch/recipes/denoise.py"} <= rel
+            "spiking_fullsubnet_torch/recipes/denoise.py",
+            # the remaining models, DNSMOS and the SDNN recipe
+            "spiking_fullsubnet_torch/metrics/dnsmos.py", "spiking_fullsubnet_torch/models/sdnn.py",
+            "spiking_fullsubnet_torch/models/fullsubnet.py",
+            "spiking_fullsubnet_torch/models/rnn_sequence_model.py",
+            "spiking_fullsubnet_torch/models/shared_subband.py",
+            "spiking_fullsubnet_torch/ops/lif.py", "spiking_fullsubnet_torch/dsp/mask.py",
+            "spiking_fullsubnet_torch/recipes/sdnn_delays.py"} <= rel
     for f in files:
         assert not _IMPORT.search(f.read_text()), f"{f} imports JAX, the JAX package, pandas or a " \
                                                   "recipe's trainer"

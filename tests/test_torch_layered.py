@@ -335,12 +335,31 @@ def test_zoo_m_layered_si_sdr_gain(compute_dtype):
 
 @pytest.mark.parametrize("change,match", [
     ({"scan_mode": "fused", "norm_type": None, "band_axis": "band"}, "distributed training"),
-    ({"sb_shared_bottleneck": 8}, "remaining models and recipes"),
-    ({"norm_type": "forgetting_norm"}, "the rest of dsp/feature_norm.py"),
-    ({"sequence_model": "LIF"}, "remaining models and recipes"),
 ])
 def test_layered_uncovered_configs_raise_naming_the_roadmap_item(change, match):
     _, pcfg, params, state = _tiny(np.float32)
     with pytest.raises(NotImplementedError, match=match):
         P.spiking_fullsubnet_apply(replace(pcfg, **change), params_from_numpy(params, "cpu"),
                                    params_from_numpy(state, "cpu"), torch.zeros(1, 2000))
+
+
+@pytest.mark.parametrize("change", [{"sb_shared_bottleneck": 8},
+                                    {"norm_type": "offline_gaussian_norm"},
+                                    {"sequence_model": "LIF"}],
+                         ids=["shared_subband", "gaussian_norm", "lif"])
+def test_layered_runs_the_configs_it_once_refused(change):
+    """The configs the layered forward refused until the shared sub-band
+    model, the other feature norms and the LIF backbone were ported, each
+    against the JAX layered forward in f64: audio within 3e-6
+    (tests/test_stream_forward.py:53)."""
+    jcfg = J.SpikingFullSubNetConfig(**dict(TINY_KW, **change))
+    params, state = J.spiking_fullsubnet_init(jax.random.PRNGKey(0), jcfg)
+    params, state = _np(params, np.float64), _np(state, np.float64)
+    noisy = np.random.default_rng(11).standard_normal((2, 2000)) * 0.1
+    ref = jax.jit(lambda p, s, x: J.spiking_fullsubnet_apply(jcfg, p, s, x))(
+        params, state, jnp.asarray(noisy))
+    out = P.spiking_fullsubnet_apply(P.SpikingFullSubNetConfig(**jcfg.__dict__),
+                                     params_from_numpy(params, "cpu"),
+                                     params_from_numpy(state, "cpu"), torch.from_numpy(noisy))
+    np.testing.assert_allclose(out["enhanced_y"].numpy(), np.asarray(ref["enhanced_y"]),
+                               atol=3e-6, rtol=0)

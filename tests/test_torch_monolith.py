@@ -212,5 +212,7 @@ def test_init_is_seeded_and_separator_tree_matches_jax():
     assert torch.equal(w(again[0]), w(b["params"])) and not torch.equal(w(other[0]), w(b["params"]))
     m = P.SpikingFullSubNet.from_init(b["config"], seed=5, device="cpu")
     assert torch.equal(w(m.param_tree()), w(b["params"]))
-    with pytest.raises(NotImplementedError, match="remaining models and recipes"):
-        P.build(seed=0, device="cpu", **dict(TINY_KW, sequence_model="LIF"))
+    # the LIF backbone builds the JAX tree too (its refusal went with its port)
+    lif = dict(TINY_KW, sequence_model="LIF")
+    _check_tree({"params": P.build(seed=0, device="cpu", **lif)["params"]},
+                {"params": J.build(seed=0, **lif)["params"]})

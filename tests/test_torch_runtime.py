@@ -35,13 +35,46 @@ ROOT = Path(__file__).resolve().parent.parent
 TOMLS = sorted(glob.glob(str(ROOT / "recipes" / "**" / "*.toml"), recursive=True))
 
 
+def _empty_tables(tree, prefix=""):
+    """The dotted names of the empty tables of a config."""
+    out = []
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            name = f"{prefix}.{k}" if prefix else k
+            out += [name] if not v else _empty_tables(v, name)
+    return out
+
+
+def _has_array_of_tables(tree):
+    return any((isinstance(v, list) and v and isinstance(v[0], dict))
+               or (isinstance(v, dict) and _has_array_of_tables(v)) for v in tree.values())
+
+
 @pytest.mark.parametrize("path", TOMLS, ids=lambda p: str(Path(p).relative_to(ROOT / "recipes")))
 def test_toml_load_and_dump_match_jax(path, tmp_path):
+    """The port's snapshot is JAX's text plus the headers of the empty
+    tables, which the JAX writer drops; where the config holds an array of
+    tables the two differ on purpose (the JAX writer's items lose their
+    prefix), and the port's loads back (``test_toml_dump_loads_back``)."""
     cfg = PC.toml_load(path)
     assert cfg == JC.toml_load(path)
     PC.toml_dump(cfg, tmp_path / "port.toml")
     JC.toml_dump(cfg, tmp_path / "jax.toml")
-    assert (tmp_path / "port.toml").read_text() == (tmp_path / "jax.toml").read_text()
+    port, jax_text = (tmp_path / "port.toml").read_text(), (tmp_path / "jax.toml").read_text()
+    if _has_array_of_tables(cfg):
+        assert port != jax_text
+        return
+    for name in _empty_tables(cfg):
+        assert f"[{name}]\n\n" in port
+        port = port.replace(f"[{name}]\n\n", "", 1)
+    assert port == jax_text
+
+
+@pytest.mark.parametrize("path", TOMLS, ids=lambda p: str(Path(p).relative_to(ROOT / "recipes")))
+def test_toml_dump_loads_back(path, tmp_path):
+    cfg = PC.toml_load(path)
+    PC.toml_dump(cfg, tmp_path / "port.toml")
+    assert PC.toml_load(tmp_path / "port.toml") == cfg
 
 
 def test_toml_env_interpolation_matches_jax(monkeypatch):
@@ -162,11 +195,19 @@ def test_registry_maps_jax_paths_and_names_what_is_not_ported():
                       ("recipes.separation.SeparationTrainer", separation.SeparationTrainer),
                       ("recipes.dereverb.DereverbTrainer", dereverb.DereverbTrainer)]:
         assert registry.resolve("spiking_fullsubnet_tpu." + path) is obj, path
+    # the remaining models and DNSMOS resolve in the port
+    from spiking_fullsubnet_torch.metrics import dnsmos
+    from spiking_fullsubnet_torch.models import fullsubnet, sdnn
+    from spiking_fullsubnet_torch.recipes import sdnn_delays
+    for path, obj in [("models.sdnn.build", sdnn.build),
+                      ("models.fullsubnet.build", fullsubnet.build),
+                      ("metrics.dnsmos.DNSMOS", dnsmos.DNSMOS), ("metrics.DNSMOS", dnsmos.DNSMOS),
+                      ("metrics.dnsmos.pDNSMOS", dnsmos.pDNSMOS),
+                      ("recipes.sdnn_delays.SdnnDelaysTrainer", sdnn_delays.SdnnDelaysTrainer)]:
+        assert registry.resolve("spiking_fullsubnet_tpu." + path) is obj, path
     for path, item in [
-        ("spiking_fullsubnet_tpu.models.sdnn.build", "remaining models and recipes"),
-        ("spiking_fullsubnet_tpu.models.fullsubnet.build", "remaining models and recipes"),
-        ("spiking_fullsubnet_tpu.metrics.dnsmos.DNSMOS", "DNSMOS"),
-        ("spiking_fullsubnet_tpu.metrics.DNSMOS", "DNSMOS"),
+        ("spiking_fullsubnet_tpu.models.modules.tac_apply", "remaining models and recipes"),
+        ("spiking_fullsubnet_tpu.dsp.sslt.cart2sph", "remaining models and recipes"),
         ("spiking_fullsubnet_tpu.parallel.dist.scale_lr", "distributed training"),
         ("spiking_fullsubnet_tpu.runtime.timing.time_fn_per_iter", "bench on the GPU"),
         ("spiking_fullsubnet_tpu.runtime.roofline.roofline_report", "bench on the GPU"),

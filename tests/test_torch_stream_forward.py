@@ -235,13 +235,30 @@ def test_stream_gate_matches_jax():
 
 @pytest.mark.parametrize("change,match", [
     ({"scan_mode": "fused", "norm_type": None, "data_axis": "data"}, "distributed training"),
-    ({"num_spks": 2, "sequence_model": "LIF"}, "remaining models and recipes"),
 ])
 def test_uncovered_configs_raise_naming_the_roadmap_item(change, match):
     _, pcfg, params, state = _tiny(np.float32)
     cfg = replace(pcfg, **change)
     with pytest.raises(NotImplementedError, match=match):
         _port(cfg, params, state, np.zeros((1, 2000), np.float32))
+
+
+def test_auto_sends_a_two_speaker_lif_config_to_the_layered_forward():
+    """A config the stream gate refuses and the port refused until the LIF
+    backbone was ported: ``"auto"`` takes the layered forward, as JAX's
+    does; f64 audio within 3e-6."""
+    _, pcfg = _cfgs(**dict(TINY_KW, num_spks=2, sequence_model="LIF"))
+    jcfg = J.SpikingFullSubNetConfig(**pcfg.__dict__)  # "auto" on both
+    assert not stream_supported(pcfg) and not jax_stream_supported(jcfg)
+    params, state = J.spiking_fullsubnet_init(jax.random.PRNGKey(0), jcfg)
+    to = lambda t: jax.tree.map(lambda x: np.asarray(x, np.float64), t)  # noqa: E731
+    noisy = np.random.default_rng(12).standard_normal((2, 2000)) * 0.1
+    ref = J.spiking_fullsubnet_apply(jcfg, to(params), to(state), jnp.asarray(noisy))
+    out = P.spiking_fullsubnet_apply(pcfg, params_from_numpy(to(params), "cpu"),
+                                     params_from_numpy(to(state), "cpu"), torch.from_numpy(noisy))
+    assert out["enhanced_y"].shape == (2, 2, 2000) and len(out["sb_all_layer_outputs"]) == 3
+    np.testing.assert_allclose(out["enhanced_y"].numpy(), np.asarray(ref["enhanced_y"]),
+                               atol=3e-6, rtol=0)
 
 
 # ------------------------------------------------- two-launch in every mode, collect path

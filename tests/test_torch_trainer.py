@@ -11,9 +11,9 @@
   gradient norm within rtol 1e-5 in float32, every update's learning rate
   equal, the later losses and the validation SI-SDR within rtol 1e-3.
 - ``max_steps`` stopping at exactly that many updates, and the refusals:
-  the default device without a GPU and the unported recipe (sdnn_delays);
-  the fused flagship recipe validating on the CPU, and the GAN and
-  separation recipes' trainers.
+  the default device without a GPU and an unknown recipe trainer; the
+  fused flagship recipe validating on the CPU, and the GAN, separation and
+  sdnn_delays recipes' trainers.
 """
 
 from __future__ import annotations
@@ -224,14 +224,18 @@ def test_cli_refusals(tmp_path, monkeypatch):
     assert cli.trainer_class(freeze, toml_load(freeze / "baseline_m_dualGAN.toml")) \
         is DualGanDenoiseTrainer
 
-    # the separation recipes take the separation trainer; sdnn_delays is not ported
+    # the separation recipes take the separation trainer; sdnn_delays its own
+    # (its CLI runs are in test_torch_sdnn.py)
+    from spiking_fullsubnet_torch.recipes.sdnn_delays import SdnnDelaysTrainer
     from spiking_fullsubnet_torch.recipes.separation import SeparationTrainer
     tasnet = RECIPES / "wsj0-mix" / "conv_tasnet"
     assert cli.trainer_class(tasnet, toml_load(tasnet / "tiny_synthetic.toml")) \
         is SeparationTrainer
+    sdnn = RECIPES / "intel_ndns" / "sdnn_delays"
+    for name in ("baseline.toml", "tiny_synthetic.toml"):
+        assert cli.trainer_class(sdnn, toml_load(sdnn / name)) is SdnnDelaysTrainer
     with pytest.raises(NotImplementedError, match="remaining models and recipes"):
-        cli.main(["-C", str(RECIPES / "intel_ndns" / "sdnn_delays" / "tiny_synthetic.toml"),
-                  "--device", "cpu"])
+        cli.trainer_class(sdnn, {"trainer": {"path": "trainer_unknown.Trainer"}})
     # a [loss_function] path binds its args to the port's loss function
     tiny["loss_function"] = {"path": "torch.nn.L1Loss", "args": {}}
     tiny["trainer"]["args"]["max_epochs"] = 0
