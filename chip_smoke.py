@@ -374,8 +374,42 @@ is non-zero:
             rate of two ranks give the ranks' update and rank 0's model
             state within relative L2 1e-6; the gradient norm within 1e-5
             and the rate equal; the ms of each rank's gradient average.
+15. surface  the rest of the JAX package's surface, at zoo M layered
+            (separator_config as it comes, f32, baseline_m.npz) on 16 x 6 s
+            of phase 6's training batch:
+            (a) the activation tracer (nn/module_tracer.py) in eval, counted:
+            F 4 launches traced as untraced (its traced instance), the
+            frame names equal the CPU route's (1 x 0.25 s); at F's
+            captured arguments the traced instance against F's plain
+            version over the first 16 frames (max |c| within 1e-2
+            relative, min |c| within 1e-3; over the whole sequence a flip
+            cascades, 1.5 % of the spikes at 751 frames), and each
+            membrane frame equal to its launch's trace and held over the
+            whole sequence against the plain cell given the kernel's own
+            spikes (max |c| within 1e-3, min |c| within 1e-4, spikes not
+            reproduced < 1e-4), finite flags equal; the output with the
+            tracer closed bit for bit the one before and the one under it;
+            the forward's and F's ms traced and not;
+            (b) +inf in fullband layer 1's weight_hh[0, 0]: the traced
+            forward raises FloatingPointAbort whose first line names
+            fb/gsu_layer1/membrane, with the module trail, F launched;
+            (c) one layered train step (denoise loss, backward) traced and
+            not: D, E and dW 8 launches each way, the loss and every
+            gradient bitwise equal, the 8 membrane frames equal to the
+            extremes of kernel D's y at the step's captured arguments;
+            (d) every models/modules.py function in CUDA float32 (TF32 off)
+            against its CPU float64 result, relative L2 < 1e-4: the TCN at
+            Conv-TasNet's widths (N 512, B 128, H 512, P 3, X 8, R 3), TAC
+            and the recurrences at 128-256 units (64 steps: the random
+            LayerNormLSTM is chaotic), the conformer convolution at 256
+            channels, MVDR over 6 channels x 257 bins;
+            (e) the native reader (native/wavio.py, built with g++): 64
+            int16 WAVs of 30 s (61 MB) in a temporary directory, read_batch
+            of 64 x 6 s crops bit for bit scipy's read and crop, the DNS
+            dataset (data/dns_audio.py) on its native path equal to its
+            scipy path; the ms of each.
 
-About 10 to 13 minutes on one H100, the build included.
+About 12 to 15 minutes on one H100, the build included.
 
 The last line is {"ok": true, "device": {...}}. Without a CUDA device, or
 without the rest of the repository beside it, it prints no result and
@@ -386,6 +420,7 @@ from __future__ import annotations
 
 import functools
 import json
+import math
 import subprocess
 import sys
 import time
@@ -3667,6 +3702,442 @@ def add_distributed_rows(kernels, rec):
                                                           for r in rec["b"]["ranks"]]}
 
 
+# ------------------------------------------------------------------ phase 15: the rest of the surface
+
+SURF_B, SURF_SECONDS = 16, 6.0  # the tracer's forward and train step (zoo M, layered, f32)
+SURF_CPU_SECONDS = 0.25  # the CPU route's forward whose frame names the card's must equal
+# F's traced instance against F's plain version over the first WINDOW frames
+# (as F's own checks: over the whole sequence a rounding flip of a spike
+# moves every membrane after it, 1.5 % of the spikes at 751 frames), and
+# over the whole sequence against the plain cell given the kernel's spikes.
+# Zoo M's membranes cross 0 all the time, so their min |c| is a rounding
+# residue (about 1e-7 over 1e7 membranes): TRACE_MIN_ABS and FORCED_MIN_ABS
+# bound only that residue. The limits stand 3-30 times above the readings
+# on an H100 (window 3.2e-7 max, 6.0e-7 min; whole sequence 5.1e-6 max,
+# 5.0e-8 min, 2.8e-6 of the spikes not reproduced; the same in every run).
+TRACE_MAX_REL, TRACE_MIN_ABS = 1e-5, 1e-5
+FORCED_MAX_REL, FORCED_MIN_ABS, FORCED_FLIPS = 5e-5, 1e-6, 2e-5
+# the same launches with BN scale SHIFTED_SCALE and shifts of +-(1 + u / H)
+# a unit u (``shifted_coef``): every membrane stays at least SHIFTED_FLOOR
+# from 0, no spike flips, and min |c| and max |c| over the whole sequence
+# are held relatively, min |c| far above rounding
+SHIFTED_SCALE, SHIFTED_FLOOR, SHIFTED_REL = 0.02, 0.5, 1e-5
+MODULE_REL_L2 = 1e-4  # models/modules.py in CUDA f32 against CPU f64 (tests/test_torch_cuda_separation.py's)
+# the recurrences' steps in (d): the randomly initialised LayerNormLSTM is
+# chaotic, its float32 rounding growing about tenfold every 50 steps on the
+# CPU as on the card (CPU float32 against float64 at 257 -> 256 x 2: 6.0e-6
+# at 50 steps, 4.9e-5 at 100, 4.5e-3 at 200); the other recurrences stay
+# near 2e-7
+RNN_STEPS = 64
+WAV_FILES, WAV_SECONDS, CROP_SECONDS = 64, 30.0, 6.0  # the native reader's batch
+
+
+def module_cases(rng):
+    """(name, function, f64 CPU arguments) of every ``models/modules.py``
+    function at the widths of the reference's usual configurations: the TCN
+    at Conv-TasNet's (N 512, B 128, H 512, P 3, X 8, R 3), TAC and the RNNs
+    at 128-256 units, the conformer convolution at 256 channels, MVDR over 6
+    channels x 257 bins; the recurrences over RNN_STEPS steps. Weights from
+    the port's inits (seed 0), inputs from ``rng``."""
+    from spiking_fullsubnet_torch.models import modules as M
+
+    gen = torch.Generator().manual_seed(0)
+
+    def w(tree):
+        return tree_map(lambda t: t.double(), tree)
+
+    def x(*shape, positive=False):
+        a = rng.standard_normal(shape)
+        return torch.from_numpy(np.abs(a) if positive else a)
+
+    def cx(*shape):
+        return torch.complex(x(*shape), x(*shape))
+
+    tcn = w(M.tcn_estimator_init(gen, 512, 1024, 128, 512, layer=8, stack=3, kernel=3))
+    spec = cx(2, 6, 257, 751)
+    mask = torch.from_numpy(rng.uniform(0, 1, (2, 257, 751)))
+    a, b = cx(2, 257, 6, 6), cx(2, 257, 6, 6)
+    phi_s, phi_n = a @ a.conj().transpose(-1, -2), b @ b.conj().transpose(-1, -2)
+    return [
+        ("cumulative_layer_norm_affine", M.cumulative_layer_norm_affine,
+         (x(4, 512, 1000), 1 + 0.1 * x(512), 0.1 * x(512)), {}),
+        ("cumulative_mag_spectral_norm", M.cumulative_mag_spectral_norm,
+         (x(4, 1, 257, 751, positive=True),), dict(cumulative=True)),
+        ("cumulative_norm", M.cumulative_norm, (x(4, 1, 257, 751, positive=True),), {}),
+        ("depth_conv1d_apply", M.depth_conv1d_apply,
+         (w(M.depth_conv1d_init(gen, 128, 512, 3, causal=True)), x(2, 128, 1000)),
+         dict(kernel=3, dilation=4, causal=True)),
+        ("tcn_estimator_apply", M.tcn_estimator_apply, (tcn, x(1, 512, 1000)),
+         dict(layer=8, stack=3, kernel=3, causal=True)),
+        ("tac_apply", M.tac_apply, (w(M.tac_init(gen, 128, 256)), x(2, 4, 128, 200)), {}),
+        ("residual_lstm_apply", M.residual_lstm_apply,
+         (w(M.residual_lstm_init(gen, 257, 257, 256)), x(2, 257, RNN_STEPS)),
+         dict(hidden_size=256)),
+        ("grouped_linear_apply", M.grouped_linear_apply,
+         (w(M.grouped_linear_init(gen, 256, 256, groups=4)), x(2, 200, 256)), dict(groups=4)),
+        ("shared_group_gru_apply", M.shared_group_gru_apply,
+         (w(M.shared_group_gru_init(gen, 256, 256, num_layers=2, num_groups=4)), x(RNN_STEPS, 2, 256)),
+         dict(hidden_size=256, num_groups=4)),
+        ("layer_norm_lstm_apply", M.layer_norm_lstm_apply,
+         (w(M.layer_norm_lstm_init(gen, 257, 256, num_layers=2)), x(RNN_STEPS, 2, 257)),
+         dict(hidden_size=256)),
+        ("mogrifier_lstm_apply", M.mogrifier_lstm_apply,
+         (w(M.mogrifier_lstm_init(gen, 257, 256, mogrify_steps=5)), x(RNN_STEPS, 2, 257)),
+         dict(hidden_size=256, mogrify_steps=5)),
+        ("causal_conformer_conv_apply", M.causal_conformer_conv_apply,
+         (w(M.causal_conformer_conv_init(gen, 256, kernel_size=15)), x(2, 256, 751)),
+         dict(kernel_size=15)),
+        ("complex_outer", M.complex_outer, (spec[:1, :, :, :200],), {}),
+        ("spatial_covariance", M.spatial_covariance, (spec, mask), {}),
+        ("mvdr_weights", M.mvdr_weights, (phi_s, phi_n), {}),
+        ("apply_beamforming", M.apply_beamforming, (spec, cx(2, 257, 6)), {}),
+    ]
+
+
+def forced_trace(gk, args, spikes):
+    """The trace ``[L, 4]`` of the membranes that F's plain cell gives when
+    every layer's inputs and recurrent spikes are the kernel's ``spikes``
+    (so that no flip cascades), and the share of the kernel's spikes that
+    these membranes do not reproduce. ``args`` as ``gsu_stack_eval_x``'s."""
+    x, wih0, wihr, whh, coef, hidden, shared = args
+    T, R, _ = x.shape
+    L = whh.shape[0]
+    ext = gk.trace_init(L, x.device)
+    flips = 0.0
+    for k in range(L):
+        s = spikes.float()
+        inp = x.float() @ wih0.float() if k == 0 else s[k - 1] @ wihr[k - 1].float()
+        prev = torch.cat([torch.zeros_like(s[k, :1]), s[k, :-1]])
+        pre = inp + prev @ whh[k].float()
+        b_f, b_c, scale, shift = coef[k]
+        if shared:
+            f, g = torch.sigmoid(pre + b_f), pre + b_c
+        else:
+            f, g = torch.sigmoid(pre[..., :hidden] + b_f), pre[..., hidden:] + b_c
+        c = torch.zeros_like(f[0])
+        mem = torch.empty_like(f)
+        for t in range(T):
+            c = (f[t] * c + (1.0 - f[t]) * g[t]) * scale + shift
+            mem[t] = c
+        gk.trace_fold(ext[k:k + 1], mem[None])
+        flips = max(flips, spike_mismatch((mem >= 0).float(), s[k]))
+    return ext.cpu(), flips
+
+
+def shifted_coef(coef, scale=SHIFTED_SCALE):
+    """``coef [L, 4, H]`` with BN scale ``scale`` and shift +-(1 + u / H)
+    (sign alternating over the units u): |c - shift| <= scale max(|c|, |g|),
+    so the membranes keep away from 0 while |g| < (1 - SHIFTED_FLOOR) /
+    scale - 2."""
+    H = coef.shape[-1]
+    u = torch.arange(H, dtype=coef.dtype, device=coef.device)
+    out = coef.clone()
+    out[:, 2] = scale
+    out[:, 3] = (1 - 2 * (u % 2)) * (1 + u / H)
+    return out
+
+
+def modules_on_card(dev):
+    """Phase 15 (d): each function in CUDA float32 (TF32 off) against its CPU
+    float64 result."""
+    rows = {}
+    for name, fn, args, kw in module_cases(np.random.default_rng(15)):
+        ref = fn(*args, **kw)
+        t0 = time.perf_counter()
+        got = fn(*tree_map(lambda t: t.to(dev, torch.complex64 if t.is_complex()
+                                          else torch.float32), args), **kw)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        pairs = list(zip(got, ref)) if isinstance(ref, tuple) else [(got, ref)]
+        rel = max(rel_l2(torch.view_as_real(g.cpu()) if g.is_complex() else g.cpu(),
+                         torch.view_as_real(r) if r.is_complex() else r) for g, r in pairs)
+        rows[name] = {"rel_l2": rel, "shape": list(pairs[0][1].shape), "ms": ms}
+        require(rel < MODULE_REL_L2, f"phase 15 (d): {name} relative L2 {rel} on the card")
+    return rows
+
+
+def reader_checks(work):
+    """Phase 15 (e): the native reader on WAV_FILES int16 WAVs of
+    WAV_SECONDS, against scipy, and the DNS dataset's native path."""
+    from scipy.io import wavfile
+
+    from spiking_fullsubnet_torch.data.dns_audio import DNSAudio
+    from spiking_fullsubnet_torch.native import wavio
+
+    require(wavio.native_available(), "phase 15 (e): the native reader did not build")
+    rng = np.random.default_rng(15)
+    n, crop = int(WAV_SECONDS * SR), int(CROP_SECONDS * SR)
+    for d in ("noisy", "clean"):
+        (work / d).mkdir()
+    paths = []
+    for i in range(WAV_FILES):
+        kind = "noisy" if i % 2 == 0 else "clean"
+        name = (f"book_snr5_tl-25_fileid_{i // 2}.wav" if kind == "noisy"
+                else f"clean_fileid_{i // 2}.wav")
+        paths.append(work / kind / name)
+        wavfile.write(str(paths[-1]), SR, (rng.standard_normal(n) * 3000).astype(np.int16))
+    mb = sum(p.stat().st_size for p in paths) / 1e6
+    offsets = rng.integers(0, n - crop, WAV_FILES)
+    t0 = time.perf_counter()
+    got = wavio.read_batch(paths, offsets, crop)
+    native_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    ref = np.stack([(wavfile.read(str(p))[1] / 32768.0).astype(np.float32)[o:o + crop]
+                    for p, o in zip(paths, offsets)])
+    scipy_ms = (time.perf_counter() - t0) * 1e3
+    require(np.array_equal(got, ref), "phase 15 (e): read_batch differs from scipy's read")
+    fast = DNSAudio(root=str(work), train=True, sublen=int(CROP_SECONDS))
+    slow = DNSAudio(root=str(work), train=True, sublen=int(CROP_SECONDS))
+    slow.use_native = False
+    require(fast.use_native, "phase 15 (e): the DNS dataset did not take the native path")
+    items, items_ms = {}, {}
+    for tag, ds in (("native", fast), ("scipy", slow)):
+        np.random.seed(15)  # the same crops: one draw an item
+        t0 = time.perf_counter()
+        items[tag] = [ds[k] for k in range(len(ds))]
+        items_ms[tag] = (time.perf_counter() - t0) * 1e3
+    require(all(np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+                for a, b in zip(items["native"], items["scipy"])),
+            "phase 15 (e): the DNS dataset's native path differs from its scipy path")
+    return {"files": WAV_FILES, "megabytes": mb, "crop_s": CROP_SECONDS,
+            "read_batch_ms": native_ms, "scipy_ms": scipy_ms, "bitwise_equal": True,
+            "dns_items": len(fast), "dns_native_ms": items_ms["native"],
+            "dns_scipy_ms": items_ms["scipy"], "dns_native": True}
+
+
+def surface_phase(gk, dev):
+    """Phase 15 (see the module docstring); returns its numbers."""
+    import shutil
+    import tempfile
+
+    from spiking_fullsubnet_torch.models.spiking_fullsubnet import (
+        SpikingFullSubNet, separator_config, spiking_fullsubnet_apply)
+    from spiking_fullsubnet_torch.nn import module_tracer as mt
+    from spiking_fullsubnet_torch.nn.module_tracer import extremes_frame
+
+    t_phase = time.perf_counter()
+    card = card_name()
+    out = {}
+    cfg = separator_config(norm_type="offline_laplace_norm", shared_weights=True, bn=True)
+    model = SpikingFullSubNet.from_npz(str(ZOO_M), cfg, device=dev)
+    p, st = model.param_tree(), model.state_tree()
+    _, _, tb_noisy, tb_clean = training_batches(dev)
+    x = tb_noisy[:SURF_B, :int(SURF_SECONDS * SR)].contiguous()
+    clean = tb_clean[:SURF_B, :int(SURF_SECONDS * SR)].contiguous()
+
+    def forward(params=p):
+        return spiking_fullsubnet_apply(cfg, params, st, x)
+
+    def counted(fn):
+        zero_counts(gk)
+        res = fn()
+        torch.cuda.synchronize()
+        return res, launch_counts(gk)
+
+    def equal_out(a, b):
+        return (torch.equal(a["enhanced_y"], b["enhanced_y"])
+                and all(torch.equal(u, v) for u, v in zip(a["fb_all_layer_outputs"],
+                                                          b["fb_all_layer_outputs"]))
+                and all(torch.equal(u, v) for su, sv in zip(a["sb_all_layer_outputs"],
+                                                            b["sb_all_layer_outputs"])
+                        for u, v in zip(su, sv)))
+
+    # ---- (a) the tracer in eval ----
+    torch.set_grad_enabled(False)
+    before, plain_counts = counted(forward)
+    seen = {}
+
+    def traced_forward():
+        with mt.ActivationTracer() as tr:
+            seen["out"] = forward()
+        return tr
+
+    tr, counts = counted(traced_forward)
+    f_args = [a for a, _ in record_calls(gk, ["gsu_stack_eval_x"], traced_forward)
+              ["gsu_stack_eval_x"]]
+    after, _ = counted(forward)
+    require(counts["F"] == 4 and counts == plain_counts,
+            f"phase 15 (a): launches {counts} under the tracer, {plain_counts} without")
+    require(equal_out(before, after) and equal_out(before, seen["out"]),
+            "phase 15 (a): the forward's output moved with the tracer")
+    cpu = torch.device("cpu")
+    cpu_model = SpikingFullSubNet.from_npz(str(ZOO_M), cfg, device=cpu)
+    with mt.ActivationTracer() as cpu_tr:
+        cpu_model(x[:1, :int(SURF_CPU_SECONDS * SR)].cpu())
+    names = [f[0] for f in tr.frames]
+    require(names == [f[0] for f in cpu_tr.frames],
+            f"phase 15 (a): frame names {names} differ from the CPU route's")
+    mem = [f for f in tr.frames if f[0].endswith("/membrane")]
+    require(len(mem) == 8 and len(f_args) == 4, f"phase 15 (a): {len(mem)} membrane frames")
+    worst = {k: 0.0 for k in ("max_rel", "min_abs", "forced_max_rel", "forced_min_abs",
+                              "forced_flips", "whole_spike_mismatch", "shifted_min_rel",
+                              "shifted_max_rel")}
+    shifted_floor = math.inf
+    for k, a in enumerate(f_args):
+        # the first WINDOW frames: the traced instance against F's plain version
+        xw = (a[0][:WINDOW].contiguous(),) + tuple(a[1:])
+        _, ext_w = gk.gsu_stack_eval_x(*xw, trace=True)
+        ext_p = []
+        gk.stack_eval_x_plain(*xw, extremes=ext_p)
+        for e, r in zip(ext_w, ext_p[0]):
+            worst["max_rel"] = max(worst["max_rel"], abs(e[1] - r[1]).item() / r[1].item())
+            worst["min_abs"] = max(worst["min_abs"], abs(e[0] - r[0]).item())
+            require(e[2] == r[2] == 0, f"phase 15 (a): non-finite membranes {e}, plain {r}")
+        # the whole sequence: the forward's frames are this launch's trace
+        # (the kernel is bitwise deterministic), held against the plain cell
+        # given the kernel's spikes
+        spikes_k, ext = gk.gsu_stack_eval_x(*a, trace=True)
+        forced, flips = forced_trace(gk, a, spikes_k)
+        worst["forced_flips"] = max(worst["forced_flips"], flips)
+        worst["whole_spike_mismatch"] = max(worst["whole_spike_mismatch"], spike_mismatch(
+            spikes_k, gk.stack_eval_x_plain(*a)))
+        for layer, (e, r) in enumerate(zip(ext, forced)):
+            name, mn, mx, ok = mem[2 * k + layer]
+            require((mn, mx, ok) == extremes_frame(e), f"phase 15 (a): {name} {(mn, mx, ok)} "
+                    f"is not its launch's trace {extremes_frame(e)}")
+            worst["forced_max_rel"] = max(worst["forced_max_rel"],
+                                          abs(e[1] - r[1]).item() / r[1].item())
+            worst["forced_min_abs"] = max(worst["forced_min_abs"], abs(e[0] - r[0]).item())
+            require(ok and e[2] == r[2] == 0, f"phase 15 (a): {name} finite {ok}, {e}, {r}")
+        # the whole sequence with the membranes shifted away from 0
+        sa = a[:4] + (shifted_coef(a[4]),) + a[5:]
+        spikes_s, ext_s = gk.gsu_stack_eval_x(*sa, trace=True)
+        ref_s = []
+        plain_s = gk.stack_eval_x_plain(*sa, extremes=ref_s)
+        ref_s = ref_s[0]
+        shifted_floor = min(shifted_floor, ref_s[:, 0].min().item())
+        require(torch.equal(spikes_s, plain_s) and (ext_s[:, 2:] == 0).all()
+                and (ref_s[:, 2:] == 0).all(),
+                f"phase 15 (a): shifted membranes of stack {k}: spikes or counts differ, "
+                f"{ext_s} against {ref_s}")
+        rel = ((ext_s[:, :2] - ref_s[:, :2]).abs() / ref_s[:, :2]).amax(0)
+        worst["shifted_min_rel"] = max(worst["shifted_min_rel"], rel[0].item())
+        worst["shifted_max_rel"] = max(worst["shifted_max_rel"], rel[1].item())
+    require(worst["max_rel"] <= TRACE_MAX_REL and worst["min_abs"] <= TRACE_MIN_ABS
+            and worst["forced_max_rel"] <= FORCED_MAX_REL
+            and worst["forced_min_abs"] <= FORCED_MIN_ABS
+            and worst["forced_flips"] <= FORCED_FLIPS
+            and shifted_floor >= SHIFTED_FLOOR
+            and worst["shifted_min_rel"] <= SHIFTED_REL and worst["shifted_max_rel"] <= SHIFTED_REL,
+            f"phase 15 (a): membrane frames against F's plain version {worst}, shifted "
+            f"membranes' least |c| {shifted_floor}")
+    fwd_ms = cuda_ms(forward, iters=2)
+    traced_ms = cuda_ms(traced_forward, iters=2)
+    f_ms = sum(cuda_ms(lambda: gk.gsu_stack_eval_x(*a), iters=3) for a in f_args)
+    f_traced_ms = sum(cuda_ms(lambda: gk.gsu_stack_eval_x(*a, trace=True), iters=3)
+                      for a in f_args)
+    out["eval"] = {"launches": counts, "frames": len(names), "membrane_frames": len(mem),
+                   "vs_plain": worst, "shifted_min_abs_c": shifted_floor, "forward_ms": fwd_ms, "traced_forward_ms": traced_ms,
+                   "f_ms": f_ms, "f_traced_ms": f_traced_ms, "bitwise_untraced": True}
+    log(f"[surface] (a) tracer in eval, zoo M layered f32 {SURF_B} x {SURF_SECONDS:g} s on "
+        f"{card}: F {counts['F']} launches traced as untraced; {len(names)} frames, names equal "
+        f"the CPU route's; membrane frames against F's plain version over the first {WINDOW} "
+        f"frames: max |c| within {worst['max_rel']:.3e} relative, min |c| within "
+        f"{worst['min_abs']:.3e}; over the whole sequence against the plain cell given the "
+        f"kernel's spikes: {worst['forced_max_rel']:.3e}, {worst['forced_min_abs']:.3e}, spikes "
+        f"not reproduced {worst['forced_flips']:.2e} (kernel against plain version "
+        f"{worst['whole_spike_mismatch']:.2e}); shifted membranes (BN scale {SHIFTED_SCALE:g}, "
+        f"least |c| {shifted_floor:.4f}) over the whole sequence: min |c| within "
+        f"{worst['shifted_min_rel']:.3e} relative, max |c| within "
+        f"{worst['shifted_max_rel']:.3e}, spikes equal; output bitwise equal with the tracer open and "
+        f"closed; "
+        f"forward {fwd_ms:.3f} ms untraced, {traced_ms:.3f} ms traced; F's four launches "
+        f"{f_ms:.3f} ms untraced, {f_traced_ms:.3f} ms traced (with the host reduction)")
+
+    # ---- (b) the abort ----
+    poisoned = tree_map(lambda t: t, p)
+    whh = p["fb"]["stack"]["layers"][1]["weight_hh"].detach().clone()
+    whh[0, 0] = float("inf")
+    poisoned["fb"]["stack"]["layers"][1]["weight_hh"] = whh
+    zero_counts(gk)
+    try:
+        with mt.ActivationTracer():
+            forward(poisoned)
+        msg = None
+    except mt.FloatingPointAbort as e:
+        msg = str(e)
+    torch.cuda.synchronize()
+    f_launched = gk.gsu_stack_eval_x.launches
+    require(msg is not None and "fb/gsu_layer1/membrane" in msg.splitlines()[0]
+            and "module trail" in msg and f_launched >= 1,
+            f"phase 15 (b): the poisoned forward gave {msg!r}, F launches {f_launched}")
+    out["abort"] = {"first_line": msg.splitlines()[0], "f_launches": f_launched,
+                    "trail": msg.split("most recent last):\n")[1].splitlines()}
+    log(f"[surface] (b) abort: {out['abort']['first_line']} (F {f_launched} launch); trail "
+        f"{[line.split()[-3] if '!!' in line else line.split()[0] for line in out['abort']['trail']]}")
+
+    # ---- (c) the tracer in training ----
+    torch.set_grad_enabled(True)
+
+    def step(traced):
+        q = fresh(p)
+        ys = []
+
+        def run():
+            if not traced:
+                return fwd_bwd(spiking_fullsubnet_apply, cfg, q, st, x, clean)
+            with mt.ActivationTracer() as ttr:
+                res = fwd_bwd(spiking_fullsubnet_apply, cfg, q, st, x, clean)
+            ys.append(ttr.frames)
+            return res
+
+        (loss, _), counts = counted(run)
+        return loss, [t.grad for t in tensors_of(q)], counts, (ys[0] if ys else None)
+
+    loss0, grads0, counts0, _ = step(False)
+    d_args = [a for a, _ in record_calls(gk, ["gsu_layer_train_fwd"], lambda: step(True))
+              ["gsu_layer_train_fwd"]]
+    loss1, grads1, counts1, frames = step(True)
+    same = torch.equal(loss0, loss1) and all(torch.equal(a, b) for a, b in zip(grads0, grads1))
+    require(same, "phase 15 (c): the train step moved with the tracer open")
+    require(counts0 == counts1 and counts1["D"] == 8 and counts1["E"] == 8,
+            f"phase 15 (c): launches {counts1} traced, {counts0} untraced")
+    tmem = [f for f in frames if f[0].endswith("/membrane")]
+    ys = [gk.gsu_layer_train_fwd(*a)[1] for a in d_args]
+    require(len(tmem) == len(ys) == 8 and all(f[1:] == mt.abs_extremes(y)
+                                               for f, y in zip(tmem, ys)),
+            "phase 15 (c): the membrane frames are not kernel D's y")
+    torch.set_grad_enabled(False)
+    out["train"] = {"launches": counts1, "loss": loss1.item(), "bitwise_equal": True,
+                    "membrane_frames": len(tmem)}
+    log(f"[surface] (c) tracer in training, zoo M layered f32 {SURF_B} x {SURF_SECONDS:g} s on "
+        f"{card}: launches {counts1} traced and untraced, loss {loss1.item():.6f} and every "
+        f"gradient bitwise equal; {len(tmem)} membrane frames equal kernel D's y")
+    del grads0, grads1, ys, d_args
+    torch.cuda.empty_cache()
+
+    # ---- (d) models/modules.py on the card ----
+    out["modules"] = modules_on_card(dev)
+    log(f"[surface] (d) models/modules.py in CUDA f32 against CPU f64 on {card}: "
+        + ", ".join(f"{k} {v['rel_l2']:.2e}" for k, v in out["modules"].items()))
+
+    # ---- (e) the native reader ----
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_wav_"))
+    try:
+        out["reader"] = reader_checks(work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    r = out["reader"]
+    log(f"[surface] (e) native reader on {card}'s host: read_batch of {r['files']} x "
+        f"{r['crop_s']:g} s crops from {r['megabytes']:.1f} MB of 30 s int16 WAVs "
+        f"{r['read_batch_ms']:.2f} ms, scipy read and crop {r['scipy_ms']:.2f} ms, bitwise equal; "
+        f"the DNS dataset's {r['dns_items']} items native {r['dns_native_ms']:.2f} ms, scipy "
+        f"{r['dns_scipy_ms']:.2f} ms, equal")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[surface] phase 15 took {out['seconds']:.1f} s")
+    return out
+
+
+def add_surface_rows(kernels, rec):
+    """Kernel F's traced instance beside F's line (phase 15 (a))."""
+    for entry in kernels:
+        if entry["name"] == "gsu_stack_eval_x":
+            e = rec["eval"]
+            entry["traced"] = {"launches": e["launches"]["F"], "ms": e["f_traced_ms"],
+                               "untraced_ms": e["f_ms"], "shape": f"zoo M {SURF_B} x "
+                                                                  f"{SURF_SECONDS:g} s f32"}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing to run", file=sys.stderr)
@@ -4213,11 +4684,16 @@ def main() -> int:
     stamp("14. data-parallel training")
     distributed = distributed_phase(gk, dev)
     add_distributed_rows(kernels, distributed)
+
+    # ---- 15. the rest of the surface: tracer, modules, native reader ----
+    stamp("15. the rest of the surface")
+    surface = surface_phase(gk, dev)
+    add_surface_rows(kernels, surface)
     stamp("end")
     print(json.dumps({"kernels": kernels, "forwards": forwards, "training": train_t,
                       "trainer": trainer, "flagship": flagship, "serving": serving,
                       "separation": separation, "remaining": remaining,
-                      "distributed": distributed,
+                      "distributed": distributed, "surface": surface,
                       "stream_checks": stream, "mode_checks": modes["checks"],
                       "batch": BENCH_B, "seconds": BENCH_SECONDS,
                       "train_batch": TRAIN_B, "train_seconds": TRAIN_SECONDS}), flush=True)

@@ -16,6 +16,19 @@
 // input is asked for at the start of step t, in chunks of up to 16 bytes
 // held in registers, and stored into the other half of a double-buffered
 // tile after layer 0's products.
+//
+// Kernel F's traced instance (TRACE = true: a library of its own, built from
+// gsu_stack_eval_x.cu with STACK_TRACE=1, which the activation tracer of
+// nn/module_tracer.py launches with StackArgs.trace set) also keeps,
+// per layer, the extremes of |c| over the membranes its threads update and
+// counts the non-finite ones: each thread reads back the membranes it has
+// just stored (same thread, same shared-memory words: no barrier), keeps
+// four values a layer in registers across the steps (fminf and fmaxf skip a
+// NaN, so NaNs are counted apart and never read from the extremes), and at
+// the end each warp reduces them by shuffles and its lane 0 folds them into
+// the block's entries of the trace buffer with 32-bit atomics (|c| >= 0, so
+// a float's bits order as the float). The untraced instance compiles none of
+// it.
 #pragma once
 
 #include "gsu_eval_mma.cuh"
@@ -37,7 +50,48 @@ struct StackArgs {
   // membranes (the staged tiles at 0), the block's total
   int N, cs, mpb, Hp, ld_x, o_spk, o_mem, smem;
   Mat in, rec[MAX_L];
+  // kernel F's traced instance: [blocks][L][4] words a block owns and sets up
+  // itself: min |c| and max |c| (float bits), non-finite and NaN counts over
+  // its columns, units and steps (null: the untraced instance)
+  unsigned* trace;
 };
+
+// One layer's running trace values of a thread.
+struct TraceAcc {
+  float mn, mx;
+  unsigned bad, nan;
+};
+
+// The traced instance's look at the membranes cell_tile has just stored:
+// the same elements as cell_tile's (a thread's units and columns), columns
+// past the tile (n >= cols) and pad units left out.
+template <int NG>
+__device__ __forceinline__ void observe_tile(TraceAcc& tr, int mt, int ng, int H, int ms,
+                                             int shared, const float* mem, int cols) {
+  const int lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (h == 1 && !shared) break;
+    const int j = gate_unit(mt, gid, 2 * h, shared);
+    if (j >= H) continue;
+#pragma unroll
+    for (int i = 0; i < NG; ++i) {
+      if (i >= ng) continue;
+#pragma unroll
+      for (int e2 = 0; e2 < 2; ++e2) {
+        const int n = i * 8 + 2 * tig + e2;
+        if (n >= cols) continue;
+        const float c = mem[(size_t)n * ms + j], a = fabsf(c);
+        tr.mn = fminf(tr.mn, a);
+        tr.mx = fmaxf(tr.mx, a);
+        if (!isfinite(c)) {
+          ++tr.bad;
+          if (isnan(c)) ++tr.nan;
+        }
+      }
+    }
+  }
+}
 
 // 8 spikes of one row (16 bytes of bf16 in shared memory) out to dst, cnt
 // of them (fewer at the end of a row): one 16- or two 16-byte stores where
@@ -110,7 +164,7 @@ __device__ __forceinline__ void seed_gates(float (&acc)[NG][4], const IO* xk, in
   }
 }
 
-template <typename IO, int NG, bool GATES>
+template <typename IO, int NG, bool GATES, bool TRACE>
 __global__ void __launch_bounds__(NTHREADS, 1) stack_kernel(const __grid_constant__ StackArgs a) {
   constexpr int PF = NG <= 4 ? 8 : 4;  // the fewer accumulators, the more loads in flight
   extern __shared__ float4 smem4[];
@@ -131,6 +185,14 @@ __global__ void __launch_bounds__(NTHREADS, 1) stack_kernel(const __grid_constan
   float* mem = at<float>(sm, a.o_mem);         // [L][N][ms]
 
   for (int i = tid; i < a.smem / 16; i += NTHREADS) smem4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  TraceAcc trace[MAX_L];
+  if constexpr (TRACE) {
+    for (int k = 0; k < MAX_L; ++k) trace[k] = TraceAcc{INFINITY, 0.f, 0u, 0u};
+    // the block's entries: +inf, 0, 0, 0 a layer (the barriers below order
+    // these stores before any atomic of the block)
+    if (tid < L * 4)
+      a.trace[(size_t)blockIdx.x * L * 4 + tid] = (tid & 3) == 0 ? __float_as_uint(INFINITY) : 0u;
+  }
   // column n of the tile at step tt: row ((u T + tt) R + r) of x and out
   const FastDiv d_r(R);
   auto row_of = [=](int n, int tt) {
@@ -195,6 +257,8 @@ __global__ void __launch_bounds__(NTHREADS, 1) stack_kernel(const __grid_constan
       };
       const float* coef = a.coef + (size_t)k * 4 * H;
       float* memk = mem + (size_t)k * N * ms;
+      TraceAcc tr;
+      if constexpr (TRACE) tr = trace[k];
       for (int mt = m0 + warp; mt < m1; mt += NWARPS) {
         float acc[NG][4];
         if (k == 0) {
@@ -214,8 +278,10 @@ __global__ void __launch_bounds__(NTHREADS, 1) stack_kernel(const __grid_constan
         }
         mark(a.prof, 0);
         cell_tile(acc, mt, ng, H, ms, shared, coef, memk, put);
+        if constexpr (TRACE) observe_tile<NG>(tr, mt, ng, H, ms, shared, memk, cols);
         mark(a.prof, 1);
       }
+      if constexpr (TRACE) trace[k] = tr;
       if (k == 0 && t + 1 < T) st.store(nx, get(t + 1), set(t + 1));
       barrier();
       mark(a.prof, 2);
@@ -230,11 +296,31 @@ __global__ void __launch_bounds__(NTHREADS, 1) stack_kernel(const __grid_constan
     mark(a.prof, 3);
   }
   prof_end(a.prof);
+  if constexpr (TRACE) {
+    const int lane = tid & 31;
+    unsigned* entry = a.trace + (size_t)blockIdx.x * L * 4;
+    for (int k = 0; k < L; ++k) {
+      TraceAcc tr = trace[k];
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {
+        tr.mn = fminf(tr.mn, __shfl_xor_sync(0xFFFFFFFFu, tr.mn, o));
+        tr.mx = fmaxf(tr.mx, __shfl_xor_sync(0xFFFFFFFFu, tr.mx, o));
+        tr.bad += __shfl_xor_sync(0xFFFFFFFFu, tr.bad, o);
+        tr.nan += __shfl_xor_sync(0xFFFFFFFFu, tr.nan, o);
+      }
+      if (lane == 0) {
+        atomicMin(entry + 4 * k, __float_as_uint(tr.mn));
+        atomicMax(entry + 4 * k + 1, __float_as_uint(tr.mx));
+        atomicAdd(entry + 4 * k + 2, tr.bad);
+        atomicAdd(entry + 4 * k + 3, tr.nan);
+      }
+    }
+  }
 }
 
-template <typename IO, int NG, bool GATES>
+template <typename IO, int NG, bool GATES, bool TRACE>
 static int launch_ng(const StackArgs& a, cudaStream_t stream) {
-  auto kern = stack_kernel<IO, NG, GATES>;
+  auto kern = stack_kernel<IO, NG, GATES, TRACE>;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, a.smem);
   if (e != cudaSuccess) return (int)e;
   cudaLaunchConfig_t cfg = {};
@@ -254,31 +340,32 @@ static int launch_ng(const StackArgs& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <typename IO, bool GATES>
+template <typename IO, bool GATES, bool TRACE>
 static int launch_io(const StackArgs& a, cudaStream_t s) {
   switch (a.N) {
-    case 8: return launch_ng<IO, 1, GATES>(a, s);
-    case 16: return launch_ng<IO, 2, GATES>(a, s);
-    case 32: return launch_ng<IO, 4, GATES>(a, s);
-    default: return launch_ng<IO, 8, GATES>(a, s);
+    case 8: return launch_ng<IO, 1, GATES, TRACE>(a, s);
+    case 16: return launch_ng<IO, 2, GATES, TRACE>(a, s);
+    case 32: return launch_ng<IO, 4, GATES, TRACE>(a, s);
+    default: return launch_ng<IO, 8, GATES, TRACE>(a, s);
   }
 }
 
 // cudaErrorInvalidValue for what the kernel does not take: H 1..512, L 1..4,
 // W 1..1024 (A: W = G, H shared or 2H), U, R >= 1, fewer than 2^31 columns,
-// the plan's tiles within 232,448 bytes.
-template <bool GATES>
+// the plan's tiles within 232,448 bytes; a trace buffer given to an untraced
+// library or missing in a traced one (only F has a traced instance).
+template <bool GATES, bool TRACE>
 static int launch_stack(int io_bf16, const StackArgs& a, void* stream) {
   const bool n_ok = a.N == 8 || a.N == 16 || a.N == 32 || a.N == 64;
   const bool cs_ok = a.cs == 1 || a.cs == 2 || a.cs == 4;
   const bool w_ok = GATES ? a.W == (a.shared ? a.H : 2 * a.H) : (a.W >= 1 && a.W <= 1024);
   if (a.H < 1 || a.H > 512 || a.L < 1 || a.L > MAX_L || !w_ok || a.U < 1 || a.R < 1 ||
       (long long)a.U * a.R > 0x7FFFFFFFLL || a.T < 0 || !n_ok || !cs_ok || a.smem > 232448 ||
-      a.mpb < 1)
+      a.mpb < 1 || (a.trace != nullptr) != TRACE || (GATES && TRACE))
     return (int)cudaErrorInvalidValue;
   if (a.T == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return io_bf16 ? launch_io<__nv_bfloat16, GATES>(a, s) : launch_io<float, GATES>(a, s);
+  return io_bf16 ? launch_io<__nv_bfloat16, GATES, TRACE>(a, s) : launch_io<float, GATES, TRACE>(a, s);
 }
 
 }  // namespace gev

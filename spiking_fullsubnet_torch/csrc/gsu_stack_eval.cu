@@ -58,7 +58,7 @@ extern "C" {
 // 1..512, L 1..4, G = H shared or 2H, U, R >= 1, the plan's tiles within
 // 232,448 bytes).
 int gsu_stack_launch(int io_bf16, const gev::StackArgs* args, void* stream) {
-  return gev::launch_stack<true>(io_bf16, *args, stream);
+  return gev::launch_stack<true, false>(io_bf16, *args, stream);
 }
 
 const char* gsu_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

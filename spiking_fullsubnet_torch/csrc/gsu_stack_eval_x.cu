@@ -49,6 +49,13 @@
 // summed across threads, so two launches are bitwise equal.
 #include "gsu_eval_stack.cuh"
 
+// STACK_TRACE=1 builds the traced instance's library (its own nvcc process,
+// so the build's time does not grow): gsu_stack_launch then wants
+// args->trace set, and the untraced library refuses it.
+#ifndef STACK_TRACE
+#define STACK_TRACE 0
+#endif
+
 extern "C" {
 
 // args: the streams, the packed weights, the sizes and the host's plan
@@ -57,7 +64,7 @@ extern "C" {
 // take (H 1..512, L 1..4, F 1..1024, R >= 1, the plan's tiles within
 // 232,448 bytes).
 int gsu_stack_launch(int io_bf16, const gev::StackArgs* args, void* stream) {
-  return gev::launch_stack<false>(io_bf16, *args, stream);
+  return gev::launch_stack<false, STACK_TRACE != 0>(io_bf16, *args, stream);
 }
 
 const char* gsu_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

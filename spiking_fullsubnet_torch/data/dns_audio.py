@@ -5,9 +5,11 @@ Re-design of recipes/intel_ndns/spiking_fullsubnet/dataloader.py:12-101:
 glob ``root/noisy/*.wav``, derive clean paths via the fileid regex, pad/crop
 to 30 s, draw a random aligned ``sublen``-second crop during training (one
 ``np.random.randint`` for the pair, as the JAX package draws it). Returns
-(noisy_f32[T], clean_f32[T], noisy_path). Files are read through
-``dsp/io.load_wav`` (scipy), whose values the JAX package's native
-window reader also gives.
+(noisy_f32[T], clean_f32[T], noisy_path). With the native reader
+(``native/wavio.py``) only the crop window is read, as the JAX package reads
+it (``dns_audio.py:45, 72-90``): the same draw, zeros past the end of the
+file, nothing past 30 s; without a C++ compiler each file is read whole
+with scipy and cropped in numpy, to the same values.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import re
 import numpy as np
 
 from ..dsp.io import load_wav, subsample
+from ..native import wavio as _native
 from .base_dataset import BaseDataset
 
 
@@ -41,6 +44,7 @@ class DNSAudio(BaseDataset):
         self.train = train
         self.sublen = sublen
         self.length = len(self.noisy_files)
+        self.use_native = _native.native_available()
 
     def __len__(self) -> int:
         return self.length
@@ -66,6 +70,18 @@ class DNSAudio(BaseDataset):
         noisy_file, clean_file, _, _ = self._get_filenames(n)
         sr = 16000
         num_samples = 30 * sr
+        crop = self.sublen * sr
+
+        if self.use_native:
+            if self.train:
+                # the draw of subsample(): one randint for the pair
+                start = int(np.random.randint(num_samples - crop))
+                return (_native.wav_read(noisy_file, offset=start, frames=crop, pad_to=crop)[0],
+                        _native.wav_read(clean_file, offset=start, frames=crop, pad_to=crop)[0],
+                        noisy_file)
+            return (_native.wav_read(noisy_file, frames=num_samples, pad_to=num_samples)[0],
+                    _native.wav_read(clean_file, frames=num_samples, pad_to=num_samples)[0],
+                    noisy_file)
 
         def fix(y):
             if len(y) > num_samples:
@@ -75,6 +91,6 @@ class DNSAudio(BaseDataset):
         noisy_audio = fix(load_wav(noisy_file)).astype(np.float32)
         clean_audio = fix(load_wav(clean_file)).astype(np.float32)
         if self.train:
-            noisy_audio, start = subsample(noisy_audio, self.sublen * sr, return_start_idx=True)
-            clean_audio = subsample(clean_audio, self.sublen * sr, start_idx=start)
+            noisy_audio, start = subsample(noisy_audio, crop, return_start_idx=True)
+            clean_audio = subsample(clean_audio, crop, start_idx=start)
         return noisy_audio, clean_audio, noisy_file

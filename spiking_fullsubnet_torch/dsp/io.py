@@ -1,9 +1,10 @@
 """Audio file IO and cropping for the host input pipeline (counterpart of
 ``spiking_fullsubnet_tpu/dsp/io.py``; reference audiozen/acoustics/io.py).
 
-WAVs are read and written with ``scipy.io.wavfile`` and resampled with
-``scipy.signal.resample_poly``: the JAX package's scipy path. Its native
-reader (``native/wavio.py``) gives the same values and is not carried over.
+WAVs are read with ``scipy.io.wavfile`` and resampled with
+``scipy.signal.resample_poly``; ``save_wav`` writes through the native codec
+(``native/wavio.py``, built with the C++ compiler at first use) as the JAX
+package does, and through scipy only where there is no compiler.
 """
 
 from __future__ import annotations
@@ -15,6 +16,8 @@ from typing import Optional, Tuple, Union
 import numpy as np
 from scipy.io import wavfile
 from scipy.signal import resample_poly
+
+from ..native import wavio as _native
 
 
 def _to_float(y: np.ndarray) -> np.ndarray:
@@ -45,7 +48,13 @@ def load_wav(wav_path: Union[str, Path], sr: Optional[int] = None) -> np.ndarray
 
 def save_wav(data, fpath: Union[str, Path], sr: int) -> None:
     """Write a float waveform to a 16-bit PCM wav, clipped to [-1, 1]
-    (audio_feature.py:213-220)."""
+    (audio_feature.py:213-220): natively (rounded to the nearest step, as
+    the JAX package writes it), or without a compiler through scipy
+    (truncated)."""
+    if _native.native_available():
+        y = np.asarray(data, dtype=np.float32).reshape(-1)
+        _native.wav_write(fpath, np.clip(y, -1.0, 1.0), sr)
+        return
     data = np.clip(np.asarray(data).reshape(-1), -1.0, 1.0)
     wavfile.write(str(fpath), sr, (data * 32767.0).astype(np.int16))
 

@@ -41,6 +41,7 @@ import torch
 
 from ..dsp.spectral import istft_complex, stft_complex
 from ..nn.core import cast_floating, layer_norm_apply, linear_apply, output_activation
+from ..nn.module_tracer import note_untraced_route
 from ..ops.deep_filter import deep_filter
 from ..ops.freq_unfold import freq_unfold, reflect_unfold_indices
 from ..ops.gsu import BN_EPS, bn_running_update, spike
@@ -153,8 +154,9 @@ def _new_stack_state(state, stats, rows: int):
 def fused_forward_plain(cfg, params, state, noisy_y: torch.Tensor,
                         train: bool = False) -> Dict[str, Any]:
     """The single scan over frames (``fused_forward.py:130-440``) as a loop
-    over frames, on any device; differentiable."""
+    over frames, on any device; differentiable. It calls no tracer hook."""
     check_fused(cfg)
+    note_untraced_route("fused forward's single scan")
     B, sequence_length = noisy_y.shape
     cdt = getattr(torch, cfg.compute_dtype) if cfg.compute_dtype else noisy_y.dtype
     acc = torch.float32 if cfg.compute_dtype else noisy_y.dtype

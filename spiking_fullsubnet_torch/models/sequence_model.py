@@ -14,6 +14,7 @@ import torch
 
 from ..nn.core import (cast_floating, layer_norm_apply, layer_norm_init, linear_apply, linear_init,
                        output_activation)
+from ..nn.module_tracer import trace_activation
 from ..ops.gsu import gsu_stack_apply, gsu_stack_init
 from ..ops.lif import lif_dense_apply, lif_dense_init
 from ..ops.rnn import lstm_apply, lstm_init
@@ -72,7 +73,10 @@ def sequence_model_apply(cfg: SequenceModelConfig, params: Dict[str, Any],
     the state holds the updated BN running statistics. With
     ``compute_dtype`` the input and every floating parameter (the BN affine
     included, not the running statistics) are cast to it first; the casts
-    are differentiable, so gradients return in the parameters' own type."""
+    are differentiable, so gradients return in the parameters' own type.
+    An open activation tracer records ``pre_ln`` and ``proj`` here
+    (``sequence_model.py:110-141``) and the GSU layers' frames in
+    ``gsu_stack_apply``."""
     if x.ndim != 3:
         raise ValueError(f"Input tensor must be 3D, but got {x.ndim}D.")
     xt = x.permute(2, 0, 1)  # [T, B, F]
@@ -82,7 +86,7 @@ def sequence_model_apply(cfg: SequenceModelConfig, params: Dict[str, Any],
         xt = xt.to(cdt)
         params = cast_floating(params, cdt)
     if cfg.use_pre_layer_norm:
-        xt = layer_norm_apply(params["pre_ln"], xt)
+        xt = trace_activation("pre_ln", layer_norm_apply(params["pre_ln"], xt))
     if cfg.sequence_model == "GSN":
         out, all_layer_outputs, new_stack = gsu_stack_apply(
             params["stack"], state["stack"], xt, cfg.hidden_size, cfg.shared_weights, train)
@@ -97,7 +101,7 @@ def sequence_model_apply(cfg: SequenceModelConfig, params: Dict[str, Any],
         out = lstm_apply(params["stack"], xt, cfg.hidden_size)
         all_layer_outputs, new_state = [], state
     if cfg.proj_size > 0:
-        out = linear_apply(params["proj"], out)
+        out = trace_activation("proj", linear_apply(params["proj"], out))
         if cfg.sequence_model == "GSN":
             all_layer_outputs = all_layer_outputs + [out]
     out = output_activation(cfg.output_activate_function)(out).permute(1, 2, 0)  # [B, F', T]

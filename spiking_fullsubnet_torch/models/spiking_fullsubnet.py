@@ -49,6 +49,7 @@ from torch import nn
 from ..dsp.feature_norm import norm_wrapper
 from ..dsp.spectral import istft_complex, stft_complex
 from ..nn.core import tree_map
+from ..nn.module_tracer import module_scope
 from ..ops.deep_filter import deep_filter
 from ..ops.freq_unfold import freq_unfold
 from ..runtime.convert import load_npz
@@ -276,9 +277,10 @@ def _subband_forward(cfg: SpikingFullSubNetConfig, params, state, noisy_mag: tor
         sb_input = torch.cat([noisy_sub, fb_sub], dim=-2)  # [B, N, 1, w_tot, T]
         if norm is not None:
             sb_input = norm(sb_input)
-        out, layers, ns = subband_sequence_model_apply(
-            cfg.sb_config(idx), params["sb"][idx], state["sb"][idx], sb_input,
-            cfg.df_orders[idx], cfg.num_spks, train)
+        with module_scope(f"sb{idx}"):
+            out, layers, ns = subband_sequence_model_apply(
+                cfg.sb_config(idx), params["sb"][idx], state["sb"][idx], sb_input,
+                cfg.df_orders[idx], cfg.num_spks, train)
         df_coefs.append(out)
         all_layer_outputs.append(layers)
         new_states.append(ns)
@@ -314,9 +316,10 @@ def _layered_forward(cfg: SpikingFullSubNetConfig, params, state,
     fb_input = noisy_mag[..., :cfg.fb_input_size, :]
     if norm is not None:
         fb_input = norm(fb_input)
-    fb_output, fb_all_layer_outputs, new_fb_state = sequence_model_apply(
-        cfg.fb_config(), params["fb"], state["fb"], fb_input.reshape(B, -1, fb_input.shape[-1]),
-        train)
+    with module_scope("fb"):
+        fb_output, fb_all_layer_outputs, new_fb_state = sequence_model_apply(
+            cfg.fb_config(), params["fb"], state["fb"],
+            fb_input.reshape(B, -1, fb_input.shape[-1]), train)
     num_repeats = (cfg.n_fft // 2 + 1) // cfg.fb_input_size
     fb_output = fb_output.to(noisy_mag.dtype)[:, None].repeat(1, 1, num_repeats, 1)
     if fused:

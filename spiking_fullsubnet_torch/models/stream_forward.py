@@ -77,6 +77,7 @@ import torch.nn.functional as F
 from ..dsp.mask import EPSILON
 from ..dsp.spectral import istft_real_imag_tmajor, num_frames, stft_real_imag_tmajor
 from ..nn.core import cast_floating, layer_norm_apply, output_activation
+from ..nn.module_tracer import note_untraced_route
 from ..ops.freq_unfold import reflect_unfold_indices
 from ..ops.gsu import gsu_stack_train_xg
 from ..ops.gsu_kernels import (
@@ -640,6 +641,7 @@ def spiking_fullsubnet_stream_forward(cfg, params, state, noisy_y: torch.Tensor,
         raise ValueError("stream forward: unsupported config (see stream_supported)")
     if noisy_y.ndim != 2:
         raise ValueError(f"Input tensor must be 2D, but got {noisy_y.ndim}D.")
+    note_untraced_route("stream-train forward" if train else "serving forward")
     if train:
         return _sectioned(cfg, params, state, noisy_y, train=True)
     return _serve(cfg, params, state, noisy_y)

@@ -7,7 +7,7 @@ defaults), not the same bits."""
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -44,6 +44,27 @@ def layer_norm_apply(params: Dict[str, torch.Tensor], x: torch.Tensor,
     var = (x - mu).square().mean(dim=-1, keepdim=True)
     xhat = (x - mu) * torch.rsqrt(var + eps)
     return xhat * params["weight"] + params["bias"]
+
+
+def batch_norm_init(num_features: int, dtype: torch.dtype = torch.float32):
+    """BatchNorm1d's (params, state) at their defaults (``core.py:85-94``)."""
+    params = {"weight": torch.ones(num_features, dtype=dtype),
+              "bias": torch.zeros(num_features, dtype=dtype)}
+    state = {"running_mean": torch.zeros(num_features, dtype=dtype),
+             "running_var": torch.ones(num_features, dtype=dtype)}
+    return params, state
+
+
+def batch_norm_stats(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Biased batch statistics over all axes but the last."""
+    dims = tuple(range(x.ndim - 1))
+    mean = x.mean(dim=dims)
+    return mean, (x - mean).square().mean(dim=dims)
+
+
+def batch_norm_apply(params: Dict[str, torch.Tensor], x: torch.Tensor, mean: torch.Tensor,
+                     var: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    return (x - mean) * torch.rsqrt(var + eps) * params["weight"] + params["bias"]
 
 
 def tree_map(fn, tree):

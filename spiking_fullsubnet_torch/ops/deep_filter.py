@@ -27,3 +27,18 @@ def deep_filter(complex_spec: torch.Tensor, coef: torch.Tensor, order: int,
         term = tap * torch.complex(cd[..., 0], cd[..., 1])
         out = term if out is None else out + term
     return out
+
+
+def deep_filter_single(complex_spec: torch.Tensor, coefs: torch.Tensor,
+                       frame_size: int) -> torch.Tensor:
+    """Single-speaker deep filtering (``deep_filter.py:59-72``; freeze-phase
+    model_low_freq.py:15-39): ``complex_spec [B, C, F, T]`` complex, ``coefs
+    [B, C frame_size, F, T, 2]`` real -> ``[B, C, F, T]`` complex, tap d on
+    frame ``t - frame_size + 1 + d`` as in ``deep_filter``. The taps are
+    stacked and contracted in one einsum, as the JAX function does."""
+    B, C, _, T = complex_spec.shape
+    padded = F.pad(complex_spec, (frame_size - 1, 0))
+    taps = torch.stack([padded[..., d:d + T] for d in range(frame_size)], dim=-1)
+    cc = coefs.to(complex_spec.real.dtype)
+    cc = torch.complex(cc[..., 0], cc[..., 1]).reshape(B, C, frame_size, *coefs.shape[2:4])
+    return torch.einsum("bcftd,bcdft->bcft", taps, cc)

@@ -14,6 +14,13 @@ float32 and every gate, membrane and BN value stays float32. Eval runs a
 whole stack on kernel F; training runs each layer on kernels D and E
 (``GSULayerTrain``), whose backward passes the spike gradient through the
 triangle surrogate.
+
+The activation tracer's hooks (``nn/module_tracer.py``) stand in
+``gsu_stack_apply`` as in the JAX package (``ops/gsu.py:221-230, 297-313``):
+each layer under ``gsu_layer{i}``, its ``membrane`` frame, then its
+``spikes`` frame. In eval the membranes stay inside kernel F, whose traced
+instance reduces them (``gsu_stack_eval_x(..., trace=True)``); in training
+they are kernel D's ``y``. With no tracer open nothing of this runs.
 """
 
 from __future__ import annotations
@@ -24,6 +31,8 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from ..nn.core import uniform
+from ..nn.module_tracer import (extremes_frame, module_scope, trace_activation, trace_extremes,
+                                tracing_active)
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.1  # torch BatchNorm1d's, the only value the JAX package passes
@@ -126,17 +135,20 @@ class GSULayerTrain(torch.autograd.Function):
     ``apply(xg [T, R, rows], weight_hh [rows, H], bias_ih [2H], bn_weight,
     bn_bias, hidden, shared)`` with xg the input gates without bias and the
     BN affine None without BN -> (spikes ``[T, R, H]`` in xg's type, stats
-    ``[T, 2, H]`` = per-step (mean, biased var), not differentiable). xg's
-    type is the kernels' stream type (``_KCfg.io``): float32 on the layered
-    path, bfloat16 on the stream-train path under the bf16 policy, float64
-    on the CPU; ``weight_hh`` goes to the kernels in it, the bias and the BN
-    affine in the accumulation type (float32 beside bfloat16), where the
-    membranes and statistics stay. Gradients flow to xg, weight_hh, bias_ih
-    and the BN affine, each in its own type. The kernels are looked up in
+    ``[T, 2, H]`` = per-step (mean, biased var), not differentiable); with
+    ``trace`` (an eighth argument) the membranes y go to the activation
+    tracer as the frame ``membrane``. xg's type is the kernels' stream type
+    (``_KCfg.io``): float32 on the layered path, bfloat16 on the
+    stream-train path under the bf16 policy, float64 on the CPU;
+    ``weight_hh`` goes to the kernels in it, the bias and the BN affine in
+    the accumulation type (float32 beside bfloat16), where the membranes and
+    statistics stay. Gradients flow to xg, weight_hh, bias_ih and the BN
+    affine, each in its own type. The kernels are looked up in
     ``gsu_kernels`` at each call."""
 
     @staticmethod
-    def forward(ctx, xg, weight_hh, bias_ih, bn_weight, bn_bias, hidden: int, shared: bool):
+    def forward(ctx, xg, weight_hh, bias_ih, bn_weight, bn_bias, hidden: int, shared: bool,
+                trace: bool = False):
         from . import gsu_kernels as gk
 
         io = xg.dtype
@@ -150,6 +162,8 @@ class GSULayerTrain(torch.autograd.Function):
             bnp = torch.stack([bn_weight.to(acc), bn_bias.to(acc)])
         xg = xg.contiguous()
         spikes, y, stats = gk.gsu_layer_train_fwd(xg, whh, b2, bnp, hidden, shared, mode)
+        if trace:
+            trace_activation("membrane", y)
         ctx.save_for_backward(xg, whh, b2, bnp, y, stats)
         ctx.meta = (hidden, shared, mode, weight_hh.dtype, bias_ih.dtype,
                     None if bn_weight is None else bn_weight.dtype)
@@ -167,11 +181,11 @@ class GSULayerTrain(torch.autograd.Function):
         d_bn_w = d_bn_b = None
         if bn_dt is not None:
             d_bn_w, d_bn_b = dbn[0].to(bn_dt), dbn[1].to(bn_dt)
-        return (dxg, dw.T.to(w_dt), db.reshape(-1).to(b_dt), d_bn_w, d_bn_b, None, None)
+        return (dxg, dw.T.to(w_dt), db.reshape(-1).to(b_dt), d_bn_w, d_bn_b, None, None, None)
 
 
 def gsu_stack_train_xg(params: Dict[str, Any], state: Dict[str, Any], xg0: torch.Tensor,
-                       hidden_size: int, shared_weights: bool
+                       hidden_size: int, shared_weights: bool, trace: bool = False
                        ) -> Tuple[List[torch.Tensor], Dict[str, Any]]:
     """A GSU stack in training from layer 0's input gates ``xg0 [T, R,
     rows]`` (no bias), whose type is the stream type: every layer on
@@ -182,7 +196,8 @@ def gsu_stack_train_xg(params: Dict[str, Any], state: Dict[str, Any], xg0: torch
     type, the new stack state). The per-layer loop of
     ``gsu_stack_apply_pallas`` (``gsu_pallas.py:703-742``) and of the
     stream-train stack ``_stack_train_xg`` (``stream_forward.py:203-256``)
-    at the real widths."""
+    at the real widths. With ``trace`` each layer records, under
+    ``gsu_layer{k}``, its membranes and its spikes."""
     io = xg0.dtype
     acc = acc_dtype_for(io)
     T, R, _ = xg0.shape
@@ -195,8 +210,11 @@ def gsu_stack_train_xg(params: Dict[str, Any], state: Dict[str, Any], xg0: torch
                   ).reshape(T, R, -1).to(io)
         bn = lp.get("bn")
         bn_w, bn_b = (bn["weight"], bn["bias"]) if bn is not None else (None, None)
-        spk, stats = GSULayerTrain.apply(xg, lp["weight_hh"], lp["bias_ih"], bn_w, bn_b,
-                                         hidden_size, shared_weights)
+        with module_scope(f"gsu_layer{k}"):
+            spk, stats = GSULayerTrain.apply(xg, lp["weight_hh"], lp["bias_ih"], bn_w, bn_b,
+                                             hidden_size, shared_weights, trace)
+            if trace:
+                trace_activation("spikes", spk)
         ns = ls
         if bn is not None:
             ns = {"bn": bn_running_update(ls["bn"], stats[:, 0], stats[:, 1], R)}
@@ -226,22 +244,36 @@ def gsu_stack_apply(
     streams through kernels D and E, and the running statistics updated
     from the batch statistics over the B rows.
 
+    While an activation tracer is open each layer records its ``membrane``
+    and ``spikes`` frames under ``gsu_layer{i}``: in eval from kernel F's
+    traced instance (still one launch for the stack), in training from
+    kernel D's membranes.
+
     The JAX package's dispatch sends a TPU input to its Pallas kernels only
     for ``T >= 8`` and falls back to the scan when the shape misses the VMEM
     plan (``ops/gsu.py:285-293``). Both clauses are TPU rules and are
     dropped: the kernels take any T >= 1 and nothing falls back."""
     from .gsu_kernels import gsu_stack_eval_x, pack_stack_x
 
+    traced = tracing_active()
     if not train:
         packed = pack_stack_x(params["layers"], state["layers"], hidden_size, x.dtype)
-        spikes = gsu_stack_eval_x(x.contiguous(), *packed, hidden_size, shared_weights)
+        res = gsu_stack_eval_x(x.contiguous(), *packed, hidden_size, shared_weights,
+                               trace=traced)
+        spikes, ext = res if traced else (res, None)
         outs = list(spikes.unbind(0))
+        if traced:
+            for i, (out, e) in enumerate(zip(outs, ext)):
+                with module_scope(f"gsu_layer{i}"):
+                    trace_extremes("membrane", *extremes_frame(e))
+                    trace_activation("spikes", out)
         return outs[-1], [x] + outs, state
     acc = acc_dtype_for(x.dtype)
     T, B, F = x.shape
     w0 = params["layers"][0]["weight_ih"].to(acc)
     xg0 = (x.reshape(T * B, F).to(acc) @ w0.T).reshape(T, B, -1)
-    spikes, new_state = gsu_stack_train_xg(params, state, xg0, hidden_size, shared_weights)
+    spikes, new_state = gsu_stack_train_xg(params, state, xg0, hidden_size, shared_weights,
+                                           traced)
     outs = [s.to(x.dtype) for s in spikes]
     return outs[-1], [x] + outs, new_state
 

@@ -19,7 +19,9 @@ Six kernels, each a hand-written CUDA C++ source under ``../csrc``:
 - ``gsu_stack_eval_x`` (kernel F, ``csrc/gsu_stack_eval_x.cu``) replaces
   ``_stack_eval_kernel`` / ``gsu_stack_eval_pallas``: an L-layer GSU stack
   in eval mode from the raw features (layer 0's input projection inside the
-  kernel), every layer's spikes out; the layered forward's stacks.
+  kernel), every layer's spikes out; the layered forward's stacks. Its
+  traced instance (``trace=True``, the activation tracer's) also gives the
+  extremes and the non-finite count of every layer's membranes.
 - ``gsu_layer_train_fwd`` (kernel D, ``csrc/gsu_train_fwd.cu``) replaces
   ``_fwd_kernel`` / ``_run_fwd``: one GSU layer over the sequence with
   batch-statistics BatchNorm (training), a folded affine (eval) or none,
@@ -43,7 +45,8 @@ kernels' oracles.
 
 The kernels are compiled at first use with ``nvcc -gencode
 arch=compute_90a,code=sm_90a -O3 -shared`` (one nvcc per library, all
-started together; kernel C is two libraries, one per stream type) into
+started together; kernel C is two libraries, one per stream type, and F's
+traced instance a library of its own) into
 ``spiking_fullsubnet_torch/_build/`` and loaded with ctypes.
 """
 
@@ -68,10 +71,12 @@ from .gsu import BN_EPS, acc_dtype_for, bn_eval_affine
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 # library name -> (source, defines). Kernel C builds one library per stream
-# type, so that its two instances compile in parallel.
+# type and kernel F its traced instance as a library of its own, so that
+# they compile in parallel.
 SOURCES = {"stack": ("gsu_stack_eval.cu", ()), "sections": ("gsu_sections_eval.cu", ()),
            "stack_x": ("gsu_stack_eval_x.cu", ()), "train_fwd": ("gsu_train_fwd.cu", ()),
-           "train_bwd": ("gsu_train_bwd.cu", ())}
+           "train_bwd": ("gsu_train_bwd.cu", ()),
+           "stack_x_trace": ("gsu_stack_eval_x.cu", ("-DSTACK_TRACE=1",))}
 SOURCES.update({f"monolith_{io}": ("sfsb_monolith_serve.cu", (f"-DMONO_BF16={int(io == 'bf16')}",))
                 for io in ("f32", "bf16")})
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
@@ -133,7 +138,7 @@ def build_kernels() -> float:
 
 def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
     P, I = ctypes.c_void_p, ctypes.c_int
-    if name in ("stack", "stack_x"):
+    if name in ("stack", "stack_x", "stack_x_trace"):
         lib.gsu_stack_launch.argtypes = [I, ctypes.POINTER(_StackArgs), P]
         lib.gsu_stack_launch.restype = I
     elif name == "sections":
@@ -250,7 +255,8 @@ def _stack_layers_step(x0, h, c, wihr, whh, coef, H: int, shared: bool):
 
 def _stack_plain(gates0, T: int, R: int, io: torch.dtype, wihr: torch.Tensor,
                  whh: torch.Tensor, coef: torch.Tensor, hidden: int, shared: bool,
-                 collect_all: bool, spike_counts: Optional[List[float]]) -> torch.Tensor:
+                 collect_all: bool, spike_counts: Optional[List[float]],
+                 extremes: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
     """The time loop of the plain versions of kernels A and F: ``gates0(t)``
     gives layer 0's input gates ``[R, G]`` of step t in the accumulation
     type. Returns every layer's spikes ``[L, T, R, H]`` (``collect_all``) or
@@ -258,7 +264,9 @@ def _stack_plain(gates0, T: int, R: int, io: torch.dtype, wihr: torch.Tensor,
 
     ``spike_counts``, when a list, receives each layer's number of spikes
     over the whole run: the nonzero inputs of the spike products, from
-    which a caller counts the operations the data needs."""
+    which a caller counts the operations the data needs. ``extremes``, when
+    a list, receives the ``[L, 4]`` float64 trace of the membranes that
+    kernel F's traced instance gives (``TRACE_FIELDS``)."""
     acc = acc_dtype_for(io)
     dev = whh.device
     L = whh.shape[0]
@@ -267,8 +275,11 @@ def _stack_plain(gates0, T: int, R: int, io: torch.dtype, wihr: torch.Tensor,
     c = [torch.zeros(R, hidden, dtype=acc, device=dev) for _ in range(L)]
     out = torch.empty((L if collect_all else 1, T, R, hidden), dtype=io, device=dev)
     tot = torch.zeros(L, dtype=torch.float64, device=dev)
+    ext = trace_init(L, dev) if extremes is not None else None
     for t in range(T):
         _stack_layers_step(gates0(t), h, c, wihr_a, whh_a, coef_a, hidden, shared)
+        if ext is not None:
+            trace_fold(ext, torch.stack(c))
         if spike_counts is not None:
             tot += torch.stack([hk.sum(dtype=torch.float64) for hk in h])
         if collect_all:
@@ -278,7 +289,31 @@ def _stack_plain(gates0, T: int, R: int, io: torch.dtype, wihr: torch.Tensor,
             out[0, t] = h[-1].to(io)
     if spike_counts is not None:
         spike_counts.extend(tot.tolist())
+    if ext is not None:
+        extremes.append(ext.cpu())
     return out
+
+
+# kernel F's traced instance: per layer, over every membrane of the run
+TRACE_FIELDS = ("min |c|", "max |c|", "non-finite", "NaN")
+
+
+def trace_init(L: int, device) -> torch.Tensor:
+    ext = torch.zeros(L, 4, dtype=torch.float64, device=device)
+    ext[:, 0] = math.inf
+    return ext
+
+
+def trace_fold(ext: torch.Tensor, c: torch.Tensor) -> None:
+    """Fold membranes ``c [L, ...]`` into the trace ``ext [L, 4]`` as the
+    kernel does: the extremes of |c| skip NaNs (fminf/fmaxf), which are
+    counted apart."""
+    a = c.abs().flatten(1).double()
+    nan = torch.isnan(a)
+    ext[:, 0] = torch.minimum(ext[:, 0], a.masked_fill(nan, math.inf).amin(1))
+    ext[:, 1] = torch.maximum(ext[:, 1], a.masked_fill(nan, 0.0).amax(1))
+    ext[:, 2] += (~torch.isfinite(a)).sum(1)
+    ext[:, 3] += nan.sum(1)
 
 
 def stack_eval_plain(xg0: torch.Tensor, wihr: torch.Tensor, whh: torch.Tensor,
@@ -349,29 +384,36 @@ def pack_stack_x(layers: List[Dict[str, Any]], layer_states: List[Dict[str, Any]
 
 def stack_eval_x_plain(x: torch.Tensor, wih0: torch.Tensor, wihr: torch.Tensor,
                        whh: torch.Tensor, coef: torch.Tensor, hidden: int, shared: bool,
-                       spike_counts: Optional[List[float]] = None) -> torch.Tensor:
+                       spike_counts: Optional[List[float]] = None,
+                       extremes: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
     """Plain PyTorch version of kernel F (same arguments and result): layer
     0's gates ``x[t] @ wih0`` step by step in the accumulation type.
-    ``spike_counts`` as in ``_stack_plain``."""
+    ``spike_counts`` and ``extremes`` as in ``_stack_plain``."""
     acc = acc_dtype_for(x.dtype)
     T, R, _ = x.shape
     wih0_a = wih0.to(acc)
     return _stack_plain(lambda t: x[t].to(acc) @ wih0_a, T, R, x.dtype, wihr, whh, coef, hidden,
-                        shared, True, spike_counts)
+                        shared, True, spike_counts, extremes)
 
 
 def gsu_stack_eval_x(x: torch.Tensor, wih0: torch.Tensor, wihr: torch.Tensor,
                      whh: torch.Tensor, coef: torch.Tensor, hidden: int,
-                     shared: bool) -> torch.Tensor:
+                     shared: bool, trace: bool = False):
     """Eval forward of an L-layer GSU stack from the raw features.
 
     x ``[T, R, F]`` (f32/bf16 on the card; also f64 on the CPU); weights from
     ``pack_stack_x``. Returns every layer's spikes ``[L, T, R, H]`` in x's
     type. On the card the weights are packed for the kernel
     (``stack_x_pack``) and the launch laid out by ``stack_x_plan`` at every
-    call."""
+    call. With ``trace`` (the activation tracer's route) it returns
+    ``(spikes, trace)``, the trace ``[L, 4]`` float64 on the CPU
+    (``TRACE_FIELDS`` over every membrane of the layer): on the card from
+    kernel F's traced instance, one launch, its per-block buffer reduced
+    here; on the CPU from the plain version's membranes."""
     if not x.is_cuda:
-        return stack_eval_x_plain(x, wih0, wihr, whh, coef, hidden, shared)
+        ext: Optional[List[torch.Tensor]] = [] if trace else None
+        spikes = stack_eval_x_plain(x, wih0, wihr, whh, coef, hidden, shared, extremes=ext)
+        return (spikes, ext[0]) if trace else spikes
     H, L = hidden, whh.shape[0]
     G = H if shared else 2 * H
     if x.ndim != 3:
@@ -388,7 +430,24 @@ def gsu_stack_eval_x(x: torch.Tensor, wih0: torch.Tensor, wihr: torch.Tensor,
     _check_cuda("whh", whh, io, dev, (L, H, G))
     _check_cuda("coef", coef, torch.float32, dev, (L, 4, H))
     plan = stack_x_plan(R, Fin, H, L, shared, io, sms=_sm_count(dev.index or 0))
-    return _stack_x_launch(x, wih0, wihr, whh, coef, hidden, shared, plan)
+    if not trace or T == 0:
+        # T = 0: the kernel returns before it sets up its trace buffer, and
+        # the trace of no membranes is the plain version's (inf, 0, 0, 0)
+        spikes = _stack_x_launch(x, wih0, wihr, whh, coef, hidden, shared, plan)
+        return (spikes, trace_init(L, "cpu")) if trace else spikes
+    spikes, buf = _stack_x_launch(x, wih0, wihr, whh, coef, hidden, shared, plan, trace=True)
+    gsu_stack_eval_x.launches += 1
+    return spikes, trace_reduce(buf)
+
+
+def trace_reduce(buf: torch.Tensor) -> torch.Tensor:
+    """Kernel F's trace buffer ``[blocks, L, 4]`` (32-bit words: the
+    extremes' float bits, the counts) -> the ``[L, 4]`` float64 trace."""
+    b = buf.cpu()
+    f = b.view(torch.float32)
+    counts = b[..., 2:].to(torch.int64) & 0xFFFFFFFF
+    return torch.stack([f[..., 0].amin(0).double(), f[..., 1].amax(0).double(),
+                        counts[..., 0].sum(0).double(), counts[..., 1].sum(0).double()], 1)
 
 
 gsu_stack_eval_x.launches = 0
@@ -2003,7 +2062,8 @@ class _StackArgs(ctypes.Structure):
                 + [(k, ctypes.c_int) for k in ("T", "R", "U", "W", "H", "L", "shared", "collect_all",
                                                 "N", "cs", "mpb", "Hp", "ld_x", "o_spk", "o_mem",
                                                 "smem")]
-                + [("w_in", _MonoMatC), ("rec", _MonoMatC * MAX_LAYERS)])
+                + [("w_in", _MonoMatC), ("rec", _MonoMatC * MAX_LAYERS),
+                   ("trace", ctypes.c_void_p)])
 
 
 # kernel -> (its library, its wrapper)
@@ -2016,13 +2076,15 @@ def _sm_count(index: int) -> int:
 
 
 def _stack_launch(kernel: str, x, flat, table, coef, hidden, shared, plan, collect_all=True,
-                  prof=False):
+                  prof=False, trace=False):
     """Kernel A's or F's launch on ``plan`` (the wrapper's checks done): x
     the staged input, A's gates ``[(U,) T, R, G]`` or F's features ``[T, R,
     F]``; (flat, table) the packed weights. Returns every layer's spikes
     ``[L, (U,) T, R, H]`` (``collect_all``, always for F) or the last one's,
     through the kernel's operator; or with ``prof`` the phase counters
-    [blocks, 8] of a direct launch."""
+    [blocks, 8] of a direct launch; or with ``trace`` (kernel F) the spikes
+    and the trace buffer [blocks, L, 4] of a direct launch of the traced
+    instance."""
     *lead, T, R, W = x.shape
     L = coef.shape[0]
     args = _StackArgs(T=T, R=R, U=lead[0] if lead else 1, W=W, H=hidden, L=L, shared=int(shared),
@@ -2037,6 +2099,9 @@ def _stack_launch(kernel: str, x, flat, table, coef, hidden, shared, plan, colle
         counters = torch.zeros(plan["blocks"], 8, dtype=torch.int64, device=x.device)
         _stack_run(kernel, args, x, flat, coef, counters)
         return counters
+    if trace:
+        buf = torch.empty(plan["blocks"], L, 4, dtype=torch.int32, device=x.device)
+        return _stack_run(kernel, args, x, flat, coef, trace=buf), buf
     op = getattr(torch.ops.sfs_torch, _STACK_LIBS[kernel][1])
     return op(x, flat, coef, struct_words(args))
 
@@ -2045,14 +2110,15 @@ def _stack_out_shape(args: "_StackArgs", x: torch.Tensor) -> Tuple[int, ...]:
     return ((args.L,) if args.collect_all else ()) + tuple(x.shape[:-1]) + (args.H,)
 
 
-def _stack_run(kernel: str, args: "_StackArgs", x, flat, coef, prof=None) -> torch.Tensor:
+def _stack_run(kernel: str, args: "_StackArgs", x, flat, coef, prof=None,
+               trace=None) -> torch.Tensor:
     """Launch kernel A or F on ``args`` (its sizes and plan set): allocates
     the spikes, points the arguments at the tensors and checks the launch."""
     out = torch.empty(_stack_out_shape(args, x), dtype=x.dtype, device=x.device)
-    for k, t in dict(x=x, w=flat, coef=coef, out=out, prof=prof).items():
+    for k, t in dict(x=x, w=flat, coef=coef, out=out, prof=prof, trace=trace).items():
         setattr(args, k, None if t is None else t.data_ptr())
     name, what = _STACK_LIBS[kernel]
-    lib = _lib(name)
+    lib = _lib("stack_x_trace" if trace is not None else name)
     with torch.cuda.device(x.device):
         rc = lib.gsu_stack_launch(int(x.dtype == torch.bfloat16), ctypes.byref(args), _stream())
     _check_rc(lib, rc, what, STACK_LIMITS)
@@ -2064,9 +2130,9 @@ def _stack_a_launch(xg0, wihr, whh, coef, hidden, shared, collect_all, plan, pro
                          plan, collect_all, prof)
 
 
-def _stack_x_launch(x, wih0, wihr, whh, coef, hidden, shared, plan, prof=False):
+def _stack_x_launch(x, wih0, wihr, whh, coef, hidden, shared, plan, prof=False, trace=False):
     return _stack_launch("F", x, *stack_x_pack(wih0, wihr, whh, hidden, shared), coef, hidden,
-                         shared, plan, prof=prof)
+                         shared, plan, prof=prof, trace=trace)
 
 
 # the phases of kernels A's, B's and F's profiles (thread 0's clock: its

@@ -1,6 +1,8 @@
 """Numerical sanitation for ``[trainer.args] debug = true`` (counterpart of
 ``spiking_fullsubnet_tpu/runtime/debug.py``; reference
-audiozen/debug_utils.py)."""
+audiozen/debug_utils.py), and the per-module activation tracer
+(``nn/module_tracer.py``) re-exported, so that the debug tools have one
+import surface."""
 
 from __future__ import annotations
 
@@ -40,3 +42,18 @@ def detect_overflow(tree, tag: str = "") -> bool:
                          f"nan={int(torch.isnan(leaf).sum())}, inf={int(torch.isinf(leaf).sum())}")
             bad = True
     return bad
+
+
+def clamp_inf_value(x: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Clamp +-inf to ``dtype``'s largest and smallest finite values, NaN to
+    0 (reference utils.py:167-172; ``debug.py:44-48``)."""
+    fi = torch.finfo(dtype)
+    return torch.clamp(torch.nan_to_num(x, posinf=fi.max, neginf=fi.min), fi.min, fi.max)
+
+
+from ..nn.module_tracer import (  # noqa: E402,F401
+    ActivationTracer,
+    FloatingPointAbort,
+    module_scope,
+    trace_activation,
+)

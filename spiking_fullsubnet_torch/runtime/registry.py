@@ -22,8 +22,12 @@ import torch
 JAX_PREFIX, PORT_PREFIX = "spiking_fullsubnet_tpu.", "spiking_fullsubnet_torch."
 
 # modules of the JAX package not ported yet -> the ROADMAP queue 1 item
-# that brings them (every other unported module: "remaining models and recipes")
+# that brings them. The Pallas module itself is replaced by ops/gsu_kernels
+# (every kernel ported); the root tools that drive it come with "the data and
+# metric tools". Any other unported name: the last slice of the package,
+# "band-parallel sub-bands".
 ROADMAP_ITEMS: Dict[str, str] = {
+    "ops.gsu_pallas": "the data and metric tools",
     "parallel.mesh": "band-parallel sub-bands",
     "parallel.make_mesh": "band-parallel sub-bands",
     "parallel.batch_sharding": "band-parallel sub-bands",
@@ -33,7 +37,7 @@ ROADMAP_ITEMS: Dict[str, str] = {
     "runtime.roofline": "bench on the GPU",
     "runtime.cache": "bench on the GPU",
 }
-_DEFAULT_ITEM = "remaining models and recipes"
+_DEFAULT_ITEM = "band-parallel sub-bands"
 
 # optimizer paths -> (torch.optim class, the TOML args it takes with the
 # defaults of the JAX registry's optax factories, registry.py:20-30)

@@ -61,6 +61,7 @@ import torch
 
 from .dsp.spectral import hann_window
 from .nn.core import layer_norm_apply, linear_apply, output_activation
+from .nn.module_tracer import note_untraced_route
 from .ops.freq_unfold import reflect_unfold_indices
 from .ops.gsu import bn_eval_affine, spike
 from .runtime.device import resolve_device
@@ -380,6 +381,7 @@ class StreamingEnhancer:
         expect = (self.batch_size, self.chunk_frames * self.cfg.hop_length)
         if tuple(chunk.shape) != expect:
             raise ValueError(f"chunk shape {tuple(chunk.shape)}, expected {expect}")
+        note_untraced_route("hop-synchronous streaming step")
         if self.device.type == "cuda":
             return self._graph_step(state, chunk.contiguous())
         return self.eager_step(state, chunk)

@@ -131,7 +131,16 @@ def test_port_and_chip_smoke_import_no_jax():
             "spiking_fullsubnet_torch/models/rnn_sequence_model.py",
             "spiking_fullsubnet_torch/models/shared_subband.py",
             "spiking_fullsubnet_torch/ops/lif.py", "spiking_fullsubnet_torch/dsp/mask.py",
-            "spiking_fullsubnet_torch/recipes/sdnn_delays.py"} <= rel
+            "spiking_fullsubnet_torch/recipes/sdnn_delays.py",
+            # the rest of the surface: the building blocks, the tracer, the
+            # filterbank and SSLT transforms, the native reader's build script
+            "spiking_fullsubnet_torch/models/modules.py",
+            "spiking_fullsubnet_torch/nn/module_tracer.py",
+            "spiking_fullsubnet_torch/dsp/filterbank.py", "spiking_fullsubnet_torch/dsp/sslt.py",
+            "spiking_fullsubnet_torch/native/wavio.py", "spiking_fullsubnet_torch/_exports.py"} <= rel
+    # the reader's C++ source is the port's own copy and includes no Python
+    cpp = (ROOT / "spiking_fullsubnet_torch" / "native" / "wavio.cpp").read_text()
+    assert "jax" not in cpp.lower() and "Python.h" not in cpp
     for f in files:
         assert not _IMPORT.search(f.read_text()), f"{f} imports JAX, the JAX package, pandas or a " \
                                                   "recipe's trainer"

@@ -280,6 +280,82 @@ def test_stack_x_kernel_is_bitwise_deterministic(dev, case, io):
     assert torch.equal(first, again)
 
 
+# kernel F's traced instance (the activation tracer's): its membranes'
+# extremes against the plain version's over the same inputs. Its spikes equal
+# the untraced instance's bit for bit (the same arithmetic, plus reads of the
+# membranes it has stored). The BN scale 0.05 and shifts of +-(1 + u / H) a
+# unit u keep every membrane at least 0.5 from 0 (|g| < 5 here), so that no
+# spike flips between kernel and plain version, min |c| stands far above
+# rounding (as a kernel that gave 0 or missed the columns, units or steps
+# holding the extremes would show), and both extremes are held within 1e-5
+# relative, as in chip_smoke.py's phase 15 (a) (SHIFTED_REL).
+TRACE_REL = 1e-5
+
+
+def _traced_case(case, io, dev, T=None):
+    L, T0, R, Fin, H, shared = F_EDGES[case]
+    g = torch.Generator().manual_seed(R * 5 + Fin)
+    layers, states = _layers(H, shared, L, g, fin=Fin)
+    w = [t.to(dev) for t in gk.pack_stack_x(layers, states, H, io)]
+    u = torch.arange(H, dtype=torch.float32, device=dev)
+    w[-1][:, 2] = 0.05
+    w[-1][:, 3] = (1 - 2 * (u % 2)) * (1 + u / H)
+    x = torch.rand(T0 if T is None else T, R, Fin, generator=g).to(io).to(dev)
+    return (x, *w, H, shared)
+
+
+@pytest.mark.parametrize("io", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(F_EDGES))
+def test_stack_x_traced_instance_matches_plain(dev, case, io):
+    args = _traced_case(case, io, dev)
+    L, T, R, H = args[3].shape[0], args[0].shape[0], args[0].shape[1], args[5]
+    before = gk.gsu_stack_eval_x.launches
+    spikes, ext = gk.gsu_stack_eval_x(*args, trace=True)
+    assert gk.gsu_stack_eval_x.launches == before + 1
+    assert torch.equal(spikes, gk.gsu_stack_eval_x(*args))
+    ref_ext = []
+    ref_spikes = gk.stack_eval_x_plain(*args, extremes=ref_ext)
+    ref = ref_ext[0]
+    assert torch.equal(spikes, ref_spikes)
+    assert ext.shape == ref.shape == (L, 4) and ext.dtype == torch.float64
+    assert (ext[:, 2:] == 0).all() and (ref[:, 2:] == 0).all()
+    assert (ref[:, 0] >= 0.5).all() and (ref[:, 1] <= 2.5).all(), ref
+    assert ((ext[:, :2] - ref[:, :2]).abs() <= TRACE_REL * ref[:, :2]).all(), (ext, ref)
+
+
+@pytest.mark.parametrize("case", ["R 1", "cluster 2"])
+def test_stack_x_traced_instance_of_no_steps(dev, case):
+    """T = 0: no membranes, the plain version's trace (inf, 0, 0, 0)."""
+    args = _traced_case(case, torch.float32, dev, T=0)
+    spikes, ext = gk.gsu_stack_eval_x(*args, trace=True)
+    ref_ext = []
+    ref_spikes = gk.stack_eval_x_plain(*args, extremes=ref_ext)
+    assert spikes.shape == ref_spikes.shape and spikes.numel() == 0
+    assert torch.equal(ext, ref_ext[0]) and torch.equal(ext, gk.trace_init(args[3].shape[0], "cpu"))
+
+
+@pytest.mark.parametrize("poison", ["inf", "nan"])
+def test_stack_x_traced_instance_counts_non_finite(dev, poison):
+    """+inf or NaN in layer 1's W_hh: the layers from 1 on go non-finite; the
+    counts and the NaN handling give the plain version's frames."""
+    from spiking_fullsubnet_torch.nn.module_tracer import extremes_frame
+
+    L, T, R, Fin, H, shared = F_EDGES["cluster 2"]
+    g = torch.Generator().manual_seed(5)
+    layers, states = _layers(H, shared, L, g, fin=Fin)
+    layers[1]["weight_hh"][0, 0] = float(poison)
+    w = [t.to(dev) for t in gk.pack_stack_x(layers, states, H, torch.float32)]
+    x = torch.rand(T, R, Fin, generator=g).to(dev)
+    _, ext = gk.gsu_stack_eval_x(x, *w, H, shared, trace=True)
+    ref_ext = []
+    gk.stack_eval_x_plain(x, *w, H, shared, extremes=ref_ext)
+    got = [extremes_frame(e) for e in ext]
+    ref = [extremes_frame(e) for e in ref_ext[0]]
+    assert got[0][2] and ref[0][2]
+    assert [f[2] for f in got] == [f[2] for f in ref] == [True, False]
+    assert (ext[1, 2] > 0) and (ext[1, 3] > 0) == (ref_ext[0][1, 3] > 0)
+
+
 # kernel A at the edges of its plan (stack_x_plan over the U R (unit, row)
 # columns), (U, T, R, H, L, shared): one row; tiles that cross unit
 # boundaries with U R no multiple of the tile (3 x 13, 5 x 7, 8 x 33);

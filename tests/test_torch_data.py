@@ -118,9 +118,15 @@ def test_dns_audio_matches_jax(dns_root, train):
 def test_wav_io_matches_jax_scipy_path_and_native_reader(tmp_path, monkeypatch):
     rng = np.random.default_rng(3)
     y = np.clip(rng.standard_normal(12345) * 0.3, -1.2, 1.2)
-    pio.save_wav(y, tmp_path / "port.wav", 16000)
-    with monkeypatch.context() as m:  # the JAX package's scipy writer
+    # both write through their native codecs where there is a compiler
+    pio.save_wav(y, tmp_path / "port_native.wav", 16000)
+    jio.save_wav(y, tmp_path / "jax_native.wav", 16000)
+    assert ((tmp_path / "port_native.wav").read_bytes()
+            == (tmp_path / "jax_native.wav").read_bytes())
+    with monkeypatch.context() as m:  # and through scipy without one
         m.setattr(jio._native, "native_available", lambda: False)
+        m.setattr(pio._native, "native_available", lambda: False)
+        pio.save_wav(y, tmp_path / "port.wav", 16000)
         jio.save_wav(y, tmp_path / "jax.wav", 16000)
         ref = jio.load_wav(tmp_path / "jax.wav")
     assert (tmp_path / "port.wav").read_bytes() == (tmp_path / "jax.wav").read_bytes()

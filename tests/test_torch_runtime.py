@@ -210,11 +210,24 @@ def test_registry_maps_jax_paths_and_names_what_is_not_ported():
     for path, obj in [("parallel.dist.scale_lr", pdist.scale_lr),
                       ("parallel.gather_for_metrics", pdist.gather_for_metrics)]:
         assert registry.resolve("spiking_fullsubnet_tpu." + path) is obj, path
+    # the rest of the package's surface resolves in the port
+    from spiking_fullsubnet_torch.dsp import sslt
+    from spiking_fullsubnet_torch.models import modules
+    from spiking_fullsubnet_torch.native import wavio
+    from spiking_fullsubnet_torch.nn import module_tracer
+    from spiking_fullsubnet_torch.runtime import debug
+    for path, obj in [("models.modules.tac_apply", modules.tac_apply),
+                      ("dsp.sslt.cart2sph", sslt.cart2sph), ("dsp.cart2sph", sslt.cart2sph),
+                      ("nn.module_tracer.ActivationTracer", module_tracer.ActivationTracer),
+                      ("native.wavio.read_batch", wavio.read_batch),
+                      ("runtime.clamp_inf_value", debug.clamp_inf_value)]:
+        assert registry.resolve("spiking_fullsubnet_tpu." + path) is obj, path
     for path, item in [
         ("spiking_fullsubnet_tpu.parallel.mesh.make_mesh", "band-parallel sub-bands"),
         ("spiking_fullsubnet_tpu.parallel.shard_batch", "band-parallel sub-bands"),
-        ("spiking_fullsubnet_tpu.models.modules.tac_apply", "remaining models and recipes"),
-        ("spiking_fullsubnet_tpu.dsp.sslt.cart2sph", "remaining models and recipes"),
+        ("spiking_fullsubnet_tpu.dsp.spectral.stft_complex_tmajor", "band-parallel sub-bands"),
+        ("spiking_fullsubnet_tpu.ops.gsu_pallas.gsu_stack_eval_pallas",
+         "the data and metric tools"),
         ("spiking_fullsubnet_tpu.runtime.timing.time_fn_per_iter", "bench on the GPU"),
         ("spiking_fullsubnet_tpu.runtime.roofline.roofline_report", "bench on the GPU"),
         ("spiking_fullsubnet_tpu.runtime.cache.enable_compilation_cache", "bench on the GPU"),
