@@ -445,6 +445,39 @@ is non-zero:
             within relative L2 1e-3 of its plain version; each launch timed
             beside its plain version and its bound; the ms of each rank's
             eval forward and step beside the unsharded ones.
+17. tools  the bench support (runtime/{timing,roofline}) and the port's
+            tools (spiking_fullsubnet_torch/tools/), each through its main:
+            (a) time_fn_per_iter on a bf16 8192^3 torch.matmul: its rate in
+            (100, 989] TFLOP/s (above the peak means nothing ran);
+            (b) the same timer on flagship M's bf16 forward at 4 x 30 s
+            (kernel C), and roofline_report at that throughput: mfu and
+            fraction_of_roofline in (0, 1];
+            (c) bench_gsu_kernel --train at its defaults (64 x 512 frames,
+            320 x 320, shared, f32): kernel D against its plain version on
+            identical inputs, spike mismatch < 1e-3 over the first 16
+            frames; E (relative L2 < 1e-3 there) and dW (< 1e-5), on
+            identical inputs; each wrapper's launches equal to the tool's
+            calls;
+            (d) profile_trace --serving --batch 8 --seconds 2: both Chrome
+            traces parse as JSON; the forward's summary rows name kernel C
+            and the train step's D and E; the profile's rows of C, D, E and
+            dW have as many calls as each wrapper counted in the profiled
+            run;
+            (e) reproduce_board on five synthesized DNS utterances of 30 s
+            (the set's length: its dataset pads shorter items with zeros),
+            baseline_m.toml's widths with zoo M's shipped config (offline
+            norm, no pre-LN, the Separator's fullband input, the layered
+            forward: separator_config's) and zoo M's weights as a reference checkpoint
+            (--torch_ckpt), counted: F 4 launches a test batch; the row's
+            SI-SNR finite and above 8 dB, its params 953,704,
+            latency_total_ms 8.036; then the recipe CLI's
+            predict on the same TOML and calculate_metrics over its WAVs
+            (the card's machine has no pandas), its SI-SDR within 0.1 dB
+            of the row's;
+            (f) build_model_zoo --sizes m --utts 8 on a reference-layout
+            tree written from baseline_m.npz, counted (F 4 launches an
+            utterance): params 953,704, SI-SNR within 0.25 dB of
+            model_zoo/entries_framework.json's 14.88.
 
 About 12 to 15 minutes on one H100, the build included.
 
@@ -2526,36 +2559,6 @@ class OpCalls:
         self.mode.__exit__(*exc)
 
 
-def reference_state_dict(params, state, generation="frozen", prefix="module."):
-    """A reference checkpoint of the weights under the reference's key
-    names (``runtime/convert.py``'s map read backwards): the frozen
-    generation's ``fc_output_layer`` and no pre-LayerNorm, or the latest's
-    ``proj`` and ``pre_layer_norm``; with DDP's ``module.`` prefix."""
-    sd = {}
-
-    def seq(p, st, name):
-        if "pre_ln" in p:
-            for k in ("weight", "bias"):
-                sd[f"{name}.pre_layer_norm.{k}"] = p["pre_ln"][k]
-        for i, (lp, ls) in enumerate(zip(p["stack"]["layers"], st["stack"]["layers"])):
-            cp = f"{name}.sequence_model.layers.{i}.cell"
-            for k in ("weight_ih", "weight_hh", "bias_ih"):
-                sd[f"{cp}.{k}"] = lp[k]
-            if "bn" in lp:
-                for k in ("weight", "bias"):
-                    sd[f"{cp}.batchnorm.{k}"] = lp["bn"][k]
-                for k in ("running_mean", "running_var"):
-                    sd[f"{cp}.batchnorm.{k}"] = ls["bn"][k]
-        proj = "fc_output_layer" if generation == "frozen" else "proj"
-        for k in ("weight", "bias"):
-            sd[f"{name}.{proj}.{k}"] = p["proj"][k]
-
-    seq(params["fb"], state["fb"], "fb_model")
-    for i, (p, st) in enumerate(zip(params["sb"], state["sb"])):
-        seq(p, st, f"sb_model.sb_models.{i}")
-    return {prefix + k: v.detach().cpu().clone() for k, v in sd.items()}
-
-
 def serving_phase(gk, dev):
     """Phase 11 (see the module docstring); returns its numbers."""
     import shutil
@@ -2566,7 +2569,7 @@ def serving_phase(gk, dev):
         SpikingFullSubNet, separator_config, spiking_fullsubnet_apply)
     from spiking_fullsubnet_torch.runtime import cli
     from spiking_fullsubnet_torch.runtime.config import toml_dump
-    from spiking_fullsubnet_torch.runtime.convert import flat_paths, load_npz
+    from spiking_fullsubnet_torch.runtime.convert import flat_paths, load_npz, reference_state_dict
     from spiking_fullsubnet_torch.streaming import StreamingEnhancer, state_leaves
     from spiking_fullsubnet_torch.tools import export_serving as es
 
@@ -4677,6 +4680,255 @@ def add_band_rows(kernels, rec):
             "bound_by": t["bound_by"], "library_ms": None, "per_launch": rows})
 
 
+# ------------------------------------------------------------------ phase 17: the tools
+
+MATMUL_N = 8192  # (a): the timer's matmul
+ROOF_B, ROOF_SECONDS = 4, 30.0  # (b): the flagship forward the roofline reads
+PROF_B, PROF_SECONDS = 8, 2.0  # (d): profile_trace's serving batch
+# (e): the N-DNS set's utterances are 30 s, and its dataset pads a shorter
+# item to 30 s with zeros (data/dns_audio.py, as the JAX package's), which a
+# row's SI-SNR would then read
+BOARD_UTTS, BOARD_SECONDS = 5, 30.0
+# (e): zoo M's shipped config over baseline_m.toml's, the widths the same:
+# the weights' own norm, no pre-LayerNorm, the Separator's fullband input
+# (its frequency groups) and the layered forward (separator_config's; the
+# fused scan takes no norm)
+BOARD_ZOO_M = dict(norm_type="offline_laplace_norm", use_pre_layer_norm_fb=False,
+                   use_pre_layer_norm_sb=False, fb_center_freq_sizes=[4, 32, 64],
+                   fb_neighbor_freq_sizes=[0, 0, 0], scan_mode="layered")
+ZOO_UTTS = 8  # (f)
+ZOO_M_PARAMS, ZOO_M_SISNR, ZOO_SISNR_TOL = 953_704, 14.88, 0.25  # entries_framework.json
+TOOL_KERNELS = {"C": "sfsb_monolith_serve", "D": "gsu_layer_train_fwd",
+                "E": "gsu_layer_train_bwd", "dW": "gsu_train_dw"}
+
+
+def quiet_main(main, argv):
+    """``main(argv)`` with its printed lines kept: (its result, the lines)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = main([str(a) for a in argv])
+    return res, buf.getvalue().splitlines()
+
+
+def write_reference_zoo(root, size):
+    """A tree of the reference zoo's layout for ``baseline_<size>``: the
+    freeze-phase recipe's [model.args] as its shipped [model_g.args], and
+    the in-repo weights under the reference's names as its generator."""
+    from spiking_fullsubnet_torch.runtime.config import toml_dump, toml_load
+    from spiking_fullsubnet_torch.runtime.convert import load_npz, reference_state_dict
+
+    d = root / f"baseline_{size}"
+    (d / "checkpoints" / "best").mkdir(parents=True)
+    args = toml_load(FREEZE_RECIPE / f"baseline_{size}.toml")["model"]["args"]
+    toml_dump({"model_g": {"args": args}}, d / f"config__baseline_{size}.toml")
+    tree = load_npz(str(ZOO_M.parent / f"baseline_{size}.npz"), device="cpu")
+    torch.save(reference_state_dict(tree["params"], tree["state"]),
+               d / "checkpoints" / "best" / "pytorch_model.bin")
+    return root
+
+
+def board_tree(root):
+    """BOARD_UTTS DNS-named utterances of BOARD_SECONDS (the zoo tool's
+    speech-like fixture) under noisy/ and clean/."""
+    from spiking_fullsubnet_torch.dsp.io import save_wav
+    from spiking_fullsubnet_torch.tools.build_model_zoo import speechlike_fixture
+
+    for d in ("noisy", "clean"):
+        (root / d).mkdir(parents=True)
+    for fid, (clean, noisy) in enumerate(speechlike_fixture(BOARD_UTTS, BOARD_SECONDS)):
+        save_wav(noisy, root / "noisy" / f"book_snr10_tl-25_fileid_{fid}.wav", SR)
+        save_wav(clean, root / "clean" / f"clean_fileid_{fid}.wav", SR)
+    return root
+
+
+def tools_phase(gk, dev):
+    """Phase 17 (see the module docstring); returns its numbers."""
+    import importlib.util
+    import shutil
+    import tempfile
+
+    from spiking_fullsubnet_torch.models.presets import flagship_m
+    from spiking_fullsubnet_torch.runtime import cli, roofline, timing
+    from spiking_fullsubnet_torch.runtime.config import toml_dump, toml_load
+    from spiking_fullsubnet_torch.runtime.convert import load_npz, reference_state_dict
+    from spiking_fullsubnet_torch.tools import (bench_gsu_kernel, build_model_zoo,
+                                                calculate_metrics, profile_trace,
+                                                reproduce_board)
+
+    t_phase = time.perf_counter()
+    smi = card_name()
+    out = {}
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_tools_"))
+    try:
+        # (a) the timer on a bf16 matmul
+        torch.set_grad_enabled(False)
+        g = torch.Generator(device=dev).manual_seed(17)
+        a = torch.randn(MATMUL_N, MATMUL_N, device=dev, dtype=torch.bfloat16, generator=g)
+        b = torch.randn(MATMUL_N, MATMUL_N, device=dev, dtype=torch.bfloat16, generator=g)
+        s = timing.time_fn_per_iter(torch.matmul, (a, b))
+        out["a"] = {"ms": s * 1e3, "tflops": 2 * MATMUL_N ** 3 / s / 1e12}
+        del a, b
+        log(f"[tools] (a) time_fn_per_iter, bf16 {MATMUL_N}^3 matmul on {smi}: "
+            f"{out['a']['ms']:.4f} ms, {out['a']['tflops']:.1f} TFLOP/s")
+        require(100 < out["a"]["tflops"] <= 989, f"the timer's matmul rate {out['a']}")
+
+        # (b) the roofline of flagship M at the timer's throughput
+        flag = flagship_m(device=dev, scan_mode="auto", compute_dtype="bfloat16",
+                          collect_layer_outputs=False)
+        cfg, params, state = flag["config"], flag["params"], flag["state"]
+        x = torch.from_numpy((np.random.default_rng(0).standard_normal(
+            (ROOF_B, int(ROOF_SECONDS * SR))) * 0.1).astype(np.float32)).to(dev)
+        before = launch_counts(gk)["C"]
+        s = timing.time_fn_per_iter(lambda x: flag["apply"](cfg, params, state, x)["enhanced_y"],
+                                    (x,), iters=(1, 3), reps=2)
+        rate = ROOF_B * ROOF_SECONDS / s
+        rep = roofline.roofline_report(cfg, rate)
+        out["b"] = {"forward_ms": s * 1e3, "audio_s_per_s": rate, "report": rep,
+                    "c_launches": launch_counts(gk)["C"] - before}
+        del flag, params, state, x
+        log(f"[tools] (b) flagship M bf16 {ROOF_B} x {ROOF_SECONDS:g} s: {s * 1e3:.3f} ms a "
+            f"forward ({rate:.1f} audio-s/s; C launched {out['b']['c_launches']} times); "
+            f"roofline_report: " + ", ".join(f"{k} {v:.6g}" if isinstance(v, float) else
+                                             f"{k} {v}" for k, v in rep.items()))
+        require(out["b"]["c_launches"] > 0, "the roofline's forward did not launch kernel C")
+        require(0 < rep["mfu"] <= 1 and 0 < rep["fraction_of_roofline"] <= 1,
+                f"roofline_report {rep}")
+
+        # (c) the kernel bench at its defaults, with the gradient
+        res, lines = quiet_main(bench_gsu_kernel.main, ["--train"])
+        out["c"] = res
+        for line in lines:
+            log(f"[tools] (c) {line}")
+        ck = res["checks"]
+        require(ck["d_spike_mismatch_head"] < 1e-3, f"bench_gsu_kernel: kernel D {ck}")
+        require(ck["e_rel_l2_head"] < 1e-3 and ck["dw_rel_l2_head"] < DW_F32_REL,
+                f"bench_gsu_kernel: kernels E and dW {ck}")
+        require(res["launches"] == res["calls"] and res["calls"]["E"] > 0,
+                f"bench_gsu_kernel: launches {res['launches']}, calls {res['calls']}")
+
+        # (d) the profiler trace of the flagship forward and train step
+        res, lines = quiet_main(profile_trace.main, [
+            "--serving", "--batch", PROF_B, "--seconds", PROF_SECONDS, "--trace-dir", work / "trace",
+            "--summary", work / "summary.md"])
+        summary = (work / "summary.md").read_text()
+        out["d"] = {"launches": {}, "calls": {}, "top5": {}, "total_ms": {}}
+        for name, want in (("forward", ("C",)), ("train_step", ("D", "E", "dW"))):
+            prof = res["profiles"][name]
+            json.loads(Path(prof["trace"]).read_text())  # the Chrome trace parses
+            out["d"]["top5"][name] = prof["rows"][:5]
+            out["d"]["total_ms"][name] = prof["total_ms"]
+            for k in want:
+                w = TOOL_KERNELS[k]
+                calls = profile_trace.kernel_calls(prof["rows"], w)
+                out["d"]["calls"][k], out["d"]["launches"][k] = calls, prof["launches"].get(w, 0)
+                if k != "dW":  # dW's rows (a few ms) may fall below the table's top 25
+                    require(profile_trace.KERNEL_ROWS[w] in summary,
+                            f"profile_trace: the summary names no {profile_trace.KERNEL_ROWS[w]}")
+            log(f"[tools] (d) profile_trace {name}: {prof['total_ms']:.3f} ms of kernels; "
+                f"launches {prof['launches']}; top five "
+                + "; ".join(f"{op[:70]} {ms:.3f} ms x{n}" for op, ms, n in prof["rows"][:5]))
+        require(out["d"]["calls"] == out["d"]["launches"]
+                and all(v > 0 for v in out["d"]["calls"].values()),
+                f"profile_trace: kernel rows' calls {out['d']['calls']} against the wrappers' "
+                f"launches {out['d']['launches']}")
+
+        # (e) the N-DNS board on zoo M's weights, then calculate_metrics
+        tree = board_tree(work / "ndns")
+        zoo = load_npz(str(ZOO_M), device="cpu")
+        ckpt = work / "pytorch_model.bin"
+        torch.save(reference_state_dict(zoo["params"], zoo["state"]), ckpt)
+        build = reproduce_board.build_config
+
+        def zoo_m_config(size, dns_root, out_dir, limit=None):
+            path = build(size, dns_root, out_dir, limit=limit)
+            c = toml_load(path)
+            c["model"]["args"].update(BOARD_ZOO_M)
+            toml_dump(c, path)
+            return path
+
+        reproduce_board.build_config = zoo_m_config
+        try:
+            zero_counts(gk)
+            t0 = time.perf_counter()
+            rc, lines = quiet_main(reproduce_board.main, [
+                "--dns_root", tree, "--size", "m", "--out", work / "board",
+                "--torch_ckpt", ckpt, "--entry_name", "zoo_m_port"])
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            launches = {k: v for k, v in launch_counts(gk).items() if v}
+        finally:
+            reproduce_board.build_config = build
+        row = json.loads([ln for ln in lines if ln.startswith("{")][-1])
+        toml = work / "board" / "board_m.toml"
+        cli.main(["-C", str(toml), "-M", "predict", "--torch_ckpt", str(ckpt),
+                  "--device", dev.type], recipe_dir=reproduce_board.RECIPE)
+        enhanced = work / "board" / "board_m" / "enhanced" / "dataloader_0"
+        means, _ = quiet_main(calculate_metrics.main, [
+            "-E", enhanced, "-R", tree / "clean", "-O", work / "metrics.csv",
+            "--num_workers", 1])
+        out["e"] = {"rc": rc, "row": row, "seconds": secs, "launches": launches,
+                    "calculate_metrics": means,
+                    "pandas_installed": importlib.util.find_spec("pandas") is not None}
+        log(f"[tools] (e) reproduce_board, zoo M weights, {BOARD_UTTS} x {BOARD_SECONDS:g} s in "
+            f"{secs:.1f} s: SI-SNR {row['SI-SNR']}, SI-SNRi {row['SI-SNRi_data']}, power proxy "
+            f"{row['power_proxy_Ops/s']} Ops/s, params {row['params']}, latency "
+            f"{row['latency_total_ms']} ms; launches {launches}; calculate_metrics over the "
+            f"predicted WAVs {means}; pandas installed: {out['e']['pandas_installed']}")
+        require(rc == 0 and np.isfinite(row["SI-SNR"]) and row["latency_total_ms"] == 8.036,
+                f"reproduce_board row {row}")
+        require(row["params"] == ZOO_M_PARAMS and row["SI-SNR"] > 8.0,
+                f"reproduce_board: the tested model {row}")
+        require(launches == {"F": 4 * BOARD_UTTS}, f"reproduce_board launched {launches}")
+        require(abs(means["si_sdr"] - row["SI-SNR"]) < 0.1,
+                f"calculate_metrics {means} against the row's SI-SNR {row['SI-SNR']}")
+
+        # (f) the model zoo's build from a reference-layout tree
+        ref = write_reference_zoo(work / "ref", "m")
+        zero_counts(gk)
+        t0 = time.perf_counter()
+        entries, lines = quiet_main(build_model_zoo.main, [
+            "--sizes", "m", "--utts", ZOO_UTTS, "--ref-zoo", ref, "--out", work / "zoo"])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = {k: v for k, v in launch_counts(gk).items() if v}
+        e = entries[0]
+        out["f"] = {"entry": e, "seconds": secs, "launches": launches}
+        log(f"[tools] (f) build_model_zoo --sizes m --utts {ZOO_UTTS} in {secs:.1f} s: SI-SNR "
+            f"{e['SI-SNR']} dB (entries_framework.json {ZOO_M_SISNR}), params {e['params']}, "
+            f"synops {e['PDP_proxy_Ops']}, launches {launches}")
+        require(e["params"] == ZOO_M_PARAMS and abs(e["SI-SNR"] - ZOO_M_SISNR) <= ZOO_SISNR_TOL,
+                f"build_model_zoo entry {e}")
+        require(launches == {"F": 4 * ZOO_UTTS}, f"build_model_zoo launched {launches}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[tools] phase 17 on {smi}: {out['seconds']:.1f} s")
+    return out
+
+
+def add_tools_rows(kernels, rec):
+    """Each kernel's launches in phase 17 beside its line: C in the
+    roofline's forward and the profiled one, D, E and dW in the kernel
+    bench and the profiled step, F in the board's test batches and the
+    zoo's utterances."""
+    names = {"sfsb_monolith_serve": "C", "gsu_layer_train_fwd": "D",
+             "gsu_layer_train_bwd": "E", "gsu_train_dw": "dW", "gsu_stack_eval_x": "F"}
+    for entry in kernels:
+        k = names.get(entry["name"])
+        if k == "C":
+            entry["tools"] = {"roofline_forward": rec["b"]["c_launches"],
+                              "profile_trace": rec["d"]["launches"]["C"]}
+        elif k in ("D", "E", "dW"):
+            entry["tools"] = {"bench_gsu_kernel": rec["c"]["launches"][k],
+                              "profile_trace": rec["d"]["launches"][k]}
+        elif k == "F":
+            entry["tools"] = {"reproduce_board": rec["e"]["launches"].get("F", 0),
+                              "build_model_zoo": rec["f"]["launches"].get("F", 0)}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing to run", file=sys.stderr)
@@ -5233,11 +5485,17 @@ def main() -> int:
     stamp("16. band-parallel sub-bands")
     band = band_phase(gk, dev)
     add_band_rows(kernels, band)
+
+    # ---- 17. the tools ----
+    stamp("17. the tools")
+    tools = tools_phase(gk, dev)
+    add_tools_rows(kernels, tools)
     stamp("end")
     print(json.dumps({"kernels": kernels, "forwards": forwards, "training": train_t,
                       "trainer": trainer, "flagship": flagship, "serving": serving,
                       "separation": separation, "remaining": remaining,
                       "distributed": distributed, "surface": surface, "band": band,
+                      "tools": tools,
                       "stream_checks": stream, "mode_checks": modes["checks"],
                       "batch": BENCH_B, "seconds": BENCH_SECONDS,
                       "train_batch": TRAIN_B, "train_seconds": TRAIN_SECONDS}), flush=True)

@@ -69,7 +69,9 @@ import torch
 from .gsu import BN_EPS, acc_dtype_for, bn_eval_affine
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
+# where the libraries are built; runtime/cache.enable_compilation_cache moves it
+DEFAULT_BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
+BUILD_DIR = DEFAULT_BUILD_DIR
 # library name -> (source, defines). Kernel C builds one library per stream
 # type and kernel F its traced instance as a library of its own, so that
 # they compile in parallel.

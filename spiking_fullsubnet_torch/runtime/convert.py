@@ -11,6 +11,8 @@ param/state trees (``import_spiking_fullsubnet``):
 - frozen (the competition Separator): the same cells, the projection named
   ``fc_output_layer`` and no pre-LayerNorm.
 
+``reference_state_dict`` writes a tree back under those names.
+
 The ``.npz`` keys are ``/``-joined tree paths (``params/sb/0/stack/layers/
 0/weight_hh``); a level whose keys are all integers is a list. Arrays are
 already in torch layout ``[rows, in]``: with shared weights ``weight_ih
@@ -133,6 +135,39 @@ def import_spiking_fullsubnet(sd: Mapping[str, torch.Tensor], cfg):
         sb_params.append(p)
         sb_states.append(s)
     return {"fb": fb_params, "sb": sb_params}, {"fb": fb_state, "sb": sb_states}
+
+
+def reference_state_dict(params, state, generation: str = "frozen", prefix: str = "module."
+                         ) -> Dict[str, torch.Tensor]:
+    """``import_spiking_fullsubnet`` read backwards: the weights under the
+    reference's key names, each a detached copy on the CPU. ``generation``
+    "frozen" names the projection ``fc_output_layer`` (the Separator's,
+    whose configs have no pre-LayerNorm); "latest" names it ``proj``. A
+    pre-LayerNorm goes out where the params hold one. ``prefix`` is DDP's
+    ``module.`` (Accelerate's checkpoints) or ``""``."""
+    sd = {}
+
+    def seq(p, st, name):
+        if "pre_ln" in p:
+            for k in ("weight", "bias"):
+                sd[f"{name}.pre_layer_norm.{k}"] = p["pre_ln"][k]
+        for i, (lp, ls) in enumerate(zip(p["stack"]["layers"], st["stack"]["layers"])):
+            cp = f"{name}.sequence_model.layers.{i}.cell"
+            for k in ("weight_ih", "weight_hh", "bias_ih"):
+                sd[f"{cp}.{k}"] = lp[k]
+            if "bn" in lp:
+                for k in ("weight", "bias"):
+                    sd[f"{cp}.batchnorm.{k}"] = lp["bn"][k]
+                for k in ("running_mean", "running_var"):
+                    sd[f"{cp}.batchnorm.{k}"] = ls["bn"][k]
+        proj = "fc_output_layer" if generation == "frozen" else "proj"
+        for k in ("weight", "bias"):
+            sd[f"{name}.{proj}.{k}"] = p["proj"][k]
+
+    seq(params["fb"], state["fb"], "fb_model")
+    for i, (p, st) in enumerate(zip(params["sb"], state["sb"])):
+        seq(p, st, f"sb_model.sb_models.{i}")
+    return {prefix + k: v.detach().cpu().clone() for k, v in sd.items()}
 
 
 def import_discriminator(sd: Mapping[str, torch.Tensor], ndf: int = 16):

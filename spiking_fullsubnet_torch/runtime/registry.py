@@ -5,8 +5,9 @@ audiozen/utils.py:75-130).
 Every pluggable component in a TOML is a {path, args} pair. The repo's
 TOMLs name the JAX package: a path under ``spiking_fullsubnet_tpu.``
 resolves to the same path under ``spiking_fullsubnet_torch.``, so they load
-unchanged. A path with no port yet raises ``NotImplementedError`` naming,
-by title, the ROADMAP item that brings it. Unlike the JAX registry, paths
+unchanged; every module of the JAX package has its counterpart. A path
+into the Pallas module ``ops.gsu_pallas`` raises ``ImportError`` naming
+its counterpart, ``ops/gsu_kernels.py``. Unlike the JAX registry, paths
 do not resolve against the working directory: a recipe directory's own
 modules import the JAX package (the CLI maps those it needs to the port's
 copies, ``cli.RECIPE_MODULES``).
@@ -21,17 +22,15 @@ import torch
 
 JAX_PREFIX, PORT_PREFIX = "spiking_fullsubnet_tpu.", "spiking_fullsubnet_torch."
 
-# modules of the JAX package not ported yet -> the ROADMAP queue 1 item
-# that brings them. The Pallas module itself is replaced by ops/gsu_kernels
-# (every kernel ported); the root tools that drive it come with "the data and
-# metric tools". Every other name of the package has its counterpart, so a
-# name outside this table that the port lacks is unknown: it raises
-# ImportError, as a missing name does in any package.
-ROADMAP_ITEMS: Dict[str, str] = {
-    "ops.gsu_pallas": "the data and metric tools",
-    "runtime.timing": "bench on the GPU",
-    "runtime.roofline": "bench on the GPU",
-    "runtime.cache": "bench on the GPU",
+# modules of the JAX package with no module of the same name in the port ->
+# where their counterpart is. The Pallas module is replaced by
+# ops/gsu_kernels (every kernel ported), whose wrappers take other
+# arguments, so a path into it raises ImportError naming that file. Every
+# other name of the package has its counterpart, so a name outside this
+# table that the port lacks is unknown: it raises ImportError, as a missing
+# name does in any package.
+COUNTERPARTS: Dict[str, str] = {
+    "ops.gsu_pallas": "spiking_fullsubnet_torch/ops/gsu_kernels.py",
 }
 
 # optimizer paths -> (torch.optim class, the TOML args it takes with the
@@ -54,35 +53,20 @@ LOSS_ALIASES: Dict[str, str] = {
 }
 
 
-def roadmap_item(path: str) -> Optional[str]:
-    """The ROADMAP queue 1 item, by title, that ports ``path`` (a module or
-    an attribute of the port, ``spiking_fullsubnet_torch.x.y``), or None
-    where no item names it."""
-    rel = path.removeprefix(PORT_PREFIX)
-    for key, title in ROADMAP_ITEMS.items():
-        if rel == key or rel.startswith(key + "."):
-            return title
-    return None
-
-
 def resolve(path: str):
     """Import ``pkg.module.Attr``; a JAX-package path resolves in the port."""
     if path.startswith(JAX_PREFIX):
         path = PORT_PREFIX + path.removeprefix(JAX_PREFIX)
+    rel = path.removeprefix(PORT_PREFIX)
+    for key, counterpart in COUNTERPARTS.items():
+        if rel == key or rel.startswith(key + "."):
+            raise ImportError(f"{path!r} has no module of that name in the port; its "
+                              f"counterpart is {counterpart}")
     module_path, _, attr = path.rpartition(".")
     if not module_path:
         raise ImportError(f"Cannot resolve bare name {path!r}")
-    try:
-        module = importlib.import_module(module_path)
-    except ModuleNotFoundError as e:
-        item = roadmap_item(e.name or "")
-        if item is None:
-            raise
-        raise NotImplementedError(f"{path!r} is not ported yet (ROADMAP queue 1: {item})") from e
+    module = importlib.import_module(module_path)
     if not hasattr(module, attr):
-        item = roadmap_item(path)
-        if item is not None:
-            raise NotImplementedError(f"{path!r} is not ported yet (ROADMAP queue 1: {item})")
         raise ImportError(f"Module {module_path!r} has no attribute {attr!r}")
     return getattr(module, attr)
 

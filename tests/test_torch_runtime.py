@@ -230,19 +230,24 @@ def test_registry_maps_jax_paths_and_names_what_is_not_ported():
                       ("native.wavio.read_batch", wavio.read_batch),
                       ("runtime.clamp_inf_value", debug.clamp_inf_value)]:
         assert registry.resolve("spiking_fullsubnet_tpu." + path) is obj, path
-    for path, item in [
-        ("spiking_fullsubnet_tpu.ops.gsu_pallas.gsu_stack_eval_pallas",
-         "the data and metric tools"),
-        ("spiking_fullsubnet_tpu.runtime.timing.time_fn_per_iter", "bench on the GPU"),
-        ("spiking_fullsubnet_tpu.runtime.roofline.roofline_report", "bench on the GPU"),
-        ("spiking_fullsubnet_tpu.runtime.cache.enable_compilation_cache", "bench on the GPU"),
-    ]:
-        with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1: {item}"):
+    # the bench support resolves in the port
+    from spiking_fullsubnet_torch.runtime import cache, roofline, timing
+    for path, obj in [("runtime.timing.time_fn_per_iter", timing.time_fn_per_iter),
+                      ("runtime.timing.checksum", timing.checksum),
+                      ("runtime.roofline.roofline_report", roofline.roofline_report),
+                      ("runtime.roofline.spiking_fullsubnet_cost",
+                       roofline.spiking_fullsubnet_cost),
+                      ("runtime.cache.enable_compilation_cache", cache.enable_compilation_cache)]:
+        assert registry.resolve("spiking_fullsubnet_tpu." + path) is obj, path
+    # the Pallas module's kernels are ops/gsu_kernels.py's, under other names
+    for path in ("spiking_fullsubnet_tpu.ops.gsu_pallas.gsu_stack_eval_pallas",
+                 "spiking_fullsubnet_torch.ops.gsu_pallas.gsu_layer_pallas"):
+        with pytest.raises(ImportError, match="counterpart is spiking_fullsubnet_torch/ops/"
+                                              "gsu_kernels.py"):
             registry.resolve(path)
     with pytest.raises(ImportError):
         registry.resolve("no_such_package_anywhere.thing")
-    # no item is left for any other name: one the package lacks is unknown
-    assert registry.roadmap_item("spiking_fullsubnet_torch.dsp.spectral.no_such_name") is None
+    # every module has its port: a name the package lacks is unknown
     for path in ("spiking_fullsubnet_tpu.dsp.spectral.no_such_name",
                  "spiking_fullsubnet_tpu.no_such_module.thing"):
         with pytest.raises(ImportError):
