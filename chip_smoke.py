@@ -444,7 +444,30 @@ is non-zero:
             collective, to 3x the plain version's rounding), E band with dW
             within relative L2 1e-3 of its plain version; each launch timed
             beside its plain version and its bound; the ms of each rank's
-            eval forward and step beside the unsharded ones.
+            eval forward and step beside the unsharded ones; both ranks on
+            the staged route (two processes on one card: parallel/mesh.
+            band_route), logged with each band launch's ms in the step;
+            (c) the group route on this card: kernels D and E in band mode
+            as redesigned (their band instances, BN's sums swapped between
+            the ranks' clusters inside one launch a layer), G = 2 and 4
+            ranks' rows as the band split lays them (the units of each
+            section padded to a multiple of G, a rank's units as rows;
+            with G = 4 section 1's last rank holds only pad rows), at
+            flagship M's six section layers as one unsharded step gives
+            them to D and E (their first 96 frames, f32 streams) and
+            section 1's two layers again in bf16: against the plain band
+            versions run for every rank in lockstep (threads summing in
+            rank order), D's spikes over the first 16 frames < 1e-3 apart
+            and every step from its own membranes within 3x the plain
+            version's rounding + 1e-4 (flips within 1e-3 of the
+            threshold), every rank's stats bit for bit equal, E with dW on
+            D's outputs within relative L2 1e-3 (1e-2 in bf16: drg rounds
+            to bf16, a tie either way); counted (set to 0 just before,
+            read just after): one D band and one E band launch a layer and
+            no collective; each launch timed beside its plain version and
+            its bound (the G ranks' work); then a launch whose peer never
+            writes raises within the hang guard's limit (0.5 s) instead of
+            hanging.
 17. tools  the bench support (runtime/{timing,roofline}) and the port's
             tools (spiking_fullsubnet_torch/tools/), each through its main:
             (a) time_fn_per_iter on a bf16 8192^3 torch.matmul: its rate in
@@ -488,6 +511,7 @@ exits non-zero.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import math
@@ -4297,15 +4321,8 @@ def band_step_errors(gk, args, y, stats):
     """``d_step_errors`` for kernel D in band mode: every step recomputed at
     once in float64 from the rank's own y[t-1], its BN sums over the real
     rows summed over the band group through the launch's own collective."""
-    xg, whh, b2, bnp, H, shared, rows_real, rows_global, collective = args
-    yd = y.double()
-    zero = torch.zeros_like(yd[:1])
-    c_prev = torch.cat([zero, yd[:-1]])
-    pre = xg.double() + torch.cat([zero, (yd[:-1] >= 0).double()]) @ whh.double()
-    b, p = b2.double(), bnp.double()
-    f = torch.sigmoid((pre if shared else pre[..., :H]) + b[0])
-    cy = f * c_prev + (1.0 - f) * ((pre if shared else pre[..., H:]) + b[1])
-    del pre, c_prev
+    xg, whh, b2, bnp, H, shared, rows_real, rows_global, collective = args[:9]
+    cy = band_cy(xg, whh, b2, H, shared, y)
 
     def group_sum(t):
         t = t.contiguous()
@@ -4314,14 +4331,49 @@ def band_step_errors(gk, args, y, stats):
 
     mean = group_sum(cy[:, :rows_real].sum(1)) / rows_global
     var = group_sum((cy[:, :rows_real] - mean[:, None]).square().sum(1)) / rows_global
+    return band_step_report(gk, cy, mean, var, bnp, y, stats)
+
+
+def band_cy(xg, whh, b2, H, shared, y):
+    """Every step's membranes before BN, at once in float64, each step from
+    the given y[t-1] (kernel D's own)."""
+    yd = y.double()
+    zero = torch.zeros_like(yd[:1])
+    c_prev = torch.cat([zero, yd[:-1]])
+    pre = xg.double() + torch.cat([zero, (yd[:-1] >= 0).double()]) @ whh.double()
+    b = b2.double()
+    f = torch.sigmoid((pre if shared else pre[..., :H]) + b[0])
+    return f * c_prev + (1.0 - f) * ((pre if shared else pre[..., H:]) + b[1])
+
+
+def band_step_report(gk, cy, mean, var, bnp, y, stats):
+    """(max |y - step|, the stats' error in units of the rank's std, the
+    flipped spikes, the largest |step| at a flip) of a rank's y and stats
+    against the float64 step from its own membranes with the group's mean
+    and var."""
+    p = bnp.double()
     rstd = torch.rsqrt(var + gk.BN_EPS)
     step = (cy - mean[:, None]) * rstd[:, None] * p[0] + p[1]
     stats_err = max(((stats[:, 0].double() - mean).abs() * rstd).max().item(),
                     ((stats[:, 1].double() - var).abs() / (var + gk.BN_EPS)).max().item())
+    yd = y.double()
     flips = (yd >= 0) != (step >= 0)
     n_flips = int(flips.sum().item())
     return ((yd - step).abs().max().item(), stats_err, n_flips,
             step[flips].abs().max().item() if n_flips else 0.0)
+
+
+def group_step_errors(gk, xgs, whh, b2, bnp, H, shared, rows_real, rows_global, outs):
+    """``band_step_errors`` for the ranks of a group on one card: every
+    rank's steps from its own y[t-1], the group's sums in rank order.
+    Returns the worst of the ranks' (y error, stats error), the flips and
+    the largest |step| at one."""
+    cys = [band_cy(x, whh, b2, H, shared, o[1]) for x, o in zip(xgs, outs)]
+    mean = sum(c[:, :r].sum(1) for c, r in zip(cys, rows_real)) / rows_global
+    var = sum((c[:, :r] - mean[:, None]).square().sum(1) for c, r in zip(cys, rows_real)) / rows_global
+    reps = [band_step_report(gk, c, mean, var, bnp, o[1], o[2]) for c, o in zip(cys, outs)]
+    return (max(r[0] for r in reps), max(r[1] for r in reps), sum(r[2] for r in reps),
+            max(r[3] for r in reps))
 
 
 def band_kernel_checks(gk, d_args, e_args, frames=BAND_CHECK_FRAMES):
@@ -4343,7 +4395,7 @@ def band_kernel_checks(gk, d_args, e_args, frames=BAND_CHECK_FRAMES):
         ea = (*[cut(t) for t in ea[:4]], *ea[4:])
         box = []
         ms = cuda_ms(lambda: box.append(gk.gsu_layer_train_fwd_band(*da)), warmup=0)
-        plain_ms = cuda_ms(lambda: box.append(gk.layer_train_fwd_band_plain(*da)), warmup=0)
+        plain_ms = cuda_ms(lambda: box.append(gk.layer_train_fwd_band_plain(*da[:9])), warmup=0)
         got, ref = box
         mism = spike_mismatch(got[0][:WINDOW], ref[0][:WINDOW])
         y_err, s_err, n_flips, near = band_step_errors(gk, da, got[1], got[2])
@@ -4364,7 +4416,8 @@ def band_kernel_checks(gk, d_args, e_args, frames=BAND_CHECK_FRAMES):
         del got, ref, box
         box = []
         e_ms = cuda_ms(lambda: box.append(gk.gsu_layer_train_bwd_band(*ea)), warmup=0)
-        e_plain_ms = cuda_ms(lambda: box.append(gk.layer_train_bwd_band_plain(*ea)), warmup=0)
+        e_plain_ms = cuda_ms(lambda: box.append(gk.layer_train_bwd_band_plain(*ea[:12])),
+                             warmup=0)
         eg = box[0]
         rel = max(band_rel(g, r) for g, r in zip(eg, box[1]))
         require(rel < 1e-3, f"kernel E band layer {i}: relative L2 {rel}")
@@ -4398,8 +4451,11 @@ def band_rank_main(work, backend, device, data, band):
     flagship M's batch runs, each counted (every count set to 0 just before,
     read just after): one eval forward (F 4 launches) and one step
     (``band_step``: D and E in band mode 6 launches each, D and E 2 each for
-    the fullband, dW 8), with the collectives of the step; then each timed
-    once more; then ``band_kernel_checks`` on the step's own launches.
+    the fullband, dW 8), with the collectives of the step; then the eval
+    timed once more, and on the peer route (whose first step sets the
+    group's exchange up) four more steps: as built, with the host waiting
+    for every band launch (``band_launches_synced``), then both again;
+    then ``band_kernel_checks`` on the step's own launches.
     Writes <work>/band_rank<r>.pt (outputs, weights, state) and .json."""
     import os
     from datetime import timedelta
@@ -4408,7 +4464,7 @@ def band_rank_main(work, backend, device, data, band):
 
     from spiking_fullsubnet_torch.ops import gsu_kernels as gk
     from spiking_fullsubnet_torch.parallel import dist
-    from spiking_fullsubnet_torch.parallel.mesh import make_mesh, shard_batch
+    from spiking_fullsubnet_torch.parallel.mesh import band_setup_of, make_mesh, shard_batch
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4436,6 +4492,27 @@ def band_rank_main(work, backend, device, data, band):
     eval_counts = band_counts(gk)
     box = []
     band_zero(gk)
+    # each band launch of the step: the collectives while it runs (none on
+    # the peer route) and its ms (CUDA events around the wrapper)
+    inside, events = {"collectives": 0}, {k: [] for k in BAND_WRAPPERS}
+    originals = {k: getattr(gk, n) for k, n in BAND_WRAPPERS.items()}
+
+    def probe(key):
+        def wrapped(*a, **kw):
+            before = sum(calls.values())
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = originals[key](*a, **kw)
+            ev[1].record()
+            events[key].append(ev)
+            inside["collectives"] += sum(calls.values()) - before
+            return out
+        wrapped.launches = 0  # the wrapper counts through its module's name
+        return wrapped
+
+    probes = {k: probe(k) for k in BAND_WRAPPERS}
+    for k, n in BAND_WRAPPERS.items():
+        setattr(gk, n, probes[k])
     for k in calls:
         setattr(tdist, k, counted(k))
     t0 = time.perf_counter()
@@ -4446,8 +4523,30 @@ def band_rank_main(work, backend, device, data, band):
     finally:
         for k in calls:
             setattr(tdist, k, real[k])
+        for k, n in BAND_WRAPPERS.items():
+            originals[k].launches += probes[k].launches
+            setattr(gk, n, originals[k])
     step_ms = (time.perf_counter() - t0) * 1e3  # band_step ends in a synchronise
     step_counts = band_counts(gk)
+    launch_ms = {k: [a.elapsed_time(b) for a, b in evs] for k, evs in events.items()}
+    setup = band_setup_of(mesh.get_group("band"))
+    route = setup.route if setup is not None else None
+    step2_ms, again_ms = None, None
+    if route == "peer":
+        require(inside["collectives"] == 0,
+                f"rank {rank}: {inside['collectives']} collectives inside D and E band on the "
+                "peer route")
+        # the first step sets the group's exchange up: later ones, timed
+        # alone, as built (the exchange's error record read once a step)
+        # and with the host waiting for every band launch, as a blocking
+        # read of each launch's record would, in turn
+        again_ms = {"deferred": [], "synced": []}
+        for kind in ("deferred", "synced") * 2:
+            with band_launches_synced(gk, kind == "synced"):
+                t0 = time.perf_counter()
+                band_step(cfg, params, state, noisy, clean, mesh)
+                again_ms[kind].append((time.perf_counter() - t0) * 1e3)
+        step2_ms = again_ms["deferred"][0]
     step = box[0]
     eval_ms = cuda_ms(lambda: band_eval(cfg, params, state, noisy, mesh), warmup=0)
     detach = lambda a: tuple(t.detach() if isinstance(t, torch.Tensor) else t for t in a)  # noqa: E731
@@ -4467,6 +4566,10 @@ def band_rank_main(work, backend, device, data, band):
                                                          mesh.get_local_rank("band")],
         "groups": {a: tdist.get_process_group_ranks(mesh.get_group(a)) for a in ("data", "band")},
         "eval_launches": eval_counts, "step_launches": step_counts, "collectives": calls,
+        "route": route, "why": setup.why if setup is not None else None,
+        "setup_s": setup.seconds if setup is not None else None, "step2_ms": step2_ms,
+        "again_ms": again_ms,
+        "collectives_inside_band": inside["collectives"], "band_launch_ms": launch_ms,
         "loss": step["loss"], "grad_norm": step["norm"], "eval_ms": eval_ms, "step_ms": step_ms,
         "kernels": checks}))
     dist.shutdown()
@@ -4509,7 +4612,34 @@ def band_reference(dev, data, rows_of):
             timing)
 
 
-def band_ranks_run(work, ranks, band, backend, device, ref_dev, tag, meanwhile=None):
+@contextlib.contextmanager
+def band_launches_synced(gk, on):
+    """With ``on``, the host waits for the stream after every launch of D
+    and E band (``BAND_WRAPPERS``); their counts are left as they were."""
+    if not on:
+        yield
+        return
+    real = {n: getattr(gk, n) for n in BAND_WRAPPERS.values()}
+
+    def synced(fn):
+        def wrapped(*a, **kw):
+            out = fn(*a, **kw)
+            torch.cuda.current_stream().synchronize()
+            return out
+        wrapped.launches = 0  # the wrapper counts through its module's name
+        return wrapped
+
+    for n, fn in real.items():
+        setattr(gk, n, synced(fn))
+    try:
+        yield
+    finally:
+        for n, fn in real.items():
+            setattr(gk, n, fn)
+
+
+def band_ranks_run(work, ranks, band, backend, device, ref_dev, tag, meanwhile=None,
+                   route=None):
     """``ranks`` processes (``python3 chip_smoke.py --band-rank``) on a
     (ranks / band, band) mesh, then ``band_reference`` here: within a band
     group the output and the state bit for bit, and every rank's updated
@@ -4520,8 +4650,9 @@ def band_ranks_run(work, ranks, band, backend, device, ref_dev, tag, meanwhile=N
     spikes equal the unsharded run's) against the unsharded one of its
     shard, and the update against clip and AdamW on the ranks' own reduced
     gradients; each rank's launches: F 4 in eval, D and E 2 and their band
-    modes 6, dW 8 in the step. ``meanwhile()`` runs here while the ranks
-    do. Returns the numbers."""
+    modes 6, dW 8 in the step; every rank on the band route ``route`` where
+    given (``parallel/mesh.band_route``). ``meanwhile()`` runs here while
+    the ranks do. Returns the numbers."""
     data = ranks // band
     port = str(free_port())
     procs = [start_process([sys.executable, str(Path(__file__).resolve()), "--band-rank",
@@ -4538,6 +4669,15 @@ def band_ranks_run(work, ranks, band, backend, device, ref_dev, tag, meanwhile=N
     failed.sort(key=lambda f: f[1] == -9)  # a rank that failed first, not one killed after it
     require(not failed, "; ".join(f"{tag} rank {r} exited {rc}:\n{tail}" for r, rc, tail in failed))
     recs = [json.loads((Path(work) / f"band_rank{r}.json").read_text()) for r in range(ranks)]
+    for rec in recs:
+        log(f"[band] {tag} rank {rec['rank']} on {rec['device']}: route {rec['route']} "
+            f"({rec['why']}; set up in {rec['setup_s']:.3f} s); step {rec['step_ms']:.1f} ms, "
+            f"again {rec['step2_ms']} ms ({rec['again_ms']}); collectives inside D and E band "
+            f"{rec['collectives_inside_band']}; "
+            f"band launches' ms " + ", ".join(f"{k} {[round(v, 3) for v in ms]}"
+                                               for k, ms in rec["band_launch_ms"].items()))
+    require(route is None or all(rec["route"] == route for rec in recs),
+            f"{tag}: routes {[rec['route'] for rec in recs]}, expected {route}")
     outs = [torch.load(Path(work) / f"band_rank{r}.pt", weights_only=True) for r in range(ranks)]
     evals, steps, w0, update, timing = band_reference(
         ref_dev, data, lambda k: slice(k * BAND_B, (k + 1) * BAND_B))
@@ -4629,6 +4769,179 @@ def band_nccl_world_one(dev):
     return {"eval_bitwise": same_eval, "step_bitwise": same_step, "loss": a["loss"]}
 
 
+BAND_GROUPS = (2, 4)  # phase 16 (c): band groups of ranks on one card
+BAND_GROUP_BF16 = 1  # (c): the section also held with bf16 streams (the ragged one)
+BAND_GROUP_E_REL = {torch.float32: 1e-3, torch.bfloat16: 1e-2}
+BAND_GROUP_WRAPPERS = {"D band": "gsu_layer_train_fwd_band_group",
+                       "E band": "gsu_layer_train_bwd_band_group"}
+BAND_GUARD_S = 0.5  # (c): the hang guard's limit for the launch whose peer never writes
+
+
+def band_section_layers(gk, dev):
+    """Flagship M's six section layers (phase 16's model and rows, 8 x 2 s)
+    as one unsharded training step gives them to kernels D and E: [(section,
+    layer, D's arguments, E's)], each layer's rows in (utterance, unit)
+    order, f32 streams."""
+    cfg, params, state = band_model(dev)
+    noisy, clean = band_batch(BAND_B, dev)
+    names = [TRAIN_WRAPPERS["D"], TRAIN_WRAPPERS["E"]]
+    seen = record_calls(gk, names, lambda: band_step(cfg, params, state, noisy, clean))
+    detach = lambda a: tuple(t.detach() if isinstance(t, torch.Tensor) else t for t in a)  # noqa: E731
+    d_all = [detach(a) for a, _ in seen[names[0]]]
+    e_all = [detach(a) for a, _ in seen[names[1]]]
+    d_sec = [d for d in d_all if d[0].shape[1] != BAND_B]  # the fullband's rows are B
+    require(len(d_sec) == 6, f"flagship M's section layers: {len(d_sec)} launches of D")
+    return [(i // 2, i % 2, d, next(e for e in e_all if e[0].data_ptr() == d[0].data_ptr()))
+            for i, d in enumerate(d_sec)]
+
+
+def band_split_rows(t, N, G):
+    """A section layer's rows ``t [T, B N, X]`` in (utterance, unit) order
+    as the band split lays them on G ranks: the units padded to a multiple
+    of G, rank k's units k per .. k per + per - 1 as rows in (unit,
+    utterance) order (``models/spiking_fullsubnet._band_sections``), pad
+    rows zero. Returns (each rank's rows, each rank's real rows)."""
+    T, BN, X = t.shape
+    B, per = BN // N, -(-N // G)
+    u = torch.nn.functional.pad(t.reshape(T, B, N, X).transpose(1, 2), (0, 0, 0, 0, 0, per * G - N))
+    parts = [u[:, k * per:(k + 1) * per].reshape(T, per * B, X).contiguous() for k in range(G)]
+    return parts, [max(0, min(N, (k + 1) * per) - k * per) * B for k in range(G)]
+
+
+def band_group_layer(gk, G, exchange, d, e, io, frames):
+    """One section layer on the group route: kernel D band and E band (with
+    dW) for G ranks in one launch each, against their plain band versions
+    in lockstep on the same inputs: D's spikes over the first WINDOW frames
+    (< 1e-3 apart), its steps from its own membranes (``group_step_errors``:
+    3x the plain version's rounding + 1e-4, flips within 1e-3 of the
+    threshold), every rank's stats bit for bit equal; E and dW on D's
+    outputs within relative L2 ``BAND_GROUP_E_REL``. Each launch timed
+    beside its plain version and its bound (the G ranks' work)."""
+    xg, whh, b2, bnp, H, shared, _ = d
+    gout = e[2]
+    N = xg.shape[1] // BAND_B
+    xgs, real = band_split_rows(xg[:frames].to(io), N, G)
+    gouts, _ = band_split_rows(gout[:frames].to(io), N, G)
+    whh = whh.to(io)
+    args = (whh, b2, bnp, H, shared, real, N * BAND_B)
+    box = []
+    ms = cuda_ms(lambda: box.append(gk.gsu_layer_train_fwd_band_group(xgs, *args, exchange)),
+                 warmup=0)
+    plain_ms = cuda_ms(lambda: box.append(gk.layer_train_fwd_band_group_plain(xgs, *args)),
+                       warmup=0)
+    got, ref = box
+    mism = max(spike_mismatch(g[0][:WINDOW], r[0][:WINDOW]) for g, r in zip(got, ref))
+    y_err, s_err, n_flips, near = group_step_errors(gk, xgs, *args, got)
+    p_y_err, p_s_err, _, _ = group_step_errors(gk, xgs, *args, ref)
+    same_stats = all(torch.equal(g[2], got[0][2]) for g in got)
+    where = f"G {G} section {N} units {io}"
+    require(mism < 1e-3 and y_err <= 3 * p_y_err + 1e-4 and s_err <= 3 * p_s_err + 1e-4
+            and near < 1e-3 and same_stats,
+            f"kernel D band, group route, {where}: mismatch {mism}, step y {y_err} (plain "
+            f"{p_y_err}), stats {s_err} (plain {p_s_err}), flips {n_flips} at {near}, stats "
+            f"equal across ranks {same_stats}")
+    spikes = [fired(g[1]) for g in got]
+    b = [bound_d((x, whh, b2, bnp, H, shared, "bn"), sp) for x, sp in zip(xgs, spikes)]
+    d_row = {"G": G, "io": str(io).replace("torch.", ""), "shape": list(xgs[0].shape),
+             "rows_real": real, "frames": frames, "spike_mismatch": mism, "step_y_err": y_err,
+             "plain_step_y_err": p_y_err, "step_stats_err": s_err, "step_flips": n_flips,
+             "stats_bitwise_across_ranks": same_stats,
+             "max_abs_err": max(max_abs(g[1], r[1]) for g, r in zip(got, ref)), "ms": ms,
+             "plain_ms": plain_ms, **band_bound(sum(x[0] for x in b), sum(x[1] for x in b),
+                                               sum(x[2] for x in b), sum(spikes))}
+    ys, statss = [g[1] for g in got], [g[2] for g in got]
+    del ref, box
+    box = []
+    e_args = (xgs, ys, gouts, statss, whh, b2, bnp, H, shared, real, N * BAND_B)
+    e_ms = cuda_ms(lambda: box.append(gk.gsu_layer_train_bwd_band_group(*e_args, exchange)),
+                   warmup=0)
+    e_plain_ms = cuda_ms(lambda: box.append(gk.layer_train_bwd_band_group_plain(*e_args)),
+                         warmup=0)
+    rel = max(band_rel(a, r) for g, p in zip(*box) for a, r in zip(g, p))
+    require(rel < BAND_GROUP_E_REL[io], f"kernel E band, group route, {where}: relative L2 {rel}")
+    b = [bound_e((x, yy, go, st, whh, b2, bnp, H, shared, "bn"), sp)
+         for x, yy, go, st, sp in zip(xgs, ys, gouts, statss, spikes)]
+    e_row = {"G": G, "io": d_row["io"], "shape": d_row["shape"], "frames": frames,
+             "rel_l2": rel, "max_abs_err": max(max_abs(a, r) for g, p in zip(*box)
+                                               for a, r in zip(g, p)),
+             "ms": e_ms, "plain_ms": e_plain_ms,
+             **band_bound(sum(x[0] for x in b), sum(x[1] for x in b), sum(x[2] for x in b),
+                          sum(spikes))}
+    return d_row, e_row, (xgs, args)
+
+
+def band_group_phase(gk, dev, frames=BAND_CHECK_FRAMES):
+    """Phase 16 (c): kernels D and E in band mode on the group route, G ranks
+    of a band group as clusters of one launch on this card (``gk.
+    gsu_layer_train_fwd_band_group``, ``_bwd_band_group``), for G in
+    BAND_GROUPS at flagship M's six section layers (one unsharded step's
+    arguments, their rows split as the band split lays them, the first
+    ``frames`` frames) with f32 streams, and the BAND_GROUP_BF16 section's
+    two layers with bf16 streams; each layer held by ``band_group_layer``.
+    After one uncounted warm-up layer, counted (set to 0 just before, read
+    just after): one D band and one E band launch a layer, no collective.
+    Then a launch whose peer never
+    writes (rank 1 of a group of 2 left out of the launch) raises within
+    the hang guard's BAND_GUARD_S. Returns the rows and counts."""
+    import torch.distributed as tdist
+
+    layers = band_section_layers(gk, dev)
+    calls = {"all_reduce": 0, "all_gather": 0}
+    real = {k: getattr(tdist, k) for k in calls}
+
+    def counted(name):
+        def wrapped(*a, **kw):
+            calls[name] += 1
+            return real[name](*a, **kw)
+        return wrapped
+
+    out = {"D band": [], "E band": [], "launches": {}, "route": "group"}
+    # the first group launch in a process pays a one-time cost (165 ms more
+    # than the next on an H100, not traced): one layer of each before the
+    # counted and timed run
+    _, _, d0, e0 = layers[0]
+    band_group_layer(gk, BAND_GROUPS[0], gk.group_exchange(dev, BAND_GROUPS[0]), d0, e0,
+                     torch.float32, WINDOW)
+    for k, n in BAND_GROUP_WRAPPERS.items():
+        getattr(gk, n).launches = 0
+    for k in calls:
+        setattr(tdist, k, counted(k))
+    try:
+        for G in BAND_GROUPS:
+            ex = gk.group_exchange(dev, G)  # one counter over all the layers of G
+            cases = [(d, e, torch.float32) for _, _, d, e in layers]
+            cases += [(d, e, torch.bfloat16) for sec, _, d, e in layers if sec == BAND_GROUP_BF16]
+            for d, e, io in cases:
+                d_row, e_row, last = band_group_layer(gk, G, ex, d, e, io, frames)
+                out["D band"].append(d_row)
+                out["E band"].append(e_row)
+    finally:
+        for k in calls:
+            setattr(tdist, k, real[k])
+    out["launches"] = {k: getattr(gk, n).launches for k, n in BAND_GROUP_WRAPPERS.items()}
+    out["collectives"] = dict(calls)
+    n_layers = len(out["D band"])
+    require(out["launches"] == {"D band": n_layers, "E band": n_layers}
+            and sum(calls.values()) == 0,
+            f"phase 16 (c): launches {out['launches']} for {n_layers} layers, collectives {calls}")
+    # the hang guard: rank 0 of a group of 2 launched alone
+    xgs, args = last
+    ex = gk.group_exchange(dev, 2)
+    ex.timeout_s = BAND_GUARD_S
+    t0 = time.perf_counter()
+    try:
+        gk._fwd_band_launch(xgs[:1], *args[:5], args[5][:1], args[6], ex, 0)
+        ex.check()  # the wrapper reads the record without waiting; this waits
+        raised = ""
+    except RuntimeError as err:
+        raised = str(err)
+    out["guard"] = {"limit_s": BAND_GUARD_S, "raised_after_s": time.perf_counter() - t0,
+                    "message": raised}
+    require("waited past" in raised and out["guard"]["raised_after_s"] < BAND_GUARD_S + 10,
+            f"phase 16 (c): the launch with an absent peer: {out['guard']}")
+    return out
+
+
 def band_phase(gk, dev):
     """Phase 16 (see the module docstring); returns its numbers."""
     import shutil
@@ -4639,10 +4952,13 @@ def band_phase(gk, dev):
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_band_"))
     try:  # (a) here while (b)'s ranks run
         out = {"b": band_ranks_run(work, 2, 2, "gloo", "cuda:0", dev, "phase 16 (b)",
-                                   lambda: band_nccl_world_one(dev))}
+                                   lambda: band_nccl_world_one(dev), route="staged")}
     finally:
         shutil.rmtree(work, ignore_errors=True)
     out["a"] = out["b"].pop("meanwhile")
+    t_c = time.perf_counter()
+    out["c"] = band_group_phase(gk, dev)
+    out["c"]["seconds"] = time.perf_counter() - t_c
     torch.set_grad_enabled(False)
     out["seconds"] = time.perf_counter() - t_phase
     b = out["b"]
@@ -4656,25 +4972,55 @@ def band_phase(gk, dev):
         f"unsharded run {b['by_rank']}; phase {out['seconds']:.1f} s")
     for k in BAND_WRAPPERS:
         for i, row in enumerate(r0["kernels"][k]):
-            log(f"[band] {k} launch {i} {tuple(row['shape'])}: {row['ms']:.3f} ms (plain "
-                f"{row['plain_ms']:.1f}, bound {row['bound_ms']:.4f}), "
+            log(f"[band] (b) staged {k} launch {i} {tuple(row['shape'])}: {row['ms']:.3f} ms "
+                f"(plain {row['plain_ms']:.1f}, bound {row['bound_ms']:.4f}), "
                 + ", ".join(f"{f} {row[f]:.3e}" for f in ("spike_mismatch", "step_y_err",
                                                            "rel_l2", "max_abs_err") if f in row))
+    c = out["c"]
+    for k in BAND_GROUP_WRAPPERS:
+        for row in c[k]:
+            log(f"[band] (c) group route {k} G {row['G']} {row['io']} {tuple(row['shape'])}: "
+                f"{row['ms']:.3f} ms (plain {row['plain_ms']:.1f}, bound {row['bound_ms']:.4f}), "
+                + ", ".join(f"{f} {row[f]:.3e}" for f in ("spike_mismatch", "step_y_err",
+                                                           "plain_step_y_err", "rel_l2",
+                                                           "max_abs_err") if f in row))
+    log(f"[band] (c) launches {c['launches']}, collectives {c['collectives']}; the hang guard "
+        f"raised after {c['guard']['raised_after_s']:.2f} s (limit {BAND_GUARD_S} s): "
+        f"{c['guard']['message']}; (c) {c['seconds']:.1f} s")
     return out
 
 
+BAND_SOURCES = {"D band": "gsu_train_fwd.cu", "E band": "gsu_train_bwd.cu"}
+
+
 def add_band_rows(kernels, rec):
-    """Kernels D and E in band mode: rank 0's launches in phase 16 (b)'s
-    step, and the sums over its six launches of the checks' ms, plain ms
-    and bounds."""
+    """Kernels D and E in band mode: the staged route under the wrappers'
+    names (rank 0's launches in phase 16 (b)'s step, and the
+    sums over its six launches' checks), then the redesigned kernels on the
+    group route (phase 16 (c): its launches; ms, plain ms and bound the
+    sums over the six f32 section layers at G = 2, each launch two ranks'
+    work on this one card)."""
     r0 = rec["b"]["ranks"][0]
     for k, (name, line) in BAND_META.items():
         rows = r0["kernels"][k]
         t = sums_of(rows)
         kernels.append({
-            "name": name, "route": "cuda", "source": "spiking_fullsubnet_torch/csrc/gsu_train_band.cu",
+            "name": name, "route": "cuda",
+            "source": "spiking_fullsubnet_torch/csrc/gsu_train_band.cu",
             "replaces": f"spiking_fullsubnet_tpu/ops/gsu_pallas.py:{line}",
             "launches": r0["step_launches"][k],
+            "max_abs_err": max(row["max_abs_err"] for row in rows),
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": None, "per_launch": rows})
+    c = rec["c"]
+    for k, (name, line) in BAND_META.items():
+        rows = c[k]
+        t = sums_of([r for r in rows if r["G"] == BAND_GROUPS[0] and r["io"] == "float32"])
+        kernels.append({
+            "name": f"{name} group ({BAND_GROUPS[0]} ranks a launch)", "route": "cuda",
+            "source": f"spiking_fullsubnet_torch/csrc/{BAND_SOURCES[k]}",
+            "replaces": f"spiking_fullsubnet_tpu/ops/gsu_pallas.py:{line}",
+            "launches": c["launches"][k],
             "max_abs_err": max(row["max_abs_err"] for row in rows),
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None, "per_launch": rows})

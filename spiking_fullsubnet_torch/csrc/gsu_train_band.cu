@@ -1,6 +1,14 @@
-// Kernels D and E in band mode: one GSU layer forward with batch-statistics
-// BatchNorm, and its reverse-time backward, on a rank's rows of a section
-// whose sub-band units are split over a band group of ranks.
+// Kernels D and E in band mode, the staged route: one GSU layer forward with
+// batch-statistics BatchNorm, and its reverse-time backward, on a rank's rows
+// of a section whose sub-band units are split over a band group of ranks.
+//
+// The staged route serves the band groups whose ranks cannot swap BN's sums
+// inside a kernel (parallel/mesh.band_route): ranks that share one card in
+// separate processes (without MPS their kernels do not run at the same
+// time, so a kernel spinning on a peer's flag would wait on the time
+// slicer) and groups across hosts. Every other group takes kernels D and E
+// themselves in band mode, one launch a layer (gsu_train_fwd.cu,
+// gsu_train_bwd.cu, the exchange in gsu_train_mma.cuh).
 //
 // Replaces, for the band-split sections of the fused forward,
 // spiking_fullsubnet_tpu/ops/gsu_pallas.py: _fwd_kernel (:226, run by
@@ -40,8 +48,7 @@
 // bfloat16 (xg, W_hh, the spikes, gout and dxg); the membranes, the
 // statistics and all cell arithmetic are float32, as in kernels D and E.
 // Precise expf and 1/sqrtf. This is the simple form: each step's launches
-// wait for the group's sums, and one exchange of the partials over peer
-// memory inside one launch is the redesign for later (ROADMAP section 2).
+// wait for the group's sums.
 #include "gsu_common.cuh"
 
 namespace {

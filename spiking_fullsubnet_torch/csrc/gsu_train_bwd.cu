@@ -93,6 +93,14 @@
 //     fullband (320 x 320: nine 128 x 128 tiles x 44 splits = 396 blocks, two
 //     a SM) the grid runs 1.5 waves.
 // Only the order of the float32 sums differs from the plain version.
+//
+// Band mode (train_bwd_kernel's BAND instance, gsu_train_bwd_band_launch),
+// kernel D's band mode's backward: the recurrence's [sum dy, sum dy x-hat]
+// of the rank's real rows is swapped with the band group once a step inside
+// the kernel (band_exchange, gsu_train_mma.cuh); a real row's BN backward
+// takes the group's sums over the group's real rows, a pad row's is gamma
+// rstd dy; dgamma and dbeta keep the rank's own rows' share, db every row
+// of the rank. The bits, the gates and dW run on the rank's rows as above.
 #include <cooperative_groups.h>
 
 #include <type_traits>
@@ -339,18 +347,36 @@ train_gates_kernel(const IO* __restrict__ xg, const uint4* __restrict__ wgfrag,
 // time, a lane a unit (lane and lane + 32), so that every access to the
 // [T, R, H] tensors is one contiguous run of the block's units; pass 3 (the
 // dh product) takes the mma layout.
-template <typename IO, int NGB>
+template <typename IO, int NGB, bool BAND>
 __global__ void __launch_bounds__(NTHREADS, 1)
 train_bwd_kernel(const float* __restrict__ y, const IO* __restrict__ gout,
                  const float* __restrict__ stats, const float* __restrict__ fg,
                  const uint4* __restrict__ wdfrag, const float* __restrict__ bnp, IO* dxg,
                  float* __restrict__ db, float* __restrict__ dbn, float* __restrict__ gstate,
-                 unsigned long long* __restrict__ prof, const TrainPlan p) {
+                 unsigned long long* __restrict__ prof, const TrainPlan p, const BandX bx) {
   constexpr int NTERM = sizeof(IO) == 4 ? 3 : 1;
   extern __shared__ uint4 smem4[];
   char* sm = reinterpret_cast<char*>(smem4);
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
+  // band mode: cluster cl of the grid is band rank me on the cl-th of each
+  // stacked tensor; the BN sums run over its leading rows_real rows and are
+  // exchanged with the group, BN's count is the group's
+  int me = 0, Rs = p.R;
+  if constexpr (BAND) {
+    const int cl = (int)blockIdx.x / p.nblk;
+    const size_t TRH = (size_t)p.T * p.R * p.H;
+    me = bx.rank + cl;
+    Rs = bx.rows_real[me];
+    y += cl * TRH;
+    gout += cl * TRH;
+    stats += (size_t)cl * p.T * 2 * p.H;
+    fg += cl * 2 * TRH;
+    dxg += (size_t)cl * p.T * p.R * p.G;
+    db += (size_t)cl * 2 * p.H;
+    dbn += (size_t)cl * 2 * p.H;
+    gstate += (size_t)cl * p.nblk * 2 * p.Rp * p.ldJ;
+  }
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int gid = lane >> 2, tig = lane & 3;
   const int H = p.H, R = p.R, G = p.G, J = p.J, shared = p.shared;
@@ -376,7 +402,7 @@ train_bwd_kernel(const float* __restrict__ y, const IO* __restrict__ gout,
   for (int i = tid; i < p.Rp * p.ldJ; i += NTHREADS) DH[i] = DC[i] = 0.f;
   for (int u = tid; u < J; u += NTHREADS) vec[u] = u < Jb ? bnp[J0 + u] : 0.f;
   __syncthreads();
-  const float inv_n = 1.f / (float)R;
+  const float inv_n = 1.f / (float)(BAND ? bx.rows_global : R);
   const size_t RH = (size_t)R * H, TRH = (size_t)p.T * RH;
   // dh's m-tiles an item: two, or one when the pairs would leave warps idle
   const int cmd = p.MTd > 1 && (p.MTd + 1) / 2 * NB < NW ? 1 : 2;
@@ -448,7 +474,7 @@ train_bwd_kernel(const float* __restrict__ y, const IO* __restrict__ gout,
             const float surr = fmaxf(1.f - fabsf(yv[i]), 0.f);
             const float dy = (gv[i] + dh[i]) * surr + dc[i];
             DH[r * p.ldJ + u] = dy;
-            if (bn) {
+            if (bn && (!BAND || r < Rs)) {
               const float xhat = (fv[i] * yp[i] + (1.f - fv[i]) * gg[i] - mean[u]) * rstd[u];
               s0[q] += dy;
               s1[q] += dy * xhat;
@@ -465,10 +491,13 @@ train_bwd_kernel(const float* __restrict__ y, const IO* __restrict__ gout,
         const float sdy = warp_sum(part, J, u), sdyx = warp_sum(part2, J, u);
         vec[3 * J + u] = sdy;
         vec[4 * J + u] = sdyx;
-        dgam += sdyx;
+        dgam += sdyx;  // the rank's own rows' share
         dbet += sdy;
       }
       __syncthreads();
+      if constexpr (BAND)  // [sum dy, sum dy x-hat] of the group, in place
+        band_exchange<2>(bx, me, rank, J0, Jb, J, vec + 3 * J,
+                         bx.seq0 + (unsigned long long)(p.T - 1 - t), t, 0);
     }
     clk.mark(1);
     // pass 2: the membrane gradient through BN and the cell; drg into dxg[t]
@@ -502,6 +531,7 @@ train_bwd_kernel(const float* __restrict__ y, const IO* __restrict__ gout,
             if (bn) {
               const float xhat = (f * c_prev + (1.f - f) * g - mean[u]) * rstd[u];
               dcr = gamma[u] * rstd[u] * (dy - inv_n * sum_dy[u] - xhat * (inv_n * sum_dyx[u]));
+              if (BAND && r >= Rs) dcr = gamma[u] * rstd[u] * dy;  // a pad row: in no sum
             }
             const float dpre_f = dcr * (c_prev - g) * f * (1.f - f);
             const float dpre_c = dcr * (1.f - f);
@@ -563,7 +593,7 @@ train_bwd_kernel(const float* __restrict__ y, const IO* __restrict__ gout,
     dbn[J0 + u] = dgam;
     dbn[H + J0 + u] = dbet;
   }
-  clk.finish(rank);
+  clk.finish(blockIdx.x);
 }
 
 // ---- train_dw_kernel: split-K tensor-core product, then a fixed-order sum ----
@@ -792,59 +822,88 @@ __global__ void train_dw_reduce_kernel(const float* __restrict__ part, float* __
 }
 
 
+// The signs of y as bits, then the gates of every step, on one rank's
+// tensors (kernel E's first two kernels).
 template <typename IO, int NGB>
-int launch_bwd(const void* xg, const float* y, const void* gout, const float* stats,
-               const void* wgfrag, const void* wdfrag, uint8_t* hbits, const float* b2,
-               const float* bnp, void* dxg, float* db, float* dbn, float* gstate, float* fg,
-               unsigned long long* prof, const TrainPlan& p, cudaStream_t stream) {
+cudaError_t launch_gates(const void* xg, const float* y, const void* wgfrag, uint8_t* hbits,
+                         const float* b2, float* fg, const TrainPlan& p, cudaStream_t stream) {
   if (p.T >= 2) {
     const long long n = (long long)(p.T - 1) * p.nblk * p.Rp * (p.J / 8);
     const int blocks = (int)((n + 255) / 256 < 1056 ? (n + 255) / 256 : 1056);
     train_bits_kernel<<<blocks, 256, 0, stream>>>(y, hbits, p.T - 1, p.R, p.H, p.Rp, p.J,
                                                   p.nblk);
     cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
+    if (e != cudaSuccess) return e;
   }
   train_gates_kernel<IO, NGB><<<dim3((unsigned)p.nblk, (unsigned)p.T), NTHREADS, 0, stream>>>(
       static_cast<const IO*>(xg), static_cast<const uint4*>(wgfrag), hbits, b2, fg, p);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  auto kern = train_bwd_kernel<IO, NGB>;
-  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
+  return cudaGetLastError();
+}
+
+template <typename IO, int NGB, bool BAND>
+cudaError_t prepare_bwd(const TrainPlan& p) {
+  auto kern = train_bwd_kernel<IO, NGB, BAND>;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
   if (e == cudaSuccess) e = allow_cluster(kern, p.nblk);
+  return e;
+}
+
+// Kernel E's three kernels; in band mode `clusters` ranks' stacked tensors,
+// the bits and gates a rank at a time, then one launch of the recurrence.
+template <typename IO, int NGB, bool BAND>
+int launch_bwd(const void* xg, const float* y, const void* gout, const float* stats,
+               const void* wgfrag, const void* wdfrag, uint8_t* hbits, const float* b2,
+               const float* bnp, void* dxg, float* db, float* dbn, float* gstate, float* fg,
+               unsigned long long* prof, const TrainPlan& p, const BandX& bx, int clusters,
+               cudaStream_t stream) {
+  const size_t TRH = (size_t)p.T * p.R * p.H;
+  const size_t hbits_n = (size_t)(p.T > 1 ? p.T - 1 : 1) * p.nblk * p.Rp * (p.J / 8);
+  for (int c = 0; c < clusters; ++c) {
+    cudaError_t e = launch_gates<IO, NGB>(static_cast<const IO*>(xg) + c * (size_t)p.T * p.R * p.G,
+                                          y + c * TRH, wgfrag, hbits + c * hbits_n, b2,
+                                          fg + c * 2 * TRH, p, stream);
+    if (e != cudaSuccess) return (int)e;
+  }
+  cudaError_t e = prepare_bwd<IO, NGB, BAND>(p);
   if (e != cudaSuccess) return (int)e;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)p.nblk);
-  cfg.blockDim = dim3((unsigned)NTHREADS);
-  cfg.dynamicSmemBytes = (size_t)p.smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = (unsigned)p.nblk;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, kern, y, static_cast<const IO*>(gout), stats,
-                         static_cast<const float*>(fg), static_cast<const uint4*>(wdfrag), bnp,
-                         static_cast<IO*>(dxg), db, dbn, gstate, prof, p);
+  ClusterLaunch L(p, clusters, stream);
+  e = cudaLaunchKernelEx(&L.cfg, train_bwd_kernel<IO, NGB, BAND>, y,
+                         static_cast<const IO*>(gout), stats, static_cast<const float*>(fg),
+                         static_cast<const uint4*>(wdfrag), bnp, static_cast<IO*>(dxg), db, dbn,
+                         gstate, prof, p, bx);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
-template <typename IO>
+template <typename IO, bool BAND>
 int launch_bwd_io(const void* xg, const float* y, const void* gout, const float* stats,
                   const void* wg, const void* wd, uint8_t* hbits, const float* b2,
                   const float* bnp, void* dxg, float* db, float* dbn, float* gstate, float* fg,
-                  unsigned long long* prof, const TrainPlan& p, cudaStream_t s) {
+                  unsigned long long* prof, const TrainPlan& p, const BandX& bx, int clusters,
+                  cudaStream_t s) {
   if (p.ngb == 4)
-    return launch_bwd<IO, 4>(xg, y, gout, stats, wg, wd, hbits, b2, bnp, dxg, db, dbn, gstate,
-                             fg, prof, p, s);
+    return launch_bwd<IO, 4, BAND>(xg, y, gout, stats, wg, wd, hbits, b2, bnp, dxg, db, dbn,
+                                   gstate, fg, prof, p, bx, clusters, s);
   if (p.ngb == 2)
-    return launch_bwd<IO, 2>(xg, y, gout, stats, wg, wd, hbits, b2, bnp, dxg, db, dbn, gstate,
-                             fg, prof, p, s);
-  return launch_bwd<IO, 1>(xg, y, gout, stats, wg, wd, hbits, b2, bnp, dxg, db, dbn, gstate, fg,
-                           prof, p, s);
+    return launch_bwd<IO, 2, BAND>(xg, y, gout, stats, wg, wd, hbits, b2, bnp, dxg, db, dbn,
+                                   gstate, fg, prof, p, bx, clusters, s);
+  return launch_bwd<IO, 1, BAND>(xg, y, gout, stats, wg, wd, hbits, b2, bnp, dxg, db, dbn,
+                                 gstate, fg, prof, p, bx, clusters, s);
+}
+
+// How many clusters of the recurrence's band instance fit on the card at once.
+template <typename IO, int NGB>
+cudaError_t max_clusters_bwd(const TrainPlan& p, int* n) {
+  cudaError_t e = prepare_bwd<IO, NGB, true>(p);
+  if (e != cudaSuccess) return e;
+  ClusterLaunch L(p, 1, nullptr);
+  return cudaOccupancyMaxActiveClusters(n, train_bwd_kernel<IO, NGB, true>, &L.cfg);
+}
+
+bool bwd_plan_ok(const TrainPlan& p, int io) {
+  return plan_ok(p) && p.T >= 1 && (p.mode == 0 || p.mode == 1) && io >= 0 && io <= 1 &&
+         p.nterm == (io == 1 ? 1 : 3) && p.MTd == p.JT && p.KTg == (p.G + 15) / 16 &&
+         p.o_wg == -1;
 }
 
 }  // namespace
@@ -869,17 +928,56 @@ int gsu_train_bwd_launch(int io, const void* xg, const float* y, const void* gou
                          float* dbn, float* gstate, float* fg, unsigned long long* prof,
                          const TrainPlan* plan, void* stream) {
   const TrainPlan& p = *plan;
-  if (!plan_ok(p) || p.T < 1 || (p.mode != 0 && p.mode != 1) || io < 0 || io > 1 ||
-      p.nterm != (io == 1 ? 1 : 3) || p.MTd != p.JT || p.KTg != (p.G + 15) / 16 ||
-      p.o_wg != -1)
-    return (int)cudaErrorInvalidValue;
+  if (!bwd_plan_ok(p, io)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  uint8_t* hb = static_cast<uint8_t*>(hbits);
+  const BandX none = {};
+  if (io == 1)
+    return launch_bwd_io<__nv_bfloat16, false>(xg, y, gout, stats, wgfrag, wdfrag, hb, b2, bnp,
+                                               dxg, db, dbn, gstate, fg, prof, p, none, 1, s);
+  return launch_bwd_io<float, false>(xg, y, gout, stats, wgfrag, wdfrag, hb, b2, bnp, dxg, db,
+                                     dbn, gstate, fg, prof, p, none, 1, s);
+}
+
+// Kernel E in band mode (mode 1), the recurrence one launch a layer:
+// `clusters` clusters, cluster c the band rank bx.rank + c on the c-th of
+// each stacked tensor (xg and dxg [clusters][T, R, G], y and gout
+// [clusters][T, R, H], stats [clusters][T, 2, H], db and dbn [clusters][2,
+// H], hbits, gstate and fg [clusters] of the sizes above); the T exchanges
+// (step t's the (T - 1 - t)-th) take sequence numbers bx.seq0 .. bx.seq0 +
+// T - 1. The bits and gates run a rank at a time before it. db sums every
+// row of the rank, dbn its real rows: the rank's shares. Returns the CUDA
+// error code of the launches; a failed exchange shows in bx.err after it.
+int gsu_train_bwd_band_launch(int io, const void* xg, const float* y, const void* gout,
+                              const float* stats, const void* wgfrag, const void* wdfrag,
+                              void* hbits, const float* b2, const float* bnp, void* dxg,
+                              float* db, float* dbn, float* gstate, float* fg,
+                              const TrainPlan* plan, const BandX* band, int clusters,
+                              void* stream) {
+  const TrainPlan& p = *plan;
+  if (!bwd_plan_ok(p, io) || !band_ok(p, *band, clusters)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   uint8_t* hb = static_cast<uint8_t*>(hbits);
   if (io == 1)
-    return launch_bwd_io<__nv_bfloat16>(xg, y, gout, stats, wgfrag, wdfrag, hb, b2, bnp, dxg,
-                                        db, dbn, gstate, fg, prof, p, s);
-  return launch_bwd_io<float>(xg, y, gout, stats, wgfrag, wdfrag, hb, b2, bnp, dxg, db, dbn,
-                              gstate, fg, prof, p, s);
+    return launch_bwd_io<__nv_bfloat16, true>(xg, y, gout, stats, wgfrag, wdfrag, hb, b2, bnp,
+                                              dxg, db, dbn, gstate, fg, nullptr, p, *band,
+                                              clusters, s);
+  return launch_bwd_io<float, true>(xg, y, gout, stats, wgfrag, wdfrag, hb, b2, bnp, dxg, db,
+                                    dbn, gstate, fg, nullptr, p, *band, clusters, s);
+}
+
+// The clusters of the recurrence's band instance that the card holds at once.
+int gsu_train_bwd_band_clusters(int io, const TrainPlan* plan, int* n) {
+  const TrainPlan& p = *plan;
+  if (!bwd_plan_ok(p, io)) return (int)cudaErrorInvalidValue;
+  if (io == 1) {
+    if (p.ngb == 4) return (int)max_clusters_bwd<__nv_bfloat16, 4>(p, n);
+    if (p.ngb == 2) return (int)max_clusters_bwd<__nv_bfloat16, 2>(p, n);
+    return (int)max_clusters_bwd<__nv_bfloat16, 1>(p, n);
+  }
+  if (p.ngb == 4) return (int)max_clusters_bwd<float, 4>(p, n);
+  if (p.ngb == 2) return (int)max_clusters_bwd<float, 2>(p, n);
+  return (int)max_clusters_bwd<float, 1>(p, n);
 }
 
 // io as above. y [T, R, H] f32 and dxg [T, R, G] in the stream type -> dw

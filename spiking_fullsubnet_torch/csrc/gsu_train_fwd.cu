@@ -67,6 +67,22 @@
 //     when the plan finds room, else in a device-memory scratch that only
 //     its owning thread touches (1536 rows at H 256: 196 KB a block).
 // Where it waits now: see PERF.md section 7 (train_profile's phases).
+//
+// Band mode (the kernel's BAND instance, gsu_train_fwd_band_launch) also
+// replaces _fwd_kernel under JAX's band sharding
+// (spiking_fullsubnet_tpu/models/fused_forward.py:175-229): a rank of a band
+// group holds some of every utterance's sub-band units as rows, and BN's
+// statistics span the group's rows. The block sums its rank's leading
+// rows_real rows, then swaps the sum with the same block of every other
+// rank inside the kernel (band_exchange, gsu_train_mma.cuh: pushes over
+// peer memory, a release flag, acquire spins on its own memory, the sum in
+// rank order, so every rank holds the same statistics to the bit), twice a
+// step (the mean, then the variance), with BN's count the group's real
+// rows; pad rows are normalised with the group's statistics. One launch a
+// layer: the host takes no step. Its bound is the same chain of steps plus
+// two exchanges' latency a step (a few microseconds on one card, NVLink's
+// on peer cards). Several ranks' clusters may share one launch on one card
+// (the group form): cluster c is rank c, on the c-th of each stacked tensor.
 #include <cooperative_groups.h>
 
 #include "gsu_train_mma.cuh"
@@ -79,18 +95,32 @@ namespace {
 constexpr int PRE_LD = 36;  // floats a row of a warp's pre-activation tile (conflict-free)
 constexpr int RS = 8;       // rows whose xg a lane loads at once
 
-template <typename IO, int NGB>
+template <typename IO, int NGB, bool BAND>
 __global__ void __launch_bounds__(NTHREADS, 1)
 train_fwd_kernel(const IO* __restrict__ xg, const uint4* __restrict__ wfrag,
                  const float* __restrict__ b2, const float* __restrict__ bnp,
                  IO* __restrict__ spikes, float* __restrict__ y, float* __restrict__ stats,
                  float* __restrict__ gstate, unsigned long long* __restrict__ prof,
-                 const TrainPlan p) {
+                 const TrainPlan p, const BandX bx) {
   constexpr int NTERM = sizeof(IO) == 4 ? 3 : 1;
   extern __shared__ uint4 smem4[];
   char* sm = reinterpret_cast<char*>(smem4);
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
+  // band mode: cluster cl of the grid is band rank me, its tensors the
+  // cl-th of the launch's (the group form stacks its ranks' rows); its BN
+  // sums run over its leading rows_real rows, BN's count is the group's
+  int me = 0, Rs = p.R;
+  if constexpr (BAND) {
+    const int cl = (int)blockIdx.x / p.nblk;
+    me = bx.rank + cl;
+    Rs = bx.rows_real[me];
+    xg += (size_t)cl * p.T * p.R * p.G;
+    spikes += (size_t)cl * p.T * p.R * p.H;
+    y += (size_t)cl * p.T * p.R * p.H;
+    stats += (size_t)cl * p.T * 2 * p.H;
+    gstate += (size_t)cl * p.nblk * p.Rp * p.ldJ;
+  }
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int gid = lane >> 2, tig = lane & 3;
   const int H = p.H, R = p.R, G = p.G, J = p.J, shared = p.shared, mode = p.mode;
@@ -123,8 +153,8 @@ train_fwd_kernel(const IO* __restrict__ xg, const uint4* __restrict__ wfrag,
   }
   __syncthreads();
   cluster.sync();  // every block's buffers zeroed before any spikes arrive
-  const float inv_n = 1.f / (float)R;
-  const float* mean = vec + 4 * J;
+  const float inv_n = 1.f / (float)(BAND ? bx.rows_global : R);
+  float* mean = vec + 4 * J;
   const float* rstd = vec + 5 * J;
   // m-tiles a chunk: two, or one when the pairs would leave warps idle (a
   // block of few rows: the warps share out (chunk, batch) items)
@@ -212,7 +242,7 @@ train_fwd_kernel(const IO* __restrict__ xg, const uint4* __restrict__ wfrag,
           const float f = 1.f / (1.f + expf(-(pre_f + vec[uc])));
           const float cy = f * cv[i] + (1.f - f) * (pre_c + vec[J + uc]);
           cs[r * p.ldJ + uc] = cy;
-          sc += cy;
+          if (!BAND || r < Rs) sc += cy;
         }
       }
 #pragma unroll
@@ -235,7 +265,14 @@ train_fwd_kernel(const IO* __restrict__ xg, const uint4* __restrict__ wfrag,
     clk.mark(0);
     if (mode == MODE_BN) {
       __syncthreads();
-      for (int u = tid; u < J; u += NTHREADS) vec[4 * J + u] = warp_sum(part, J, u) * inv_n;
+      if constexpr (BAND) {  // the group's sum of c', then the mean
+        for (int u = tid; u < J; u += NTHREADS) mean[u] = warp_sum(part, J, u);
+        __syncthreads();
+        band_exchange<1>(bx, me, rank, J0, Jb, J, mean, bx.seq0 + 2ull * t, t, 0);
+        for (int u = tid; u < J; u += NTHREADS) mean[u] *= inv_n;
+      } else {
+        for (int u = tid; u < J; u += NTHREADS) mean[u] = warp_sum(part, J, u) * inv_n;
+      }
       __syncthreads();
       // pass 2: the rows' sums of (c' - mean)^2, a lane a unit
       float s[2] = {0.f, 0.f};
@@ -248,14 +285,14 @@ train_fwd_kernel(const IO* __restrict__ xg, const uint4* __restrict__ wfrag,
 #pragma unroll
             for (int q = 0; q < 2; ++q) {
               const int rr = rb + i * rpi, r = r0 + rr, u = lane % upl + 32 * q;
-              cv[i][q] = q < qn && rr < NGB * 8 && r < R && u < Jb ? cs[r * p.ldJ + u] : 0.f;
+              cv[i][q] = q < qn && rr < NGB * 8 && r < Rs && u < Jb ? cs[r * p.ldJ + u] : 0.f;
             }
 #pragma unroll
           for (int i = 0; i < RS; ++i)
 #pragma unroll
             for (int q = 0; q < 2; ++q) {
               const int rr = rb + i * rpi, r = r0 + rr, u = lane % upl + 32 * q;
-              if (q >= qn || rr >= NGB * 8 || r >= R || u >= Jb) continue;
+              if (q >= qn || rr >= NGB * 8 || r >= Rs || u >= Jb) continue;
               const float d = cv[i][q] - mean[u];
               s[q] += d * d;
             }
@@ -269,9 +306,15 @@ train_fwd_kernel(const IO* __restrict__ xg, const uint4* __restrict__ wfrag,
       for (int q = 0; q < 2; ++q)
         if (lane < upl && lane + 32 * q < J) part[warp * J + lane + 32 * q] = s[q];
       __syncthreads();
+      float* rstd_w = vec + 5 * J;
+      if constexpr (BAND) {  // the group's sum of (c' - mean)^2
+        for (int u = tid; u < J; u += NTHREADS) rstd_w[u] = warp_sum(part, J, u);
+        __syncthreads();
+        band_exchange<1>(bx, me, rank, J0, Jb, J, rstd_w, bx.seq0 + 2ull * t + 1ull, t, 1);
+      }
       for (int u = tid; u < J; u += NTHREADS) {
-        const float var = warp_sum(part, J, u) * inv_n;
-        vec[5 * J + u] = 1.f / sqrtf(var + BN_EPS);
+        const float var = (BAND ? rstd_w[u] : warp_sum(part, J, u)) * inv_n;
+        rstd_w[u] = 1.f / sqrtf(var + BN_EPS);
         if (u < Jb) {
           stats[(size_t)t * 2 * H + J0 + u] = mean[u];
           stats[((size_t)t * 2 + 1) * H + J0 + u] = var;
@@ -339,44 +382,53 @@ train_fwd_kernel(const IO* __restrict__ xg, const uint4* __restrict__ wfrag,
     cluster.sync();
     clk.mark(3);
   }
-  clk.finish(rank);
+  clk.finish(blockIdx.x);
 }
 
-template <typename IO, int NGB>
-int launch(const void* xg, const void* wfrag, const float* b2, const float* bnp, void* spikes,
-           float* y, float* stats, float* gstate, unsigned long long* prof, const TrainPlan& p,
-           cudaStream_t stream) {
-  auto kern = train_fwd_kernel<IO, NGB>;
+template <typename IO, int NGB, bool BAND>
+cudaError_t prepare(const TrainPlan& p) {
+  auto kern = train_fwd_kernel<IO, NGB, BAND>;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        p.smem);
   if (e == cudaSuccess) e = allow_cluster(kern, p.nblk);
+  return e;
+}
+
+template <typename IO, int NGB, bool BAND>
+int launch(const void* xg, const void* wfrag, const float* b2, const float* bnp, void* spikes,
+           float* y, float* stats, float* gstate, unsigned long long* prof, const TrainPlan& p,
+           const BandX& bx, int clusters, cudaStream_t stream) {
+  cudaError_t e = prepare<IO, NGB, BAND>(p);
   if (e != cudaSuccess) return (int)e;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)p.nblk);
-  cfg.blockDim = dim3((unsigned)NTHREADS);
-  cfg.dynamicSmemBytes = (size_t)p.smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = (unsigned)p.nblk;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, kern, static_cast<const IO*>(xg),
+  ClusterLaunch L(p, clusters, stream);
+  e = cudaLaunchKernelEx(&L.cfg, train_fwd_kernel<IO, NGB, BAND>, static_cast<const IO*>(xg),
                          static_cast<const uint4*>(wfrag), b2, bnp, static_cast<IO*>(spikes), y,
-                         stats, gstate, prof, p);
+                         stats, gstate, prof, p, bx);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
-template <typename IO>
+template <typename IO, bool BAND>
 int launch_io(const void* xg, const void* wfrag, const float* b2, const float* bnp,
               void* spikes, float* y, float* stats, float* gstate, unsigned long long* prof,
-              const TrainPlan& p, cudaStream_t s) {
-  if (p.ngb == 4) return launch<IO, 4>(xg, wfrag, b2, bnp, spikes, y, stats, gstate, prof, p, s);
-  if (p.ngb == 2) return launch<IO, 2>(xg, wfrag, b2, bnp, spikes, y, stats, gstate, prof, p, s);
-  return launch<IO, 1>(xg, wfrag, b2, bnp, spikes, y, stats, gstate, prof, p, s);
+              const TrainPlan& p, const BandX& bx, int clusters, cudaStream_t s) {
+  if (p.ngb == 4)
+    return launch<IO, 4, BAND>(xg, wfrag, b2, bnp, spikes, y, stats, gstate, prof, p, bx,
+                               clusters, s);
+  if (p.ngb == 2)
+    return launch<IO, 2, BAND>(xg, wfrag, b2, bnp, spikes, y, stats, gstate, prof, p, bx,
+                               clusters, s);
+  return launch<IO, 1, BAND>(xg, wfrag, b2, bnp, spikes, y, stats, gstate, prof, p, bx, clusters,
+                             s);
+}
+
+// How many clusters of the band instance fit on the card at once.
+template <typename IO, int NGB>
+cudaError_t max_clusters(const TrainPlan& p, int* n) {
+  cudaError_t e = prepare<IO, NGB, true>(p);
+  if (e != cudaSuccess) return e;
+  ClusterLaunch L(p, 1, nullptr);
+  return cudaOccupancyMaxActiveClusters(n, train_fwd_kernel<IO, NGB, true>, &L.cfg);
 }
 
 }  // namespace
@@ -403,9 +455,52 @@ int gsu_train_fwd_launch(int io, const void* xg, const void* wfrag, const float*
     return (int)cudaErrorInvalidValue;
   if (p.T == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const BandX none = {};
   if (io == 1)
-    return launch_io<__nv_bfloat16>(xg, wfrag, b2, bnp, spikes, y, stats, gstate, prof, p, s);
-  return launch_io<float>(xg, wfrag, b2, bnp, spikes, y, stats, gstate, prof, p, s);
+    return launch_io<__nv_bfloat16, false>(xg, wfrag, b2, bnp, spikes, y, stats, gstate, prof, p,
+                                           none, 1, s);
+  return launch_io<float, false>(xg, wfrag, b2, bnp, spikes, y, stats, gstate, prof, p, none, 1,
+                                 s);
+}
+
+// Kernel D in band mode (mode 1 only), one launch a layer: `clusters`
+// clusters, cluster c the band rank bx.rank + c on the c-th of each stacked
+// tensor (xg [clusters][T, R, G], spikes and y [clusters][T, R, H], stats
+// [clusters][T, 2, H], gstate [clusters][nblk][Rp][ldJ]); the 2T exchanges
+// of the launch take sequence numbers bx.seq0 .. bx.seq0 + 2T - 1 (see
+// gsu_train_mma.cuh). One cluster a process on peer cards, or the G ranks
+// of a group on one card (the clusters must be co-resident:
+// gsu_train_fwd_band_clusters). Returns the CUDA error code of the launch;
+// a failed exchange shows in bx.err after it.
+int gsu_train_fwd_band_launch(int io, const void* xg, const void* wfrag, const float* b2,
+                              const float* bnp, void* spikes, float* y, float* stats,
+                              float* gstate, const TrainPlan* plan, const BandX* band,
+                              int clusters, void* stream) {
+  const TrainPlan& p = *plan;
+  if (!plan_ok(p) || p.T < 0 || io < 0 || io > 1 || p.nterm != (io == 1 ? 1 : 3) ||
+      p.o_wd != -1 || !band_ok(p, *band, clusters))
+    return (int)cudaErrorInvalidValue;
+  if (p.T == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (io == 1)
+    return launch_io<__nv_bfloat16, true>(xg, wfrag, b2, bnp, spikes, y, stats, gstate, nullptr,
+                                          p, *band, clusters, s);
+  return launch_io<float, true>(xg, wfrag, b2, bnp, spikes, y, stats, gstate, nullptr, p, *band,
+                                clusters, s);
+}
+
+// The clusters of kernel D's band instance that the card holds at once.
+int gsu_train_fwd_band_clusters(int io, const TrainPlan* plan, int* n) {
+  const TrainPlan& p = *plan;
+  if (!plan_ok(p) || io < 0 || io > 1) return (int)cudaErrorInvalidValue;
+  if (io == 1) {
+    if (p.ngb == 4) return (int)max_clusters<__nv_bfloat16, 4>(p, n);
+    if (p.ngb == 2) return (int)max_clusters<__nv_bfloat16, 2>(p, n);
+    return (int)max_clusters<__nv_bfloat16, 1>(p, n);
+  }
+  if (p.ngb == 4) return (int)max_clusters<float, 4>(p, n);
+  if (p.ngb == 2) return (int)max_clusters<float, 2>(p, n);
+  return (int)max_clusters<float, 1>(p, n);
 }
 
 const char* gsu_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

@@ -268,6 +268,152 @@ struct PhaseClock {
   }
 };
 
+// ---- band mode: BN's sums exchanged with the band group inside the kernel ----
+//
+// A band-split section (models/fused_forward.py) gives each of the G ranks
+// of a band group some of every utterance's sub-band units as rows; BN's
+// statistics span the rows of every rank. In band mode kernels D and E run
+// on a rank's rows and, at each BN reduction, block b of every rank's
+// cluster (units J_b, the same slice on every rank: the ranks' plans agree)
+// swaps its block-local partial sums with block b of the other ranks:
+//   - it pushes its NV x J_b partials into slot [parity][its rank] of every
+//     rank's receive buffer (its own included), 16-byte stores where the
+//     slice allows, and the launch's plan signature beside them;
+//   - a system-scope fence, then a release store of the exchange's sequence
+//     number into flag [its rank][b] of every rank;
+//   - threads 0 .. G-1 spin with acquire loads on the block's G flags in
+//     this rank's own memory until each holds the sequence number or more;
+//   - the block sums the G slots in rank order 0 .. G-1, so that every rank
+//     holds the same sums to the bit.
+// The slots alternate by the sequence number's parity: a rank gets at most
+// one exchange ahead of a peer, since each waits for every peer's flag. The
+// sequence numbers are 64-bit and rise across launches (the host's counter
+// a group, advanced by each launch's exchanges, the same on every rank), so
+// nothing is zeroed between launches and a stale flag never passes for a
+// fresh one. The G ranks are other processes on peer cards (the buffers
+// mapped over CUDA IPC) or clusters of one launch on one card (the group
+// form: cluster c of the grid is rank c, every buffer local).
+//
+// A rank's buffer (ops/gsu_kernels.exchange_layout mirrors it):
+//   flags u64 [G][BAND_MAX_BLK]  (src rank, block)
+//   sig   u32 [2][G][BAND_MAX_BLK]
+//   recv  f32 [2][G][2][BAND_MAX_H]  (parity, src rank, value, unit)
+//   err   i32 [8]  (this rank's error record; not read by peers)
+// The hang guard: a wait past timeout_ns (%globaltimer) writes the error
+// record (code 1: rank, block, step, pass, the rank waited for) and stops
+// waiting, as does every later wait once the record is set, so the kernel
+// runs to its end and the wrapper raises; a peer whose plan signature
+// differs gives code 2.
+constexpr int BAND_MAX_G = 8;
+constexpr int BAND_MAX_BLK = MAX_CLUSTER;
+constexpr int BAND_MAX_H = 512;
+enum BandError { BAND_OK = 0, BAND_TIMEOUT = 1, BAND_PLAN = 2 };
+
+struct BandX {  // mirrored by ops/gsu_kernels._BandXC
+  unsigned long long seq0;  // the launch's first exchange
+  long long timeout_ns;
+  void* base[BAND_MAX_G];   // rank g's buffer, as this rank maps it
+  int* err;                 // this rank's error record
+  int G, rank;              // group size; the rank of the grid's first cluster
+  int sig;                  // the launch's plan signature
+  int rows_global;          // BN's count: the group's real rows
+  int rows_real[BAND_MAX_G];  // each rank's real rows (the leading ones)
+};
+
+__device__ __forceinline__ size_t band_sig_off(int G) { return (size_t)G * BAND_MAX_BLK * 8; }
+__device__ __forceinline__ size_t band_recv_off(int G) {
+  return (band_sig_off(G) + (size_t)2 * G * BAND_MAX_BLK * 4 + 15) & ~(size_t)15;
+}
+__device__ __forceinline__ unsigned long long* band_flags(void* base) {
+  return static_cast<unsigned long long*>(base);
+}
+__device__ __forceinline__ unsigned* band_sigs(void* base, int G) {
+  return reinterpret_cast<unsigned*>(static_cast<char*>(base) + band_sig_off(G));
+}
+__device__ __forceinline__ float* band_recv(void* base, int G) {
+  return reinterpret_cast<float*>(static_cast<char*>(base) + band_recv_off(G));
+}
+
+__device__ __forceinline__ unsigned long long ld_acquire_sys(const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.acquire.sys.global.u64 %0, [%1];\n" : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+__device__ __forceinline__ void st_release_sys(unsigned long long* p, unsigned long long v) {
+  asm volatile("st.release.sys.global.u64 [%0], %1;\n" ::"l"(p), "l"(v) : "memory");
+}
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+
+// The first failure of the launch into the error record.
+__device__ __forceinline__ void band_fail(const BandX& x, int code, int me, int blk, int step,
+                                          int pass, int peer) {
+  if (atomicCAS(x.err, 0, code) == 0) {
+    x.err[1] = me;
+    x.err[2] = blk;
+    x.err[3] = step;
+    x.err[4] = pass;
+    x.err[5] = peer;
+    __threadfence();
+  }
+}
+
+// One exchange (see above) of block blk of rank me, units J0 .. J0 + Jb - 1:
+// vals [NV][J] in shared memory holds the block's partial sums on entry and
+// the band group's sums on return. Every thread of the block calls it.
+template <int NV>
+__device__ void band_exchange(const BandX& x, int me, int blk, int J0, int Jb, int J,
+                              float* vals, unsigned long long seq, int step, int pass) {
+  const int G = x.G, par = (int)(seq & 1ull), tid = threadIdx.x;
+  const int nq = (Jb + 3) / 4;  // quads of the slice, the last one partial
+  for (int i = tid; i < G * NV * nq; i += NTHREADS) {
+    const int g = i / (NV * nq), v = (i / nq) % NV, u = 4 * (i % nq);
+    float* dst = band_recv(x.base[g], G) + (((size_t)par * G + me) * 2 + v) * BAND_MAX_H + J0 + u;
+    const float* src = vals + v * J + u;
+    if (u + 4 <= Jb) {
+      __stcg(reinterpret_cast<float4*>(dst), *reinterpret_cast<const float4*>(src));
+    } else {
+      for (int e = 0; e < Jb - u; ++e) __stcg(dst + e, src[e]);
+    }
+  }
+  if (tid < G) __stcg(band_sigs(x.base[tid], G) + ((size_t)par * G + me) * BAND_MAX_BLK + blk,
+                      (unsigned)x.sig);
+  __threadfence_system();
+  __syncthreads();
+  if (tid < G) {
+    st_release_sys(band_flags(x.base[tid]) + (size_t)me * BAND_MAX_BLK + blk, seq);
+    const unsigned long long* flag = band_flags(x.base[me]) + (size_t)tid * BAND_MAX_BLK + blk;
+    if (ld_acquire_sys(flag) < seq) {
+      const unsigned long long t0 = global_ns();
+      while (ld_acquire_sys(flag) < seq) {
+        if (*reinterpret_cast<volatile int*>(x.err) != 0) break;  // an earlier failure
+        if (global_ns() - t0 > (unsigned long long)x.timeout_ns) {
+          band_fail(x, BAND_TIMEOUT, me, blk, step, pass, tid);
+          break;
+        }
+        __nanosleep(64);
+      }
+    }
+    if (ld_acquire_sys(flag) >= seq &&
+        __ldcg(band_sigs(x.base[me], G) + ((size_t)par * G + tid) * BAND_MAX_BLK + blk) !=
+            (unsigned)x.sig)
+      band_fail(x, BAND_PLAN, me, blk, step, pass, tid);
+  }
+  __syncthreads();
+  const float* recv = band_recv(x.base[me], G);
+  for (int i = tid; i < NV * Jb; i += NTHREADS) {
+    const int v = i / Jb, u = i - v * Jb;
+    const float* s = recv + ((size_t)par * G * 2 + v) * BAND_MAX_H + J0 + u;
+    float sum = __ldcg(s);  // rank 0's, then 1, 2, ... in turn
+    for (int g = 1; g < G; ++g) sum += __ldcg(s + (size_t)g * 2 * BAND_MAX_H);
+    vals[v * J + u] = sum;
+  }
+  __syncthreads();
+}
+
 // Allow the kernel a cluster of more than 8 blocks (16 on an H100) when the
 // plan asks for one.
 template <typename K>
@@ -285,6 +431,34 @@ inline bool plan_ok(const TrainPlan& p) {
       p.G != (p.shared ? p.H : 2 * p.H) || p.ldJ < p.J)
     return false;
   return p.smem <= BLOCK_SMEM && p.o_bits == 0 && p.o_vec >= 0 && p.o_part >= 0;
+}
+
+// The launch configuration of `clusters` clusters of the plan's blocks.
+struct ClusterLaunch {
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  ClusterLaunch(const TrainPlan& p, int clusters, cudaStream_t stream) {
+    cfg.gridDim = dim3((unsigned)(p.nblk * clusters));
+    cfg.blockDim = dim3((unsigned)NTHREADS);
+    cfg.dynamicSmemBytes = (size_t)p.smem;
+    cfg.stream = stream;
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = (unsigned)p.nblk;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+};
+
+// Checks of a band launch (mode BN): the exchange's group and rows.
+inline bool band_ok(const TrainPlan& p, const BandX& bx, int clusters) {
+  if (p.mode != MODE_BN || p.H > BAND_MAX_H || bx.G < 1 || bx.G > BAND_MAX_G || clusters < 1 ||
+      bx.rank < 0 || bx.rank + clusters > bx.G || bx.rows_global < 1 || bx.err == nullptr)
+    return false;
+  for (int g = 0; g < bx.G; ++g)
+    if (bx.base[g] == nullptr || bx.rows_real[g] < 0 || bx.rows_real[g] > p.R) return false;
+  return true;
 }
 
 }  // namespace gsut

@@ -39,8 +39,10 @@ JAX package's band sharding does (``fused_forward.py:174-252`` there):
   band rank;
 - BatchNorm's statistics of a section layer span the group's real rows at
   every step: on the card kernels D and E in band mode
-  (``ops/gsu_kernels.gsu_layer_train_fwd_band`` / ``_bwd_band``) sum their
-  partial sums over the group between each step's launches; on the CPU
+  (``ops/gsu_kernels.gsu_layer_train_fwd_band`` / ``_bwd_band``) swap their
+  partial sums with the group inside one launch a layer (the peer route) or
+  between each step's launches (the staged route; ``parallel/mesh.
+  band_route`` picks one a group); on the CPU
   route ``_cell_step``'s two sums go through a differentiable all-reduce at
   each frame. Pad rows count in no sum, and the running statistics take
   the group's statistics over its B N real rows, so they are equal on

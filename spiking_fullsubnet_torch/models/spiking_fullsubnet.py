@@ -298,7 +298,8 @@ def _band_sections(cfg: SpikingFullSubNetConfig, params, state, noisy_mag: torch
     each section's inputs padded to a multiple of the group's units, this
     rank's units as rows in (unit, utterance) order, so that its pad units
     are its last rows; its GSU stack on F in eval and on D and E in band
-    mode in training (``ops/gsu.BandRows``: BN over the group's real rows);
+    mode in training (``ops/gsu.BandRows``: BN over the group's real rows,
+    with the group's exchange on the peer route, ``AxisGroup.band_exchange``);
     its outputs and every layer's spikes gathered over the group in unit
     order, the pad units dropped. Returns what ``_subband_forward`` does."""
     from .fused_forward import band_units, gather_units
@@ -317,7 +318,8 @@ def _band_sections(cfg: SpikingFullSubNetConfig, params, state, noisy_mag: torch
         per, first, real = band_units(N, band)
         x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, 0, 0, per * band.size - N))
         x = x[:, first:first + per].transpose(0, 1).reshape(per * B, -1, T)
-        rows = BandRows(real * B, N * B, band.all_reduce)
+        rows = BandRows(real * B, N * B, band.all_reduce,
+                        band.band_exchange(x.device) if train and x.is_cuda else None)
         with module_scope(f"sb{idx}"):
             out, layers, ns = sequence_model_apply(cfg.sb_config(idx), params["sb"][idx],
                                                    state["sb"][idx], x, train, rows)

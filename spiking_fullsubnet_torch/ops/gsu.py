@@ -133,10 +133,13 @@ class BandRows:
     """A rank's rows of a band-split section (``models/fused_forward.py``):
     its leading ``rows_real`` rows are real, the rest pad units;
     ``rows_global`` is the real rows of the whole band group, BatchNorm's
-    count; ``collective`` returns a tensor summed over the band group."""
+    count; ``collective`` returns a tensor summed over the band group;
+    ``exchange`` is the group's exchange on the peer route
+    (``parallel/mesh.band_setup``), None on the staged route and the CPU."""
     rows_real: int
     rows_global: int
     collective: Callable[[torch.Tensor], torch.Tensor]
+    exchange: Optional[Any] = None
 
 
 class GSULayerTrain(torch.autograd.Function):
@@ -179,7 +182,7 @@ class GSULayerTrain(torch.autograd.Function):
         if band is not None and mode == "bn":
             spikes, y, stats = gk.gsu_layer_train_fwd_band(xg, whh, b2, bnp, hidden, shared,
                                                            band.rows_real, band.rows_global,
-                                                           band.collective)
+                                                           band.collective, band.exchange)
         else:
             band = None
             spikes, y, stats = gk.gsu_layer_train_fwd(xg, whh, b2, bnp, hidden, shared, mode)
@@ -201,7 +204,7 @@ class GSULayerTrain(torch.autograd.Function):
         if band is not None:
             dxg, dw, db, dbn = gk.gsu_layer_train_bwd_band(
                 xg, y, gout, stats, whh, b2, bnp, hidden, shared, band.rows_real,
-                band.rows_global, band.collective)
+                band.rows_global, band.collective, band.exchange)
         else:
             dxg, dw, db, dbn = gk.gsu_layer_train_bwd(xg, y, gout, stats, whh, b2, bnp, hidden,
                                                       shared, mode)

@@ -34,6 +34,12 @@ Six kernels, each a hand-written CUDA C++ source under ``../csrc``:
   stream-train path, ``_KCfg.io``); membranes and statistics are float32.
   Both split the units over one thread-block cluster as ``train_plan``
   lays out, with W_hh packed by ``train_pack``.
+- ``gsu_layer_train_fwd_band`` and ``gsu_layer_train_bwd_band`` (D and E in
+  band mode) run them on a rank's rows of a band-split section, BN's sums
+  swapped with the band group: inside one launch a layer over peer memory
+  (the band instances of D and E; ``*_band_group`` runs G ranks' clusters in
+  one launch on one card), or, on the staged route, between launches a step
+  (``csrc/gsu_train_band.cu``).
 
 A wrapper launches its kernel for CUDA tensors and runs the plain version
 for CPU tensors; a CUDA tensor never takes the plain path. Each wrapper
@@ -78,7 +84,7 @@ BUILD_DIR = DEFAULT_BUILD_DIR
 SOURCES = {"stack": ("gsu_stack_eval.cu", ()), "sections": ("gsu_sections_eval.cu", ()),
            "stack_x": ("gsu_stack_eval_x.cu", ()), "train_fwd": ("gsu_train_fwd.cu", ()),
            "train_bwd": ("gsu_train_bwd.cu", ()), "train_band": ("gsu_train_band.cu", ()),
-           "stack_x_trace": ("gsu_stack_eval_x.cu", ("-DSTACK_TRACE=1",))}
+           "band_x": ("gsu_band_x.cu", ()), "stack_x_trace": ("gsu_stack_eval_x.cu", ("-DSTACK_TRACE=1",))}
 SOURCES.update({f"monolith_{io}": ("sfsb_monolith_serve.cu", (f"-DMONO_BF16={int(io == 'bf16')}",))
                 for io in ("f32", "bf16")})
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
@@ -149,6 +155,12 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
     elif name == "train_fwd":
         lib.gsu_train_fwd_launch.argtypes = [I] + [P] * 9 + [ctypes.POINTER(_TrainPlanC), P]
         lib.gsu_train_fwd_launch.restype = I
+        lib.gsu_train_fwd_band_launch.argtypes = [I] + [P] * 8 + [
+            ctypes.POINTER(_TrainPlanC), ctypes.POINTER(_BandXC), I, P]
+        lib.gsu_train_fwd_band_launch.restype = I
+        lib.gsu_train_fwd_band_clusters.argtypes = [I, ctypes.POINTER(_TrainPlanC),
+                                                    ctypes.POINTER(I)]
+        lib.gsu_train_fwd_band_clusters.restype = I
     elif name == "train_band":
         common = [I] + [P] * 8
         for fn, extra in (("gsu_band_fwd_cell", []), ("gsu_band_fwd_var", [ctypes.c_float]),
@@ -159,9 +171,22 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
         for fn in ("gsu_band_bwd_dy", "gsu_band_bwd_cell"):
             getattr(lib, fn).argtypes = common + [I] * 6 + [ctypes.c_float, P]
             getattr(lib, fn).restype = I
+    elif name == "band_x":
+        for fn, types in (("gsu_band_x_alloc", [I, ctypes.c_longlong, ctypes.POINTER(P), P]),
+                          ("gsu_band_x_open", [I, P, ctypes.POINTER(P)]),
+                          ("gsu_band_x_release", [I, P, I]),
+                          ("gsu_band_x_post", [P, P, P])):
+            getattr(lib, fn).argtypes = types
+            getattr(lib, fn).restype = I
     elif name == "train_bwd":
         lib.gsu_train_bwd_launch.argtypes = [I] + [P] * 15 + [ctypes.POINTER(_TrainPlanC), P]
         lib.gsu_train_bwd_launch.restype = I
+        lib.gsu_train_bwd_band_launch.argtypes = [I] + [P] * 14 + [
+            ctypes.POINTER(_TrainPlanC), ctypes.POINTER(_BandXC), I, P]
+        lib.gsu_train_bwd_band_launch.restype = I
+        lib.gsu_train_bwd_band_clusters.argtypes = [I, ctypes.POINTER(_TrainPlanC),
+                                                    ctypes.POINTER(I)]
+        lib.gsu_train_bwd_band_clusters.restype = I
         lib.gsu_train_dw_launch.argtypes = [I] + [P] * 4 + [I] * 5 + [ctypes.c_longlong, P]
         lib.gsu_train_dw_launch.restype = I
     else:
@@ -983,17 +1008,33 @@ gsu_layer_train_bwd.launches = 0
 # units, so batch-statistics BN over a layer's rows needs the rows of every
 # rank. The band wrappers take the rank's rows, its leading ``rows_real``
 # real rows (the rest are the pad units of a ragged section), the real rows
-# of the whole group ``rows_global`` (BN's count) and ``collective``, a
+# of the whole group ``rows_global`` (BN's count), ``collective``, a
 # function that returns its tensor summed over the band group (it may sum
-# in place). At every step each of D's two sums (the membranes, then their
-# squared distances from the mean) and E's two (dy and dy x-hat, one [2, H]
-# call) is summed over the group before the step goes on; pad rows count in
-# no sum, and are normalised with the group's statistics. ``stats`` is the
-# group's, equal on every rank; dW, db and the BN affine's gradient are the
-# rank's own rows' share, to be summed with the other ranks' gradients. Each
-# kernel is a few launches a step (``csrc/gsu_train_band.cu``) with the
-# collective between them on the stream; the plain versions below split
-# their steps the same way.
+# in place), and ``exchange``, the group's exchange of the peer route
+# (``BandExchange``) or None. At every step each of D's two sums (the
+# membranes, then their squared distances from the mean) and E's two (dy
+# and dy x-hat, one [2, H] sum) is summed over the group before the step
+# goes on; pad rows count in no sum, and are normalised with the group's
+# statistics. ``stats`` is the group's, equal on every rank; dW, db and the
+# BN affine's gradient are the rank's own rows' share, to be summed with
+# the other ranks' gradients. Two routes on the card
+# (``parallel/mesh.band_route`` picks one a group from its topology):
+#
+# - "peer" (``exchange`` given): kernels D and E themselves in band mode,
+#   one launch a layer (``csrc/gsu_train_fwd.cu``, ``csrc/gsu_train_bwd.cu``);
+#   each block swaps its partial sums with the same block of the other
+#   ranks over peer memory inside the kernel (``csrc/gsu_train_mma.cuh``),
+#   and ``collective`` is not called;
+# - "staged" (``exchange`` None): a few launches a step
+#   (``csrc/gsu_train_band.cu``) with ``collective`` between them on the
+#   stream, for ranks that share a card in separate processes and groups
+#   across hosts.
+#
+# The group form (``gsu_layer_train_fwd_band_group``, ``_bwd_band_group``)
+# runs G ranks' rows on one card in one launch of the peer route's kernels,
+# cluster c of the grid as rank c. The plain versions below split their
+# steps as the kernels do; the group's plain versions run them as threads
+# in lockstep.
 
 
 def _band_rows(R: int, rows_real: int, rows_global: int) -> None:
@@ -1095,7 +1136,284 @@ def _check_band(xg, whh, b2, bnp, hidden, shared, rows_real, rows_global):
     return T, R, G
 
 
-BAND_MAX_H = 512  # units of a row, one thread each (csrc/gsu_train_band.cu)
+BAND_MAX_H = 512  # units a rank's exchange slot holds (BAND_MAX_H in csrc/gsu_train_mma.cuh)
+BAND_MAX_G = 8  # ranks a band group (BAND_MAX_G)
+BAND_MAX_BLK = TRAIN_MAX_CLUSTER  # blocks a rank's cluster (BAND_MAX_BLK)
+BAND_TIMEOUT_S = 5.0  # the exchange's hang guard: a wait this long raises
+BAND_ERRORS = {1: "waited past the hang guard's limit for", 2: "has another plan than"}
+
+
+def exchange_layout(G: int) -> Dict[str, int]:
+    """Byte offsets and sizes of a rank's exchange buffer for a band group
+    of ``G`` ranks (``csrc/gsu_train_mma.cuh``): ``flags`` u64 [G][16] (the
+    sequence number each rank's block last pushed), ``sig`` u32 [2][G][16]
+    (its plan signature), ``recv`` f32 [2][G][2][512] (parity, rank, value,
+    unit: the partial sums), ``err`` i32 [8] (this rank's error record), and
+    ``bytes`` the whole, a multiple of 256."""
+    if not 1 <= G <= BAND_MAX_G:
+        raise ValueError(f"a band group of {G} ranks: the exchange takes 1..{BAND_MAX_G}")
+    sig = G * BAND_MAX_BLK * 8
+    recv = -(-(sig + 2 * G * BAND_MAX_BLK * 4) // 16) * 16
+    err = recv + 2 * G * 2 * BAND_MAX_H * 4
+    return {"flags": 0, "sig": sig, "recv": recv, "err": err, "bytes": -(-(err + 32) // 256) * 256}
+
+
+def band_exchanges(kernel: str, T: int) -> int:
+    """The exchanges of one band launch over T steps: D swaps its two sums
+    a step, E its one [2, H] sum."""
+    return {"fwd": 2 * T, "bwd": T}[kernel]
+
+
+_PLAN_KEYS = ("R", "H", "G", "shared", "nblk", "J", "JT", "KT", "KTg", "MT", "MTd", "Rp", "ldJ",
+              "ngb", "nterm", "smem", "o_bits", "o_vec", "o_part", "o_pre", "o_wg", "o_wd")
+
+
+def band_signature(kernel: str, plan: Dict[str, Any], T: int, rows_global: int) -> int:
+    """A launch's plan signature, which each block sends beside its sums: a
+    peer whose signature differs fails the launch (error code 2). This is
+    the check that the ranks of a group lay their launches out alike (the
+    exchange pairs their blocks by unit slice): ``train_plan`` does not
+    depend on a rank's real rows, so ranks of the same rows, units, weights
+    and stream type agree, at the same T and BN count."""
+    key = repr((kernel, T, rows_global) + tuple(plan[k] for k in _PLAN_KEYS)
+               + tuple(plan["o_state"]))
+    return int(hashlib.sha256(key.encode()).hexdigest()[:7], 16)
+
+
+class _BandXC(ctypes.Structure):
+    """``BandX`` of ``csrc/gsu_train_mma.cuh`` (same field order)."""
+    _fields_ = [("seq0", ctypes.c_uint64), ("timeout_ns", ctypes.c_int64),
+                ("base", ctypes.c_void_p * BAND_MAX_G), ("err", ctypes.c_void_p),
+                ("G", ctypes.c_int), ("rank", ctypes.c_int), ("sig", ctypes.c_int),
+                ("rows_global", ctypes.c_int), ("rows_real", ctypes.c_int * BAND_MAX_G)]
+
+
+class BandExchange:
+    """A band group's exchange as one process sees it: every rank's buffer
+    (``exchange_layout``) mapped into this process (``bases``, device
+    addresses), this process's error record ``err``, the group's size ``G``
+    and this process's ``rank``, and the group's sequence counter ``seq``.
+    Each launch takes the next ``band_exchanges`` numbers; every rank
+    launches the same layers in the same order, so the counters of the
+    group's ranks agree without a word between them, and nothing is zeroed
+    between launches. ``keep`` holds what the buffers live in (the group
+    form's tensor).
+
+    The error record is read without blocking the host: after each launch
+    ``post`` copies it on the stream into pinned memory behind an event;
+    ``poll`` (before each launch) reads the copy when its event has passed,
+    and ``check`` waits for it (once a step: ``parallel/mesh.
+    reduce_gradients``). A failed exchange keeps its record, and the kernel
+    then waits no more (``csrc/gsu_train_mma.cuh``), so a failure seen late
+    costs no hang; once seen, every later poll raises."""
+
+    def __init__(self, G: int, rank: int, bases: Sequence[int], err: int, keep: Any = None):
+        if len(bases) != G or not 0 <= rank < G:
+            raise ValueError(f"an exchange of {G} ranks: {len(bases)} buffers, rank {rank}")
+        exchange_layout(G)
+        self.G, self.rank, self.bases, self.err = G, rank, list(bases), err
+        self.keep, self.seq, self.timeout_s = keep, 1, BAND_TIMEOUT_S
+        self.failed: Optional[str] = None
+        self._rec: Optional[torch.Tensor] = None  # pinned copy of the record
+        self._posted: Optional[Tuple[Any, str]] = None  # (its event, the launch it follows)
+
+    def take(self, kernel: str, T: int) -> int:
+        """The first sequence number of a launch; advances the counter."""
+        seq0 = self.seq
+        self.seq += band_exchanges(kernel, T)
+        return seq0
+
+    def launch_args(self, kernel: str, plan: Dict[str, Any], T: int, rows_real: Dict[int, int],
+                    rows_global: int) -> _BandXC:
+        """The kernel's ``BandX`` for one launch (``rows_real``: rank -> its
+        real rows, for the ranks of the launch); takes its sequence numbers."""
+        bx = _BandXC(seq0=self.take(kernel, T), timeout_ns=int(self.timeout_s * 1e9),
+                     err=self.err, G=self.G, rank=min(rows_real),
+                     sig=band_signature(kernel, plan, T, rows_global), rows_global=rows_global)
+        for g, b in enumerate(self.bases):
+            bx.base[g] = b
+        for g, r in rows_real.items():
+            bx.rows_real[g] = r
+        return bx
+
+    def post(self, what: str) -> None:
+        """After a launch (``what``) on the current stream: the record's copy
+        and its event, on the stream."""
+        if self._rec is None:
+            self._rec = torch.zeros(8, dtype=torch.int32, pin_memory=True)
+        lib = _lib("band_x")
+        _check_rc(lib, lib.gsu_band_x_post(ctypes.c_void_p(self.err),
+                                           ctypes.c_void_p(self._rec.data_ptr()), _stream()),
+                  f"{what}: copying the exchange's record")
+        ev = torch.cuda.Event()
+        ev.record()
+        self._posted = (ev, what)
+
+    def poll(self) -> None:
+        """Raises RuntimeError if an exchange failed, as far as the copies
+        that have landed show; never waits."""
+        if self._posted is not None and self._posted[0].query():
+            self._read()
+        if self.failed:
+            raise RuntimeError(self.failed)
+
+    def check(self) -> None:
+        """Waits for the last launch's record, then ``poll``."""
+        if self._posted is not None:
+            self._posted[0].synchronize()
+        self.poll()
+
+    def _read(self) -> None:
+        ev, what = self._posted
+        self._posted = None
+        code, me, blk, step, pas, peer = self._rec[:6].tolist()
+        if code and not self.failed:
+            self.failed = (
+                f"{what}: band exchange failed: rank {me}, block {blk}, step {step}, pass {pas} "
+                f"{BAND_ERRORS.get(code, f'error {code} with')} rank {peer}"
+                + (f" ({self.timeout_s:g} s)" if code == 1 else "")
+                + "; the group's exchange is unusable from here")
+
+
+def group_exchange(device: torch.device, G: int) -> BandExchange:
+    """The group form's exchange: G ranks on one card, every buffer in one
+    zeroed tensor of ``device`` (kept by the exchange); rank 0's error
+    record serves every cluster of a launch."""
+    lay = exchange_layout(G)
+    buf = torch.zeros(G * lay["bytes"] // 8, dtype=torch.int64, device=device)
+    bases = [buf.data_ptr() + g * lay["bytes"] for g in range(G)]
+    return BandExchange(G, 0, bases, bases[0] + lay["err"], keep=buf)
+
+
+def _device_index(device: torch.device) -> int:
+    return device.index if device.index is not None else torch.cuda.current_device()
+
+
+def band_buffer_alloc(device: torch.device, G: int) -> Tuple[int, bytes]:
+    """A peer-route rank's exchange buffer for a group of ``G``
+    (``exchange_layout``), zeroed, on ``device``: (its address, its CUDA IPC
+    handle, 64 bytes, for the other ranks of the group)."""
+    lib = _lib("band_x")
+    ptr, handle = ctypes.c_void_p(), ctypes.create_string_buffer(64)
+    _check_rc(lib, lib.gsu_band_x_alloc(_device_index(device), exchange_layout(G)["bytes"],
+                                        ctypes.byref(ptr), handle), "the band exchange's buffer")
+    return ptr.value, handle.raw
+
+
+def band_buffer_open(device: torch.device, handle: bytes) -> int:
+    """A peer's buffer (its IPC handle) mapped into this process; its address."""
+    lib = _lib("band_x")
+    ptr = ctypes.c_void_p()
+    _check_rc(lib, lib.gsu_band_x_open(_device_index(device), handle, ctypes.byref(ptr)),
+              "mapping a band peer's exchange buffer")
+    return ptr.value
+
+
+def band_buffer_release(device: torch.device, ptr: int, own: bool) -> None:
+    """Frees this rank's buffer (``own``) or unmaps a peer's."""
+    lib = _lib("band_x")
+    _check_rc(lib, lib.gsu_band_x_release(_device_index(device), ctypes.c_void_p(ptr), int(own)),
+              "releasing a band exchange buffer")
+
+
+def _band_clusters(kernel: str, io: torch.dtype, pc: _TrainPlanC, n: int, what: str) -> None:
+    """Raises unless ``n`` clusters of the plan fit on the card at once: the
+    group form's ranks wait on each other, so they must all be resident."""
+    lib = _lib(f"train_{kernel}")
+    k = ctypes.c_int(0)
+    _check_rc(lib, getattr(lib, f"gsu_train_{kernel}_band_clusters")(
+        TRAIN_IO[io], ctypes.byref(pc), ctypes.byref(k)), what)
+    if k.value < n:
+        raise RuntimeError(f"{what}: {n} ranks' clusters of {pc.nblk} blocks do not fit on the "
+                           f"card at once ({k.value} do); the group form needs them resident")
+
+
+def _stacked(ts: Sequence[torch.Tensor]) -> torch.Tensor:
+    return ts[0] if len(ts) == 1 else torch.stack(list(ts)).contiguous()
+
+
+def _band_launch_plan(kernel, xgs, whh, b2, bnp, hidden, shared, rows_real, rows_global):
+    """The checks and the plan of one band launch for the ranks' rows
+    ``xgs``: (T, R, G, what, the plan, its C struct)."""
+    shapes = [_check_band(x, whh, b2, bnp, hidden, shared, r, rows_global)
+              for x, r in zip(xgs, rows_real)]
+    if len(set(shapes)) != 1 or len({x.dtype for x in xgs}) != 1:
+        raise ValueError(f"the ranks' xg differ in shape or type: {shapes}")
+    T, R, G = shapes[0]
+    n, io = len(xgs), xgs[0].dtype
+    what = f"kernel {'D' if kernel == 'fwd' else 'E'} band (H={hidden}, R={R}, {n} rank(s))"
+    plan = train_plan(R, hidden, shared, io, kernel)
+    pc = _plan_c(plan, T, "bn")
+    if n > 1:
+        _band_clusters(kernel, io, pc, n, what)
+    return T, R, G, what, plan, pc
+
+
+def _fwd_band_launch(xgs, whh, b2, bnp, hidden, shared, rows_real, rows_global, exchange,
+                     first):
+    """Kernel D in band mode, one launch for the ranks ``first`` ..
+    ``first + len(xgs) - 1`` of ``exchange``'s group (their rows stacked);
+    returns each rank's (spikes, y, stats)."""
+    H = hidden
+    T, R, _, what, plan, pc = _band_launch_plan("fwd", xgs, whh, b2, bnp, H, shared, rows_real,
+                                                rows_global)
+    n, dev, io = len(xgs), xgs[0].device, xgs[0].dtype
+    wg, _ = train_pack(whh, plan)
+    xg = _stacked(xgs)
+    spikes = torch.empty(n, T, R, H, dtype=io, device=dev)
+    y = torch.empty(n, T, R, H, dtype=torch.float32, device=dev)
+    stats = torch.zeros(n, T, 2, H, dtype=torch.float32, device=dev)
+    gstate = torch.empty(n * plan["nblk"] if plan["o_state"][0] < 0 else 0, plan["Rp"],
+                         plan["ldJ"], dtype=torch.float32, device=dev)
+    exchange.poll()
+    bx = exchange.launch_args("fwd", plan, T, {first + k: r for k, r in enumerate(rows_real)},
+                              rows_global)
+    lib = _lib("train_fwd")
+    with torch.cuda.device(dev):
+        rc = lib.gsu_train_fwd_band_launch(TRAIN_IO[io], _ptr(xg), _ptr(wg), _ptr(b2), _ptr(bnp),
+                                           _ptr(spikes), _ptr(y), _ptr(stats), _ptr(gstate),
+                                           ctypes.byref(pc), ctypes.byref(bx), n, _stream())
+        _check_rc(lib, rc, what, TRAIN_LIMITS)
+        exchange.post(what)
+    return [(spikes[k], y[k], stats[k]) for k in range(n)]
+
+
+def _bwd_band_launch(xgs, ys, gouts, statss, whh, b2, bnp, hidden, shared, rows_real,
+                     rows_global, exchange, first):
+    """Kernel E in band mode (without dW), one launch of its recurrence for
+    the ranks ``first`` .. of ``exchange``'s group; returns each rank's
+    (dxg, db, dbn)."""
+    H = hidden
+    T, R, G, what, plan, pc = _band_launch_plan("bwd", xgs, whh, b2, bnp, H, shared, rows_real,
+                                                rows_global)
+    n, dev, io = len(xgs), xgs[0].device, xgs[0].dtype
+    for y, gout, stats in zip(ys, gouts, statss):
+        _check_cuda("y", y, torch.float32, dev, (T, R, H))
+        _check_cuda("gout", gout, io, dev, (T, R, H))
+        _check_cuda("stats", stats, torch.float32, dev, (T, 2, H))
+    wg, wd = train_pack(whh, plan, "bwd")
+    xg, y, gout, stats = (_stacked(t) for t in (xgs, ys, gouts, statss))
+    dxg = torch.empty(n, T, R, G, dtype=io, device=dev)
+    db = torch.empty(n, 2, H, dtype=torch.float32, device=dev)
+    dbn = torch.empty(n, 2, H, dtype=torch.float32, device=dev)
+    step_bytes = plan["nblk"] * plan["Rp"] * plan["J"] // 8
+    hbits = torch.empty(n * max(T - 1, 1) * step_bytes, dtype=torch.uint8, device=dev)
+    in_dev = min(plan["o_state"]) < 0
+    gstate = torch.empty(n * plan["nblk"] * 2 if in_dev else 0, plan["Rp"], plan["ldJ"],
+                         dtype=torch.float32, device=dev)
+    fg = torch.empty(n, 2, T, R, H, dtype=torch.float32, device=dev)
+    exchange.poll()
+    bx = exchange.launch_args("bwd", plan, T, {first + k: r for k, r in enumerate(rows_real)},
+                              rows_global)
+    lib = _lib("train_bwd")
+    with torch.cuda.device(dev):
+        rc = lib.gsu_train_bwd_band_launch(
+            TRAIN_IO[io], _ptr(xg), _ptr(y), _ptr(gout), _ptr(stats), _ptr(wg), _ptr(wd),
+            _ptr(hbits), _ptr(b2), _ptr(bnp), _ptr(dxg), _ptr(db), _ptr(dbn), _ptr(gstate),
+            _ptr(fg), ctypes.byref(pc), ctypes.byref(bx), n, _stream())
+        _check_rc(lib, rc, what, TRAIN_LIMITS)
+        exchange.post(what)
+    return [(dxg[k], db[k], dbn[k]) for k in range(n)]
 
 
 def _sum_into(collective, t: torch.Tensor) -> None:
@@ -1106,18 +1424,9 @@ def _sum_into(collective, t: torch.Tensor) -> None:
         t.copy_(out)
 
 
-def gsu_layer_train_fwd_band(xg: torch.Tensor, whh: torch.Tensor, b2: torch.Tensor,
-                             bnp: torch.Tensor, hidden: int, shared: bool, rows_real: int,
-                             rows_global: int, collective
-                             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Kernel D in band mode (``csrc/gsu_train_band.cu``): the arguments of
-    ``gsu_layer_train_fwd`` in mode "bn" on the rank's rows, and
-    ``rows_real``, ``rows_global`` and ``collective`` (see above) ->
-    (spikes, y, the group's stats). A CPU tensor takes
-    ``layer_train_fwd_band_plain``."""
-    if not xg.is_cuda:
-        return layer_train_fwd_band_plain(xg, whh, b2, bnp, hidden, shared, rows_real,
-                                          rows_global, collective)
+def _fwd_band_staged(xg, whh, b2, bnp, hidden, shared, rows_real, rows_global, collective):
+    """The staged route of kernel D in band mode (``csrc/gsu_train_band.cu``):
+    three launches a step around the group's two sums."""
     H = hidden
     T, R, G = _check_band(xg, whh, b2, bnp, H, shared, rows_real, rows_global)
     dev, io = xg.device, xg.dtype
@@ -1141,26 +1450,13 @@ def gsu_layer_train_fwd_band(xg: torch.Tensor, whh: torch.Tensor, b2: torch.Tens
             _check_rc(lib, lib.gsu_band_fwd_norm(*args, t, T, R, rows_real, H, int(shared),
                                                  ctypes.c_float(1.0 / rows_global), _stream()),
                       what)
-    gsu_layer_train_fwd_band.launches += 1
     return spikes, y, stats
 
 
-gsu_layer_train_fwd_band.launches = 0
-
-
-def gsu_layer_train_bwd_band(xg: torch.Tensor, y: torch.Tensor, gout: torch.Tensor,
-                             stats: torch.Tensor, whh: torch.Tensor, b2: torch.Tensor,
-                             bnp: torch.Tensor, hidden: int, shared: bool, rows_real: int,
-                             rows_global: int, collective
-                             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Kernel E in band mode (``csrc/gsu_train_band.cu``), then
-    ``gsu_train_dw`` on the rank's rows: the arguments of
-    ``gsu_layer_train_bwd`` in mode "bn" and ``rows_real``,
-    ``rows_global`` and ``collective`` -> (dxg, and the rank's shares of dW,
-    db and dbn). A CPU tensor takes ``layer_train_bwd_band_plain``."""
-    if not xg.is_cuda:
-        return layer_train_bwd_band_plain(xg, y, gout, stats, whh, b2, bnp, hidden, shared,
-                                          rows_real, rows_global, collective)
+def _bwd_band_staged(xg, y, gout, stats, whh, b2, bnp, hidden, shared, rows_real, rows_global,
+                     collective):
+    """The staged route of kernel E in band mode: two launches a step around
+    the group's [2, H] sum; returns (dxg, db, dbn)."""
     H = hidden
     T, R, G = _check_band(xg, whh, b2, bnp, H, shared, rows_real, rows_global)
     dev, io = xg.device, xg.dtype
@@ -1187,11 +1483,195 @@ def gsu_layer_train_bwd_band(xg: torch.Tensor, y: torch.Tensor, gout: torch.Tens
             _check_rc(lib, lib.gsu_band_bwd_cell(*args, t, T, R, rows_real, H, int(shared),
                                                  ctypes.c_float(1.0 / rows_global), _stream()),
                       what)
+    return dxg, db, dbn
+
+
+def gsu_layer_train_fwd_band(xg: torch.Tensor, whh: torch.Tensor, b2: torch.Tensor,
+                             bnp: torch.Tensor, hidden: int, shared: bool, rows_real: int,
+                             rows_global: int, collective,
+                             exchange: Optional[BandExchange] = None
+                             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Kernel D in band mode: the arguments of ``gsu_layer_train_fwd`` in
+    mode "bn" on the rank's rows, and ``rows_real``, ``rows_global``,
+    ``collective`` and ``exchange`` (see above) -> (spikes, y, the group's
+    stats). With ``exchange`` (the peer route) one launch of kernel D's
+    band instance, which waits for no record: a failed exchange raises at
+    a later launch or at the step's ``BandExchange.check``; without it the
+    staged route. A CPU tensor takes ``layer_train_fwd_band_plain``."""
+    if not xg.is_cuda:
+        return layer_train_fwd_band_plain(xg, whh, b2, bnp, hidden, shared, rows_real,
+                                          rows_global, collective)
+    if exchange is None:
+        out = _fwd_band_staged(xg, whh, b2, bnp, hidden, shared, rows_real, rows_global,
+                               collective)
+    else:
+        out = _fwd_band_launch([xg], whh, b2, bnp, hidden, shared, [rows_real], rows_global,
+                               exchange, exchange.rank)[0]
+    gsu_layer_train_fwd_band.launches += 1
+    return out
+
+
+gsu_layer_train_fwd_band.launches = 0
+
+
+def gsu_layer_train_bwd_band(xg: torch.Tensor, y: torch.Tensor, gout: torch.Tensor,
+                             stats: torch.Tensor, whh: torch.Tensor, b2: torch.Tensor,
+                             bnp: torch.Tensor, hidden: int, shared: bool, rows_real: int,
+                             rows_global: int, collective,
+                             exchange: Optional[BandExchange] = None
+                             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Kernel E in band mode, then ``gsu_train_dw`` on the rank's rows: the
+    arguments of ``gsu_layer_train_bwd`` in mode "bn" and ``rows_real``,
+    ``rows_global``, ``collective`` and ``exchange`` -> (dxg, and the
+    rank's shares of dW, db and dbn). Routes as
+    ``gsu_layer_train_fwd_band``. A CPU tensor takes
+    ``layer_train_bwd_band_plain``."""
+    if not xg.is_cuda:
+        return layer_train_bwd_band_plain(xg, y, gout, stats, whh, b2, bnp, hidden, shared,
+                                          rows_real, rows_global, collective)
+    if exchange is None:
+        dxg, db, dbn = _bwd_band_staged(xg, y, gout, stats, whh, b2, bnp, hidden, shared,
+                                        rows_real, rows_global, collective)
+    else:
+        dxg, db, dbn = _bwd_band_launch([xg], [y], [gout], [stats], whh, b2, bnp, hidden, shared,
+                                        [rows_real], rows_global, exchange, exchange.rank)[0]
     gsu_layer_train_bwd_band.launches += 1
     return dxg, gsu_train_dw(y, dxg), db, dbn
 
 
 gsu_layer_train_bwd_band.launches = 0
+
+
+class _RankSum:
+    """The collective of ``n`` ranks run as threads of this process: each
+    call returns the sum of every rank's tensor, in rank order."""
+
+    def __init__(self, n: int):
+        import threading
+
+        self.slots, self.barrier = [None] * n, threading.Barrier(n)
+
+    def of(self, k: int):
+        def collective(t):
+            self.slots[k] = t.clone()
+            self.barrier.wait()
+            total = self.slots[0].clone()
+            for s in self.slots[1:]:
+                total += s
+            self.barrier.wait()
+            return total
+        return collective
+
+
+def _lockstep(n: int, fn) -> List[Any]:
+    """``fn(k, collective)`` for the ranks k < n as threads in lockstep
+    (``_RankSum``); a rank that raises breaks the others' wait, and the
+    first error is raised here."""
+    import threading
+
+    ranks, out, errors = _RankSum(n), [None] * n, []
+
+    def run(k):
+        try:
+            out[k] = fn(k, ranks.of(k))
+        except Exception as e:  # noqa: BLE001 - raised below
+            errors.append(e)
+            ranks.barrier.abort()
+
+    threads = [threading.Thread(target=run, args=(k,)) for k in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    first = [e for e in errors if not isinstance(e, threading.BrokenBarrierError)] or errors
+    if first:
+        raise first[0]
+    return out
+
+
+def layer_train_fwd_band_group_plain(xgs: Sequence[torch.Tensor], whh: torch.Tensor,
+                                     b2: torch.Tensor, bnp: torch.Tensor, hidden: int,
+                                     shared: bool, rows_real: Sequence[int], rows_global: int
+                                     ) -> List[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
+    """``layer_train_fwd_band_plain`` for G ranks of one process in lockstep
+    (``xgs[k]`` and ``rows_real[k]`` rank k's), the group's sums in rank
+    order: each rank's (spikes, y, stats)."""
+    return _lockstep(len(xgs), lambda k, coll: layer_train_fwd_band_plain(
+        xgs[k], whh, b2, bnp, hidden, shared, rows_real[k], rows_global, coll))
+
+
+def layer_train_bwd_band_group_plain(xgs: Sequence[torch.Tensor], ys: Sequence[torch.Tensor],
+                                     gouts: Sequence[torch.Tensor],
+                                     statss: Sequence[torch.Tensor], whh: torch.Tensor,
+                                     b2: torch.Tensor, bnp: torch.Tensor, hidden: int,
+                                     shared: bool, rows_real: Sequence[int], rows_global: int,
+                                     operands: Optional[torch.dtype] = None
+                                     ) -> List[Tuple[torch.Tensor, ...]]:
+    """``layer_train_bwd_band_plain`` for G ranks of one process in lockstep:
+    each rank's (dxg, dW, db, dbn)."""
+    return _lockstep(len(xgs), lambda k, coll: layer_train_bwd_band_plain(
+        xgs[k], ys[k], gouts[k], statss[k], whh, b2, bnp, hidden, shared, rows_real[k],
+        rows_global, coll, operands))
+
+
+def gsu_layer_train_fwd_band_group(xgs: Sequence[torch.Tensor], whh: torch.Tensor,
+                                   b2: torch.Tensor, bnp: torch.Tensor, hidden: int,
+                                   shared: bool, rows_real: Sequence[int], rows_global: int,
+                                   exchange: Optional[BandExchange] = None
+                                   ) -> List[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
+    """The group form of kernel D in band mode: G ranks' rows on one card
+    (``xgs[k]``, equal shapes, ``rows_real[k]`` rank k's real rows) in one
+    launch, cluster k as rank k, their exchange in device memory
+    (``exchange``: a ``group_exchange`` of G ranks, made anew when None).
+    Raises when the G clusters cannot be resident at once, and, after
+    waiting for the launch, when an exchange failed. Returns each rank's
+    (spikes, y, stats). CPU tensors take
+    ``layer_train_fwd_band_group_plain``."""
+    if len(xgs) != len(rows_real):
+        raise ValueError(f"{len(xgs)} ranks' xg, {len(rows_real)} rows_real")
+    if not xgs[0].is_cuda:
+        return layer_train_fwd_band_group_plain(xgs, whh, b2, bnp, hidden, shared, rows_real,
+                                                rows_global)
+    exchange = exchange or group_exchange(xgs[0].device, len(xgs))
+    if exchange.G != len(xgs):
+        raise ValueError(f"an exchange of {exchange.G} ranks for {len(xgs)} ranks' rows")
+    out = _fwd_band_launch(xgs, whh, b2, bnp, hidden, shared, list(rows_real), rows_global,
+                           exchange, 0)
+    gsu_layer_train_fwd_band_group.launches += 1
+    exchange.check()
+    return out
+
+
+gsu_layer_train_fwd_band_group.launches = 0
+
+
+def gsu_layer_train_bwd_band_group(xgs: Sequence[torch.Tensor], ys: Sequence[torch.Tensor],
+                                   gouts: Sequence[torch.Tensor],
+                                   statss: Sequence[torch.Tensor], whh: torch.Tensor,
+                                   b2: torch.Tensor, bnp: torch.Tensor, hidden: int,
+                                   shared: bool, rows_real: Sequence[int], rows_global: int,
+                                   exchange: Optional[BandExchange] = None
+                                   ) -> List[Tuple[torch.Tensor, ...]]:
+    """The group form of kernel E in band mode (one launch of its
+    recurrence for the G ranks, checked as ``gsu_layer_train_fwd_band_group``),
+    then ``gsu_train_dw`` on each rank's rows: each rank's (dxg, dW, db,
+    dbn). CPU tensors take ``layer_train_bwd_band_group_plain``."""
+    if len(xgs) != len(rows_real):
+        raise ValueError(f"{len(xgs)} ranks' xg, {len(rows_real)} rows_real")
+    if not xgs[0].is_cuda:
+        return layer_train_bwd_band_group_plain(xgs, ys, gouts, statss, whh, b2, bnp, hidden,
+                                                shared, rows_real, rows_global)
+    exchange = exchange or group_exchange(xgs[0].device, len(xgs))
+    if exchange.G != len(xgs):
+        raise ValueError(f"an exchange of {exchange.G} ranks for {len(xgs)} ranks' rows")
+    out = _bwd_band_launch(xgs, ys, gouts, statss, whh, b2, bnp, hidden, shared, list(rows_real),
+                           rows_global, exchange, 0)
+    gsu_layer_train_bwd_band_group.launches += 1
+    exchange.check()
+    return [(dxg, gsu_train_dw(y, dxg), db, dbn) for (dxg, db, dbn), y in zip(out, ys)]
+
+
+gsu_layer_train_bwd_band_group.launches = 0
 
 
 # ------------------------------------------------------------------ kernel B

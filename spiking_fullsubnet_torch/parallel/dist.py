@@ -94,8 +94,12 @@ def initialize_distributed(backend: Optional[str] = None, init_method: Optional[
 
 
 def shutdown() -> None:
-    """Leave the process group, when there is one."""
+    """Leave the process group, when there is one, after freeing the band
+    groups' exchange buffers (``mesh.release_band_exchanges``)."""
     if _group():
+        from .mesh import release_band_exchanges
+
+        release_band_exchanges()
         dist.destroy_process_group()
 
 

@@ -22,13 +22,26 @@ it through ``current_axis_size`` and ``axis_group``. After a step on a band
 split, every rank holds its own rows' share of the gradients:
 ``reduce_gradients`` sums them over the band group and averages them over
 the data group.
+
+A band group on cards swaps BN's sums by one of two routes, chosen once a
+group from its topology before any launch (``band_route``) and logged:
+"peer", where every rank has a card of its own on one host and each pair
+of cards has peer access (kernels D and E exchange the sums over peer
+memory inside one launch a layer; ``band_setup`` allocates each rank's
+buffer and maps its peers' over CUDA IPC), or "staged" (the sums through
+``AxisGroup.all_reduce`` between launches a step), where ranks share a card
+or the group spans hosts. The route never changes because something failed.
+``release_band_exchanges`` (``parallel.dist.shutdown``) frees the buffers.
 """
 
 from __future__ import annotations
 
+import logging
 import math
+import socket
+import time
 from dataclasses import dataclass
-from typing import Any, Iterable, List, Optional, Sequence, Tuple
+from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -182,6 +195,12 @@ class AxisGroup:
         dist.all_gather(out, src, group=self.group)
         return out
 
+    def band_exchange(self, device: torch.device):
+        """The group's exchange of the peer route for kernels D and E in band
+        mode (``ops/gsu_kernels.BandExchange``), or None on the staged route
+        (``band_setup``)."""
+        return band_setup(self, device).exchange
+
 
 def axis_group(name: str) -> Optional[AxisGroup]:
     """Axis ``name`` of the enclosing mesh (``AxisGroup``), or None where
@@ -238,7 +257,10 @@ def reduce_gradients(weights: Iterable[torch.Tensor], mesh=None, data_axis: str 
     band rank holds its own rows' share after a band-split step), then
     averaged over ``data_axis``. ``mesh`` defaults to the enclosing one; an
     axis the mesh lacks is skipped. One flat bucket a dtype and axis.
-    Returns the number of ``all_reduce`` calls."""
+    Before the sum, the band group's exchange (the peer route) is checked
+    once for the step: this waits for its last launch and raises if an
+    exchange failed (``BandExchange.check``). Returns the number of
+    ``all_reduce`` calls."""
     mesh = mesh if mesh is not None else current_mesh()
     if mesh is None:
         raise RuntimeError("reduce_gradients needs a mesh (make_mesh, or `with mesh:`)")
@@ -250,6 +272,9 @@ def reduce_gradients(weights: Iterable[torch.Tensor], mesh=None, data_axis: str 
             continue
         k = _axis_index(mesh, axis)
         size, group = mesh.size(k), mesh.get_group(axis)
+        setup = _BAND_SETUPS.get(group) if axis == band_axis else None
+        if setup is not None and setup.exchange is not None:
+            setup.exchange.check()
         buckets = {}
         for g in grads:
             buckets.setdefault((g.dtype, g.device), []).append(g)
@@ -264,3 +289,111 @@ def reduce_gradients(weights: Iterable[torch.Tensor], mesh=None, data_axis: str 
                 offset += g.numel()
             calls += 1
     return calls
+
+
+# ---------------------------------------------------------------- the band group's exchange
+
+log = logging.getLogger(__name__)
+BAND_ROUTES = ("peer", "staged")
+
+
+def card_info(device: torch.device) -> Dict[str, Any]:
+    """This rank's card as the route needs it: the host, the card's UUID,
+    and which of the cards this process sees its card reaches by peer access
+    (UUID -> bool; its own True)."""
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    uuids = [str(torch.cuda.get_device_properties(k).uuid) for k in range(torch.cuda.device_count())]
+    return {"host": socket.gethostname(), "uuid": uuids[idx],
+            "access": {u: k == idx or torch.cuda.can_device_access_peer(idx, k)
+                       for k, u in enumerate(uuids)}}
+
+
+def band_route(infos: Sequence[Dict[str, Any]]) -> Tuple[str, str]:
+    """(route, why) of a band group from each rank's ``card_info``, in group
+    order: "peer" when every rank is on a card of its own of one host and
+    each rank's card reaches every other rank's by peer access (so every
+    rank must see the group's cards); else "staged": ranks that share a
+    card (their kernels would not run at once without MPS, and one spinning
+    on a peer's flag would wait on the time slicer) or a group across
+    hosts."""
+    hosts = {i["host"] for i in infos}
+    if len(hosts) > 1:
+        return "staged", f"the group spans {len(hosts)} hosts"
+    uuids = [i["uuid"] for i in infos]
+    if len(set(uuids)) < len(uuids):
+        return "staged", f"{len(uuids)} ranks share {len(set(uuids))} card(s)"
+    for g, info in enumerate(infos):
+        for h, u in enumerate(uuids):
+            if h != g and not info["access"].get(u, False):
+                return "staged", f"rank {g}'s card has no peer access to rank {h}'s"
+    return "peer", f"{len(uuids)} ranks on cards of their own, each pair with peer access"
+
+
+@dataclass
+class BandSetup:
+    """A band group's route (``band_route``), why, and its exchange on the
+    peer route (None on the staged one); ``mapped`` the peers' buffers this
+    process mapped, ``own`` its own buffer (released by
+    ``release_band_exchanges``); ``seconds`` the setup's host time."""
+    route: str
+    why: str
+    exchange: Any = None
+    device: Optional[torch.device] = None
+    own: int = 0
+    mapped: Tuple[int, ...] = ()
+    seconds: float = 0.0
+
+
+_BAND_SETUPS: Dict[Any, BandSetup] = {}
+
+
+def band_setup(ag: AxisGroup, device: torch.device) -> BandSetup:
+    """The band group's route and exchange, set up at the first call of a
+    group (every rank of the group calls it at the same point: it gathers
+    each rank's ``card_info``, then on the peer route each rank's buffer
+    handle) and cached on the group."""
+    if ag.group in _BAND_SETUPS:
+        return _BAND_SETUPS[ag.group]
+    t0 = time.perf_counter()
+    infos: List[Any] = [None] * ag.size
+    dist.all_gather_object(infos, card_info(device), group=ag.group)
+    route, why = band_route(infos)
+    setup = BandSetup(route, why, device=device)
+    if route == "peer":
+        from ..ops import gsu_kernels as gk
+
+        own, handle = gk.band_buffer_alloc(device, ag.size)
+        handles: List[Any] = [None] * ag.size
+        dist.all_gather_object(handles, handle, group=ag.group)
+        bases = [own if g == ag.rank else gk.band_buffer_open(device, h)
+                 for g, h in enumerate(handles)]
+        setup.own = own
+        setup.mapped = tuple(b for g, b in enumerate(bases) if g != ag.rank)
+        setup.exchange = gk.BandExchange(ag.size, ag.rank, bases,
+                                         own + gk.exchange_layout(ag.size)["err"])
+    setup.seconds = time.perf_counter() - t0
+    log.info("band group of %d ranks (rank %d on %s): route %s: %s (set up in %.3f s)", ag.size,
+             ag.rank, device, route, why, setup.seconds)
+    _BAND_SETUPS[ag.group] = setup
+    return setup
+
+
+def band_setup_of(group) -> Optional[BandSetup]:
+    """The setup of a band group's process group, where it has one."""
+    return _BAND_SETUPS.get(group)
+
+
+def release_band_exchanges() -> None:
+    """Every band group's exchange: each rank unmaps its peers' buffers, waits
+    for the group, then frees its own. Every rank of each group calls it
+    (``parallel.dist.shutdown``)."""
+    from ..ops import gsu_kernels as gk
+
+    for group, setup in list(_BAND_SETUPS.items()):
+        if setup.exchange is not None:
+            torch.cuda.synchronize(setup.device)
+            for ptr in setup.mapped:
+                gk.band_buffer_release(setup.device, ptr, own=False)
+            dist.barrier(group=group)
+            gk.band_buffer_release(setup.device, setup.own, own=True)
+        del _BAND_SETUPS[group]

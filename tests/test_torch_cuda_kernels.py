@@ -36,6 +36,13 @@ unshared, F 3 and 257, H 512 with L 4, clusters of 2 and 4, A at T 1 and
 5 and H 13) are held to the bounds above, and two launches of each are
 bitwise equal; A's units form equals its 3-D form, and gates staged from
 a misaligned address equal aligned ones, bit for bit. The recipe's loss gives the same gradient on every backward.
+Kernels D and E in band mode on the group route (G ranks' clusters in one
+launch, BN's sums swapped inside the kernel) against their plain band
+versions run in lockstep, at G 2 and 4, a rank of only pad rows, unshared
+gates, H 40 and 512 and bf16 streams (D over the first 16 frames, E within
+relative L2 1e-3, 1e-2 in bf16); a launch whose peer never writes raises
+within the hang guard's limit; a group of one equals the unsharded D and E
+bit for bit.
 """
 
 from __future__ import annotations
@@ -1110,3 +1117,135 @@ def test_train_dw_kernel_is_bitwise_deterministic(dev, io):
     a, b = gk.gsu_train_dw(y, dxg), gk.gsu_train_dw(y, dxg)
     torch.cuda.synchronize()
     assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------- kernels D and E in band mode, group form
+
+WINDOW = 16  # leading frames held tightly (chip_smoke.WINDOW)
+
+
+def _band_group_inputs(split, H, shared, io, T, dev, seed=23):
+    """G ranks' rows (``split`` the real rows of each, pad rows zero) of one
+    layer, and the spikes' gradient (zero on pad rows)."""
+    rows, G = max(split), H if shared else 2 * H
+    g = torch.Generator().manual_seed(seed)
+    whh = (torch.randn(H, G, generator=g) / H ** 0.5).to(io).to(dev)
+    b2 = (torch.randn(2, H, generator=g) * 0.1).to(dev)
+    bnp = torch.stack([1 + 0.1 * torch.randn(H, generator=g),
+                       0.1 * torch.randn(H, generator=g)]).to(dev)
+    xgs = [(torch.randn(T, rows, G, generator=g) * 0.6).to(io).to(dev) for _ in split]
+    gouts = [(torch.randn(T, rows, H, generator=g) * 0.1).to(io).to(dev) for _ in split]
+    for k, r in enumerate(split):
+        xgs[k][:, r:] = 0
+        gouts[k][:, r:] = 0
+    return xgs, gouts, whh, b2, bnp
+
+
+@pytest.mark.parametrize("split,H,shared,io", [
+    ((16, 16), 224, True, torch.float32),
+    ((12, 9, 9, 0), 224, False, torch.float32),
+    ((5, 2), 40, True, torch.float32),
+    ((8, 8), 512, True, torch.float32),
+    ((32, 24), 224, True, torch.bfloat16),
+    ((16, 0, 8, 8), 224, False, torch.bfloat16),
+], ids=["g2", "g4_unshared_pad_only", "h40", "h512", "bf16", "bf16_g4_pad_only"])
+def test_band_group_form_matches_the_plain_band_versions(dev, split, H, shared, io):
+    """The group form (G ranks' clusters in one launch, their BN sums
+    swapped in the kernel) against the plain band versions in lockstep on
+    the same inputs: D's spikes over the first WINDOW frames < 1e-3 apart,
+    its membranes and statistics there within 1e-4, every rank's stats bit
+    for bit equal; E (with dW) on the plain D's outputs within relative L2
+    1e-3 (f32) or 1e-2 (bf16: drg rounds to bf16 in both, and a tie can go
+    either way). One launch of each for the group."""
+    T, total = 64, sum(split)
+    xgs, gouts, whh, b2, bnp = _band_group_inputs(split, H, shared, io, T, dev)
+    args = (whh, b2, bnp, H, shared, list(split), total)
+    before = (gk.gsu_layer_train_fwd_band_group.launches,
+              gk.gsu_layer_train_bwd_band_group.launches)
+    plain_d = gk.layer_train_fwd_band_group_plain(xgs, *args)
+    got_d = gk.gsu_layer_train_fwd_band_group(xgs, *args)
+    e_in = (xgs, [d[1] for d in plain_d], gouts, [d[2] for d in plain_d])
+    plain_e = gk.layer_train_bwd_band_group_plain(*e_in, *args)
+    got_e = gk.gsu_layer_train_bwd_band_group(*e_in, *args)
+    torch.cuda.synchronize()
+    assert (gk.gsu_layer_train_fwd_band_group.launches - before[0],
+            gk.gsu_layer_train_bwd_band_group.launches - before[1]) == (1, 1)
+    e_bound = 1e-3 if io == torch.float32 else 1e-2
+    for k in range(len(split)):
+        (s, y, st), (ps, py, pst) = got_d[k], plain_d[k]
+        assert (s[:WINDOW] != ps[:WINDOW]).float().mean().item() < 1e-3, k
+        assert (y[:WINDOW] - py[:WINDOW]).abs().max().item() < 1e-4, k
+        assert (st[:WINDOW] - pst[:WINDOW]).abs().max().item() < 1e-4, k
+        assert torch.equal(st, got_d[0][2]), "the group's statistics differ between ranks"
+        for a, b in zip(got_e[k], plain_e[k]):
+            rel = ((a.double() - b.double()).norm() / b.double().norm().clamp_min(1e-30)).item()
+            assert rel < e_bound or b.abs().max().item() == 0 and a.abs().max().item() == 0, (
+                k, rel)
+
+
+@pytest.mark.parametrize("kernel", ["fwd", "bwd"])
+def test_band_exchange_raises_when_a_peer_never_writes(dev, kernel):
+    """Rank 0 of a group of two launched alone: its wait for rank 1 passes
+    the hang guard's limit, the kernel runs to its end and the exchange's
+    record says so (the launch does not wait for it; ``check`` does),
+    within seconds; the exchange stays failed."""
+    import time
+
+    xgs, gouts, whh, b2, bnp = _band_group_inputs((8, 8), 224, True, torch.float32, 24, dev)
+    ex = gk.group_exchange(dev, 2)
+    ex.timeout_s = 0.2
+    d = gk.layer_train_fwd_band_group_plain(xgs, whh, b2, bnp, 224, True, [8, 8], 16)
+    t0 = time.perf_counter()
+    with pytest.raises(RuntimeError, match="waited past"):
+        if kernel == "fwd":
+            gk._fwd_band_launch(xgs[:1], whh, b2, bnp, 224, True, [8], 16, ex, 0)
+        else:
+            gk._bwd_band_launch(xgs[:1], [d[0][1]], gouts[:1], [d[0][2]], whh, b2, bnp, 224,
+                                True, [8], 16, ex, 0)
+        ex.check()
+    assert time.perf_counter() - t0 < 10
+    with pytest.raises(RuntimeError, match="unusable"):
+        gk.gsu_layer_train_fwd_band_group(xgs, whh, b2, bnp, 224, True, [8, 8], 16, ex)
+
+
+def test_band_exchange_raises_when_the_peers_plans_differ(dev):
+    """Two ranks of one group as two processes would see it (one buffer
+    each, launches on two streams), rank 1 launched with one frame fewer:
+    its plan signature differs from rank 0's, and rank 1's record names
+    rank 0's plan (rank 0 sees rank 1's, or, where the two launches do not
+    run at once, waits past the guard's limit)."""
+    xgs, _, whh, b2, bnp = _band_group_inputs((8, 8), 224, True, torch.float32, 24, dev)
+    ex0 = gk.group_exchange(dev, 2)
+    ex1 = gk.BandExchange(2, 1, ex0.bases, ex0.bases[1] + gk.exchange_layout(2)["err"],
+                          keep=ex0.keep)
+    for ex in (ex0, ex1):
+        ex.timeout_s = 1.0
+    streams = [torch.cuda.Stream(dev) for _ in range(2)]
+    torch.cuda.synchronize()
+    with torch.cuda.stream(streams[0]):
+        gk._fwd_band_launch(xgs[:1], whh, b2, bnp, 224, True, [8], 16, ex0, 0)
+    with torch.cuda.stream(streams[1]):
+        gk._fwd_band_launch([xgs[1][:23]], whh, b2, bnp, 224, True, [8], 16, ex1, 1)
+    torch.cuda.synchronize()
+    with pytest.raises(RuntimeError, match="has another plan than rank 0"):
+        ex1.check()
+    with pytest.raises(RuntimeError, match="has another plan than rank 1|waited past"):
+        ex0.check()
+
+
+@pytest.mark.parametrize("io", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("R,H,shared", [(48, 224, True), (20, 40, False), (512, 224, True)])
+def test_band_group_of_one_is_the_unsharded_kernel_bitwise(dev, io, R, H, shared):
+    """A band group of one rank whose rows are all real is kernel D and E
+    unsharded: the band instances give the unsharded kernels' outputs bit
+    for bit (their sums are the block's own, BN's count R)."""
+    T = 40
+    xgs, gouts, whh, b2, bnp = _band_group_inputs((R,), H, shared, io, T, dev, seed=5)
+    (s, y, st), = gk.gsu_layer_train_fwd_band_group(xgs, whh, b2, bnp, H, shared, [R], R)
+    s0, y0, st0 = gk.gsu_layer_train_fwd(xgs[0], whh, b2, bnp, H, shared, "bn")
+    assert torch.equal(s, s0) and torch.equal(y, y0) and torch.equal(st, st0)
+    got = gk.gsu_layer_train_bwd_band_group(xgs, [y0], gouts, [st0], whh, b2, bnp, H, shared,
+                                            [R], R)[0]
+    want = gk.gsu_layer_train_bwd(xgs[0], y0, gouts[0], st0, whh, b2, bnp, H, shared, "bn")
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)

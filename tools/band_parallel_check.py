@@ -15,17 +15,23 @@ runs flagship M at full width (``models/presets.flagship_m(scan_mode=
 (100 - si_snr), clip at 10, AdamW 1e-3), its sections' BN statistics summed
 over the band group at every step by kernels D and E in band mode, its
 gradients summed over the band group and averaged over the data group.
-This process then runs each data shard's rows unsharded on cuda:0 and holds
-every rank against it; ``chip_smoke.band_ranks_run`` does both and says
-what it checks (phase 16 (b) of ``chip_smoke.py`` runs it with two gloo
-ranks on one card).
+Each rank on a card of its own, every pair with peer access, the band
+groups take the peer route (``parallel/mesh.band_route``): kernels D and E
+in band mode swap BN's sums with the group's other cards over peer memory
+inside one launch a layer, and the check requires that route and no
+collective while D and E band run. This process then runs each data
+shard's rows unsharded on cuda:0 and holds every rank against it;
+``chip_smoke.band_ranks_run`` does both and says what it checks (phase 16
+(b) of ``chip_smoke.py`` runs it with two gloo ranks on one card, the
+staged route).
 
-Prints the card's name and power limit, each rank's ms for the eval forward
-and the step (CUDA events; the step by the host clock after a
-synchronise), the collectives a step, the launches of D, E, their band
-modes and F, and one JSON line. Exits non-zero when a check or a rank
-fails, and 2 with fewer cards than ranks or a band that does not divide
-them.
+Prints the card's name and power limit, each rank's route, its ms for the
+eval forward and the step (CUDA events; the step by the host clock after a
+synchronise; on the peer route later steps too, as built and with the
+host waiting for every band launch, in turn), the collectives a step and inside D and E band, each band
+launch's ms in the step, the launches of D, E, their band modes and F, and
+one JSON line. Exits non-zero when a check or a rank fails, and 2 with
+fewer cards than ranks or a band that does not divide them.
 """
 
 from __future__ import annotations
@@ -65,15 +71,18 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     try:
         out = cs.band_ranks_run(work, args.ranks, args.band, "nccl", "cuda",
-                                torch.device("cuda", 0), f"{args.ranks} NCCL ranks")
+                                torch.device("cuda", 0), f"{args.ranks} NCCL ranks",
+                                route="peer")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     out.update(args=vars(args), seconds=time.perf_counter() - t0, card=cs.card_name())
     for rec in out["ranks"]:
         cs.log(f"[band] rank {rec['rank']} on {rec['device']} (data, band) "
-               f"{tuple(rec['coordinate'])}: eval {rec['eval_ms']:.1f} ms, step "
-               f"{rec['step_ms']:.1f} ms, collectives a step {rec['collectives']}, launches "
-               f"eval {rec['eval_launches']}, step {rec['step_launches']}")
+               f"{tuple(rec['coordinate'])}, route {rec['route']}: eval {rec['eval_ms']:.1f} ms, "
+               f"step {rec['step_ms']:.1f} ms, collectives a step {rec['collectives']} (inside D "
+               f"and E band {rec['collectives_inside_band']}), band launches' ms "
+               f"{rec['band_launch_ms']}, launches eval {rec['eval_launches']}, step "
+               f"{rec['step_launches']}")
     cs.log(f"[band] unsharded on cuda:0: eval {out['reference']['eval_ms']:.1f} ms, step "
            f"{out['reference']['step_ms']:.1f} ms; against it {out['by_rank']}; "
            f"{out['seconds']:.1f} s")
